@@ -1,0 +1,156 @@
+"""Headline benchmark of the port: the flagship configuration of
+``bench.py`` (QQP-like: c=10000 corpus, 1000 queries, 768-d, PCA+ICA
+whitening at 0.96 variance, a 32-lane forest, k=10, pool 1024) built and
+served on one device.
+
+    python -m rag_cobweb_tpu_torch.bench.headline [--device cuda]
+
+Prints ONE JSON line with the keys of ``bench.py`` plus ``device``.  There
+is no CPU build fallback and no warm-up thread: the build and the serving
+run on ``--device``, and the card's name is recorded beside the numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from rag_cobweb_tpu_torch.bench.baselines import FlatIndex
+from rag_cobweb_tpu_torch.bench.datasets import (synthetic_retrieval,
+                                                 synthetic_retrieval_hard)
+from rag_cobweb_tpu_torch.bench.metrics import evaluate_retrieval, to_host
+from rag_cobweb_tpu_torch.core.config import TreeConfig
+from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+from rag_cobweb_tpu_torch.device import resolve_device
+from rag_cobweb_tpu_torch.whitening import PCAICAWhiteningModel
+
+REF_LATENCY_MS = 53.1     # BASELINE.md: reference Cobweb PCA+ICA Fast, CPU
+REF_RECALL = 0.906        # reference cobweb, QQP roberta c=10000
+REF_EXACT_RECALL = 0.913  # reference FAISS exact, same artifact
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(corpus_size: int = 10000, queries: int = 1000, dim: int = 768,
+        pca_dim: float = 0.96, k: int = 10, batch: int = 1024,
+        dataset: str = "hard", n_lanes: int = 32, rerank: int = 1024,
+        device="cuda", log=None) -> dict:
+    """Build and serve one configuration; returns the headline record."""
+    log = log or (lambda *a: None)
+    dev = resolve_device(device)
+    gen = synthetic_retrieval_hard if dataset == "hard" \
+        else synthetic_retrieval
+    data = gen(corpus_size, queries, dim)
+    log(f"[headline] corpus {data.corpus_embs.shape}, queries "
+        f"{data.query_embs.shape} ({data.name})")
+
+    t0 = time.perf_counter()
+    whitener = PCAICAWhiteningModel.fit(
+        data.corpus_embs, pca_dim=(pca_dim if pca_dim < 1 else int(pca_dim)),
+        ica_max_iter=500, seed=0, ica_sample_size=10000)
+    log(f"[headline] PCA+ICA fit {time.perf_counter() - t0:.1f}s -> dim "
+        f"{whitener.dim_out}")
+    corpus = data.corpus_embs
+    db = CobwebIndex(config=TreeConfig(dim=whitener.dim_out),
+                     capacity=4 * len(corpus) + 16, n_subtrees=n_lanes,
+                     whitener=whitener, device=dev)
+    t0 = time.perf_counter()
+    db.add_sentences([None] * len(corpus), corpus)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    rate = len(corpus) / build_s
+    log(f"[headline] forest build {build_s:.1f}s ({rate:.0f} inserts/s)")
+
+    rr = None if rerank == -1 else rerank
+    t0 = time.perf_counter()
+    to_host(db.query_ids(data.query_embs[:8], k, rerank=rr))
+    index_s = time.perf_counter() - t0
+    log(f"[headline] index build + first query {index_s:.2f}s")
+
+    res = evaluate_retrieval(
+        "Cobweb PCA+ICA Fast (torch)",
+        lambda q, kk: db.query_ids(q, kk, rerank=rr),
+        data.query_embs, data.target_ids, k, batch_size=batch)
+    flat = FlatIndex(corpus, metric="l2", device=dev)
+    exact = evaluate_retrieval(
+        "Exact flat (torch)", lambda q, kk: flat.search_device(q, kk),
+        data.query_embs, data.target_ids, k, batch_size=batch)
+    log(f"[headline] cobweb recall@{k}={res.get(f'recall@{k}')} "
+        f"{res['avg_latency_ms']:.4f} ms/query; exact "
+        f"recall@{k}={exact.get(f'recall@{k}')} "
+        f"{exact['avg_latency_ms']:.4f} ms/query")
+
+    small = {}
+    for bs in (1, 32):
+        if len(data.query_embs) < bs:
+            continue
+        to_host(db.query_ids(data.query_embs[:bs], k, rerank=rr))
+        lats = []
+        for i in range(7):
+            off = (i * 131) % (len(data.query_embs) - bs + 1)
+            chunk = np.ascontiguousarray(data.query_embs[off:off + bs])
+            t1 = time.perf_counter()
+            to_host(db.query_ids(chunk, k, rerank=rr))
+            lats.append(time.perf_counter() - t1)
+        small[bs] = 1000.0 * float(np.median(lats))
+
+    ours_ms = res["avg_latency_ms"]
+    rk, ek = res.get("recall@10", 0.0), exact.get("recall@10", 0.0)
+    return {
+        "metric": "cobweb_pca_ica_fast_query_latency_c10000",
+        "value": ours_ms,
+        "unit": "ms/query",
+        "vs_baseline": REF_LATENCY_MS / ours_ms,
+        "dataset": data.name,
+        "recall@10": rk,
+        "exact_recall@10": ek,
+        "recall_delta_vs_exact": ek - rk,
+        "ref_recall_delta_vs_exact": round(REF_EXACT_RECALL - REF_RECALL, 4),
+        "ref_recall@10": REF_RECALL,
+        "exact_latency_ms": exact["avg_latency_ms"],
+        "latency_vs_exact": ours_ms / max(exact["avg_latency_ms"], 1e-9),
+        "build_inserts_per_s": rate,
+        "build_total_s": build_s,
+        "build_device": dev.type,
+        "compile_warmup_s": 0.0,
+        "index_build_s": index_s,
+        "qps": res["qps"],
+        "b1_latency_ms": small.get(1),
+        "b32_latency_ms": small[32] / 32 if 32 in small else None,
+        "warmup_in_flight": False,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--corpus-size", type=int, default=10000)
+    ap.add_argument("--queries", type=int, default=1000)
+    ap.add_argument("--dim", type=int, default=768)
+    ap.add_argument("--pca-dim", type=float, default=0.96)
+    ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--dataset", choices=["hard", "easy"], default="hard")
+    ap.add_argument("--vforest", type=int, default=32, metavar="K")
+    ap.add_argument("--rerank", type=int, default=1024,
+                    help="exact re-rank pool size; -1 = wrapper auto")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    rec = run(args.corpus_size, args.queries, args.dim, args.pca_dim, args.k,
+              args.batch, args.dataset, args.vforest, args.rerank,
+              args.device,
+              log=lambda *a: print(*a, file=sys.stderr, flush=True))
+    print(json.dumps(rec))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,260 @@
+"""CobwebIndex: the main-path subset of ``rag_cobweb_tpu/core/wrapper.py``.
+
+Forest mode (``n_subtrees >= 2``, round-robin lanes), optionally with a
+wrapper-owned whitener: embeddings arrive RAW, the forest and the
+candidate pool run in whitened space, and the raw float32 vector store
+feeds the exact re-rank, so the final ranking is exact raw-space search
+whenever the gold row is in the pool.
+
+Serving: ``query_ids`` -> ``_engine_topk`` -> ``_product_chunked`` ->
+``index.fused_query_rerank`` (fused sweep kernel, exact top-c pool, exact
+re-rank kernel).  Not carried yet (each raises ``NotImplementedError``
+where it would run): the single-tree index, the small-forest engine that
+serves below ``blocked_threshold`` sentences, the pending/delta tier
+(here an add drops the serving index and the next query rebuilds it) and
+the whitened backstop pool.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from rag_cobweb_tpu_torch.core import index as index_mod
+from rag_cobweb_tpu_torch.core.config import TreeConfig
+from rag_cobweb_tpu_torch.core.tree import align_capacity
+from rag_cobweb_tpu_torch.device import full_f32_matmul, resolve_device
+from rag_cobweb_tpu_torch.parallel.vforest import VForest
+
+
+def _identity_encode(x):
+    return np.asarray(x, np.float32)
+
+
+class CobwebIndex:
+    """Hierarchical vector database over a K-lane Cobweb forest."""
+
+    fused_dtype = "bfloat16"      # serving GT dtype (pool selection only)
+    rerank_threshold = 8192
+    rerank_candidates = 512
+    # byte budget for one query chunk's sweep working set
+    fused_score_budget = 2 << 30
+    backstop_pool = "auto"
+    backstop_threshold = 131072
+
+    def __init__(self, corpus=None, corpus_embeddings=None,
+                 encode_func: Callable = _identity_encode,
+                 config: Optional[TreeConfig] = None,
+                 capacity: Optional[int] = None, seed: int = 0,
+                 n_subtrees: int = 1, routing: str = "round_robin",
+                 whitener=None, device="cuda"):
+        self.device = resolve_device(device)
+        # float32 products run in full float32 on the card (TF32 off): the
+        # counterpart of the JAX package's Precision.HIGHEST
+        full_f32_matmul()
+        if n_subtrees < 2:
+            raise NotImplementedError(
+                "the single-tree index (n_subtrees=1) is not ported yet; "
+                "use forest mode, n_subtrees >= 2")
+        self.encode_func = encode_func
+        self.whitener = whitener
+        self.sentences: list = []
+        self.n_subtrees = int(n_subtrees)
+
+        if corpus_embeddings is not None:
+            corpus_embeddings = np.asarray(corpus_embeddings, np.float32)
+            dim = corpus_embeddings.shape[1]
+            if whitener is not None:
+                dim = whitener.dim_out
+        elif corpus:
+            dim = np.asarray(self.encode_func([corpus[0]])).shape[-1]
+            if whitener is not None:
+                dim = whitener.dim_out
+        elif config is not None:
+            dim = config.dim
+        else:
+            raise ValueError(
+                "need corpus, corpus_embeddings, or config to fix the dim")
+        self.cfg = config or TreeConfig(dim=dim)
+        n0 = len(corpus_embeddings) if corpus_embeddings is not None else (
+            len(corpus) if corpus else 0)
+        cap = capacity or max(1024, 4 * n0 + 16)
+        self.forest = VForest(self.cfg, n_subtrees=self.n_subtrees,
+                              capacity_per_tree=max(1024,
+                                                    cap // self.n_subtrees),
+                              seed=seed, routing=routing, device=self.device)
+        self.cfg = self.forest.cfg
+
+        self.store_embeddings = True
+        self._vec_chunks: list = []
+        self._emb_dev_cache = None
+        self._emb_dev_n = 0
+        self._emb_dev_cap = 0
+        self._invalidate_index()
+        self.blocked_threshold = 8192
+
+        if corpus_embeddings is not None:
+            if corpus is None:
+                corpus = [None] * len(corpus_embeddings)
+            self.add_sentences(corpus, corpus_embeddings)
+        elif corpus:
+            self.add_sentences(corpus)
+
+    def __len__(self):
+        return len(self.sentences)
+
+    # ---------------------------------------------------------------- #
+    # ingestion                                                        #
+    # ---------------------------------------------------------------- #
+    def add_sentences(self, new_sentences, new_vectors=None):
+        """Insert sentences/embeddings; returns their global ids.  Any
+        serving index is dropped and rebuilt by the next query."""
+        if new_vectors is None:
+            new_vectors = self.encode_func(new_sentences)
+        store_vecs = np.asarray(new_vectors, np.float32)
+        if store_vecs.ndim == 1:
+            store_vecs = store_vecs[None, :]
+        raw = torch.as_tensor(store_vecs, device=self.device)
+        tree_vecs = (self.whitener.transform_torch(raw)
+                     if self.whitener is not None else raw)
+        if tree_vecs.shape[1] != self.cfg.dim:
+            raise ValueError(f"vector dim {tree_vecs.shape[1]} != tree dim "
+                             f"{self.cfg.dim}")
+        if len(new_sentences) != len(store_vecs):
+            raise ValueError(f"{len(new_sentences)} sentences != "
+                             f"{len(store_vecs)} vectors")
+        gids = self.forest.add(tree_vecs)
+        self.sentences.extend(new_sentences)
+        if self.store_embeddings:
+            self._vec_chunks.append(store_vecs)
+            self._emb_dev_cache = None
+        self._invalidate_index()
+        return gids
+
+    def _invalidate_index(self):
+        self._fused = None
+        self._fused_f32 = None
+
+    def _emb_device(self) -> Optional[torch.Tensor]:
+        """(cap, D) raw store on the device, zero rows past the live count;
+        the capacity grows 1.25x geometrically, as in the JAX package."""
+        if not self.store_embeddings or not self._vec_chunks:
+            return None
+        n = len(self.sentences)
+        if self._emb_dev_cache is None or self._emb_dev_n != n:
+            if len(self._vec_chunks) > 1:
+                self._vec_chunks = [np.concatenate(self._vec_chunks)]
+            host = self._vec_chunks[0]
+            if host.shape[0] != n:
+                return None
+            if self._emb_dev_cap < n:
+                self._emb_dev_cap = align_capacity(
+                    max(n, int(self._emb_dev_cap * 1.25), 4096))
+            emb = torch.zeros((self._emb_dev_cap, host.shape[1]),
+                              dtype=torch.float32, device=self.device)
+            emb[:n] = torch.as_tensor(host, device=self.device)
+            self._emb_dev_cache = emb
+            self._emb_dev_n = n
+        return self._emb_dev_cache
+
+    # ---------------------------------------------------------------- #
+    # serving                                                          #
+    # ---------------------------------------------------------------- #
+    def _fused_index(self, exact: bool = False) -> index_mod.FusedIndex:
+        """The serving FusedIndex (bf16 by default; f32 for the rerank=0
+        path-score order), built from the forest state on first use."""
+        attr = ("_fused_f32" if exact and self.fused_dtype != "float32"
+                else "_fused")
+        dtype = (torch.float32 if attr == "_fused_f32"
+                 else getattr(torch, self.fused_dtype))
+        if getattr(self, attr) is None:
+            setattr(self, attr, self.forest.fused_index(dtype=dtype))
+        return getattr(self, attr)
+
+    def _auto_rerank(self) -> int:
+        """Default pool: always with absorb_depth or a whitener (raw-space
+        ranking needs the exact re-rank), else from rerank_threshold on."""
+        if self.cfg.absorb_depth or (self.whitener is not None
+                                     and self.store_embeddings):
+            return self.rerank_candidates
+        return (self.rerank_candidates
+                if len(self.sentences) >= self.rerank_threshold else 0)
+
+    def _backstop_k(self, pool: int, n_indexed: int) -> int:
+        bs = self.backstop_pool
+        if bs == "auto":
+            if not (self.whitener is not None and self.store_embeddings
+                    and len(self.sentences) >= self.backstop_threshold):
+                return 0
+            bs = pool
+        if int(bs) > 0:
+            raise NotImplementedError(
+                "the whitened backstop pool (index.backstop_topk) is not "
+                f"ported yet; it is on at {self.backstop_threshold}+ "
+                "sentences in whitener mode (set backstop_pool=0)")
+        return 0
+
+    def _chunk(self, B: int, row_bytes: int) -> int:
+        bmax = max(32, int(self.fused_score_budget) // max(row_bytes, 1))
+        return B if bmax >= B else 1 << (bmax.bit_length() - 1)
+
+    def _product_chunked(self, q, kk: int, pool: int, n_indexed: int,
+                         q_store=None):
+        """Sweep + exact pool + exact re-rank, the query batch chunked so
+        one chunk's working set stays under ``fused_score_budget``: the
+        kernel's (NS, Bc, kappa) pool, or on the host the plain versions'
+        (Bc, Sp) scores and (Bc, C, D) gather."""
+        fidx = self._fused_index()
+        emb = self._emb_device()
+        qs = q if q_store is None else q_store
+        self._backstop_k(pool, n_indexed)
+        kappa = min(pool, index_mod._FUSED_ROW_BUCKET)
+        row = fidx.num_slots // index_mod._FUSED_ROW_BUCKET * kappa * 8
+        if q.device.type == "cpu":
+            row = max(row, fidx.num_slots * 12, pool * emb.shape[1] * 4)
+        bmax = self._chunk(q.shape[0], row)
+        pv = float(self.cfg.prior_var)
+        outs = [index_mod.fused_query_rerank(fidx, emb, q[s:s + bmax],
+                                             qs[s:s + bmax], kk, pool, pv)
+                for s in range(0, q.shape[0], bmax)]
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
+
+    def _engine_topk(self, q, kk: int, rerank: int, q_store=None):
+        """The fused engine: with a re-rank pool, sweep + exact re-rank on
+        the stored rows; with ``rerank=0``, the raw path-score order from
+        an f32 index."""
+        n_indexed = len(self.sentences)
+        if rerank:
+            if self._emb_device() is None:
+                raise NotImplementedError(
+                    "the leaf-lp re-rank (no vector store) is not ported")
+            pool = min(max(rerank, kk), n_indexed)
+            return self._product_chunked(q, kk, pool, n_indexed,
+                                         q_store=q_store)
+        fidx = self._fused_index(exact=True)
+        bmax = self._chunk(q.shape[0], fidx.num_slots * 12)
+        outs = [index_mod.fused_query_topk(fidx, q[s:s + bmax], kk)
+                for s in range(0, q.shape[0], bmax)]
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
+
+    def query_ids(self, queries, k: int, rerank: Optional[int] = None):
+        """(B, D) raw embeddings -> (B, k) sentence ids, a device tensor."""
+        qs = torch.as_tensor(np.asarray(queries, np.float32),
+                             device=self.device)
+        if qs.dim() == 1:
+            qs = qs.unsqueeze(0)
+        q = (self.whitener.transform_torch(qs)
+             if self.whitener is not None else qs)
+        kk = min(k, len(self.sentences))
+        if len(self.sentences) < self.blocked_threshold:
+            raise NotImplementedError(
+                f"{len(self.sentences)} sentences is below blocked_threshold"
+                f"={self.blocked_threshold}: the small-forest engine "
+                "(_small_forest_topk) that serves there is not ported yet")
+        if rerank is None:
+            rerank = self._auto_rerank()
+        return self._engine_topk(q, kk, rerank, q_store=qs)[1]

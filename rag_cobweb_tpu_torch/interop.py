@@ -1,0 +1,90 @@
+"""State carry-over from the JAX package, as plain numpy arrays.
+
+These functions take what ``rag_cobweb_tpu`` objects hold (fetched with
+``jax.device_get`` by the caller, or read from its ``.npz`` files) and
+build the port's objects, so one state can run through both packages.
+Nothing here imports the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from rag_cobweb_tpu_torch.core import tree as tree_mod
+from rag_cobweb_tpu_torch.core.config import TreeConfig
+from rag_cobweb_tpu_torch.core.index import FusedIndex
+from rag_cobweb_tpu_torch.device import resolve_device
+from rag_cobweb_tpu_torch.parallel.vforest import VForest
+from rag_cobweb_tpu_torch.whitening.models import PCAICAWhiteningModel
+
+
+def forest_from_numpy(arrays: dict, meta: dict, device="cuda") -> VForest:
+    """A port VForest from the JAX forest's state arrays
+    (``jax.device_get(vf.state)._asdict()``: counts, means, m2s, parent,
+    children, n_children, root, n_alloc, free_stack, free_top, each with a
+    leading lane axis) and ``meta``: ``cfg`` (a TreeConfig or its JSON
+    dict), ``shard_of``, ``local_sid`` and ``leaf_of_local`` (the JAX
+    forest's ``_leaf_of_local``, one list per lane)."""
+    cfg = meta["cfg"]
+    if not isinstance(cfg, TreeConfig):
+        cfg = TreeConfig.from_json_dict(cfg)
+    K, cap = np.asarray(arrays["counts"]).shape
+    vf = VForest(cfg, n_subtrees=K, capacity_per_tree=cap, device=device)
+    vf.state = tree_mod.state_from_numpy(arrays, vf.device)
+    vf.shard_of = [int(x) for x in meta["shard_of"]]
+    vf.local_sid = [int(x) for x in meta["local_sid"]]
+    vf._leaf_of_local = [[int(x) for x in lst]
+                         for lst in meta["leaf_of_local"]]
+    vf.n_sentences = len(vf.shard_of)
+    vf._alloc_hi = int(np.asarray(arrays["n_alloc"]).max())
+    return vf
+
+
+def load_jax_npz(path: str, device="cuda") -> VForest:
+    """A port VForest from a file written by the JAX ``VForest.save_npz``."""
+    with np.load(path, allow_pickle=False) as data:
+        routing = (str(data["__routing__"]) if "__routing__" in data.files
+                   else "round_robin")
+        if routing != "round_robin":
+            raise NotImplementedError(f"routing={routing!r} is not ported")
+        cfg = json.loads(bytes(data["__cfg__"]).decode())
+        arrays = {k: data[f"st_{k}"] for k in tree_mod.FIELDS}
+        n_local = data["n_local"]
+        leaf_mat = data["leaf_of_local"]
+        meta = {
+            "cfg": cfg,
+            "shard_of": data["shard_of"],
+            "local_sid": data["local_sid"],
+            "leaf_of_local": [leaf_mat[s, :int(n_local[s])]
+                              for s in range(len(n_local))],
+        }
+        return forest_from_numpy(arrays, meta, device=device)
+
+
+def fused_index_from_numpy(GT, c, valid, device="cuda") -> FusedIndex:
+    """A port FusedIndex from the JAX FusedIndex's arrays; a bf16 GT
+    (ml_dtypes) stays bf16."""
+    dev = resolve_device(device)
+    GT = np.asarray(GT)
+    if GT.dtype.name == "bfloat16":
+        gt = torch.as_tensor(GT.astype(np.float32), device=dev) \
+            .to(torch.bfloat16)
+    else:
+        gt = torch.as_tensor(GT.astype(np.float32), device=dev)
+    return FusedIndex(
+        GT=gt.contiguous(),
+        c=torch.as_tensor(np.array(c, np.float32), device=dev),
+        valid=torch.as_tensor(np.array(valid, bool), device=dev))
+
+
+def whitener_from_numpy(arrays: dict) -> PCAICAWhiteningModel:
+    """A port whitener from the JAX ``PCAICAWhiteningModel``'s arrays (the
+    dict its ``save`` pickles: mean, pca_components, pca_explained_var,
+    ica_unmixing, eps)."""
+    return PCAICAWhiteningModel(arrays["mean"], arrays["pca_components"],
+                                arrays["ica_unmixing"],
+                                arrays["pca_explained_var"],
+                                arrays.get("eps", 1e-8))

@@ -1,0 +1,100 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``.  Builds
+happen at first use, never at import, into ``build/torch_kernels/`` at the
+repository root; the library name carries a hash of its source, so an
+edited kernel is rebuilt and an unchanged one is reused.  All missing
+libraries build at once, one ``nvcc`` process per source.  A failed build
+raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+SOURCES = ("fused_topk", "rerank_l2")
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "fused_topk": {
+        "fused_topk_bf16": [_P] * 6 + [_I] * 4 + [_P],
+        "fused_topk_f32": [_P] * 6 + [_I] * 4 + [_P],
+    },
+    "rerank_l2": {
+        "rerank_l2": [_P] * 5 + [_I] * 3 + [_F, _F, _P],
+    },
+}
+_libs: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = _CSRC / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_all() -> dict:
+    """Compile every source whose library is missing, all in parallel.
+    Returns {name: nvcc output (with ``-Xptxas -v`` register counts)} for
+    the sources built now."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        so = library_path(name)
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, so)
+    logs, failed = {}, []
+    for name, (proc, tmp, so) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{out}")
+            continue
+        os.replace(tmp, so)
+        so.with_suffix(".log").write_text(out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    if name not in _libs:
+        so = library_path(name)
+        if not so.exists():
+            build_all()
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

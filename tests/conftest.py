@@ -33,3 +33,8 @@ import pytest  # noqa: E402
 def _bound_compiled_program_population():
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skipped without one")

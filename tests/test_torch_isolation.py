@@ -1,0 +1,83 @@
+"""Boundaries of the PyTorch port: it imports nothing of JAX or of the JAX
+package, importing it builds nothing, and its entry points refuse to run
+on the host unless asked to (``device="cpu"``)."""
+
+import ast
+import subprocess
+from pathlib import Path
+
+import pytest
+import torch
+
+# tiny tensors: one thread each keeps parallel test workers off each
+# other's cores
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "rag_cobweb_tpu"}
+PORT_FILES = sorted((ROOT / "rag_cobweb_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                not node.level:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_no_jax(path):
+    bad = sorted(set(imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_and_host_path_build_nothing(monkeypatch):
+    """No nvcc at import or on the host path: kernels build at the first
+    CUDA call only."""
+    def refuse(*a, **k):
+        raise AssertionError(f"subprocess started: {a}")
+
+    monkeypatch.setattr(subprocess, "Popen", refuse)
+    import importlib
+    for p in PORT_FILES[:-1]:
+        mod = ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        importlib.import_module(mod.removesuffix(".__init__"))
+    from rag_cobweb_tpu_torch.ops import _build, fused_topk, rerank
+    fused_topk.slab_topk(torch.ones((2, 4)), torch.ones((4, 2048)),
+                         torch.zeros(2048), torch.ones(2048, dtype=bool), 3)
+    rerank.rerank_lp(torch.ones((3, 4)), torch.ones((2, 4)),
+                     torch.zeros((2, 5), dtype=torch.int32),
+                     torch.zeros((2, 5)), 1.0)
+    assert not _build._libs
+
+
+def test_entry_points_refuse_the_host_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from rag_cobweb_tpu_torch.bench.baselines import FlatIndex
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.core.tree import CobwebTree
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    from rag_cobweb_tpu_torch.parallel.vforest import VForest
+    cfg = TreeConfig(dim=4)
+    for make in (lambda: CobwebTree(cfg), lambda: VForest(cfg),
+                 lambda: CobwebIndex(config=cfg, n_subtrees=2),
+                 lambda: FlatIndex(torch.zeros((3, 4)).numpy())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_chip_smoke_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import sys
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
