@@ -43,7 +43,7 @@ from rag_cobweb_tpu_torch.ops.gaussian import (GaussStats, chan_merge,
                                                welford_insert)
 
 NULL = -1
-_EXACT_STEPS = 256  # cap of the exact path for over-deep descents
+EXACT_STEPS = 256  # cap of the exact path for over-deep descents
 
 
 def align_capacity(n: int) -> int:
@@ -244,11 +244,12 @@ class _Delta:
     free_node: torch.Tensor   # (K,)
 
 
-def _step(st: TreeState, lanes, v: _View, x, s0, s1, depth: int,
-          cfg: TreeConfig, gen: torch.Generator):
+def _step(st: TreeState, lanes, v: _View, x, s0, s1, depth,
+          cfg: TreeConfig, noise_two, noise_op):
     """One descent decision for every lane.  Both the leaf rule and the
-    internal-node rule are evaluated and selected per lane.  Returns
-    (delta, slots_used, done, leaf, next view)."""
+    internal-node rule are evaluated and selected per lane; ``noise_two``
+    (K, F) and ``noise_op`` (K, 4) break exact ties.  Returns (delta,
+    slots_used, done, leaf, next view)."""
     K, F = v.row.shape
     dev = x.device
     neg = torch.full_like(v.cur, NULL)
@@ -274,8 +275,6 @@ def _step(st: TreeState, lanes, v: _View, x, s0, s1, depth: int,
     mask = child_idx >= 0
     children = _gather_stats(st, lanes, child_idx)
     parent = GaussStats(v.count, v.mean, v.m2)
-    noise_two = torch.rand((K, F), generator=gen, device=dev)
-    noise_op = torch.rand((K, 4), generator=gen, device=dev)
     tb = opscore.two_best_children(x, parent, children, mask, cfg, noise_two)
     b1_node = child_idx.gather(1, tb.best1.unsqueeze(1)).squeeze(1)
     b2_node = torch.where(
@@ -364,10 +363,7 @@ def _step(st: TreeState, lanes, v: _View, x, s0, s1, depth: int,
         torch.where(fringe, cur, torch.where(merge, b1_node, neg)),
         torch.where(fringe, s1, torch.where(merge, b2_node, neg)),
     ], dim=1)
-    p3_val = torch.stack([
-        torch.where(fringe, v.parent, cur),
-        s0.clone(), s0.clone(),
-    ], dim=1)
+    p3_val = torch.stack([torch.where(fringe, v.parent, cur), s0, s0], dim=1)
     sp_idx = torch.where(split.unsqueeze(1) & gc_mask, gc_idx, minus)
     sp_val = cur.unsqueeze(1).expand(K, F)
     delta = _Delta(
@@ -398,41 +394,150 @@ def _step(st: TreeState, lanes, v: _View, x, s0, s1, depth: int,
     return delta, slots_used, done, leaf, nxt
 
 
+@dataclasses.dataclass
+class _Carry:
+    """What a lockstep descent carries from one step to the next."""
+
+    v: _View
+    free_top: torch.Tensor  # (K,) virtual free-stack top
+    n_alloc: torch.Tensor   # (K,) virtual high-water mark
+    done: torch.Tensor      # (K,) bool
+    leaf: torch.Tensor      # (K,)
+
+    def tensors(self):
+        return [getattr(self.v, f.name) for f in dataclasses.fields(_View)] \
+            + [self.free_top, self.n_alloc, self.done, self.leaf]
+
+
+def _advance(st: TreeState, lanes, c: _Carry, x, noise_two, noise_op, depth,
+             cfg: TreeConfig):
+    """One lockstep step of every unfinished lane: the decision and the
+    carry update.  Reads ``st`` only.  Returns (next carry, live, delta)."""
+    live = ~c.done
+    s0, s1 = _peek_slots(st, lanes, c.free_top, c.n_alloc)
+    d, used, fin, lf, nxt = _step(st, lanes, c.v, x, s0, s1, depth, cfg,
+                                  noise_two, noise_op)
+    from_free = torch.minimum(used, c.free_top)
+    nc = _Carry(v=nxt.select(live, c.v),
+                free_top=torch.where(live, c.free_top - from_free, c.free_top),
+                n_alloc=torch.where(live, c.n_alloc + used - from_free,
+                                    c.n_alloc),
+                done=c.done | (live & fin),
+                leaf=torch.where(live & fin, lf, c.leaf))
+    return nc, live, d
+
+
+def _state_key(st: TreeState):
+    return tuple(getattr(st, n).data_ptr() for n in
+                 ("counts", "means", "m2s", "children", "n_children",
+                  "free_stack"))
+
+
+class StepGraph:
+    """``_advance`` captured as one CUDA graph for one state allocation.
+
+    Eager, a step is ~300 launches of tiny kernels and the build is bound
+    by host dispatch; replaying the graph makes it one launch plus the
+    copies of its inputs and outputs.  The graph reads the state arrays
+    by address (``_apply`` updates them in place), so it is valid while
+    ``matches(st)``: capacity growth reallocates them and needs a new
+    graph.  The same function runs eagerly on the host, so both paths
+    compute the same step."""
+
+    def __init__(self, st: TreeState, cfg: TreeConfig):
+        K, F, D, dev = st.lanes, st.fanout, st.dim, st.device
+        self.key = _state_key(st)
+        # every tensor the graph reads stays referenced here: a replay
+        # reads by address, so a freed input would be reused memory
+        self.lanes = torch.arange(K, device=dev)
+
+        def z(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        f32 = torch.float32
+        self.inp = _Carry(
+            v=_View(cur=z(K), count=z(K, dtype=f32), mean=z(K, D, dtype=f32),
+                    m2=z(K, D, dtype=f32), row=z(K, F), n=z(K), parent=z(K),
+                    prev_row=z(K, F), prev_n=z(K)),
+            free_top=z(K), n_alloc=z(K),
+            done=torch.ones((K,), dtype=torch.bool, device=dev), leaf=z(K))
+        self.x = z(K, D, dtype=f32)
+        self.noise_two = z(K, F, dtype=f32)
+        self.noise_op = z(K, 4, dtype=f32)
+        self.depth = z()
+
+        def run():
+            return _advance(st, self.lanes, self.inp, self.x,
+                            self.noise_two, self.noise_op, self.depth, cfg)
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):     # warm-up: allocations, handles
+            run()
+            run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = run()
+
+    def matches(self, st: TreeState) -> bool:
+        return self.key == _state_key(st)
+
+    def begin(self, c: _Carry, xs: torch.Tensor) -> _Carry:
+        """Load a descent's initial carry and instances; returns the carry
+        that ``step`` updates in place."""
+        for dst, src in zip(self.inp.tensors(), c.tensors()):
+            dst.copy_(src)
+        self.x.copy_(xs)
+        return self.inp
+
+    def step(self, t: int, gen: torch.Generator):
+        self.noise_two.uniform_(0.0, 1.0, generator=gen)
+        self.noise_op.uniform_(0.0, 1.0, generator=gen)
+        self.depth.fill_(t)
+        self.graph.replay()
+        nc, live, d = self.out
+        for dst, src in zip(self.inp.tensors(), nc.tensors()):
+            dst.copy_(src)
+        return live.clone(), _Delta(**{f.name: getattr(d, f.name).clone()
+                                       for f in dataclasses.fields(_Delta)})
+
+
 def descend(st: TreeState, xs: torch.Tensor, active: torch.Tensor,
-            cfg: TreeConfig, max_steps: int,
-            gen: torch.Generator) -> torch.Tensor:
+            cfg: TreeConfig, max_steps: int, gen: torch.Generator,
+            graph: "StepGraph | None" = None) -> torch.Tensor:
     """Insert ``xs[l]`` into lane ``l`` for every ``active`` lane, one
     lockstep descent with at most ``max_steps`` steps.  Lanes that reach a
     leaf apply their effects to ``st`` in place; lanes cut off by the
-    budget apply nothing.  Returns the leaf slot per lane, -1 where
-    nothing was inserted."""
-    K, dev = st.lanes, st.device
+    budget apply nothing.  ``graph`` (CUDA only) replays each step from a
+    captured graph.  Returns the leaf slot per lane, -1 where nothing was
+    inserted."""
+    K, F, dev = st.lanes, st.fanout, st.device
     lanes = torch.arange(K, device=dev)
     root = st.root
-    v = _node_view(st, lanes, root, st.parent[lanes, root],
-                   torch.full((K, st.fanout), NULL, dtype=torch.int64,
-                              device=dev),
-                   torch.zeros((K,), dtype=torch.int64, device=dev))
-    free_top, n_alloc = st.free_top.clone(), st.n_alloc.clone()
-    done = ~active
-    leaf = torch.full((K,), NULL, dtype=torch.int64, device=dev)
+    c = _Carry(
+        v=_node_view(st, lanes, root, st.parent[lanes, root],
+                     torch.full((K, F), NULL, dtype=torch.int64, device=dev),
+                     torch.zeros((K,), dtype=torch.int64, device=dev)),
+        free_top=st.free_top.clone(), n_alloc=st.n_alloc.clone(),
+        done=~active, leaf=torch.full((K,), NULL, dtype=torch.int64,
+                                      device=dev))
+    if graph is not None:
+        c = graph.begin(c, xs)
     record = []
     for t in range(max_steps):
-        if bool(done.all()):
+        if bool(c.done.all()):
             break
-        live = ~done
-        s0, s1 = _peek_slots(st, lanes, free_top, n_alloc)
-        d, used, fin, lf, nxt = _step(st, lanes, v, xs, s0, s1, t, cfg, gen)
+        if graph is not None:
+            record.append(graph.step(t, gen))
+            continue
+        noise_two = torch.rand((K, F), generator=gen, device=dev)
+        noise_op = torch.rand((K, 4), generator=gen, device=dev)
+        c, live, d = _advance(st, lanes, c, xs, noise_two, noise_op, t, cfg)
         record.append((live, d))
-        from_free = torch.minimum(used, free_top)
-        v = nxt.select(live, v)
-        free_top = torch.where(live, free_top - from_free, free_top)
-        n_alloc = torch.where(live, n_alloc + used - from_free, n_alloc)
-        leaf = torch.where(live & fin, lf, leaf)
-        done = done | (live & fin)
-    ok = active & (leaf >= 0)
-    _apply(st, lanes, record, ok, free_top, n_alloc)
-    return torch.where(ok, leaf, torch.full_like(leaf, NULL))
+    ok = active & (c.leaf >= 0)
+    _apply(st, lanes, record, ok, c.free_top, c.n_alloc)
+    return torch.where(ok, c.leaf, torch.full_like(c.leaf, NULL))
 
 
 def _apply(st: TreeState, lanes, record, ok, free_top, n_alloc):
@@ -459,8 +564,8 @@ def _apply(st: TreeState, lanes, record, ok, free_top, n_alloc):
         wl = wlane.squeeze(1)
         st.root = torch.where(wl & (d.root >= 0), d.root, st.root)
         push = wl & (d.free_node >= 0)
-        st.free_stack[lanes, torch.where(push, top, torch.full_like(top, cap))] \
-            = d.free_node
+        slot = torch.where(push, top, torch.full_like(top, cap))
+        st.free_stack[lanes, slot] = d.free_node
         top = top + push.long()
     st.free_top = torch.where(ok, top, st.free_top)
     st.n_alloc = torch.where(ok, n_alloc, st.n_alloc)
@@ -546,10 +651,10 @@ class CobwebTree:
             self._ensure_capacity(len(chunk))
             got = np.array([self._insert(x, 48) for x in chunk], np.int64)
             for j in np.nonzero(got < 0)[0]:
-                got[j] = self._insert(chunk[j], _EXACT_STEPS)
+                got[j] = self._insert(chunk[j], EXACT_STEPS)
                 if got[j] < 0:
                     raise RuntimeError(
-                        f"insert descent exceeded {_EXACT_STEPS} steps")
+                        f"insert descent exceeded {EXACT_STEPS} steps")
             leaves[s:s + len(chunk)] = got
         self.n_inserted += len(xs)
         return leaves

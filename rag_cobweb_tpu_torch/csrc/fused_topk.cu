@@ -3,7 +3,8 @@
 // Replaces: rag_cobweb_tpu/ops/pallas_query.py::_fused_kernel (the Pallas
 // kernel behind pallas_fused_topk).  For every 2048-row slab s and query b:
 //   scores[b, t] = sum_d qq[b, d] * GT[d, t] + c[t]   (invalid rows: -inf)
-// and the slab's top-kappa (score, global row id), ties to the lower id.
+// and the slab's top-kappa (score, global row id), ties to the lower id,
+// in no particular order (the caller's merge takes a top-k over them).
 // The (B, Sp) score matrix never reaches device memory: it lives in shared
 // memory for one (slab, 16-query tile) block at a time.
 //
@@ -14,21 +15,29 @@
 // bytes, bound it: each 2-byte GT element feeds 2B operations, B per byte
 // (1024 at B = 1024), far above the card's ~295 operations per byte.
 //
-// What this first design does: it is right and simple, not fast.  Each
-// block stages its 16 queries' [q, q^2] rows in shared memory in depth
-// chunks of 64, and each of its 512 threads accumulates 16 x 4 f32 scores
-// on the CUDA cores, reading 4 adjacent GT columns with one 8-byte (bf16)
-// or 16-byte (f32) load per depth row, so a warp reads contiguous GT.  The
-// 16 x 2048 scores and their slab offsets are staged in 196 KB of dynamic
-// shared memory; each warp then sorts one query's 2048 (score, offset)
-// pairs with a bitonic network and writes the first kappa.  The ragged
-// depth (2D need not be a multiple of anything) is a bounded loop; the
-// ragged query tile is zero-filled and never written out.  Tensor cores
-// (wgmma), TMA and warp specialisation are left for a later change.
+// What this design does: it is right and simple first.  One block per
+// (slab, 16-query tile), 512 threads.  A bf16 GT goes through the tensor
+// cores with WMMA (mma.sync m16n16k16, f32 accumulation): the 16 queries
+// are one m16 tile, each warp owns 128 slab columns as eight n16 tiles
+// read straight from GT, and a last depth chunk that 2D does not fill is
+// staged zero-padded in shared memory, so the ragged depth (2D need not be
+// a multiple of anything) reads nothing past GT.  An f32 GT keeps exact
+// f32 FMAs on the CUDA cores (each thread 16 queries x 4 adjacent
+// columns).  The 16 x 2048 scores are staged in 128 KB of dynamic shared
+// memory; each warp then selects one query's top-kappa exactly with a
+// radix select on order-preserving 32-bit keys (4 passes of 8 bits, a
+// 256-bin histogram per warp), writing every row above the kappa-th key
+// plus the lowest-id rows equal to it.  (A full bitonic sort of the 2048
+// scores cost about as much as a CUDA-core sweep.)  The ragged query tile
+// is zero-filled and never written out.  wgmma, TMA and warp
+// specialisation are left for a later change.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -37,53 +46,27 @@ constexpr int TQ = 16;                       // queries per block
 constexpr int THREADS = 512;                 // 16 warps, one query each
 constexpr int CPT = SLAB / THREADS;          // 4 adjacent columns a thread
 constexpr int DCH = 64;                      // qq depth chunk in shared
+constexpr int BINS = 256;                    // radix digit: 8 bits
 constexpr size_t SMEM = (size_t)TQ * SLAB * sizeof(float)
-                      + (size_t)TQ * SLAB * sizeof(unsigned short)
+                      + (size_t)TQ * BINS * sizeof(unsigned int)
                       + (size_t)TQ * DCH * sizeof(float);
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&g)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-  const float2 fa = __bfloat1622float2(a);
-  const float2 fb = __bfloat1622float2(b);
-  g[0] = fa.x; g[1] = fa.y; g[2] = fb.x; g[3] = fb.y;
+// Order-preserving key: a larger score gives a larger key, and -0 == +0
+// (they compare equal as floats, so they must tie here too).
+__device__ __forceinline__ unsigned int score_key(float x) {
+  const unsigned int u = __float_as_uint(x == 0.f ? 0.f : x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__device__ __forceinline__ void load4(const float* p, float (&g)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  g[0] = v.x; g[1] = v.y; g[2] = v.z; g[3] = v.w;
-}
-
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-// (score, offset) order of the output: higher score first, then lower id.
-__device__ __forceinline__ bool before(float as, int ai, float bs, int bi) {
-  return as > bs || (as == bs && ai < bi);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-fused_topk_kernel(const T* __restrict__ qq, const T* __restrict__ gt,
-                  const float* __restrict__ c,
-                  const uint8_t* __restrict__ valid,
-                  float* __restrict__ out_s, int* __restrict__ out_i,
-                  int B, int twoD, int Sp, int kappa) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sc = reinterpret_cast<float*>(smem);                    // [TQ][SLAB]
-  unsigned short* si =
-      reinterpret_cast<unsigned short*>(sc + TQ * SLAB);         // [TQ][SLAB]
-  float* qs = reinterpret_cast<float*>(si + TQ * SLAB);          // [TQ][DCH]
-
+// f32 GT: exact f32 FMAs on the CUDA cores (the path-score ORDER contract
+// of an f32 index).  Each thread accumulates 16 queries x 4 adjacent
+// columns and stages the raw sums in sc.
+__device__ __forceinline__ void sweep_fma(const float* __restrict__ qq,
+                                          const float* __restrict__ gt,
+                                          float* sc, float* qs, int B,
+                                          int twoD, int Sp, int q0,
+                                          size_t gcol, int col) {
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * TQ;
-  const int slab = blockIdx.y;
-  const int col = tid * CPT;                          // within the slab
-  const size_t gcol = (size_t)slab * SLAB + col;      // within GT
-
   float acc[TQ][CPT];
 #pragma unroll
   for (int q = 0; q < TQ; ++q)
@@ -97,16 +80,16 @@ fused_topk_kernel(const T* __restrict__ qq, const T* __restrict__ gt,
       const int q = e / DCH, d = e % DCH;
       float v = 0.f;
       if (q0 + q < B && d < dn) {
-        v = to_f32(qq[(size_t)(q0 + q) * twoD + d0 + d]);
+        v = qq[(size_t)(q0 + q) * twoD + d0 + d];
       }
       qs[e] = v;
     }
     __syncthreads();
-    const T* gp = gt + (size_t)d0 * Sp + gcol;
+    const float* gp = gt + (size_t)d0 * Sp + gcol;
 #pragma unroll 2
     for (int d = 0; d < dn; ++d) {
-      float g[CPT];
-      load4(gp + (size_t)d * Sp, g);
+      const float4 g4 = *reinterpret_cast<const float4*>(gp + (size_t)d * Sp);
+      const float g[CPT] = {g4.x, g4.y, g4.z, g4.w};
 #pragma unroll
       for (int q = 0; q < TQ; ++q) {
         const float a = qs[q * DCH + d];
@@ -115,8 +98,107 @@ fused_topk_kernel(const T* __restrict__ qq, const T* __restrict__ gt,
       }
     }
   }
+#pragma unroll
+  for (int q = 0; q < TQ; ++q) {
+    *reinterpret_cast<float4*>(sc + q * SLAB + col) =
+        make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+  }
+}
 
-  // bias, validity mask, stage the tile's scores in shared memory
+// bf16 GT: tensor cores (mma.sync through WMMA, m16n16k16, f32
+// accumulation).  The block's 16 queries are one m16 tile; warp w owns the
+// slab's columns [128w, 128w + 128) as eight n16 tiles, read straight from
+// GT.  A last depth chunk that 2D does not fill is staged zero-padded in
+// the (still unused) score buffer, so no row past 2D is read.
+__device__ __forceinline__ void sweep_mma(const __nv_bfloat16* __restrict__ qq,
+                                          const __nv_bfloat16* __restrict__ gt,
+                                          float* sc, float* qs, int B,
+                                          int twoD, int Sp, int q0,
+                                          int slab) {
+  using namespace nvcuda;
+  const int tid = threadIdx.x;
+  const int wcol = (tid >> 5) * 128;
+  __nv_bfloat16* qb = reinterpret_cast<__nv_bfloat16*>(qs);  // [TQ][DCH]
+  __nv_bfloat16* tail = reinterpret_cast<__nv_bfloat16*>(sc); // [16][SLAB]
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  const __nv_bfloat16* gslab = gt + (size_t)slab * SLAB;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) wmma::fill_fragment(acc[t], 0.f);
+
+  for (int d0 = 0; d0 < twoD; d0 += DCH) {
+    const int dn = min(DCH, twoD - d0);
+    __syncthreads();
+    for (int e = tid; e < TQ * DCH; e += THREADS) {
+      const int q = e / DCH, d = e % DCH;
+      qb[e] = (q0 + q < B && d < dn) ? qq[(size_t)(q0 + q) * twoD + d0 + d]
+                                     : zero;
+    }
+    __syncthreads();
+    for (int k0 = 0; k0 < dn; k0 += 16) {
+      const int dk = d0 + k0;
+      const bool ragged = dk + 16 > twoD;               // block-uniform
+      if (ragged) {
+        for (int e = tid; e < 16 * SLAB; e += THREADS) {
+          const int r = e / SLAB;
+          tail[e] = (dk + r < twoD) ? gslab[(size_t)(dk + r) * Sp + e % SLAB]
+                                    : zero;
+        }
+        __syncthreads();
+      }
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> a;
+      wmma::load_matrix_sync(a, qb + k0, DCH);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> b;
+        if (ragged) {
+          wmma::load_matrix_sync(b, tail + wcol + t * 16, SLAB);
+        } else {
+          wmma::load_matrix_sync(b, gslab + (size_t)dk * Sp + wcol + t * 16,
+                                 Sp);
+        }
+        wmma::mma_sync(acc[t], a, b, acc[t]);
+      }
+    }
+  }
+  __syncthreads();                      // the ragged staging aliased sc
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    wmma::store_matrix_sync(sc + wcol + t * 16, acc[t], SLAB,
+                            wmma::mem_row_major);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_topk_kernel(const T* __restrict__ qq, const T* __restrict__ gt,
+                  const float* __restrict__ c,
+                  const uint8_t* __restrict__ valid,
+                  float* __restrict__ out_s, int* __restrict__ out_i,
+                  int B, int twoD, int Sp, int kappa) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sc = reinterpret_cast<float*>(smem);                    // [TQ][SLAB]
+  unsigned int* hs =
+      reinterpret_cast<unsigned int*>(sc + TQ * SLAB);           // [TQ][BINS]
+  float* qs = reinterpret_cast<float*>(hs + TQ * BINS);          // [TQ][DCH]
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * TQ;
+  const int slab = blockIdx.y;
+  const int col = tid * CPT;                          // within the slab
+  const size_t gcol = (size_t)slab * SLAB + col;      // within GT
+
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    sweep_mma(qq, gt, sc, qs, B, twoD, Sp, q0, slab);
+  } else {
+    sweep_fma(qq, gt, sc, qs, B, twoD, Sp, q0, gcol, col);
+  }
+  __syncthreads();
+
+  // bias and validity mask on the staged scores
   const float neg_inf = __int_as_float(0xff800000);
   float cb[CPT];
   bool ok[CPT];
@@ -127,50 +209,90 @@ fused_topk_kernel(const T* __restrict__ qq, const T* __restrict__ gt,
   }
 #pragma unroll
   for (int q = 0; q < TQ; ++q) {
-    float4 v;
-    v.x = ok[0] ? acc[q][0] + cb[0] : neg_inf;
-    v.y = ok[1] ? acc[q][1] + cb[1] : neg_inf;
-    v.z = ok[2] ? acc[q][2] + cb[2] : neg_inf;
-    v.w = ok[3] ? acc[q][3] + cb[3] : neg_inf;
-    *reinterpret_cast<float4*>(sc + q * SLAB + col) = v;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      si[q * SLAB + col + j] = (unsigned short)(col + j);
-    }
+    float4* p = reinterpret_cast<float4*>(sc + q * SLAB + col);
+    float4 v = *p;
+    v.x = ok[0] ? v.x + cb[0] : neg_inf;
+    v.y = ok[1] ? v.y + cb[1] : neg_inf;
+    v.z = ok[2] ? v.z + cb[2] : neg_inf;
+    v.w = ok[3] ? v.w + cb[3] : neg_inf;
+    *p = v;
   }
   __syncthreads();
 
-  // exact selection: warp w sorts query w's 2048 pairs (bitonic network);
-  // every pair of a stage belongs to exactly one lane, so a stage needs
-  // only the warp-level barrier after it
+  // exact selection: warp w handles query w (warp-uniform branch)
   const int w = tid >> 5, lane = tid & 31;
-  float* rs = sc + w * SLAB;
-  unsigned short* ri = si + w * SLAB;
-  for (int k = 2; k <= SLAB; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      // pair p -> (i, i | j): insert a 0 bit at j's position
-      for (int p = lane; p < SLAB / 2; p += 32) {
-        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const int ixj = i | j;
-        const float a = rs[i], b = rs[ixj];
-        const int ia = ri[i], ib = ri[ixj];
-        const bool swap = ((i & k) == 0) ? before(b, ib, a, ia)
-                                         : before(a, ia, b, ib);
-        if (swap) {
-          rs[i] = b; rs[ixj] = a;
-          ri[i] = (unsigned short)ib; ri[ixj] = (unsigned short)ia;
-        }
-      }
-      __syncwarp();
-    }
-  }
   const int qg = q0 + w;
-  if (qg < B) {
-    const size_t base = ((size_t)slab * B + qg) * kappa;
-    for (int t = lane; t < kappa; t += 32) {
-      out_s[base + t] = rs[t];
-      out_i[base + t] = slab * SLAB + (int)ri[t];
+  if (qg >= B) return;
+  const float* rs = sc + w * SLAB;
+  unsigned int* hist = hs + w * BINS;
+  const unsigned int full = 0xffffffffu;
+  // radix select: after pass p, `prefix` holds the top 8(p+1) bits of the
+  // kappa-th largest key and `remaining` how many keys sharing them are
+  // still to take
+  unsigned int prefix = 0u, pmask = 0u;
+  int remaining = kappa;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int b = lane; b < BINS; b += 32) hist[b] = 0u;
+    __syncwarp();
+    for (int i = lane; i < SLAB; i += 32) {
+      const unsigned int k = score_key(rs[i]);
+      if ((k & pmask) == prefix) atomicAdd(&hist[(k >> shift) & 255u], 1u);
     }
+    __syncwarp();
+    // lane l owns digits 255-8l down to 248-8l: a scan over lanes counts
+    // the keys at or above each lane's lowest digit
+    unsigned int own[8];
+    int sum = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      own[j] = hist[BINS - 1 - 8 * lane - j];
+      sum += (int)own[j];
+    }
+    int cum = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(full, cum, off);
+      if (lane >= off) cum += t;
+    }
+    const int L = __ffs(__ballot_sync(full, cum >= remaining)) - 1;
+    int digit = 0, above = 0;
+    if (lane == L) {
+      int acc = cum - sum, j = 0;
+      for (; j < 7; ++j) {
+        if (acc + (int)own[j] >= remaining) break;
+        acc += (int)own[j];
+      }
+      digit = BINS - 1 - 8 * lane - j;
+      above = acc;
+    }
+    digit = __shfl_sync(full, digit, L);
+    above = __shfl_sync(full, above, L);
+    remaining -= above;
+    prefix |= (unsigned int)digit << shift;
+    pmask |= 255u << shift;
+    __syncwarp();                 // histogram read before the next clear
+  }
+
+  // write the keys above the kappa-th, then the `remaining` lowest-id
+  // rows equal to it, in row order
+  const unsigned int lt = (1u << lane) - 1u;
+  const size_t base = ((size_t)slab * B + qg) * kappa;
+  int taken = 0, eq_seen = 0;
+  for (int i0 = 0; i0 < SLAB && taken < kappa; i0 += 32) {
+    const int i = i0 + lane;
+    const float v = rs[i];
+    const unsigned int k = score_key(v);
+    const unsigned int eqb = __ballot_sync(full, k == prefix);
+    const bool take = k > prefix ||
+        (k == prefix && eq_seen + __popc(eqb & lt) < remaining);
+    const unsigned int tb = __ballot_sync(full, take);
+    if (take) {
+      const int pos = taken + __popc(tb & lt);
+      out_s[base + pos] = v;
+      out_i[base + pos] = slab * SLAB + i;
+    }
+    taken += __popc(tb);
+    eq_seen += __popc(eqb);
   }
 }
 

@@ -3,7 +3,8 @@
 Port of ``rag_cobweb_tpu/ops/pallas_query.py::_fused_kernel``: for every
 2048-row slab of ``GT`` and every query, the top-``kappa`` of
 ``[q, q^2] @ GT + c`` (invalid rows -inf) as (score, global row id), ties
-to the lower id.  The CUDA kernel is ``csrc/fused_topk.cu``;
+to the lower id, in no particular order within a slab (the plain version
+happens to return them sorted).  The CUDA kernel is ``csrc/fused_topk.cu``;
 ``slab_topk_plain`` is the same function in plain PyTorch.  A CPU tensor
 takes the plain version; a CUDA tensor launches the kernel or raises.
 """
@@ -62,6 +63,8 @@ def slab_topk(qq, GT, c, valid, kappa: int):
     for name, t in (("qq", qq), ("GT", GT), ("c", c), ("valid", valid)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if GT.data_ptr() % 32:
+        raise ValueError("GT must be 32-byte aligned (tensor-core loads)")
     B, twoD = qq.shape
     Sp = GT.shape[1]
     out_s = torch.empty((Sp // SLAB, B, kappa), dtype=torch.float32,

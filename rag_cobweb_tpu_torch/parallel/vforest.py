@@ -27,7 +27,7 @@ from rag_cobweb_tpu_torch.device import resolve_device
 _MAX_STEPS = 16     # primary descent budget
 _DEEP_STEPS = 48    # retry-wave budget
 _RETRY_W = 32       # retry-wave width (instances per lane per wave)
-_EXACT_STEPS = 256  # exact-path cap
+_EXACT_STEPS = tree_mod.EXACT_STEPS
 
 
 class VForest:
@@ -56,6 +56,7 @@ class VForest:
         self._deep_frac = 0.0
         # host upper bound on any lane's allocated-node count
         self._alloc_hi = 1
+        self._graph: "tree_mod.StepGraph | None" = None
 
     def _ensure_capacity(self, rounds: int):
         """Grow every lane when the next ``rounds`` inserts could overflow
@@ -80,11 +81,21 @@ class VForest:
         K, R = mask.shape
         leaves = np.full((K, R), -1, np.int64)
         mask_t = torch.as_tensor(mask, device=self.device)
+        graph = self._step_graph()
         for r in range(n_rounds):
             lf = tree_mod.descend(self.state, xs[:, r], mask_t[:, r],
-                                  self.cfg, max_steps, self._gen)
+                                  self.cfg, max_steps, self._gen, graph)
             leaves[:, r] = lf.cpu().numpy()
         return leaves
+
+    def _step_graph(self) -> "tree_mod.StepGraph | None":
+        """On the card, the descent step captured as a CUDA graph for the
+        current state arrays (recaptured after they are reallocated)."""
+        if self.device.type != "cuda":
+            return None
+        if self._graph is None or not self._graph.matches(self.state):
+            self._graph = tree_mod.StepGraph(self.state, self.cfg)
+        return self._graph
 
     def _retry(self, leaves: np.ndarray, xs_t: torch.Tensor,
                valid: np.ndarray):
@@ -101,7 +112,6 @@ class VForest:
                                                         _DEEP_STEPS)
         if not n_deep:
             return
-        D = xs_t.shape[2]
         pend_idx = [np.nonzero(need[s])[0] for s in range(K)]
         R2 = int(need.sum(1).max())
         for w0 in range(0, R2, _RETRY_W):
