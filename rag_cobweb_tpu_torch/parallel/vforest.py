@@ -204,13 +204,11 @@ class VForest:
             self.cfg, self.state, self._leaf_global(), dtype=dtype,
             chase_depth=chase)
 
-    def lane_arrays(self, lane: int) -> dict:
-        """Host arrays of one lane's tree."""
-        return {k: v[lane] for k, v in
-                tree_mod.state_to_numpy(self.state).items()}
-
     def lane_signature(self, lane: int):
-        a = self.lane_arrays(lane)
+        """Structure signature of one lane's tree (see
+        ``core/tree.structure_signature``)."""
+        a = {k: v[lane] for k, v in
+             tree_mod.state_to_numpy(self.state).items()}
         return tree_mod.structure_signature(
             a["counts"], a["means"], a["children"], a["n_children"],
             a["root"])
