@@ -8,14 +8,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. card: the card's name and power limit (nvidia-smi), then every kernel
    of ``rag_cobweb_tpu_torch/csrc/`` built from source (one nvcc each,
    all at once) with the build seconds and ptxas register lines;
-2. kernels against their plain PyTorch versions on the card, at the main
-   path's shapes and at 1M-row scale, each timed beside its bound, its
-   plain version and a library yardstick the port never calls;
-3. the slice: ``rag_cobweb_tpu_torch.bench.headline`` at the flagship
-   settings (c=10000, 1000 queries, 768-d, PCA 0.96, 32 lanes, k=10,
-   pool 1024, batch 1024) on the card, with the kernels' launch counters
-   set to 0 just before and read just after; recall@10 must be within
-   0.005 of the exact scan's and every kernel must have launched;
+2. kernels against their plain PyTorch versions on the card, each timed
+   beside its bound, its plain version and a library yardstick the port
+   never calls: the fused pool at the flagship and 1M-row shapes, the
+   re-rank, the blocked sweep through both entries at the 100k cell's
+   shapes (B = 1024 and 4096) plus a small f32 index, and the group pool
+   at the flagship shape (per_group 1 and 2);
+3. the flagship slice: ``rag_cobweb_tpu_torch.bench.headline`` at the
+   flagship settings (c=10000, 1000 queries, 768-d, PCA 0.96, 32 lanes,
+   k=10, pool 1024, batch 1024) with the kernels' launch counters set to
+   0 just before the serving and read just after; recall@10 must be
+   within 0.005 of the exact scan's and both kernels must have launched.
+   Then the group pool over the serving FusedIndex with the whitened
+   queries, in its own counter window, held against its plain version;
+3b. the blocked slice: the 100k cell (c=100000, 4096 queries, 768-d,
+   PCA to 128, 64 lanes, k=10, pool 512, batch 1024) built once and
+   served by the engines ``blocked_kernel``, ``blocked`` and ``fused``,
+   each in its own counter window and each within 0.005 recall@10 of the
+   exact scan; ``blocked_kernel`` must launch the blocked and re-rank
+   kernels and not the fused one.  Then the tiled entry over the served
+   blocked index (its own window), checked against the other entry and
+   the plain version;
 4. one JSON line of per-kernel numbers, the nvidia-smi line, and the
    final ``{"ok": true, "device": {...}}`` line.
 
@@ -175,6 +188,170 @@ def check_rerank(rerank, B, C, D, S, reps, seed):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
+def hold(name, ks, ki, ps, pi, full, tol):
+    """Kernel candidates ``ks``/``ki`` (G, B, K) against the plain
+    version's ``ps``/``pi``, both in round order: scores within ``tol``
+    elementwise, and every kernel id (local to its row of ``full``, the
+    plain version's (G, B, W) scores) carries the kernel's score within
+    ``tol`` there (NEG rounds aside).  So ids differ only among rows tied
+    within the tolerance.  Returns (max_abs_err, ids that differ)."""
+    err = (ks - ps).abs()
+    if bool((err > tol).any()):
+        raise AssertionError(f"{name}: scores differ beyond the tolerance "
+                             f"(max {float(err.max()):.3g})")
+    at = full.gather(2, ki.long())
+    real = ks > -1e38       # exhausted rounds (NEG) name the lowest row
+    if bool((((at - ks).abs() > tol) & real).any()):
+        raise AssertionError(f"{name}: a kernel id does not carry its score")
+    return float(err.max()), int((ki != pi).sum())
+
+
+def dyadic_blocked(B, NB, M, D, TS, S_last, dtype, seed):
+    """A random blocked index whose nlp is exact in float32 in any order:
+    q, movt, ivt and const are small multiples of powers of two, so the
+    kernel and the plain version round the same nlp to the W dtype (with
+    arbitrary data, a sum that lands next to a bf16 rounding boundary may
+    round the other way in one of them).  W holds ~12 nonzero weights per
+    slot, as a path does; the last block has ``S_last`` valid slots."""
+    from rag_cobweb_tpu_torch.core.index import BlockedIndex
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev).float()
+
+    q = (ints(-8, 9, (B, D)) / 8).to(dtype)
+    W = torch.rand((NB, M, TS), generator=g, device=dev)
+    W = torch.where(torch.rand((NB, M, TS), generator=g, device=dev)
+                    < 12.0 / M, W, torch.zeros_like(W))
+    valid = torch.ones((NB, TS), dtype=torch.bool, device=dev)
+    valid[-1, S_last:] = False
+    bidx = BlockedIndex(
+        ivt_b=(ints(1, 17, (NB, M, D)) / 16).to(dtype),
+        movt_b=(ints(-8, 9, (NB, M, D)) / 16).to(dtype),
+        const_b=ints(-64, 65, (NB, M)) / 4,
+        W=W.to(dtype).contiguous(), valid=valid,
+        sid_of_slot=torch.arange(NB * TS, device=dev,
+                                 dtype=torch.int32).view(NB, TS))
+    return q, bidx
+
+
+def check_blocked(bt, entry_name, q, bidx, kk, reps, real=False):
+    """The blocked sweep kernel through ``entry_name``'s launcher against
+    its plain version.  Tolerance 1e-3 + 1e-3 |score|; on real (not
+    dyadic) data plus, per (block, query), one bf16 step of every nlp term
+    weighted by |W| (the f32 sums run in another order and may round to
+    the neighbouring bf16 value).  Returns the record of this shape."""
+    entry = getattr(bt, entry_name)
+    qd, q2 = bt._queries(bidx, q)
+    B, D = qd.shape
+    NB, M, _ = bidx.ivt_b.shape
+    TS = bidx.W.shape[2]
+    ks, ki = bt._block_candidates(entry, qd, q2, bidx, kk)
+    ps, pi = bt.block_candidates_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
+                                       bidx.const_b, bidx.W, bidx.valid, kk)
+    full, nlp = bt.block_scores_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
+                                      bidx.const_b, bidx.W, bidx.valid)
+    torch.cuda.synchronize()
+    tol = 1e-3 + 1e-3 * ps.abs()
+    if real and bidx.W.dtype == torch.bfloat16:
+        step = torch.matmul(nlp.abs() * 2.0 ** -7, bidx.W.float().abs())
+        tol = tol + step.amax(dim=2, keepdim=True)
+        del step
+    err, n_diff = hold(f"{entry_name} B={B}", ks, ki, ps, pi, full, tol)
+    del full, nlp, tol
+    esz = bidx.W.element_size()
+    lo = bidx.W.dtype == torch.bfloat16
+    nbytes = (2 * B * D * esz + 2 * NB * M * D * esz + NB * M * 4
+              + NB * M * TS * esz + NB * TS + NB * B * kk * 8)
+    flops = 2.0 * B * NB * M * (2 * D + TS)
+    b_ms, b_by = bound(nbytes, flops,
+                       PEAK_BF16_FLOPS if lo else PEAK_F32_FLOPS)
+    if reps == 0:
+        log(f"[kernel] {entry_name} B={B} NB={NB} M={M} D={D} TS={TS} "
+            f"kk={kk} {bidx.W.dtype}: max_abs_err={err:.3g} "
+            f"boundary_tie_ids={n_diff}")
+        return None
+
+    def library():
+        qT = qd.T.unsqueeze(0).expand(NB, D, B)
+        q2T = q2.T.unsqueeze(0).expand(NB, D, B)
+        nl = (torch.bmm(bidx.movt_b, qT) - 0.5 * torch.bmm(bidx.ivt_b, q2T)
+              + bidx.const_b.unsqueeze(2).to(qd.dtype))
+        sc = torch.bmm(bidx.W.transpose(1, 2), nl).float()
+        sc.masked_fill_(~bidx.valid.unsqueeze(2), bt.NEG)
+        return torch.topk(sc, kk, dim=1)
+
+    ms = cuda_ms(lambda: bt._block_candidates(entry, qd, q2, bidx, kk),
+                 reps)
+    plain_ms = cuda_ms(lambda: bt.block_candidates_plain(
+        qd, q2, bidx.ivt_b, bidx.movt_b, bidx.const_b, bidx.W, bidx.valid,
+        kk), reps)
+    lib_ms = cuda_ms(library, reps)
+    log(f"[kernel] {entry_name} B={B} NB={NB} M={M} D={D} TS={TS} kk={kk} "
+        f"{bidx.W.dtype}: max_abs_err={err:.3g} boundary_tie_ids={n_diff} "
+        f"ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def group_inputs(B, twoD, Sp, S, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    q = torch.randn((B, twoD // 2), generator=g, device=dev)
+    qq = torch.cat([q, q * q], 1).to(torch.bfloat16).contiguous()
+    GT = (0.05 * torch.randn((twoD, Sp), generator=g, device=dev)) \
+        .to(torch.bfloat16).contiguous()
+    c = torch.randn((Sp,), generator=g, device=dev)
+    return qq, GT, c, torch.arange(Sp, device=dev) < S
+
+
+def check_group(fused_topk, qq, GT, c, valid, per_group, reps):
+    """The group-pool entry against its plain version: f32 sums in another
+    order only, so scores within 1e-3 + 1e-3 |score| and ids equal except
+    among rows tied within that.  Returns the record of this shape."""
+    SLAB, NG, GROUP = fused_topk.SLAB, fused_topk.NG, fused_topk.GROUP
+    B, twoD = qq.shape
+    Sp = GT.shape[1]
+    NS = Sp // SLAB
+    ks, ki = fused_topk.slab_group_topk(qq, GT, c, valid, per_group)
+    ps, pi = fused_topk.slab_group_topk_plain(qq, GT, c, valid, per_group)
+    full = fused_topk.slab_scores_plain(qq, GT, c, valid, fused_topk.NEG) \
+        .permute(1, 0, 2)
+    torch.cuda.synchronize()
+    base = (torch.arange(NS, device=qq.device) * SLAB).view(NS, 1, 1)
+    err, n_diff = hold(f"fused_group_topk per_group={per_group}", ks,
+                       ki - base, ps, pi - base, full,
+                       1e-3 + 1e-3 * ps.abs())
+    del full
+    KO = per_group * NG
+    nbytes = qq.numel() * 2 + GT.numel() * 2 + Sp * 4 + Sp + NS * B * KO * 8
+    b_ms, b_by = bound(nbytes, 2.0 * B * twoD * Sp, PEAK_BF16_FLOPS)
+    if reps == 0:
+        log(f"[kernel] fused_group_topk (real index) B={B} 2D={twoD} "
+            f"Sp={Sp} per_group={per_group}: max_abs_err={err:.3g} "
+            f"boundary_tie_ids={n_diff}")
+        return None
+
+    def library():
+        s = torch.matmul(qq, GT).float() + c
+        s.masked_fill_(~valid, fused_topk.NEG)
+        return torch.topk(s.view(B, NS * NG, GROUP), per_group, dim=2)
+
+    ms = cuda_ms(lambda: fused_topk.slab_group_topk(qq, GT, c, valid,
+                                                    per_group), reps)
+    plain_ms = cuda_ms(lambda: fused_topk.slab_group_topk_plain(
+        qq, GT, c, valid, per_group), reps)
+    lib_ms = cuda_ms(library, reps)
+    log(f"[kernel] fused_group_topk B={B} 2D={twoD} Sp={Sp} "
+        f"per_group={per_group}: max_abs_err={err:.3g} boundary_tie_ids="
+        f"{n_diff} ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+        f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -192,7 +369,8 @@ def main() -> int:
         return 2
     from rag_cobweb_tpu_torch.bench import headline
     from rag_cobweb_tpu_torch.device import full_f32_matmul
-    from rag_cobweb_tpu_torch.ops import _build, fused_topk, rerank
+    from rag_cobweb_tpu_torch.ops import (_build, blocked_topk,
+                                          fused_topk, rerank)
 
     full_f32_matmul()
     t_start = time.perf_counter()
@@ -225,40 +403,160 @@ def main() -> int:
                           seed=3)
     check_rerank(rerank, B=1024, C=1024, D=768, S=1 << 20, reps=5, seed=4)
     torch.cuda.empty_cache()
+    # the 100k blocked cell's shapes: NB=196, M=896, D=128, TS=512, kk=16
+    q, bidx = dyadic_blocked(4096, 196, 896, 128, 512, 300, torch.bfloat16,
+                             seed=5)
+    main_b = check_blocked(blocked_topk, "blocked_topk", q[:1024], bidx, 16,
+                           reps=10)
+    main_bt = check_blocked(blocked_topk, "blocked_topk_tiled", q, bidx, 16,
+                            reps=5)
+    q, bidx = dyadic_blocked(37, 5, 48, 20, 64, 40, torch.float32, seed=6)
+    check_blocked(blocked_topk, "blocked_topk", q, bidx, 8, reps=3)
+    del q, bidx
+    torch.cuda.empty_cache()
+    gin = group_inputs(1024, 496, 10240, 10000, seed=7)
+    check_group(fused_topk, *gin, per_group=1, reps=10)
+    main_g = check_group(fused_topk, *gin, per_group=2, reps=10)
+    del gin
+    torch.cuda.empty_cache()
 
-    # -- 3. the slice -----------------------------------------------------
+    # -- 3. the flagship slice ------------------------------------------
     counters = {"fused_topk": fused_topk.slab_topk,
-                "rerank_l2": rerank.rerank_lp}
-    for fn in counters.values():
-        fn.launches = 0
+                "rerank_l2": rerank.rerank_lp,
+                "fused_group_topk": fused_topk.slab_group_topk,
+                "blocked_topk": blocked_topk.blocked_topk,
+                "blocked_topk_tiled": blocked_topk.blocked_topk_tiled}
+    launches, windows = {}, {}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def whitened(db, data, n):
+        qs = torch.as_tensor(data.query_embs[:n], device="cuda")
+        return db.whitener.transform_torch(qs)
+
+    def flagship_hook(event, engine, db, data):
+        if event == "start":
+            zero()
+            return
+        windows["fused"] = read()
+        # the group pool over the serving FusedIndex, its own window
+        fidx, qw = db._fused_index(), whitened(db, data, 1024)
+        zero()
+        fused_topk.fused_group_topk(fidx, qw, 1024, per_group=2)
+        torch.cuda.synchronize()
+        windows["group"] = read()
+        q = qw.float()
+        qq = torch.cat([q, q * q], 1).to(fidx.GT.dtype).contiguous()
+        check_group(fused_topk, qq, fidx.GT, fidx.c, fidx.valid, 2, reps=0)
+
     rec = headline.run(corpus_size=10000, queries=1000, dim=768,
                        pca_dim=0.96, k=10, batch=1024, dataset="hard",
                        n_lanes=32, rerank=1024, device="cuda",
-                       log=lambda *a: log(*a))
-    launches = {k: fn.launches for k, fn in counters.items()}
+                       log=lambda *a: log(*a), hook=flagship_hook)[0]
     log(json.dumps(rec))
-    log(f"[slice] kernel launches on the main path: {launches}")
+    log(f"[slice] kernel launches on the main path: {windows['fused']}")
+    log(f"[slice] group pool over the serving index: {windows['group']}")
     if rec["device"] != name:
         raise AssertionError(f"headline ran on {rec['device']}")
     if not rec["recall@10"] >= rec["exact_recall@10"] - 0.005:
         raise AssertionError(
             f"recall@10 {rec['recall@10']} is more than 0.005 below the "
             f"exact scan's {rec['exact_recall@10']}")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in ("fused_topk", "rerank_l2"):
+        if windows["fused"][k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the main "
                                  "path")
+    if windows["group"]["fused_group_topk"] <= 0:
+        raise AssertionError("fused_group_topk never launched")
+    launches["fused_topk"] = windows["fused"]["fused_topk"]
+    launches["rerank_l2"] = windows["fused"]["rerank_l2"]
+    launches["fused_group_topk"] = windows["group"]["fused_group_topk"]
+    torch.cuda.empty_cache()
+
+    # -- 3b. the blocked slice: the 100k cell -----------------------------
+    def blocked_hook(event, engine, db, data):
+        if event == "start":
+            zero()
+            return
+        windows[engine] = read()
+        if engine != "blocked_kernel":
+            return
+        bidx = db._blocked_index()
+        NB, M, TS = bidx.ivt_b.shape[0], bidx.ivt_b.shape[1], \
+            bidx.W.shape[2]
+        windows["shape"] = (NB, M, TS)
+        log(f"[blocked] index NB={NB} M={M} TS={TS} "
+            f"D={bidx.ivt_b.shape[2]} {bidx.W.dtype}")
+        # the tiled entry over the served index, as the JAX package's
+        # roofline benchmark drives it: the whole query set in one call
+        qw = whitened(db, data, len(data.query_embs))
+        pool = min(512, NB * db.pallas_block_k)
+        zero()
+        tt, ti = blocked_topk.blocked_topk_tiled(bidx, qw, pool, block_k=16)
+        torch.cuda.synchronize()
+        windows["tiled"] = read()
+        bs, bi = blocked_topk.blocked_topk(bidx, qw, pool, block_k=16)
+        if not torch.equal(tt, bs) or not torch.equal(
+                torch.sort(ti, 1).values, torch.sort(bi, 1).values):
+            raise AssertionError("blocked_topk_tiled and blocked_topk "
+                                 "disagree on the served index")
+        check_blocked(blocked_topk, "blocked_topk", qw[:1024], bidx, 16,
+                      reps=0, real=True)
+
+    recs = headline.run(corpus_size=100000, queries=4096, dim=768,
+                        pca_dim=128, k=10, batch=1024, dataset="hard",
+                        n_lanes=64, rerank=512, device="cuda",
+                        engines=("blocked_kernel", "blocked", "fused"),
+                        log=lambda *a: log(*a), hook=blocked_hook)
+    for r in recs:
+        log(json.dumps(r))
+        if not r["recall@10"] >= r["exact_recall@10"] - 0.005:
+            raise AssertionError(
+                f"{r['engine']}: recall@10 {r['recall@10']} is more than "
+                f"0.005 below the exact scan's {r['exact_recall@10']}")
+    for eng in ("blocked_kernel", "blocked", "fused"):
+        log(f"[blocked] {eng} serving launches: {windows[eng]}")
+    log(f"[blocked] tiled entry over the served index: {windows['tiled']}")
+    wk, wb = windows["blocked_kernel"], windows["blocked"]
+    if not (wk["blocked_topk"] > 0 and wk["rerank_l2"] > 0
+            and wk["fused_topk"] == 0):
+        raise AssertionError(f"blocked_kernel did not serve through the "
+                             f"blocked and re-rank kernels: {wk}")
+    if not (wb["rerank_l2"] > 0 and wb["blocked_topk"] == 0
+            and wb["fused_topk"] == 0):
+        raise AssertionError(f"blocked did not serve the PyTorch sweep: "
+                             f"{wb}")
+    if windows["tiled"]["blocked_topk_tiled"] <= 0:
+        raise AssertionError("blocked_topk_tiled never launched")
+    launches["blocked_topk"] = wk["blocked_topk"]
+    launches["blocked_topk_tiled"] = windows["tiled"]["blocked_topk_tiled"]
 
     # -- 4. result lines ----------------------------------------------------
+    src = "rag_cobweb_tpu_torch/csrc/"
     kernels = [
-        dict(name="fused_topk", route="cuda",
-             source="rag_cobweb_tpu_torch/csrc/fused_topk.cu",
+        dict(name="fused_topk", route="cuda", source=src + "fused_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:243",
              launches=launches["fused_topk"], **main_f),
-        dict(name="rerank_l2", route="cuda",
-             source="rag_cobweb_tpu_torch/csrc/rerank_l2.cu",
+        dict(name="rerank_l2", route="cuda", source=src + "rerank_l2.cu",
              replaces="scripts/gather_probe.py:55",
              launches=launches["rerank_l2"], **main_r),
+        dict(name="blocked_topk", route="cuda",
+             source=src + "blocked_topk.cu",
+             replaces="rag_cobweb_tpu/ops/pallas_query.py:40",
+             launches=launches["blocked_topk"], **main_b),
+        dict(name="blocked_topk_tiled", route="cuda",
+             source=src + "blocked_topk.cu",
+             replaces="rag_cobweb_tpu/ops/pallas_query.py:126",
+             launches=launches["blocked_topk_tiled"], **main_bt),
+        dict(name="fused_group_topk", route="cuda",
+             source=src + "fused_topk.cu",
+             replaces="rag_cobweb_tpu/ops/pallas_query.py:270",
+             launches=launches["fused_group_topk"], **main_g),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -4,10 +4,22 @@ whitening at 0.96 variance, a 32-lane forest, k=10, pool 1024) built and
 served on one device.
 
     python -m rag_cobweb_tpu_torch.bench.headline [--device cuda]
+        [--engine fused|blocked|blocked_kernel ...]
 
-Prints ONE JSON line with the keys of ``bench.py`` plus ``device``.  There
-is no CPU build fallback and no warm-up thread: the build and the serving
-run on ``--device``, and the card's name is recorded beside the numbers.
+The forest is built once; each ``--engine`` then serves the queries and
+prints ONE JSON line with the keys of ``bench.py`` plus ``device``,
+``engine`` and ``corpus_size``:
+
+* ``fused`` (default): the fused sweep kernel, exact pool, exact re-rank;
+* ``blocked``: ``use_fused=False``, the blocked sweep in PyTorch;
+* ``blocked_kernel``: ``use_fused=False, use_pallas=True`` with
+  ``pallas_threshold`` set to the corpus size, the blocked sweep kernel
+  (the JAX default of 300 000 gates this opt-in engine on larger
+  corpora).
+
+There is no CPU build fallback and no warm-up thread: the build and the
+serving run on ``--device``, and the card's name is recorded beside the
+numbers.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ from rag_cobweb_tpu_torch.whitening import PCAICAWhiteningModel
 REF_LATENCY_MS = 53.1     # BASELINE.md: reference Cobweb PCA+ICA Fast, CPU
 REF_RECALL = 0.906        # reference cobweb, QQP roberta c=10000
 REF_EXACT_RECALL = 0.913  # reference FAISS exact, same artifact
+ENGINES = ("fused", "blocked", "blocked_kernel")
 
 
 def _sync(device):
@@ -39,12 +52,25 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _set_engine(db: CobwebIndex, engine: str, n: int) -> None:
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    db.use_fused = engine == "fused"
+    db.use_pallas = engine == "blocked_kernel"
+    if db.use_pallas:
+        db.pallas_threshold = n
+
+
 def run(corpus_size: int = 10000, queries: int = 1000, dim: int = 768,
         pca_dim: float = 0.96, k: int = 10, batch: int = 1024,
         dataset: str = "hard", n_lanes: int = 32, rerank: int = 1024,
-        device="cuda", log=None) -> dict:
-    """Build and serve one configuration; returns the headline record."""
+        device="cuda", engines=("fused",), log=None, hook=None) -> list:
+    """Build one configuration, serve it with each of ``engines`` in turn;
+    returns one headline record per engine.  ``hook(event, engine, db,
+    data)`` is called with ``"start"`` just before an engine serves its
+    first query and ``"end"`` just after its last."""
     log = log or (lambda *a: None)
+    hook = hook or (lambda *a: None)
     dev = resolve_device(device)
     gen = synthetic_retrieval_hard if dataset == "hard" \
         else synthetic_retrieval
@@ -69,66 +95,75 @@ def run(corpus_size: int = 10000, queries: int = 1000, dim: int = 768,
     rate = len(corpus) / build_s
     log(f"[headline] forest build {build_s:.1f}s ({rate:.0f} inserts/s)")
 
-    rr = None if rerank == -1 else rerank
-    t0 = time.perf_counter()
-    to_host(db.query_ids(data.query_embs[:8], k, rerank=rr))
-    index_s = time.perf_counter() - t0
-    log(f"[headline] index build + first query {index_s:.2f}s")
-
-    res = evaluate_retrieval(
-        "Cobweb PCA+ICA Fast (torch)",
-        lambda q, kk: db.query_ids(q, kk, rerank=rr),
-        data.query_embs, data.target_ids, k, batch_size=batch)
     flat = FlatIndex(corpus, metric="l2", device=dev)
     exact = evaluate_retrieval(
         "Exact flat (torch)", lambda q, kk: flat.search_device(q, kk),
         data.query_embs, data.target_ids, k, batch_size=batch)
-    log(f"[headline] cobweb recall@{k}={res.get(f'recall@{k}')} "
-        f"{res['avg_latency_ms']:.4f} ms/query; exact "
-        f"recall@{k}={exact.get(f'recall@{k}')} "
+    ek = exact.get("recall@10", 0.0)
+    log(f"[headline] exact recall@{k}={exact.get(f'recall@{k}')} "
         f"{exact['avg_latency_ms']:.4f} ms/query")
 
-    small = {}
-    for bs in (1, 32):
-        if len(data.query_embs) < bs:
-            continue
-        to_host(db.query_ids(data.query_embs[:bs], k, rerank=rr))
-        lats = []
-        for i in range(7):
-            off = (i * 131) % (len(data.query_embs) - bs + 1)
-            chunk = np.ascontiguousarray(data.query_embs[off:off + bs])
-            t1 = time.perf_counter()
-            to_host(db.query_ids(chunk, k, rerank=rr))
-            lats.append(time.perf_counter() - t1)
-        small[bs] = 1000.0 * float(np.median(lats))
-
-    ours_ms = res["avg_latency_ms"]
-    rk, ek = res.get("recall@10", 0.0), exact.get("recall@10", 0.0)
-    return {
-        "metric": "cobweb_pca_ica_fast_query_latency_c10000",
-        "value": ours_ms,
-        "unit": "ms/query",
-        "vs_baseline": REF_LATENCY_MS / ours_ms,
-        "dataset": data.name,
-        "recall@10": rk,
-        "exact_recall@10": ek,
-        "recall_delta_vs_exact": ek - rk,
-        "ref_recall_delta_vs_exact": round(REF_EXACT_RECALL - REF_RECALL, 4),
-        "ref_recall@10": REF_RECALL,
-        "exact_latency_ms": exact["avg_latency_ms"],
-        "latency_vs_exact": ours_ms / max(exact["avg_latency_ms"], 1e-9),
-        "build_inserts_per_s": rate,
-        "build_total_s": build_s,
-        "build_device": dev.type,
-        "compile_warmup_s": 0.0,
-        "index_build_s": index_s,
-        "qps": res["qps"],
-        "b1_latency_ms": small.get(1),
-        "b32_latency_ms": small[32] / 32 if 32 in small else None,
-        "warmup_in_flight": False,
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
-    }
+    rr = None if rerank == -1 else rerank
+    records = []
+    for engine in engines:
+        _set_engine(db, engine, len(corpus))
+        hook("start", engine, db, data)
+        t0 = time.perf_counter()
+        to_host(db.query_ids(data.query_embs[:8], k, rerank=rr))
+        index_s = time.perf_counter() - t0
+        log(f"[headline] {engine}: index build + first query "
+            f"{index_s:.2f}s")
+        res = evaluate_retrieval(
+            f"Cobweb PCA+ICA Fast (torch, {engine})",
+            lambda q, kk: db.query_ids(q, kk, rerank=rr),
+            data.query_embs, data.target_ids, k, batch_size=batch)
+        small = {}
+        for bs in (1, 32):
+            if len(data.query_embs) < bs:
+                continue
+            to_host(db.query_ids(data.query_embs[:bs], k, rerank=rr))
+            lats = []
+            for i in range(7):
+                off = (i * 131) % (len(data.query_embs) - bs + 1)
+                chunk = np.ascontiguousarray(data.query_embs[off:off + bs])
+                t1 = time.perf_counter()
+                to_host(db.query_ids(chunk, k, rerank=rr))
+                lats.append(time.perf_counter() - t1)
+            small[bs] = 1000.0 * float(np.median(lats))
+        hook("end", engine, db, data)
+        ours_ms = res["avg_latency_ms"]
+        rk = res.get("recall@10", 0.0)
+        log(f"[headline] {engine}: recall@{k}={res.get(f'recall@{k}')} "
+            f"{ours_ms:.4f} ms/query")
+        records.append({
+            "metric": f"cobweb_pca_ica_fast_query_latency_c{corpus_size}",
+            "value": ours_ms,
+            "unit": "ms/query",
+            "vs_baseline": REF_LATENCY_MS / ours_ms,
+            "dataset": data.name,
+            "recall@10": rk,
+            "exact_recall@10": ek,
+            "recall_delta_vs_exact": ek - rk,
+            "ref_recall_delta_vs_exact": round(REF_EXACT_RECALL - REF_RECALL,
+                                               4),
+            "ref_recall@10": REF_RECALL,
+            "exact_latency_ms": exact["avg_latency_ms"],
+            "latency_vs_exact": ours_ms / max(exact["avg_latency_ms"], 1e-9),
+            "build_inserts_per_s": rate,
+            "build_total_s": build_s,
+            "build_device": dev.type,
+            "compile_warmup_s": 0.0,
+            "index_build_s": index_s,
+            "qps": res["qps"],
+            "b1_latency_ms": small.get(1),
+            "b32_latency_ms": small[32] / 32 if 32 in small else None,
+            "warmup_in_flight": False,
+            "device": (torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else "cpu"),
+            "engine": engine,
+            "corpus_size": corpus_size,
+        })
+    return records
 
 
 def main(argv=None):
@@ -144,12 +179,15 @@ def main(argv=None):
     ap.add_argument("--rerank", type=int, default=1024,
                     help="exact re-rank pool size; -1 = wrapper auto")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--engine", choices=ENGINES, action="append",
+                    help="serving engine, repeatable (default: fused)")
     args = ap.parse_args(argv)
-    rec = run(args.corpus_size, args.queries, args.dim, args.pca_dim, args.k,
-              args.batch, args.dataset, args.vforest, args.rerank,
-              args.device,
-              log=lambda *a: print(*a, file=sys.stderr, flush=True))
-    print(json.dumps(rec))
+    recs = run(args.corpus_size, args.queries, args.dim, args.pca_dim,
+               args.k, args.batch, args.dataset, args.vforest, args.rerank,
+               args.device, engines=tuple(args.engine or ("fused",)),
+               log=lambda *a: print(*a, file=sys.stderr, flush=True))
+    for rec in recs:
+        print(json.dumps(rec))
 
 
 if __name__ == "__main__":

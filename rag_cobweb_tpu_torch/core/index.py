@@ -1,7 +1,27 @@
-"""Fused serving index: the main-path subset of
+"""Serving indexes: the fused and blocked subsets of
 ``rag_cobweb_tpu/core/index.py``.
 
-The path score of sentence t is linear in its path nodes' log-prob terms,
+**Flat prediction index** (``PredictionIndex``,
+``build_flat_forest_index``): the whole K-lane forest compacted in one
+multi-root BFS, with per-sentence root->leaf paths, per-hop weights and
+the sentences laid out in DFS (lexicographic path) order.  The structure
+pass is host numpy over the ``children``/``parent`` arrays, copied once;
+the node statistics are gathered on the device.  The host copies of
+paths, weights and order stay on the index as plain fields, for the
+blocked build.
+
+**Blocked index** (``BlockedIndex``, ``build_blocked_index``): sentences
+in blocks of ``TS`` in that layout, each block with its own dense copy of
+the nodes its paths touch, so a query is three batched products:
+
+    nlp[b, s, m]   = q[b] . movt[s, m] - 0.5 q^2[b] . ivt[s, m] + const[s, m]
+    score[b, s, t] = sum_m nlp[b, s, m] * W[s, m, t]
+
+``blocked_query_topk`` is that product in PyTorch (the JAX package leaves
+it to XLA); the hand kernel behind the blocked engine is
+``ops/blocked_topk``.
+
+**Fused index**: the path score of sentence t is linear in its path nodes' log-prob terms,
 so it folds into per-sentence coefficients:
 
     score[b, t] = q_b . A_t - 0.5 q_b^2 . B_t + c_t
@@ -30,6 +50,274 @@ from rag_cobweb_tpu_torch.ops import fused_topk, rerank
 
 DEFAULT_LEVEL_WEIGHTS = (1.0, 1.0, 1.0, 1.0, 1.0, 1.0)
 _FUSED_ROW_BUCKET = fused_topk.SLAB   # 2048
+
+
+class PredictionIndex(NamedTuple):
+    """Flat query index over the compacted forest (rebuilt after adds)."""
+
+    inv_var_T: torch.Tensor      # (D, N) f32 GEMM terms
+    mu_over_var_T: torch.Tensor  # (D, N) f32
+    const: torch.Tensor          # (N,) f32
+    paths: torch.Tensor          # (S, P) compact node ids root->leaf, -1 pad
+    path_weights: torch.Tensor   # (S, P) level_weight[d]/path_len, 0 on pad
+    children: torch.Tensor       # (N, F) compact child ids (BFS), -1 pad
+    leaf_sentence_start: torch.Tensor  # (N,) first layout row of a leaf, -1
+    leaf_sentence_count: torch.Tensor  # (N,)
+    sentence_order: torch.Tensor  # (S,) sentence ids in DFS leaf layout
+    paths_h: np.ndarray          # host copies of paths, path_weights and
+    weights_h: np.ndarray        # sentence_order: the blocked build's input
+    order_h: np.ndarray
+
+
+def build_flat_forest_index(cfg, st, leaf_global: np.ndarray,
+                            level_weights: Sequence[float]
+                            = DEFAULT_LEVEL_WEIGHTS,
+                            pad_depth_to: int = 4) -> PredictionIndex:
+    """ONE PredictionIndex over a stacked K-lane forest state.
+
+    Lane l's node ids are offset by ``l * capacity`` (``leaf_global[s]``
+    is ``lane * capacity + local_leaf``) and a multi-root level-synchronous
+    BFS numbers every lane's live nodes at once.  Paths come from a
+    vectorised parent chase; the sentence layout is the lexicographic
+    order of the root->leaf paths, which keeps same-leaf runs and whole
+    subtrees contiguous (it decides which sentences share a block of the
+    blocked index, and so its M).  Structure and layout are host numpy and
+    equal the JAX package's; statistics are gathered on the device."""
+    cap, K = st.capacity, st.lanes
+    children_h = st.children[:, :cap].cpu().numpy()
+    parent_h = st.parent[:, :cap].cpu().numpy()
+    root_h = st.root.cpu().numpy()
+    offs = (np.arange(K, dtype=np.int64) * cap)[:, None, None]
+    children = np.where(children_h >= 0, children_h + offs, -1) \
+        .reshape(K * cap, -1)
+    parent = np.where(parent_h >= 0, parent_h + offs[:, :, 0], -1) \
+        .reshape(K * cap)
+    roots = np.arange(K, dtype=np.int64) * cap + root_h
+
+    # level-synchronous BFS: one gather of the children table per level
+    # (row-major ravel keeps parents in frontier order, siblings in slot
+    # order)
+    levels = [roots]
+    while True:
+        kids = children[levels[-1]].ravel()
+        kids = kids[kids >= 0]
+        if kids.size == 0:
+            break
+        levels.append(kids)
+    order_arr = np.concatenate(levels)
+    compact_of = np.full((K * cap,), -1, np.int64)
+    compact_of[order_arr] = np.arange(len(order_arr))
+    n_live = len(order_arr)
+    max_depth = len(levels) - 1
+    P = max(1, -(-(max_depth + 1) // pad_depth_to) * pad_depth_to)
+
+    # per-sentence root->leaf paths by parent chasing
+    S = len(leaf_global)
+    leaf_compact = compact_of[np.asarray(leaf_global, np.int64)]
+    if np.any(leaf_compact < 0):
+        bad = np.where(leaf_compact < 0)[0]
+        raise ValueError(f"sentences {bad[:5]} map to dead tree nodes")
+    parent_compact = np.full((n_live,), -1, np.int64)
+    live_parents = parent[order_arr]
+    has_parent = live_parents >= 0
+    parent_compact[has_parent] = compact_of[live_parents[has_parent]]
+    lw = np.ones((P,), np.float32)
+    lw[:min(len(level_weights), P)] = np.asarray(
+        list(level_weights)[:P], np.float32)
+    chains = np.full((S, P), -1, np.int64)           # leaf -> root
+    cur = leaf_compact.copy()
+    for p in range(P):
+        chains[:, p] = cur
+        cur = np.where(cur >= 0, parent_compact[np.maximum(cur, 0)], -1)
+    path_len = (chains >= 0).sum(1)
+    src = path_len[:, None] - 1 - np.arange(P)[None, :]
+    paths = np.where(src >= 0,
+                     chains[np.arange(S)[:, None], np.maximum(src, 0)],
+                     -1).astype(np.int32)
+    weights = np.where(
+        paths >= 0, lw[None, :] / np.maximum(path_len, 1)[:, None], 0.0
+    ).astype(np.float32)
+
+    # DFS (lexicographic path) sentence layout and per-leaf runs
+    sent_order = np.lexsort(
+        tuple(paths[:, p] for p in range(P - 1, -1, -1))).astype(np.int32)
+    leaf_start = np.full((n_live,), -1, np.int32)
+    leaf_count = np.zeros((n_live,), np.int32)
+    uniq, starts, counts = np.unique(leaf_compact[sent_order],
+                                     return_index=True, return_counts=True)
+    leaf_start[uniq] = starts
+    leaf_count[uniq] = counts
+    kids = children[order_arr]
+    kids_compact = np.where(kids >= 0, compact_of[np.maximum(kids, 0)], -1)
+
+    # node statistics gathered on the device, in compact order
+    dev = st.device
+    order_t = torch.as_tensor(order_arr, device=dev)
+    lane, loc = order_t // cap, order_t % cap
+    cnt = st.counts[lane, loc]
+    mu = st.means[lane, loc]
+    m2 = st.m2s[lane, loc]
+    pos = (cnt > 0).unsqueeze(1)
+    pv = float(cfg.prior_var)
+    ml = m2 / torch.where(cnt > 0, cnt, torch.ones_like(cnt)).unsqueeze(1)
+    v = torch.clamp(ml, min=pv) if cfg.acuity_cutoff else ml + pv
+    v = torch.where(pos, v, torch.full_like(v, pv))
+    inv = 1.0 / v
+    const = -0.5 * (torch.sum(torch.square(mu) * inv, dim=1)
+                    + torch.sum(torch.log(v), dim=1))
+
+    def up(a):
+        return torch.as_tensor(a, device=dev)
+
+    return PredictionIndex(
+        inv_var_T=inv.T.contiguous(),
+        mu_over_var_T=(mu * inv).T.contiguous(),
+        const=const,
+        paths=up(paths.astype(np.int64)),
+        path_weights=up(weights),
+        children=up(kids_compact),
+        leaf_sentence_start=up(leaf_start.astype(np.int64)),
+        leaf_sentence_count=up(leaf_count.astype(np.int64)),
+        sentence_order=up(sent_order.astype(np.int64)),
+        paths_h=paths, weights_h=weights, order_h=sent_order)
+
+
+def _sentence_leaf_nodes(index: PredictionIndex) -> torch.Tensor:
+    """(S,) compact node id of each sentence's leaf (deepest path entry)."""
+    plen = (index.paths >= 0).sum(dim=1)
+    return index.paths.gather(1, (plen - 1).clamp(min=0).unsqueeze(1))[:, 0]
+
+
+def _leaf_lp_rerank(index: PredictionIndex, queries: torch.Tensor,
+                    cand: torch.Tensor, cand_scores: torch.Tensor, k: int):
+    """Re-rank (B, C) candidate sentences by their LEAF log-probability
+    (the key the beam search ranks by); non-finite candidates drop.  The
+    re-rank of the engines when no vector store is kept.  Returns
+    (scores (B, k), ids (B, k))."""
+    leaves = _sentence_leaf_nodes(index)[cand.long()]      # (B, C)
+    ivt = index.inv_var_T.T[leaves]                        # (B, C, D)
+    movt = index.mu_over_var_T.T[leaves]
+    x = queries.float().unsqueeze(1)
+    lp = (torch.sum(x * movt, -1) - 0.5 * torch.sum(torch.square(x) * ivt, -1)
+          + index.const[leaves])
+    lp = torch.where(torch.isfinite(cand_scores), lp,
+                     torch.full_like(lp, float("-inf")))
+    top, pos = torch.topk(lp, k, dim=1)
+    return top, cand.gather(1, pos)
+
+
+class BlockedIndex(NamedTuple):
+    """Block-local dense form of the prediction index: per block of ``TS``
+    sentences, its own copy of the GEMM terms of the ``M`` (padded) nodes
+    its paths touch and the dense path weights over them."""
+
+    ivt_b: torch.Tensor        # (NB, M, D) inverse variances
+    movt_b: torch.Tensor       # (NB, M, D) mean / variance
+    const_b: torch.Tensor      # (NB, M) f32
+    W: torch.Tensor            # (NB, M, TS) local path weights
+    valid: torch.Tensor        # (NB, TS) bool, False on padding slots
+    sid_of_slot: torch.Tensor  # (NB, TS) int32 slot -> sentence id
+
+
+def build_blocked_index(index: PredictionIndex, block_size: int = 512,
+                        node_pad: int = 128,
+                        dtype=torch.float32) -> BlockedIndex:
+    """The blocked form of a flat index: host batched unique over every
+    block's path entries (from the index's host copies), the W scatter and
+    the stats gather on the device.  ``M`` is the largest per-block node
+    count rounded up to ``node_pad``; pad node rows carry ``ivt=1,
+    movt=0, const=0`` and a zero W row, so they add nothing.  A bf16
+    ``dtype`` halves the sweep's bytes; pair it with a re-rank."""
+    paths, weights, order = index.paths_h, index.weights_h, index.order_h
+    S, P = paths.shape
+    TS = block_size
+    NB = max(1, -(-S // TS))
+    order_pad = np.full((NB * TS,), -1, np.int64)
+    order_pad[:S] = order
+    valid = (order_pad >= 0).reshape(NB, TS)
+    sid_of_slot = np.maximum(order_pad, 0).reshape(NB, TS)
+    rows = np.maximum(order_pad, 0)[:, None]
+    hops = np.arange(P)[None, :]
+    bp = np.where(valid.reshape(-1, 1), paths[rows, hops], -1)
+    bw = np.where(valid.reshape(-1, 1), weights[rows, hops], 0.0)
+    flat = bp.reshape(NB, TS * P).astype(np.int32)    # -1 = padding
+
+    # batched per-block unique: sort each row, mark firsts, rank by cumsum
+    SENT = np.iinfo(np.int32).max
+    keyed = np.where(flat >= 0, flat, SENT)
+    ord_idx = np.argsort(keyed, axis=1, kind="stable")
+    skey = np.take_along_axis(keyed, ord_idx, 1)
+    is_new = np.empty_like(skey, dtype=bool)
+    is_new[:, 0] = skey[:, 0] != SENT
+    is_new[:, 1:] = (skey[:, 1:] != skey[:, :-1]) & (skey[:, 1:] != SENT)
+    local_sorted = np.cumsum(is_new, axis=1) - 1
+    m_per_block = is_new.sum(1)
+    M = -(-max(int(m_per_block.max(initial=1)), 1) // node_pad) * node_pad
+    nodes_pad = np.zeros((NB, M), np.int64)
+    rows_b, cols_b = np.nonzero(is_new)
+    nodes_pad[rows_b, local_sorted[rows_b, cols_b]] = skey[rows_b, cols_b]
+    local = np.empty_like(local_sorted)
+    np.put_along_axis(local, ord_idx, np.maximum(local_sorted, 0), 1)
+    local = local.reshape(NB, TS, P)
+    ok = bp.reshape(NB, TS, P) >= 0
+
+    # W: one scatter-add on the device (each (block, node, slot) is hit at
+    # most once: a path visits a node once)
+    dev = index.const.device
+    blk_i, slot_i, hop_i = np.nonzero(ok)
+    flat_idx = (blk_i * M + local[blk_i, slot_i, hop_i]) * TS + slot_i
+    W = torch.zeros((NB * M * TS,), dtype=torch.float32, device=dev)
+    W.index_add_(0, torch.as_tensor(flat_idx, device=dev),
+                 torch.as_tensor(bw.reshape(NB, TS, P)[ok].astype(
+                     np.float32), device=dev))
+
+    # per-block replicas of the node terms, gathered on the device
+    nodes = torch.as_tensor(nodes_pad, device=dev)
+    pad = torch.as_tensor(np.arange(M)[None, :] >= m_per_block[:, None],
+                          device=dev)
+    ivt_b = torch.where(pad.unsqueeze(2), 1.0, index.inv_var_T.T[nodes])
+    movt_b = torch.where(pad.unsqueeze(2), 0.0, index.mu_over_var_T.T[nodes])
+    const_b = torch.where(pad, 0.0, index.const[nodes])
+    return BlockedIndex(
+        ivt_b=ivt_b.to(dtype).contiguous(),
+        movt_b=movt_b.to(dtype).contiguous(),
+        const_b=const_b.contiguous(),
+        W=W.view(NB, M, TS).to(dtype),
+        valid=torch.as_tensor(valid, device=dev),
+        sid_of_slot=torch.as_tensor(sid_of_slot.astype(np.int32),
+                                    device=dev))
+
+
+def blocked_scores(bidx: BlockedIndex, queries: torch.Tensor) -> torch.Tensor:
+    """(B, D) -> (B, NB, TS) f32 path scores, padding slots -inf.
+
+    The JAX package contracts bf16 operands with f32 results
+    (``preferred_element_type``); a bf16 ``torch.matmul`` would round its
+    output to bf16, so the operands are upcast to f32 first (their
+    products are exact in f32).  ``nlp`` is rounded to the W dtype before
+    the second product, as in the JAX package.  f32 operands need TF32 off
+    on the card (``device.full_f32_matmul``)."""
+    dt = bidx.ivt_b.dtype
+    q = queries.to(dt)
+    nlp = (torch.einsum("bd,smd->sbm", q.float(), bidx.movt_b.float())
+           - 0.5 * torch.einsum("bd,smd->sbm", torch.square(q).float(),
+                                bidx.ivt_b.float())
+           + bidx.const_b.unsqueeze(1))                    # (NB, B, M)
+    scores = torch.einsum("sbm,smt->bst", nlp.to(bidx.W.dtype).float(),
+                          bidx.W.float())
+    return torch.where(bidx.valid.unsqueeze(0), scores,
+                       torch.full_like(scores, float("-inf")))
+
+
+def blocked_query_topk(bidx: BlockedIndex, queries: torch.Tensor, k: int):
+    """Top-k over the blocked scores -> (scores (B, k) f32, sentence ids
+    (B, k) int32).  The selection is exact (``torch.topk``): the JAX
+    package may select a re-rank pool with ``approx_max_k``, which PyTorch
+    lacks."""
+    scores = blocked_scores(bidx, queries)
+    B, NB, TS = scores.shape
+    top, pos = torch.topk(scores.reshape(B, NB * TS), min(k, NB * TS), dim=1)
+    return top, bidx.sid_of_slot.reshape(-1)[pos]
 
 
 class FusedIndex(NamedTuple):
@@ -138,32 +426,22 @@ def build_fused_from_state(cfg, st, leaf_global: np.ndarray,
     return FusedIndex(GT=GT, c=c, valid=valid)
 
 
-def _qq(fidx: FusedIndex, queries: torch.Tensor) -> torch.Tensor:
-    q = queries.float()
-    return torch.cat([q, torch.square(q)], dim=1).to(fidx.GT.dtype) \
-        .contiguous()
-
-
 def fused_scores(fidx: FusedIndex, queries: torch.Tensor) -> torch.Tensor:
     """(B, D) -> (B, Sp) f32 path scores (f32 operands and accumulation;
     padding rows -inf).  Reference form for tests: serving never
     materialises this matrix."""
-    s = torch.matmul(_qq(fidx, queries).float(), fidx.GT.float()) + fidx.c
-    return torch.where(fidx.valid, s, torch.full_like(s, float("-inf")))
+    qq = fused_topk.query_terms(queries, fidx.GT.dtype)
+    return fused_topk.slab_scores_plain(qq, fidx.GT, fidx.c, fidx.valid,
+                                        float("-inf")).reshape(len(qq), -1)
 
 
 def fused_query_topk(fidx: FusedIndex, queries: torch.Tensor, k: int):
     """Top-k path scores -> (scores (B, k) f32, sentence ids (B, k) int32).
     Per-slab top-kappa (kernel 1, kappa = min(k, 2048)) merged by
     ``torch.topk``: the exact top-k."""
-    kappa = min(k, _FUSED_ROW_BUCKET)
-    out_s, out_i = fused_topk.slab_topk(_qq(fidx, queries), fidx.GT, fidx.c,
-                                        fidx.valid, kappa)
-    NS, B, _ = out_s.shape
-    cand_s = out_s.permute(1, 0, 2).reshape(B, NS * kappa)
-    cand_i = out_i.permute(1, 0, 2).reshape(B, NS * kappa)
-    top, pos = torch.topk(cand_s, min(k, NS * kappa), dim=1)
-    return top, cand_i.gather(1, pos)
+    qq = fused_topk.query_terms(queries, fidx.GT.dtype)
+    return fused_topk.merge(*fused_topk.slab_topk(
+        qq, fidx.GT, fidx.c, fidx.valid, min(k, _FUSED_ROW_BUCKET)), k)
 
 
 def exact_rerank(emb: torch.Tensor, queries: torch.Tensor,

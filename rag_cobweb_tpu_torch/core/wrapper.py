@@ -1,4 +1,4 @@
-"""CobwebIndex: the main-path subset of ``rag_cobweb_tpu/core/wrapper.py``.
+"""CobwebIndex: the forest-mode subset of ``rag_cobweb_tpu/core/wrapper.py``.
 
 Forest mode (``n_subtrees >= 2``, round-robin lanes), optionally with a
 wrapper-owned whitener: embeddings arrive RAW, the forest and the
@@ -6,13 +6,23 @@ candidate pool run in whitened space, and the raw float32 vector store
 feeds the exact re-rank, so the final ranking is exact raw-space search
 whenever the gold row is in the pool.
 
-Serving: ``query_ids`` -> ``_engine_topk`` -> ``_product_chunked`` ->
-``index.fused_query_rerank`` (fused sweep kernel, exact top-c pool, exact
-re-rank kernel).  Not carried yet (each raises ``NotImplementedError``
-where it would run): the single-tree index, the small-forest engine that
-serves below ``blocked_threshold`` sentences, the pending/delta tier
-(here an add drops the serving index and the next query rebuilds it) and
-the whitened backstop pool.
+Serving: ``query_ids`` -> ``_engine_topk``, which picks the engine as the
+JAX package does:
+
+* ``use_pallas`` and at least ``pallas_threshold`` sentences: the blocked
+  sweep kernel (``_pallas_topk`` -> ``ops/blocked_topk.blocked_topk``);
+* ``use_fused`` (the default): ``_product_chunked`` ->
+  ``index.fused_query_rerank`` (fused sweep kernel, exact top-c pool,
+  exact re-rank kernel);
+* otherwise the blocked sweep in PyTorch (``index.blocked_query_topk``).
+
+A re-rank pool goes through ``_rerank_step``: the exact stored-row
+re-rank, or the leaf log-prob re-rank when no vector store is kept.  Not
+carried yet (each raises ``NotImplementedError`` where it would run): the
+single-tree index, the small-forest engine that serves below
+``blocked_threshold`` sentences, the pending/delta tier (here an add drops
+the serving indexes and the next query rebuilds them) and the whitened
+backstop pool.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from rag_cobweb_tpu_torch.core import index as index_mod
 from rag_cobweb_tpu_torch.core.config import TreeConfig
 from rag_cobweb_tpu_torch.core.tree import align_capacity
 from rag_cobweb_tpu_torch.device import full_f32_matmul, resolve_device
+from rag_cobweb_tpu_torch.ops import blocked_topk
 from rag_cobweb_tpu_torch.parallel.vforest import VForest
 
 
@@ -36,11 +47,19 @@ def _identity_encode(x):
 class CobwebIndex:
     """Hierarchical vector database over a K-lane Cobweb forest."""
 
+    # engine choice, under the JAX package's names and defaults
+    use_fused = True
     fused_dtype = "bfloat16"      # serving GT dtype (pool selection only)
+    blocked_dtype = "bfloat16"    # serving blocked-index dtype
+    use_pallas = False            # opt-in: the blocked sweep kernel ...
+    pallas_threshold = 300_000    # ... from this many sentences on
+    pallas_block_k = 16           # its candidates per block
     rerank_threshold = 8192
     rerank_candidates = 512
     # byte budget for one query chunk's sweep working set
     fused_score_budget = 2 << 30
+    # byte budget for the exact re-rank's (B, C, D) candidate gather
+    rerank_gather_budget = 2 << 30
     backstop_pool = "auto"
     backstop_threshold = 131072
 
@@ -136,6 +155,8 @@ class CobwebIndex:
     def _invalidate_index(self):
         self._fused = None
         self._fused_f32 = None
+        self._blocked = None
+        self._blocked_f32 = None
 
     def _emb_device(self) -> Optional[torch.Tensor]:
         """(cap, D) raw store on the device, zero rows past the live count;
@@ -196,6 +217,25 @@ class CobwebIndex:
                 "sentences in whitener mode (set backstop_pool=0)")
         return 0
 
+    def _flat_pred_index(self) -> index_mod.PredictionIndex:
+        """The flat PredictionIndex over global sentence ids: the whole
+        forest flattened (``VForest.flat_index``, cached until an add)."""
+        return self.forest.flat_index()
+
+    def _blocked_index(self, exact: bool = False) -> index_mod.BlockedIndex:
+        """The serving BlockedIndex in ``blocked_dtype``; ``exact``: an f32
+        one, cached separately, for the rerank=0 path-score order."""
+        if exact and self.blocked_dtype != "float32":
+            if self._blocked_f32 is None:
+                self._blocked_f32 = index_mod.build_blocked_index(
+                    self._flat_pred_index())
+            return self._blocked_f32
+        if self._blocked is None:
+            self._blocked = index_mod.build_blocked_index(
+                self._flat_pred_index(),
+                dtype=getattr(torch, self.blocked_dtype))
+        return self._blocked
+
     def _chunk(self, B: int, row_bytes: int) -> int:
         bmax = max(32, int(self.fused_score_budget) // max(row_bytes, 1))
         return B if bmax >= B else 1 << (bmax.bit_length() - 1)
@@ -222,24 +262,91 @@ class CobwebIndex:
         return (torch.cat([o[0] for o in outs]),
                 torch.cat([o[1] for o in outs]))
 
-    def _engine_topk(self, q, kk: int, rerank: int, q_store=None):
-        """The fused engine: with a re-rank pool, sweep + exact re-rank on
-        the stored rows; with ``rerank=0``, the raw path-score order from
-        an f32 index."""
-        n_indexed = len(self.sentences)
-        if rerank:
-            if self._emb_device() is None:
-                raise NotImplementedError(
-                    "the leaf-lp re-rank (no vector store) is not ported")
-            pool = min(max(rerank, kk), n_indexed)
-            return self._product_chunked(q, kk, pool, n_indexed,
-                                         q_store=q_store)
-        fidx = self._fused_index(exact=True)
+    def _fused_chunked(self, fidx, q, k: int):
+        """Exact top-k of the fused sweep (kernel 1), the batch chunked as
+        the plain version's (Bc, Sp) score matrix needs."""
         bmax = self._chunk(q.shape[0], fidx.num_slots * 12)
-        outs = [index_mod.fused_query_topk(fidx, q[s:s + bmax], kk)
+        outs = [index_mod.fused_query_topk(fidx, q[s:s + bmax], k)
                 for s in range(0, q.shape[0], bmax)]
         return (torch.cat([o[0] for o in outs]),
                 torch.cat([o[1] for o in outs]))
+
+    def _engine_topk(self, q, kk: int, rerank: int, q_store=None):
+        """Dispatch to the engines: the blocked sweep kernel (opt-in, above
+        ``pallas_threshold``), else the fused engine, else the blocked
+        sweep in PyTorch; each with the optional re-rank.  ``rerank=0``:
+        the raw path-score order from an f32 index."""
+        n_indexed = len(self.sentences)
+        if self.use_pallas and n_indexed >= self.pallas_threshold:
+            out = self._pallas_topk(self._blocked_index(), q, kk, rerank,
+                                    q_store=q_store)
+            if out is not None:
+                return out
+        if self.use_fused:
+            if rerank:
+                pool = min(max(rerank, kk), n_indexed)
+                if self._emb_device() is not None:
+                    return self._product_chunked(q, kk, pool, n_indexed,
+                                                 q_store=q_store)
+                cs, cand = self._fused_chunked(self._fused_index(), q, pool)
+                return self._rerank_step(None, q, cand, cs, kk,
+                                         q_store=q_store)
+            return self._fused_chunked(self._fused_index(exact=True), q, kk)
+        if rerank:
+            cs, cand = index_mod.blocked_query_topk(
+                self._blocked_index(), q, min(max(rerank, kk), n_indexed))
+            return self._rerank_step(None, q, cand, cs, kk, q_store=q_store)
+        return index_mod.blocked_query_topk(self._blocked_index(exact=True),
+                                            q, kk)
+
+    def _rerank_step(self, idx, q, cand, cand_scores, kk: int,
+                     q_store=None):
+        """Final candidate re-rank: EXACT (stored rows, the fresh-leaf
+        closed form) when the vector store is kept, else leaf log-prob on
+        the flat index (``idx``, built here when None).  The exact branch
+        chunks the batch so a plain (Bc, C, D) gather stays under
+        ``rerank_gather_budget`` bytes; the JAX package also pads the
+        ragged chunk so one compiled program serves, which eager PyTorch
+        does not need."""
+        emb = self._emb_device()
+        if emb is not None:
+            qs = q if q_store is None else q_store
+            pv = float(self.cfg.prior_var)
+            B, C = cand.shape
+            bmax = max(32, int(self.rerank_gather_budget)
+                       // max(C * emb.shape[1] * 4, 1))
+            if bmax >= B:
+                return index_mod.exact_rerank(emb, qs, cand, cand_scores,
+                                              kk, pv)
+            bmax = 1 << (bmax.bit_length() - 1)
+            outs = [index_mod.exact_rerank(emb, qs[s:s + bmax],
+                                           cand[s:s + bmax],
+                                           cand_scores[s:s + bmax], kk, pv)
+                    for s in range(0, B, bmax)]
+            return (torch.cat([o[0] for o in outs]),
+                    torch.cat([o[1] for o in outs]))
+        if idx is None:
+            idx = self._flat_pred_index()
+        return index_mod._leaf_lp_rerank(idx, q, cand, cand_scores, kk)
+
+    def _pallas_topk(self, bidx, q, kk: int, rerank: int, q_store=None):
+        """Serve through the blocked sweep kernel (the counterpart of the
+        JAX package's Pallas engine).  Returns None when the kernel's
+        merged pool, NB * ``pallas_block_k`` candidates, cannot hold the
+        requested re-rank pool: the caller then serves another engine.
+        The JAX package also returned None when no query chunk fitted
+        VMEM; the kernel tiles queries and M in shared memory, so every
+        batch fits and that branch has no counterpart."""
+        bk = self.pallas_block_k
+        if rerank and bidx.ivt_b.shape[0] * bk < max(kk, rerank):
+            return None
+        if rerank:
+            cs, cand = blocked_topk.blocked_topk(bidx, q, max(kk, rerank),
+                                                 block_k=bk)
+            cs = torch.where(cs > blocked_topk.NEG / 2, cs,
+                             torch.full_like(cs, float("-inf")))
+            return self._rerank_step(None, q, cand, cs, kk, q_store=q_store)
+        return blocked_topk.blocked_topk(bidx, q, kk)
 
     def query_ids(self, queries, k: int, rerank: Optional[int] = None):
         """(B, D) raw embeddings -> (B, k) sentence ids, a device tensor."""

@@ -31,6 +31,19 @@
 // scores cost about as much as a CUDA-core sweep.)  The ragged query tile
 // is zero-filled and never written out.  wgmma, TMA and warp
 // specialisation are left for a later change.
+//
+// Second entry, the group-max pool (fused_group_topk_*): replaces
+// rag_cobweb_tpu/ops/pallas_query.py::_fused_group_kernel (behind
+// pallas_fused_group_topk).  The same sweep and score tile, invalid rows
+// NEG = -3e38 as in the TPU kernel; then, instead of the radix select, each
+// warp takes its query's 16 groups of 128 adjacent rows and runs
+// ``per_group`` rounds of max/argmax per group (ties to the lower row, the
+// taken row set to NEG; once every row is NEG a round returns NEG at the
+// group's lowest row, as JAX's argmax does).  Column i * 16 + g of the
+// (NS, B, per_group * 16) output holds round i of group g, with the global
+// row slab * 2048 + g * 128 + argmax.  Its bound is the sweep's (~10.4
+// GFLOP at the flagship shape, ~11 us): the selection is 4 registers a
+// lane and a 5-step shuffle per round, cheap next to the radix select.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -47,6 +60,9 @@ constexpr int THREADS = 512;                 // 16 warps, one query each
 constexpr int CPT = SLAB / THREADS;          // 4 adjacent columns a thread
 constexpr int DCH = 64;                      // qq depth chunk in shared
 constexpr int BINS = 256;                    // radix digit: 8 bits
+constexpr int GROUP = 128;                   // rows per group (group pool)
+constexpr int NG = SLAB / GROUP;             // groups per slab
+constexpr float NEG = -3e38f;                // the TPU kernels' mask value
 constexpr size_t SMEM = (size_t)TQ * SLAB * sizeof(float)
                       + (size_t)TQ * BINS * sizeof(unsigned int)
                       + (size_t)TQ * DCH * sizeof(float);
@@ -172,13 +188,54 @@ __device__ __forceinline__ void sweep_mma(const __nv_bfloat16* __restrict__ qq,
   }
 }
 
-template <typename T>
+// Group pool of one query (warp-uniform): per 128-row group, ``per_group``
+// rounds of max/argmax over the four rows each lane holds in registers.
+__device__ __forceinline__ void group_select(const float* rs, float* out_s,
+                                             int* out_i, size_t base,
+                                             int slab, int per_group) {
+  const int lane = threadIdx.x & 31;
+  const unsigned int full = 0xffffffffu;
+  for (int g = 0; g < NG; ++g) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = rs[g * GROUP + j * 32 + lane];
+    for (int i = 0; i < per_group; ++i) {
+      float best = v[0];
+      int bi = lane;
+#pragma unroll
+      for (int j = 1; j < 4; ++j) {         // rows ascend with j: first max
+        if (v[j] > best) { best = v[j]; bi = j * 32 + lane; }
+      }
+#pragma unroll
+      for (int off = 16; off; off >>= 1) {
+        const float ov = __shfl_xor_sync(full, best, off);
+        const int oi = __shfl_xor_sync(full, bi, off);
+        if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
+      }
+      if (lane == 0) {
+        out_s[base + (size_t)i * NG + g] = best;
+        out_i[base + (size_t)i * NG + g] = slab * SLAB + g * GROUP + bi;
+      }
+      if ((bi & 31) == lane) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j == (bi >> 5)) v[j] = NEG;
+        }
+      }
+    }
+  }
+}
+
+// One block per (slab, 16-query tile).  GROUP_POOL = false: per-slab
+// top-kappa by radix select (``sel`` = kappa, invalid rows -inf); true:
+// the group pool (``sel`` = per_group, invalid rows NEG).
+template <typename T, bool GROUP_POOL>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_topk_kernel(const T* __restrict__ qq, const T* __restrict__ gt,
                   const float* __restrict__ c,
                   const uint8_t* __restrict__ valid,
                   float* __restrict__ out_s, int* __restrict__ out_i,
-                  int B, int twoD, int Sp, int kappa) {
+                  int B, int twoD, int Sp, int sel) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* sc = reinterpret_cast<float*>(smem);                    // [TQ][SLAB]
   unsigned int* hs =
@@ -199,7 +256,7 @@ fused_topk_kernel(const T* __restrict__ qq, const T* __restrict__ gt,
   __syncthreads();
 
   // bias and validity mask on the staged scores
-  const float neg_inf = __int_as_float(0xff800000);
+  const float masked = GROUP_POOL ? NEG : __int_as_float(0xff800000);
   float cb[CPT];
   bool ok[CPT];
 #pragma unroll
@@ -211,10 +268,10 @@ fused_topk_kernel(const T* __restrict__ qq, const T* __restrict__ gt,
   for (int q = 0; q < TQ; ++q) {
     float4* p = reinterpret_cast<float4*>(sc + q * SLAB + col);
     float4 v = *p;
-    v.x = ok[0] ? v.x + cb[0] : neg_inf;
-    v.y = ok[1] ? v.y + cb[1] : neg_inf;
-    v.z = ok[2] ? v.z + cb[2] : neg_inf;
-    v.w = ok[3] ? v.w + cb[3] : neg_inf;
+    v.x = ok[0] ? v.x + cb[0] : masked;
+    v.y = ok[1] ? v.y + cb[1] : masked;
+    v.z = ok[2] ? v.z + cb[2] : masked;
+    v.w = ok[3] ? v.w + cb[3] : masked;
     *p = v;
   }
   __syncthreads();
@@ -224,6 +281,12 @@ fused_topk_kernel(const T* __restrict__ qq, const T* __restrict__ gt,
   const int qg = q0 + w;
   if (qg >= B) return;
   const float* rs = sc + w * SLAB;
+  if constexpr (GROUP_POOL) {
+    group_select(rs, out_s, out_i, ((size_t)slab * B + qg) * sel * NG, slab,
+                 sel);
+    return;
+  }
+  const int kappa = sel;
   unsigned int* hist = hs + w * BINS;
   const unsigned int full = 0xffffffffu;
   // radix select: after pass p, `prefix` holds the top 8(p+1) bits of the
@@ -296,22 +359,22 @@ fused_topk_kernel(const T* __restrict__ qq, const T* __restrict__ gt,
   }
 }
 
-template <typename T>
+template <typename T, bool GROUP_POOL>
 int launch(const void* qq, const void* gt, const void* c, const void* valid,
-           void* out_s, void* out_i, int B, int twoD, int Sp, int kappa,
+           void* out_s, void* out_i, int B, int twoD, int Sp, int sel,
            void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      fused_topk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM);
+      fused_topk_kernel<T, GROUP_POOL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((B + TQ - 1) / TQ, Sp / SLAB);
-  fused_topk_kernel<T><<<grid, THREADS, SMEM,
-                         reinterpret_cast<cudaStream_t>(stream)>>>(
+  fused_topk_kernel<T, GROUP_POOL><<<grid, THREADS, SMEM,
+                                     reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const T*>(qq), reinterpret_cast<const T*>(gt),
       reinterpret_cast<const float*>(c),
       reinterpret_cast<const uint8_t*>(valid),
       reinterpret_cast<float*>(out_s), reinterpret_cast<int*>(out_i), B,
-      twoD, Sp, kappa);
+      twoD, Sp, sel);
   return (int)cudaGetLastError();
 }
 
@@ -321,14 +384,33 @@ extern "C" int fused_topk_bf16(const void* qq, const void* gt, const void* c,
                                const void* valid, void* out_s, void* out_i,
                                int B, int twoD, int Sp, int kappa,
                                void* stream) {
-  return launch<__nv_bfloat16>(qq, gt, c, valid, out_s, out_i, B, twoD, Sp,
-                               kappa, stream);
+  return launch<__nv_bfloat16, false>(qq, gt, c, valid, out_s, out_i, B,
+                                      twoD, Sp, kappa, stream);
 }
 
 extern "C" int fused_topk_f32(const void* qq, const void* gt, const void* c,
                               const void* valid, void* out_s, void* out_i,
                               int B, int twoD, int Sp, int kappa,
                               void* stream) {
-  return launch<float>(qq, gt, c, valid, out_s, out_i, B, twoD, Sp, kappa,
-                       stream);
+  return launch<float, false>(qq, gt, c, valid, out_s, out_i, B, twoD, Sp,
+                              kappa, stream);
+}
+
+// Group pool: out_s/out_i (NS, B, per_group * 16), 1 <= per_group <= 128.
+extern "C" int fused_group_topk_bf16(const void* qq, const void* gt,
+                                     const void* c, const void* valid,
+                                     void* out_s, void* out_i, int B,
+                                     int twoD, int Sp, int per_group,
+                                     void* stream) {
+  return launch<__nv_bfloat16, true>(qq, gt, c, valid, out_s, out_i, B,
+                                     twoD, Sp, per_group, stream);
+}
+
+extern "C" int fused_group_topk_f32(const void* qq, const void* gt,
+                                    const void* c, const void* valid,
+                                    void* out_s, void* out_i, int B,
+                                    int twoD, int Sp, int per_group,
+                                    void* stream) {
+  return launch<float, true>(qq, gt, c, valid, out_s, out_i, B, twoD, Sp,
+                             per_group, stream);
 }

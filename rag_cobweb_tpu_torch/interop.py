@@ -15,7 +15,8 @@ import torch
 
 from rag_cobweb_tpu_torch.core import tree as tree_mod
 from rag_cobweb_tpu_torch.core.config import TreeConfig
-from rag_cobweb_tpu_torch.core.index import FusedIndex
+from rag_cobweb_tpu_torch.core.index import (BlockedIndex, FusedIndex,
+                                             PredictionIndex)
 from rag_cobweb_tpu_torch.device import resolve_device
 from rag_cobweb_tpu_torch.parallel.vforest import VForest
 from rag_cobweb_tpu_torch.whitening.models import PCAICAWhiteningModel
@@ -64,18 +65,20 @@ def load_jax_npz(path: str, device="cuda") -> VForest:
         return forest_from_numpy(arrays, meta, device=device)
 
 
+def _float_tensor(a, dev) -> torch.Tensor:
+    """f32 tensor, or bf16 when the numpy array is ml_dtypes bfloat16."""
+    a = np.asarray(a)
+    t = torch.as_tensor(a.astype(np.float32), device=dev)
+    return (t.to(torch.bfloat16) if a.dtype.name == "bfloat16" else t) \
+        .contiguous()
+
+
 def fused_index_from_numpy(GT, c, valid, device="cuda") -> FusedIndex:
     """A port FusedIndex from the JAX FusedIndex's arrays; a bf16 GT
     (ml_dtypes) stays bf16."""
     dev = resolve_device(device)
-    GT = np.asarray(GT)
-    if GT.dtype.name == "bfloat16":
-        gt = torch.as_tensor(GT.astype(np.float32), device=dev) \
-            .to(torch.bfloat16)
-    else:
-        gt = torch.as_tensor(GT.astype(np.float32), device=dev)
     return FusedIndex(
-        GT=gt.contiguous(),
+        GT=_float_tensor(GT, dev),
         c=torch.as_tensor(np.array(c, np.float32), device=dev),
         valid=torch.as_tensor(np.array(valid, bool), device=dev))
 
@@ -88,3 +91,47 @@ def whitener_from_numpy(arrays: dict) -> PCAICAWhiteningModel:
                                 arrays["ica_unmixing"],
                                 arrays["pca_explained_var"],
                                 arrays.get("eps", 1e-8))
+
+
+def prediction_index_from_numpy(arrays: dict,
+                                device="cuda") -> PredictionIndex:
+    """A port PredictionIndex from the JAX PredictionIndex's arrays
+    (``jax.device_get(idx)._asdict()``: inv_var_T, mu_over_var_T, const,
+    paths, path_weights, children, leaf_sentence_start,
+    leaf_sentence_count, sentence_order); the host copies the blocked
+    build reads are taken from the same arrays."""
+    dev = resolve_device(device)
+
+    def f32(name):
+        return torch.as_tensor(np.array(arrays[name], np.float32),
+                               device=dev)
+
+    def i64(name):
+        return torch.as_tensor(np.array(arrays[name], np.int64), device=dev)
+
+    return PredictionIndex(
+        inv_var_T=f32("inv_var_T"), mu_over_var_T=f32("mu_over_var_T"),
+        const=f32("const"), paths=i64("paths"),
+        path_weights=f32("path_weights"), children=i64("children"),
+        leaf_sentence_start=i64("leaf_sentence_start"),
+        leaf_sentence_count=i64("leaf_sentence_count"),
+        sentence_order=i64("sentence_order"),
+        paths_h=np.array(arrays["paths"], np.int32),
+        weights_h=np.array(arrays["path_weights"], np.float32),
+        order_h=np.array(arrays["sentence_order"], np.int32))
+
+
+def blocked_index_from_numpy(arrays: dict, device="cuda") -> BlockedIndex:
+    """A port BlockedIndex from the JAX BlockedIndex's arrays (ivt_b,
+    movt_b, const_b, W, valid, sid_of_slot); bf16 (ml_dtypes) terms stay
+    bf16."""
+    dev = resolve_device(device)
+    return BlockedIndex(
+        ivt_b=_float_tensor(arrays["ivt_b"], dev),
+        movt_b=_float_tensor(arrays["movt_b"], dev),
+        const_b=torch.as_tensor(np.array(arrays["const_b"], np.float32),
+                                device=dev),
+        W=_float_tensor(arrays["W"], dev),
+        valid=torch.as_tensor(np.array(arrays["valid"], bool), device=dev),
+        sid_of_slot=torch.as_tensor(np.array(arrays["sid_of_slot"],
+                                             np.int32), device=dev))

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-SOURCES = ("fused_topk", "rerank_l2")
+SOURCES = ("fused_topk", "rerank_l2", "blocked_topk")
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
@@ -27,6 +27,12 @@ _SIGNATURES = {
     "fused_topk": {
         "fused_topk_bf16": [_P] * 6 + [_I] * 4 + [_P],
         "fused_topk_f32": [_P] * 6 + [_I] * 4 + [_P],
+        "fused_group_topk_bf16": [_P] * 6 + [_I] * 4 + [_P],
+        "fused_group_topk_f32": [_P] * 6 + [_I] * 4 + [_P],
+    },
+    "blocked_topk": {
+        "blocked_topk_bf16": [_P] * 9 + [_I] * 6 + [_P],
+        "blocked_topk_f32": [_P] * 9 + [_I] * 6 + [_P],
     },
     "rerank_l2": {
         "rerank_l2": [_P] * 5 + [_I] * 3 + [_F, _F, _P],

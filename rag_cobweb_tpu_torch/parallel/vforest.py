@@ -57,6 +57,7 @@ class VForest:
         # host upper bound on any lane's allocated-node count
         self._alloc_hi = 1
         self._graph: "tree_mod.StepGraph | None" = None
+        self._flat_index: "index_mod.PredictionIndex | None" = None
 
     def _ensure_capacity(self, rounds: int):
         """Grow every lane when the next ``rounds`` inserts could overflow
@@ -150,6 +151,7 @@ class VForest:
         gids = np.arange(self.n_sentences, self.n_sentences + B)
         if B == 0:
             return gids
+        self._flat_index = None
         lane_of = gids % K
         lens = np.bincount(lane_of, minlength=K)
         R_max = int(lens.max())
@@ -203,6 +205,15 @@ class VForest:
         return index_mod.build_fused_from_state(
             self.cfg, self.state, self._leaf_global(), dtype=dtype,
             chase_depth=chase)
+
+    def flat_index(self) -> "index_mod.PredictionIndex":
+        """The whole forest flattened to one PredictionIndex over global
+        sentence ids (``core/index.build_flat_forest_index``), the input of
+        the blocked engines; cached until the next ``add``."""
+        if self._flat_index is None:
+            self._flat_index = index_mod.build_flat_forest_index(
+                self.cfg, self.state, self._leaf_global())
+        return self._flat_index
 
     def lane_signature(self, lane: int):
         """Structure signature of one lane's tree (see

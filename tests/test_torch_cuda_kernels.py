@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions, and the fused engine on the card against the host.  Marked
+versions, and the fused and blocked engines on the card against the
+host.  Marked
 ``cuda``: they need an NVIDIA GPU (sm_90a) and nvcc, and skip without
 one.  Run them on the card with
 
@@ -66,19 +67,130 @@ def test_rerank_kernel_matches_plain(card, D):
     torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-5, atol=0.0)
 
 
+def _holds(ks, ki, ps, full, tol):
+    """Kernel candidates against the plain version's, both in round order:
+    scores within ``tol``, and each kernel id that is not an exhausted
+    (NEG) round carries its score in the plain version's ``full`` scores,
+    so ids differ only among ties."""
+    assert bool(((ks - ps).abs() <= tol).all()), float((ks - ps).abs().max())
+    at = full.gather(2, ki.long())
+    real = ks > -1e38
+    assert bool(((at - ks).abs() <= tol)[real].all())
+
+
+def _blocked_index(card, dtype, NB, M, D, TS, S_last, seed):
+    """Random blocked index with small dyadic terms (nlp exact in f32, so
+    the kernel and the plain version round the same nlp to bf16) and
+    ~P=6 nonzero path weights per slot."""
+    from rag_cobweb_tpu_torch.core.index import BlockedIndex
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             device=card).float()
+
+    W = torch.rand((NB, M, TS), generator=g, device=card)
+    W = torch.where(torch.rand((NB, M, TS), generator=g, device=card)
+                    < 6.0 / M, W, torch.zeros_like(W))
+    valid = torch.ones((NB, TS), dtype=torch.bool, device=card)
+    valid[-1, S_last:] = False
+    return BlockedIndex(
+        ivt_b=(ints(1, 17, (NB, M, D)) / 16).to(dtype),
+        movt_b=(ints(-8, 9, (NB, M, D)) / 16).to(dtype),
+        const_b=ints(-64, 65, (NB, M)) / 4, W=W.to(dtype).contiguous(),
+        valid=valid,
+        sid_of_slot=torch.arange(NB * TS, device=card,
+                                 dtype=torch.int32).view(NB, TS))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,NB,M,D,TS,S_last,kk", [
+    (1, 1, 16, 8, 16, 16, 1),          # smallest tiles
+    (37, 5, 80, 20, 64, 40, 8),        # ragged B, D and M chunk
+    (70, 3, 144, 136, 512, 200, 16),   # D over one staged chunk
+    (33, 2, 32, 128, 1024, 700, 4),    # TS > 512: the 16-query tile
+    (20, 2, 48, 16, 32, 5, 12),        # kk above the valid slots: NEG
+])
+def test_blocked_topk_kernel_matches_plain(card, dtype, B, NB, M, D, TS,
+                                           S_last, kk):
+    from rag_cobweb_tpu_torch.ops import blocked_topk as bt
+    bidx = _blocked_index(card, dtype, NB, M, D, TS, S_last, B + M)
+    g = torch.Generator(device=card).manual_seed(B)
+    q = (torch.randint(-8, 9, (B, D), generator=g, device=card).float()
+         / 8).to(dtype)
+    qd, q2 = bt._queries(bidx, q)
+    ks, ki = bt._block_candidates(bt.blocked_topk, qd, q2, bidx, kk)
+    ps, pi = bt.block_candidates_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
+                                       bidx.const_b, bidx.W, bidx.valid, kk)
+    full, _ = bt.block_scores_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
+                                    bidx.const_b, bidx.W, bidx.valid)
+    torch.cuda.synchronize()
+    _holds(ks, ki, ps, full, 1e-3 + 1e-3 * ps.abs())
+    neg = ps <= bt.NEG / 2          # exhausted rounds: NEG at slot 0
+    assert torch.equal(neg, ks <= bt.NEG / 2)
+    assert bool((ki[neg] == 0).all())
+
+
+def test_blocked_entries_agree_on_the_card(card):
+    """Both entries (ragged batch, padded by the tiled one) give the same
+    merged pool, and the card's pool equals the host's plain one."""
+    from rag_cobweb_tpu_torch.ops import blocked_topk as bt
+    bidx = _blocked_index(card, torch.bfloat16, 6, 64, 24, 64, 30, 1)
+    q = torch.randint(-8, 9, (45, 24), device=card).float() / 8
+    s1, i1 = bt.blocked_topk(bidx, q, 40, block_k=8)
+    s2, i2 = bt.blocked_topk_tiled(bidx, q, 40, block_k=8)
+    assert torch.equal(s1, s2)
+    assert torch.equal(torch.sort(i1, 1).values, torch.sort(i2, 1).values)
+    host = type(bidx)(*(t.cpu() for t in bidx))
+    s3, _ = bt.blocked_topk(host, q.cpu(), 40, block_k=8)
+    torch.testing.assert_close(s1.cpu(), s3, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,twoD,per_group,S", [(1, 8, 1, 4096),
+                                                (37, 99, 2, 3500),
+                                                (20, 130, 5, 2050)])
+def test_group_topk_kernel_matches_plain(card, dtype, B, twoD, per_group,
+                                         S):
+    from rag_cobweb_tpu_torch.ops import fused_topk as ft
+    g = torch.Generator(device=card).manual_seed(B + twoD)
+    Sp = 4096
+    qq = torch.randn((B, twoD), generator=g, device=card).to(dtype)
+    GT = (0.1 * torch.randn((twoD, Sp), generator=g, device=card)).to(dtype)
+    c = torch.randn((Sp,), generator=g, device=card)
+    valid = torch.arange(Sp, device=card) < S
+    ks, ki = ft.slab_group_topk(qq, GT, c, valid, per_group)
+    ps, pi = ft.slab_group_topk_plain(qq, GT, c, valid, per_group)
+    full = ft.slab_scores_plain(qq, GT, c, valid, ft.NEG).permute(1, 0, 2)
+    torch.cuda.synchronize()
+    base = (torch.arange(Sp // ft.SLAB, device=card) * ft.SLAB).view(-1, 1, 1)
+    _holds(ks, ki - base, ps, full, 1e-3 + 1e-3 * ps.abs())
+    neg = ps <= ft.NEG / 2          # exhausted rounds: the group's first row
+    assert torch.equal(neg, ks <= ft.NEG / 2)
+    assert torch.equal(ki[neg], pi[neg])
+
+
 def test_kernels_count_their_launches(card):
+    from rag_cobweb_tpu_torch.ops import blocked_topk as bt
     from rag_cobweb_tpu_torch.ops import fused_topk, rerank
-    n0, m0 = fused_topk.slab_topk.launches, rerank.rerank_lp.launches
-    fused_topk.slab_topk(torch.ones((2, 4), device=card),
-                         torch.ones((4, 2048), device=card),
-                         torch.zeros(2048, device=card),
-                         torch.ones(2048, dtype=torch.bool, device=card), 3)
+    entries = (fused_topk.slab_topk, fused_topk.slab_group_topk,
+               rerank.rerank_lp, bt.blocked_topk, bt.blocked_topk_tiled)
+    before = [f.launches for f in entries]
+    gt_args = (torch.ones((2, 4), device=card),
+               torch.ones((4, 2048), device=card),
+               torch.zeros(2048, device=card),
+               torch.ones(2048, dtype=torch.bool, device=card))
+    fused_topk.slab_topk(*gt_args, 3)
+    fused_topk.slab_group_topk(*gt_args, 2)
     rerank.rerank_lp(torch.ones((3, 4), device=card),
                      torch.ones((2, 4), device=card),
                      torch.zeros((2, 5), dtype=torch.int32, device=card),
                      torch.zeros((2, 5), device=card), 1.0)
-    assert fused_topk.slab_topk.launches == n0 + 1
-    assert rerank.rerank_lp.launches == m0 + 1
+    bidx = _blocked_index(card, torch.bfloat16, 2, 16, 8, 16, 16, 0)
+    q = torch.ones((3, 8), device=card)
+    bt.blocked_topk(bidx, q, 4)
+    bt.blocked_topk_tiled(bidx, q, 4)
+    assert [f.launches for f in entries] == [n + 1 for n in before]
 
 
 def test_index_serves_the_same_ids_on_the_card(card):

@@ -48,12 +48,26 @@ def test_import_and_host_path_build_nothing(monkeypatch):
     for p in PORT_FILES[:-1]:
         mod = ".".join(p.relative_to(ROOT).with_suffix("").parts)
         importlib.import_module(mod.removesuffix(".__init__"))
-    from rag_cobweb_tpu_torch.ops import _build, fused_topk, rerank
+    from rag_cobweb_tpu_torch.core.index import BlockedIndex, FusedIndex
+    from rag_cobweb_tpu_torch.ops import (_build, blocked_topk, fused_topk,
+                                          rerank)
     fused_topk.slab_topk(torch.ones((2, 4)), torch.ones((4, 2048)),
                          torch.zeros(2048), torch.ones(2048, dtype=bool), 3)
+    fused_topk.slab_group_topk(torch.ones((2, 4)), torch.ones((4, 2048)),
+                               torch.zeros(2048),
+                               torch.ones(2048, dtype=bool), 2)
+    fused_topk.fused_group_topk(
+        FusedIndex(torch.ones((4, 2048)), torch.zeros(2048),
+                   torch.ones(2048, dtype=bool)), torch.ones((2, 2)), 3)
     rerank.rerank_lp(torch.ones((3, 4)), torch.ones((2, 4)),
                      torch.zeros((2, 5), dtype=torch.int32),
                      torch.zeros((2, 5)), 1.0)
+    bidx = BlockedIndex(torch.ones((2, 16, 4)), torch.zeros((2, 16, 4)),
+                        torch.zeros((2, 16)), torch.ones((2, 16, 16)),
+                        torch.ones((2, 16), dtype=bool),
+                        torch.zeros((2, 16), dtype=torch.int32))
+    blocked_topk.blocked_topk(bidx, torch.ones((3, 4)), 5)
+    blocked_topk.blocked_topk_tiled(bidx, torch.ones((3, 4)), 5)
     assert not _build._libs
 
 
