@@ -11,9 +11,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 2. kernels against their plain PyTorch versions on the card, each timed
    beside its bound, its plain version and a library yardstick the port
    never calls: the fused pool at the flagship and 1M-row shapes, the
-   re-rank, the blocked sweep through both entries at the 100k cell's
-   shapes (B = 1024 and 4096) plus a small f32 index, and the group pool
-   at the flagship shape (per_group 1 and 2);
+   re-rank, the blocked sweep on a dyadic index of the 100k cell's
+   recorded shape (exact-rounding check, untimed) plus a small f32 index,
+   and the group pool at the flagship shape (per_group 1 and 2);
 3. the flagship slice: ``rag_cobweb_tpu_torch.bench.headline`` at the
    flagship settings (c=10000, 1000 queries, 768-d, PCA 0.96, 32 lanes,
    k=10, pool 1024, batch 1024) with the kernels' launch counters set to
@@ -26,9 +26,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    served by the engines ``blocked_kernel``, ``blocked`` and ``fused``,
    each in its own counter window and each within 0.005 recall@10 of the
    exact scan; ``blocked_kernel`` must launch the blocked and re-rank
-   kernels and not the fused one.  Then the tiled entry over the served
-   blocked index (its own window), checked against the other entry and
-   the plain version;
+   kernels and not the fused one.  The blocked kernel is then held
+   against its plain version on the served index with the whitened
+   queries and timed there at each batch size the serving gives it
+   (1, 8, 32, 1024) and at 4096;
 4. one JSON line of per-kernel numbers, the nvidia-smi line, and the
    final ``{"ok": true, "device": {...}}`` line.
 
@@ -236,18 +237,16 @@ def dyadic_blocked(B, NB, M, D, TS, S_last, dtype, seed):
     return q, bidx
 
 
-def check_blocked(bt, entry_name, q, bidx, kk, reps, real=False):
-    """The blocked sweep kernel through ``entry_name``'s launcher against
-    its plain version.  Tolerance 1e-3 + 1e-3 |score|; on real (not
+def check_blocked(bt, q, bidx, kk, reps, real=False):
+    """The blocked sweep kernel against its plain version.  Tolerance 1e-3 + 1e-3 |score|; on real (not
     dyadic) data plus, per (block, query), one bf16 step of every nlp term
     weighted by |W| (the f32 sums run in another order and may round to
     the neighbouring bf16 value).  Returns the record of this shape."""
-    entry = getattr(bt, entry_name)
     qd, q2 = bt._queries(bidx, q)
     B, D = qd.shape
     NB, M, _ = bidx.ivt_b.shape
     TS = bidx.W.shape[2]
-    ks, ki = bt._block_candidates(entry, qd, q2, bidx, kk)
+    ks, ki = bt._block_candidates(qd, q2, bidx, kk)
     ps, pi = bt.block_candidates_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
                                        bidx.const_b, bidx.W, bidx.valid, kk)
     full, nlp = bt.block_scores_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
@@ -258,7 +257,7 @@ def check_blocked(bt, entry_name, q, bidx, kk, reps, real=False):
         step = torch.matmul(nlp.abs() * 2.0 ** -7, bidx.W.float().abs())
         tol = tol + step.amax(dim=2, keepdim=True)
         del step
-    err, n_diff = hold(f"{entry_name} B={B}", ks, ki, ps, pi, full, tol)
+    err, n_diff = hold(f"blocked_topk B={B}", ks, ki, ps, pi, full, tol)
     del full, nlp, tol
     esz = bidx.W.element_size()
     lo = bidx.W.dtype == torch.bfloat16
@@ -268,7 +267,7 @@ def check_blocked(bt, entry_name, q, bidx, kk, reps, real=False):
     b_ms, b_by = bound(nbytes, flops,
                        PEAK_BF16_FLOPS if lo else PEAK_F32_FLOPS)
     if reps == 0:
-        log(f"[kernel] {entry_name} B={B} NB={NB} M={M} D={D} TS={TS} "
+        log(f"[kernel] blocked_topk B={B} NB={NB} M={M} D={D} TS={TS} "
             f"kk={kk} {bidx.W.dtype}: max_abs_err={err:.3g} "
             f"boundary_tie_ids={n_diff}")
         return None
@@ -282,14 +281,13 @@ def check_blocked(bt, entry_name, q, bidx, kk, reps, real=False):
         sc.masked_fill_(~bidx.valid.unsqueeze(2), bt.NEG)
         return torch.topk(sc, kk, dim=1)
 
-    ms = cuda_ms(lambda: bt._block_candidates(entry, qd, q2, bidx, kk),
-                 reps)
+    ms = cuda_ms(lambda: bt._block_candidates(qd, q2, bidx, kk), reps)
     plain_ms = cuda_ms(lambda: bt.block_candidates_plain(
         qd, q2, bidx.ivt_b, bidx.movt_b, bidx.const_b, bidx.W, bidx.valid,
         kk), reps)
     lib_ms = cuda_ms(library, reps)
-    log(f"[kernel] {entry_name} B={B} NB={NB} M={M} D={D} TS={TS} kk={kk} "
-        f"{bidx.W.dtype}: max_abs_err={err:.3g} boundary_tie_ids={n_diff} "
+    log(f"[kernel] blocked_topk{' (served index)' if real else ''} B={B} "
+        f"NB={NB} M={M} D={D} TS={TS} kk={kk} {bidx.W.dtype}: max_abs_err={err:.3g} boundary_tie_ids={n_diff} "
         f"ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) plain_ms={plain_ms:.4f} "
         f"library_ms={lib_ms:.4f}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -403,15 +401,15 @@ def main() -> int:
                           seed=3)
     check_rerank(rerank, B=1024, C=1024, D=768, S=1 << 20, reps=5, seed=4)
     torch.cuda.empty_cache()
-    # the 100k blocked cell's shapes: NB=196, M=896, D=128, TS=512, kk=16
-    q, bidx = dyadic_blocked(4096, 196, 896, 128, 512, 300, torch.bfloat16,
+    # the blocked index shape the JAX package recorded for the 100k cell
+    # (NB=196, M=896, D=128, TS=512, kk=16), dyadic so that the rounding
+    # to bf16 is exact: a check only, the kernel is timed on the served
+    # index in phase 3b
+    q, bidx = dyadic_blocked(1024, 196, 896, 128, 512, 300, torch.bfloat16,
                              seed=5)
-    main_b = check_blocked(blocked_topk, "blocked_topk", q[:1024], bidx, 16,
-                           reps=10)
-    main_bt = check_blocked(blocked_topk, "blocked_topk_tiled", q, bidx, 16,
-                            reps=5)
+    check_blocked(blocked_topk, q, bidx, 16, reps=0)
     q, bidx = dyadic_blocked(37, 5, 48, 20, 64, 40, torch.float32, seed=6)
-    check_blocked(blocked_topk, "blocked_topk", q, bidx, 8, reps=3)
+    check_blocked(blocked_topk, q, bidx, 8, reps=0)
     del q, bidx
     torch.cuda.empty_cache()
     gin = group_inputs(1024, 496, 10240, 10000, seed=7)
@@ -424,8 +422,7 @@ def main() -> int:
     counters = {"fused_topk": fused_topk.slab_topk,
                 "rerank_l2": rerank.rerank_lp,
                 "fused_group_topk": fused_topk.slab_group_topk,
-                "blocked_topk": blocked_topk.blocked_topk,
-                "blocked_topk_tiled": blocked_topk.blocked_topk_tiled}
+                "blocked_topk": blocked_topk.blocked_topk}
     launches, windows = {}, {}
 
     def zero():
@@ -479,6 +476,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3b. the blocked slice: the 100k cell -----------------------------
+    served = {}
+
     def blocked_hook(event, engine, db, data):
         if event == "start":
             zero()
@@ -492,21 +491,15 @@ def main() -> int:
         windows["shape"] = (NB, M, TS)
         log(f"[blocked] index NB={NB} M={M} TS={TS} "
             f"D={bidx.ivt_b.shape[2]} {bidx.W.dtype}")
-        # the tiled entry over the served index, as the JAX package's
-        # roofline benchmark drives it: the whole query set in one call
+        # the kernel held and timed on the served index, at the batch
+        # sizes the serving gives it (1, 8, 32 and 1024: the headline's
+        # latency probes and batches) and at 4096, the JAX roofline's
+        # largest batch
         qw = whitened(db, data, len(data.query_embs))
-        pool = min(512, NB * db.pallas_block_k)
-        zero()
-        tt, ti = blocked_topk.blocked_topk_tiled(bidx, qw, pool, block_k=16)
-        torch.cuda.synchronize()
-        windows["tiled"] = read()
-        bs, bi = blocked_topk.blocked_topk(bidx, qw, pool, block_k=16)
-        if not torch.equal(tt, bs) or not torch.equal(
-                torch.sort(ti, 1).values, torch.sort(bi, 1).values):
-            raise AssertionError("blocked_topk_tiled and blocked_topk "
-                                 "disagree on the served index")
-        check_blocked(blocked_topk, "blocked_topk", qw[:1024], bidx, 16,
-                      reps=0, real=True)
+        kk = db.pallas_block_k
+        for B, reps in ((1, 20), (8, 20), (32, 20), (1024, 10), (4096, 3)):
+            served[B] = check_blocked(blocked_topk, qw[:B], bidx, kk, reps,
+                                      real=True)
 
     recs = headline.run(corpus_size=100000, queries=4096, dim=768,
                         pca_dim=128, k=10, batch=1024, dataset="hard",
@@ -521,7 +514,6 @@ def main() -> int:
                 f"0.005 below the exact scan's {r['exact_recall@10']}")
     for eng in ("blocked_kernel", "blocked", "fused"):
         log(f"[blocked] {eng} serving launches: {windows[eng]}")
-    log(f"[blocked] tiled entry over the served index: {windows['tiled']}")
     wk, wb = windows["blocked_kernel"], windows["blocked"]
     if not (wk["blocked_topk"] > 0 and wk["rerank_l2"] > 0
             and wk["fused_topk"] == 0):
@@ -531,10 +523,9 @@ def main() -> int:
             and wb["fused_topk"] == 0):
         raise AssertionError(f"blocked did not serve the PyTorch sweep: "
                              f"{wb}")
-    if windows["tiled"]["blocked_topk_tiled"] <= 0:
-        raise AssertionError("blocked_topk_tiled never launched")
     launches["blocked_topk"] = wk["blocked_topk"]
-    launches["blocked_topk_tiled"] = windows["tiled"]["blocked_topk_tiled"]
+    log("[blocked] blocked_topk ms on the served index by batch size: "
+        + json.dumps({B: r["ms"] for B, r in sorted(served.items())}))
 
     # -- 4. result lines ----------------------------------------------------
     src = "rag_cobweb_tpu_torch/csrc/"
@@ -545,14 +536,12 @@ def main() -> int:
         dict(name="rerank_l2", route="cuda", source=src + "rerank_l2.cu",
              replaces="scripts/gather_probe.py:55",
              launches=launches["rerank_l2"], **main_r),
+        # one CUDA kernel for both TPU kernels: _kernel_v2's body is _kernel
         dict(name="blocked_topk", route="cuda",
              source=src + "blocked_topk.cu",
-             replaces="rag_cobweb_tpu/ops/pallas_query.py:40",
-             launches=launches["blocked_topk"], **main_b),
-        dict(name="blocked_topk_tiled", route="cuda",
-             source=src + "blocked_topk.cu",
-             replaces="rag_cobweb_tpu/ops/pallas_query.py:126",
-             launches=launches["blocked_topk_tiled"], **main_bt),
+             replaces="rag_cobweb_tpu/ops/pallas_query.py:40; "
+                      "rag_cobweb_tpu/ops/pallas_query.py:126",
+             launches=launches["blocked_topk"], **served[1024]),
         dict(name="fused_group_topk", route="cuda",
              source=src + "fused_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:270",

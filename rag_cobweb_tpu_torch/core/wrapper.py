@@ -58,8 +58,6 @@ class CobwebIndex:
     rerank_candidates = 512
     # byte budget for one query chunk's sweep working set
     fused_score_budget = 2 << 30
-    # byte budget for the exact re-rank's (B, C, D) candidate gather
-    rerank_gather_budget = 2 << 30
     backstop_pool = "auto"
     backstop_threshold = 131072
 
@@ -278,10 +276,8 @@ class CobwebIndex:
         the raw path-score order from an f32 index."""
         n_indexed = len(self.sentences)
         if self.use_pallas and n_indexed >= self.pallas_threshold:
-            out = self._pallas_topk(self._blocked_index(), q, kk, rerank,
-                                    q_store=q_store)
-            if out is not None:
-                return out
+            return self._pallas_topk(self._blocked_index(), q, kk, rerank,
+                                     q_store=q_store)
         if self.use_fused:
             if rerank:
                 pool = min(max(rerank, kk), n_indexed)
@@ -303,43 +299,30 @@ class CobwebIndex:
                      q_store=None):
         """Final candidate re-rank: EXACT (stored rows, the fresh-leaf
         closed form) when the vector store is kept, else leaf log-prob on
-        the flat index (``idx``, built here when None).  The exact branch
-        chunks the batch so a plain (Bc, C, D) gather stays under
-        ``rerank_gather_budget`` bytes; the JAX package also pads the
-        ragged chunk so one compiled program serves, which eager PyTorch
-        does not need."""
+        the flat index (``idx``, built here when None).  The JAX package
+        chunks the exact branch to bound its (B, C, D) gather; the card's
+        re-rank kernel gathers row by row, so the batch goes in whole."""
         emb = self._emb_device()
         if emb is not None:
             qs = q if q_store is None else q_store
-            pv = float(self.cfg.prior_var)
-            B, C = cand.shape
-            bmax = max(32, int(self.rerank_gather_budget)
-                       // max(C * emb.shape[1] * 4, 1))
-            if bmax >= B:
-                return index_mod.exact_rerank(emb, qs, cand, cand_scores,
-                                              kk, pv)
-            bmax = 1 << (bmax.bit_length() - 1)
-            outs = [index_mod.exact_rerank(emb, qs[s:s + bmax],
-                                           cand[s:s + bmax],
-                                           cand_scores[s:s + bmax], kk, pv)
-                    for s in range(0, B, bmax)]
-            return (torch.cat([o[0] for o in outs]),
-                    torch.cat([o[1] for o in outs]))
+            return index_mod.exact_rerank(emb, qs, cand, cand_scores, kk,
+                                          float(self.cfg.prior_var))
         if idx is None:
             idx = self._flat_pred_index()
         return index_mod._leaf_lp_rerank(idx, q, cand, cand_scores, kk)
 
     def _pallas_topk(self, bidx, q, kk: int, rerank: int, q_store=None):
         """Serve through the blocked sweep kernel (the counterpart of the
-        JAX package's Pallas engine).  Returns None when the kernel's
-        merged pool, NB * ``pallas_block_k`` candidates, cannot hold the
-        requested re-rank pool: the caller then serves another engine.
-        The JAX package also returned None when no query chunk fitted
-        VMEM; the kernel tiles queries and M in shared memory, so every
-        batch fits and that branch has no counterpart."""
+        JAX package's Pallas engine).  Its merged pool holds NB *
+        ``pallas_block_k`` candidates; when that is below the re-rank pool
+        (few blocks), each block gives its exact top-pool instead, so the
+        merge is the exact top-pool of the blocked scores; there the JAX
+        package gave way to another engine.  It also gave way when no query
+        chunk fitted VMEM; the kernel tiles queries and M in shared
+        memory, so every batch fits and that branch has no counterpart."""
         bk = self.pallas_block_k
         if rerank and bidx.ivt_b.shape[0] * bk < max(kk, rerank):
-            return None
+            bk = 0          # blocked_topk: per-block candidates = the pool
         if rerank:
             cs, cand = blocked_topk.blocked_topk(bidx, q, max(kk, rerank),
                                                  block_k=bk)

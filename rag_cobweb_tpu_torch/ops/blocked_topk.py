@@ -15,13 +15,15 @@ round returns NEG at slot 0, as JAX's argmax does).  One CUDA kernel,
 is the same function in plain PyTorch.  A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.
 
-The two entries keep the JAX contracts and each counts its own launches.
-Both merge the (NB, B, kk) candidates with an exact ``torch.topk`` and map
-slots through ``sid_of_slot``; the TPU's tiled entry merged with
-``approx_max_k``, which PyTorch lacks.  The JAX package sized its query
-chunks to VMEM (``pallas_vmem_estimate``, ``_v2_tile``) and refused a
-batch that did not fit; the kernel tiles both the queries and M in shared
-memory, so every batch fits.
+``blocked_topk`` keeps the JAX entries' contract and counts the kernel's
+launches; ``blocked_topk_tiled`` is the same call with the tiled entry's
+default of 16 candidates per block.  The (NB, B, kk) candidates merge with
+an exact ``torch.topk`` and slots map through ``sid_of_slot``; the TPU's
+tiled entry merged with ``approx_max_k``, which PyTorch lacks.  The JAX
+package sized its query chunks to VMEM (``pallas_vmem_estimate``,
+``_v2_tile``), padded a ragged batch to its query tile and refused a batch
+that did not fit; the kernel masks a ragged query tile itself and tiles
+both the queries and M in shared memory, so every batch fits as it is.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ import torch
 from rag_cobweb_tpu_torch.ops import _build
 
 NEG = -3e38
-QUERY_TILE = 32   # queries per CUDA block (TS <= 512); the tiled entry pads B
 
 
 def _check(q, q2, bidx, kk: int):
@@ -85,9 +86,10 @@ def block_candidates_plain(q, q2, ivt_b, movt_b, const_b, W, valid,
             torch.cat(slot, dim=2).to(torch.int32))
 
 
-def _block_candidates(entry, q, q2, bidx, kk: int):
+def _block_candidates(q, q2, bidx, kk: int):
     """(NB, B, kk) candidates of every block, by the kernel on the card
-    (counted on ``entry.launches``) or the plain version on the host."""
+    (counted on ``blocked_topk.launches``) or the plain version on the
+    host."""
     _check(q, q2, bidx, kk)
     if q.device.type == "cpu":
         return block_candidates_plain(q, q2, bidx.ivt_b, bidx.movt_b,
@@ -117,7 +119,7 @@ def _block_candidates(entry, q, q2, bidx, kk: int):
         _build.check(fn(*(t.data_ptr() for _, t in ts), out_s.data_ptr(),
                         out_t.data_ptr(), B, NB, M, D, TS, kk, stream),
                      "blocked_topk launch")
-    entry.launches += 1
+    blocked_topk.launches += 1
     return out_s, out_t
 
 
@@ -145,7 +147,7 @@ def blocked_topk(bidx, queries, k: int, block_k: int = 0):
     block (0 = k); the merged pool holds NB * block_k of them."""
     kk = min(block_k or k, bidx.W.shape[2])
     q, q2 = _queries(bidx, queries)
-    out_s, out_t = _block_candidates(blocked_topk, q, q2, bidx, kk)
+    out_s, out_t = _block_candidates(q, q2, bidx, kk)
     return _merge(out_s, out_t, bidx, k)
 
 
@@ -153,18 +155,7 @@ blocked_topk.launches = 0
 
 
 def blocked_topk_tiled(bidx, queries, k: int, block_k: int = 16):
-    """The contract of ``pallas_blocked_topk_tiled``: a ragged batch is
-    zero-padded to the query tile and cut back after the sweep.  Where the
-    JAX entry raised ("no VMEM-fitting query tile": large M or TS), the
-    kernel runs: its tile is fixed and M streams through shared memory."""
-    B, D = queries.shape
-    Bp = -(-B // QUERY_TILE) * QUERY_TILE
-    if Bp != B:
-        queries = torch.cat([queries, queries.new_zeros((Bp - B, D))])
-    kk = min(block_k or k, bidx.W.shape[2])
-    q, q2 = _queries(bidx, queries)
-    out_s, out_t = _block_candidates(blocked_topk_tiled, q, q2, bidx, kk)
-    return _merge(out_s[:, :B], out_t[:, :B], bidx, k)
-
-
-blocked_topk_tiled.launches = 0
+    """The contract of ``pallas_blocked_topk_tiled``, whose kernel body is
+    ``pallas_blocked_topk``'s: ``blocked_topk`` with 16 candidates per
+    block by default.  Its launches count on ``blocked_topk.launches``."""
+    return blocked_topk(bidx, queries, k, block_k)

@@ -269,17 +269,32 @@ def test_blocked_engine_serves_the_jax_ids(pair, monkeypatch, engine,
 
 
 def test_kernel_pool_too_small_serves_another_engine(pair, monkeypatch):
-    """A re-rank pool larger than NB * pallas_block_k is not served by
-    the kernel (its merged pool could not hold it): the blocked sweep in
-    PyTorch serves instead, as in the JAX package."""
+    """A re-rank pool larger than NB * pallas_block_k: the JAX package
+    serves another engine (here its XLA blocked sweep); the port still
+    serves the kernel, each block giving its exact top-pool, and the
+    served ids equal the JAX ones."""
     jdb, tdb, embs = pair
-    tdb.use_pallas = True
-    calls = []
-    monkeypatch.setattr(bt, "blocked_topk",
-                        lambda *a, **kw: calls.append(1))
-    ids = tdb.query_ids(embs[:4], 5, rerank=64).numpy()
-    assert not calls
-    assert all(b in ids[b] for b in range(4))
+    NB = tdb._blocked_index().ivt_b.shape[0]
+    assert NB * tdb.pallas_block_k < 64
+    for db in (jdb, tdb):
+        db.use_pallas = True
+    calls = {"kernel": [], "sweep": 0}
+    orig_k, orig_s = bt.blocked_topk, tidx.blocked_query_topk
+
+    def spy_k(*a, **kw):
+        calls["kernel"].append(kw.get("block_k"))
+        return orig_k(*a, **kw)
+
+    def spy_s(*a, **kw):
+        calls["sweep"] += 1
+        return orig_s(*a, **kw)
+
+    monkeypatch.setattr(bt, "blocked_topk", spy_k)
+    monkeypatch.setattr(tidx, "blocked_query_topk", spy_s)
+    want = np.asarray(jdb.query_ids(embs[:24], 5, rerank=64))
+    got = tdb.query_ids(embs[:24], 5, rerank=64).numpy()
+    assert calls == {"kernel": [0], "sweep": 0}
+    np.testing.assert_array_equal(got, want)
 
 
 def test_leaf_lp_engine_without_a_store():
