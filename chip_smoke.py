@@ -12,8 +12,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    beside its bound, its plain version and a library yardstick the port
    never calls: the fused pool at the flagship and 1M-row shapes, the
    re-rank, the blocked sweep on a dyadic index of the 100k cell's
-   recorded shape (exact-rounding check, untimed) plus a small f32 index,
-   and the group pool at the flagship shape (per_group 1 and 2);
+   recorded shape at B = 1, 8, 32, 1024 and 4096 (exact scores: no id may
+   differ; untimed), a 40-block one at B=8
+   (each block split over a cluster), a small f32 index, and the group
+   pool at the flagship shape (per_group 1 and 2); kernels 1 and 5 also
+   at B=1 and B=32, the batches of the flagship's latency probes;
 3. the flagship slice: ``rag_cobweb_tpu_torch.bench.headline`` at the
    flagship settings (c=10000, 1000 queries, 768-d, PCA 0.96, 32 lanes,
    k=10, pool 1024, batch 1024) with the kernels' launch counters set to
@@ -208,12 +211,15 @@ def hold(name, ks, ki, ps, pi, full, tol):
 
 
 def dyadic_blocked(B, NB, M, D, TS, S_last, dtype, seed):
-    """A random blocked index whose nlp is exact in float32 in any order:
-    q, movt, ivt and const are small multiples of powers of two, so the
-    kernel and the plain version round the same nlp to the W dtype (with
-    arbitrary data, a sum that lands next to a bf16 rounding boundary may
-    round the other way in one of them).  W holds ~12 nonzero weights per
-    slot, as a path does; the last block has ``S_last`` valid slots."""
+    """A random blocked index whose scores are exact in float32 in any
+    order: q, movt, ivt and const are small multiples of powers of two, so
+    the kernel and the plain version round the same nlp (a multiple of
+    2^-11 below 256) to the W dtype (with arbitrary data, a sum that lands
+    next to a bf16 rounding boundary may round the other way in one of
+    them), and W holds ~12 weights of 0.5 or 1 per slot, as a path does,
+    so every score fits float32's 24 bits: equal scores tie exactly and go
+    to the lower slot in both.  The last block has ``S_last`` valid
+    slots."""
     from rag_cobweb_tpu_torch.core.index import BlockedIndex
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
@@ -222,7 +228,7 @@ def dyadic_blocked(B, NB, M, D, TS, S_last, dtype, seed):
         return torch.randint(lo, hi, shape, generator=g, device=dev).float()
 
     q = (ints(-8, 9, (B, D)) / 8).to(dtype)
-    W = torch.rand((NB, M, TS), generator=g, device=dev)
+    W = ints(1, 3, (NB, M, TS)) / 2
     W = torch.where(torch.rand((NB, M, TS), generator=g, device=dev)
                     < 12.0 / M, W, torch.zeros_like(W))
     valid = torch.ones((NB, TS), dtype=torch.bool, device=dev)
@@ -238,8 +244,9 @@ def dyadic_blocked(B, NB, M, D, TS, S_last, dtype, seed):
 
 
 def check_blocked(bt, q, bidx, kk, reps, real=False):
-    """The blocked sweep kernel against its plain version.  Tolerance 1e-3 + 1e-3 |score|; on real (not
-    dyadic) data plus, per (block, query), one bf16 step of every nlp term
+    """The blocked sweep kernel against its plain version.  Tolerance
+    1e-3 + 1e-3 |score|, and on a dyadic index no id may differ; on real
+    data plus, per (block, query), one bf16 step of every nlp term
     weighted by |W| (the f32 sums run in another order and may round to
     the neighbouring bf16 value).  Returns the record of this shape."""
     qd, q2 = bt._queries(bidx, q)
@@ -259,6 +266,9 @@ def check_blocked(bt, q, bidx, kk, reps, real=False):
         del step
     err, n_diff = hold(f"blocked_topk B={B}", ks, ki, ps, pi, full, tol)
     del full, nlp, tol
+    if n_diff and not real:
+        raise AssertionError(f"blocked_topk B={B}: {n_diff} ids differ on "
+                             "a dyadic index")
     esz = bidx.W.element_size()
     lo = bidx.W.dtype == torch.bfloat16
     nbytes = (2 * B * D * esz + 2 * NB * M * D * esz + NB * M * 4
@@ -400,14 +410,33 @@ def main() -> int:
     main_r = check_rerank(rerank, B=1024, C=1024, D=768, S=10240, reps=20,
                           seed=3)
     check_rerank(rerank, B=1024, C=1024, D=768, S=1 << 20, reps=5, seed=4)
+    # the flagship serving's latency probes give kernels 1 and 5 batches of
+    # 1 and 32 as well: each timed there beside its bound and library call
+    small = {}
+    for B in (1, 32):
+        small[f"fused_topk B={B}"] = check_fused(
+            fused_topk, B=B, twoD=496, Sp=10240, kappa=1024, S=10240,
+            reps=50, seed=10 + B)
+        small[f"rerank_l2 B={B}"] = check_rerank(
+            rerank, B=B, C=1024, D=768, S=10240, reps=50, seed=20 + B)
+    log("[kernel] small batches, ms / bound ms / library ms: " + json.dumps(
+        {k: [r["ms"], r["bound_ms"], r["library_ms"]]
+         for k, r in small.items()}))
     torch.cuda.empty_cache()
     # the blocked index shape the JAX package recorded for the 100k cell
-    # (NB=196, M=896, D=128, TS=512, kk=16), dyadic so that the rounding
-    # to bf16 is exact: a check only, the kernel is timed on the served
-    # index in phase 3b
-    q, bidx = dyadic_blocked(1024, 196, 896, 128, 512, 300, torch.bfloat16,
+    # (NB=196, M=896, D=128, TS=512, kk=16), dyadic so that every score is
+    # exact, at the batch sizes the kernel is timed at on the served index
+    # in phase 3b: a check only
+    q, bidx = dyadic_blocked(4096, 196, 896, 128, 512, 300, torch.bfloat16,
                              seed=5)
-    check_blocked(blocked_topk, q, bidx, 16, reps=0)
+    for B in (1, 8, 32, 1024, 4096):
+        check_blocked(blocked_topk, q[:B], bidx, 16, reps=0)
+        torch.cuda.empty_cache()
+    # 40 blocks at B=8 give fewer query tiles than the card has SMs: each
+    # block's slots are split over a cluster of CUDA blocks and merged
+    q, bidx = dyadic_blocked(8, 40, 768, 128, 512, 300, torch.bfloat16,
+                             seed=8)
+    check_blocked(blocked_topk, q, bidx, 16, reps=20)
     q, bidx = dyadic_blocked(37, 5, 48, 20, 64, 40, torch.float32, seed=6)
     check_blocked(blocked_topk, q, bidx, 8, reps=0)
     del q, bidx

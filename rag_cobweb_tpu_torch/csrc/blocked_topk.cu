@@ -7,93 +7,873 @@
 //   score[b, t]  = sum_m round_W(nlp[b, m]) * W[s, m, t]   (f32 accumulation)
 // invalid slots score NEG = -3e38, then kk rounds of max/argmax with the
 // taken slot set to NEG: ties go to the lower slot, and once every slot is
-// NEG a round returns NEG at the lowest slot, as JAX's argmax does.
+// NEG a round returns NEG at slot 0, as JAX's argmax does.
 // Out: (NB, B, kk) f32 scores and int32 slots within the block.
 //
-// What bounds it on an H100: 2 * B * NB * M * (2D + TS) operations on an
-// index of NB * M * (2D + TS) elements.  At the 100k cell (B = 1024, NB =
-// 196, M = 896, D = 128, TS = 512, bf16) that is ~276 GFLOP against
-// ~270 MB: operations bound it, ~0.28 ms at 989 TFLOP/s (~1.1 ms at
-// B = 4096).  Each index element feeds 2B operations, far above the card's
-// ~295 operations per byte.
+// What bounds it on an H100 ("NVIDIA H100 80GB HBM3, 700.00 W"): 2 B NB M
+// (2D + TS) operations on an index of NB M (2D + TS) elements.  On the
+// 100k cell's served index (NB = 196, M = 768, D = 128, TS = 512, bf16)
+// that is 236.7 GFLOP at B = 1024, 0.239 ms at 989 TFLOP/s (0.958 ms at
+// B = 4096), and 231 MB of index: at B <= 32 the bytes bound it, 0.069 ms
+// at 3.35 TB/s.
 //
-// What this design does.  The TPU kernel held a whole block in VMEM: at
-// M = 896 its two (M, D) slabs and W are ~1.4 MB, far over the 227 KB a
-// block may use.  So one CUDA block owns (a tile of TQ queries, one
-// sentence block) and streams M in chunks of MC = 64 nodes:
-//   1. nlp chunk (TQ x 64) on the tensor cores (WMMA m16n16k16 bf16, f32
-//      accumulation) over D, from q/q^2 and the movt/ivt chunk staged
-//      zero-padded in shared memory (D need not be a multiple of 16);
-//   2. subtract, add const, ROUND TO THE W DTYPE (pallas_query.py:69) into
-//      a bf16 tile in shared memory;
-//   3. scores (TQ x TS) += nlp chunk @ W[chunk, :] on the tensor cores, W
-//      fragments read straight from device memory, the f32 accumulator
-//      kept in WMMA fragments spread over the 8 warps.
-// Node rows past M are never multiplied in (M is a multiple of 16; the
-// chunk's k-steps stop at M), and pad nodes inside M have zero W rows.
-// The query tile is TQ = 32 for TS <= 512 and 16 for TS <= 1024, so the
-// TQ x TS accumulator is at most 64 fragments over 8 warps; every batch
-// size fits (the JAX package's VMEM sizing and query chunking have no
-// counterpart).  After the M loop the scores go to shared memory (over the
-// staging buffers) and each warp runs the kk rounds of one query at a time
-// with a warp-shuffle argmax.  The kernel grid is (query tiles, blocks)
-// with the query tile fastest, so the tiles of one sentence block run
-// together and its index slabs come from L2 after the first.  An f32
+// The design reads the kernel as attention without a softmax: Q = [q |
+// -0.5 q^2] (the factor is exact in bf16), K = [movt | ivt] of the block,
+// P = bf16(Q K^T + const), V = W, and the epilogue is the mask and the kk
+// argmax rounds.  One CUDA block (CTA) owns 64 queries (one wgmma M), one
+// sentence block and a slice of 2 NT of its TS slots (NT = 64, 128 or 256):
+//   * a producer warpgroup (one thread issues) loads the 64 x 2D query tile
+//     once and then streams M in chunks of MC = 64 nodes through a ring of
+//     2-4 stages, each holding the chunk's [movt | ivt] rows and its W rows
+//     of the slice, by TMA (128-byte swizzle, zero fill past M, D, TS and
+//     B) on mbarriers;
+//   * two consumer warpgroups (240 registers each by setmaxnreg; the
+//     producer keeps 24) each run GEMM1 (nlp chunk, 64 x 64, K = 2D, both
+//     operands in shared memory) with wgmma, add const and round to bf16 in
+//     registers exactly where the TPU kernel rounds (pallas_query.py:
+//     67-69), and feed that as wgmma's register A operand to GEMM2 into
+//     their own NT slots (64 x NT f32 in registers: 128 a thread at NT =
+//     256).  Both compute the same nlp chunk: a third more tensor work, and
+//     no exchange between them (at NT = 256 the ring leaves no room for one);
+//   * after the M loop the scores go to shared memory over the ring (a
+//     64 x 2 NT tile, invalid slots NEG), and four threads select each
+//     query row's first kk: for kk <= 16 with sorting networks in registers
+//     (blocks of 16 slots, merged, then across the four by shuffles), at NT
+//     = 256 after a filter (the 16th largest maximum of 32 groups of slots
+//     32 apart bounds the row's 16th score from below; only slots at or
+//     above it are sorted, and a row with more than 64 takes the full
+//     sort); for a larger kk a warp a row runs the rounds;
+//   * with one CTA a block (2 NT >= TS) that is the output.  Else the CTAs
+//     of one query tile and block form a cluster, one per slice, and merge
+//     their sorted lists through distributed shared memory, exactly: each
+//     candidate's rank is the number before it in all lists (score
+//     descending, ties to the lower slot), and (NEG, 0) fills the rest.
+// The query tile is 64 (the WMMA kernel had 32), so the L2 re-reads of
+// each block's index halve.  The launcher chooses NT: the widest slice
+// that covers TS (or 256, with more CTAs in the cluster for TS > 512), cut
+// while the CTAs would not give every SM one (a small batch over few
+// blocks: the split lets the whole card stream the index) and while shared
+// memory does not fit.  D must be a multiple of 8 (16-byte TMA rows; the
+// wrapper pads) and at most 256 (the query tile stays resident).  An f32
 // index runs on the CUDA cores at full f32 (fmaf), with the score tile in
-// shared memory.  cp.async/TMA pipelining and wgmma are left for later.
+// shared memory.
 
-#include <cuda_runtime.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
-#include <mma.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256;              // 8 warps
-constexpr int NWARP = THREADS / 32;
-constexpr int MC = 64;                    // nodes per M chunk
-constexpr int DC = 128;                   // depth staged at a time (bf16)
-constexpr int LDS = DC + 8;               // staged row stride (elements)
-constexpr int LDF = MC + 4;               // f32 nlp tile stride
-constexpr int LDB = MC + 8;               // bf16 nlp tile stride
 constexpr float NEG = -3e38f;
+constexpr int MC = 64;                    // nodes per M chunk
 
-template <int MT>
-constexpr size_t staging_bytes() {
-  return (size_t)2 * 16 * MT * LDS * sizeof(bf16)     // q, q^2 tiles
-       + (size_t)2 * MC * LDS * sizeof(bf16)          // movt, ivt chunk
-       + (size_t)16 * MT * LDF * sizeof(float)        // nlp f32
-       + (size_t)16 * MT * LDB * sizeof(bf16);        // nlp rounded
+// -- bf16 kernel: TMA ring, wgmma, cluster merge ---------------------------
+
+constexpr int TQ = 64;                    // queries per CTA (wgmma M)
+constexpr int BOXC = 64;                  // bf16 columns of a TMA box (128 B)
+constexpr int ROWB = 128;                 // bytes of a box row
+constexpr int CONSUMERS = 256;            // two warpgroups
+constexpr int BF16_THREADS = CONSUMERS + 128;  // + the producer warpgroup
+constexpr int MAX_STAGES = 4;
+constexpr int MAX_SPLIT = 8;              // portable cluster size
+constexpr int SMEM_LIMIT = 232448;        // a CTA's shared memory on sm_90
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Rows [0, rows_dst) x depth [d0, d0 + DC) of a row-major (rows, D) bf16
-// matrix into dst (stride LDS), zero past rows_valid and past D.  ``vec``:
-// D % 8 == 0, so 16-byte loads stay inside a row.
-__device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ src,
-                                      int rows_dst, int rows_valid, int D,
-                                      int d0, bool vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-    constexpr int VPR = DC / 8;
-    for (int e = tid; e < rows_dst * VPR; e += THREADS) {
-      const int r = e / VPR, v = e % VPR, d = d0 + v * 8;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows_valid && d < D) {
-        x = *reinterpret_cast<const uint4*>(src + (size_t)r * D + d);
-      }
-      *reinterpret_cast<uint4*>(dst + r * LDS + v * 8) = x;
-    }
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar)
+               : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity ``parity``.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
+                                       int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
+                                       int c0, int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  K-major tiles (GEMM1's
+// both operands): rows of 128 B, 8-row groups 1024 B apart (SBO), LBO
+// unused.  MN-major tiles (GEMM2's W, K = node rows): SBO = 1024 B between
+// 8-node groups, LBO = the bytes between 64-slot boxes.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+       | (static_cast<uint64_t>(lbo >> 4) << 16)
+       | (static_cast<uint64_t>(1024 >> 4) << 32)
+       | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of wgmma registers across the
+// asynchronous wgmma instructions.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" :: "n"(CONSUMERS) : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr,
+                                                 uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int ld_cluster_u16(uint32_t addr) {
+  unsigned short v;
+  asm volatile("ld.shared::cluster.u16 %0, [%1];" : "=h"(v) : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x = lo: low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// m64nNk16 bf16 -> f32 wgmma.  ss: both operands by descriptor (K-major);
+// rs: A from registers, B by descriptor, MN-major (transposed).
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int NT>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (NT == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else if constexpr (NT == 128) {
+    wgmma_rs_n128(d, a, db);
   } else {
-    const bf16 zero = __float2bfloat16(0.f);
-    for (int e = tid; e < rows_dst * DC; e += THREADS) {
-      const int r = e / DC, c = e % DC, d = d0 + c;
-      dst[r * LDS + c] = (r < rows_valid && d < D) ? src[(size_t)r * D + d]
-                                                   : zero;
+    wgmma_rs_n256(d, a, db);
+  }
+}
+
+// GEMM1, issued and committed: nlp (64 queries x MC nodes) = the query
+// tile at ``qs`` . the [movt | ivt] chunk at ``kc``, K = 64 KB columns.
+__device__ __forceinline__ void gemm1(float* nlp, uint32_t qs, uint32_t kc,
+                                      int KB) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) nlp[i] = 0.f;
+  fence_regs<32>(nlp);
+  wgmma_fence();
+  for (int ks = 0; ks < KB * 4; ++ks) {
+    const uint32_t kb = ks >> 2, kin = (ks & 3) * 32;   // 16 columns
+    wgmma_ss_n64(nlp, smem_desc(qs + kb * TQ * ROWB + kin, 16),
+                 smem_desc(kc + kb * MC * ROWB + kin, 16));
+  }
+  wgmma_commit();
+}
+
+// nlp + const, rounded to bf16: GEMM2's A fragments.  Accumulator block j
+// holds columns 8j + 2cq + {0, 1} of rows r0 ({0, 1}) and r0 + 8 ({2, 3});
+// A step kt takes blocks 2kt (a0 = r0, a1 = r0 + 8) and 2kt + 1 (a2, a3).
+__device__ __forceinline__ void round_nlp(const float* nlp, uint32_t* a,
+                                          const float* cb, int m0, int M,
+                                          int cq) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int m = m0 + 8 * j + 2 * cq;
+    const float c0 = m < M ? __ldg(cb + m) : 0.f;
+    const float c1 = m + 1 < M ? __ldg(cb + m + 1) : 0.f;
+    a[4 * (j >> 1) + 2 * (j & 1)] = pack_bf16(nlp[4 * j] + c0,
+                                              nlp[4 * j + 1] + c1);
+    a[4 * (j >> 1) + 2 * (j & 1) + 1] = pack_bf16(nlp[4 * j + 2] + c0,
+                                                  nlp[4 * j + 3] + c1);
+  }
+}
+
+// Candidates in the order of the rounds: the higher score first, then the
+// lower slot.
+__device__ __forceinline__ bool before(float va, int ca, float vb, int cb) {
+  return va > vb || (va == vb && ca < cb);
+}
+
+// Compare-exchange: the earlier pair ends at (va, ca).
+__device__ __forceinline__ void cex(float& va, int& ca, float& vb, int& cb) {
+  const bool sw = before(vb, cb, va, ca);
+  const float tv = va;
+  const int tc = ca;
+  va = sw ? vb : va;
+  ca = sw ? cb : ca;
+  vb = sw ? tv : vb;
+  cb = sw ? tc : cb;
+}
+
+constexpr int TOP = 16;                   // the sorting-network path's kk
+constexpr int CAND = 4 * TOP;             // a row's filtered candidates
+
+// Bitonic sort of TOP pairs into round order.
+__device__ __forceinline__ void sort_top(float* v, int* c) {
+#pragma unroll
+  for (int k = 2; k <= TOP; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int i = 0; i < TOP; ++i) {
+        const int l = i ^ j;
+        if (l > i) {
+          if ((i & k) == 0) {
+            cex(v[i], c[i], v[l], c[l]);
+          } else {
+            cex(v[l], c[l], v[i], c[i]);
+          }
+        }
+      }
     }
   }
 }
+
+// (v, c) := the first TOP of two lists in round order, (v, c) and (w, d):
+// the better of v[i] and w[TOP-1-i] is a bitonic sequence of them, which
+// a half-cleaner cascade sorts.
+__device__ __forceinline__ void keep_top(float* v, int* c, const float* w,
+                                         const int* d) {
+#pragma unroll
+  for (int i = 0; i < TOP; ++i) {
+    if (before(w[TOP - 1 - i], d[TOP - 1 - i], v[i], c[i])) {
+      v[i] = w[TOP - 1 - i];
+      c[i] = d[TOP - 1 - i];
+    }
+  }
+#pragma unroll
+  for (int j = TOP >> 1; j > 0; j >>= 1) {
+#pragma unroll
+    for (int i = 0; i < TOP; ++i) {
+      if ((i ^ j) > i) cex(v[i], c[i], v[i ^ j], c[i ^ j]);
+    }
+  }
+}
+
+// Block ``b`` of TOP slots of a score-tile row, with their columns.
+__device__ __forceinline__ void load_block(const float* row, int b, float* w,
+                                           int* d) {
+#pragma unroll
+  for (int i = 0; i < TOP; i += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(row + b * TOP + i);
+    w[i] = x.x;
+    w[i + 1] = x.y;
+    w[i + 2] = x.z;
+    w[i + 3] = x.w;
+  }
+#pragma unroll
+  for (int i = 0; i < TOP; ++i) d[i] = b * TOP + i;
+}
+
+// Value-only compare-exchange: the larger ends at a.
+__device__ __forceinline__ void cexv(float& a, float& b) {
+  const float hi = fmaxf(a, b);
+  b = fminf(a, b);
+  a = hi;
+}
+
+// Half-cleaner cascade: a bitonic sequence of 16 values -> descending.
+__device__ __forceinline__ void clean16(float* t) {
+#pragma unroll
+  for (int j = 8; j > 0; j >>= 1) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      if ((i ^ j) > i) cexv(t[i], t[i ^ j]);
+    }
+  }
+}
+
+// A lower bound of a score-tile row's TOP-th largest score (NT = 256: 512
+// slots in 32 groups of TOP slots 32 apart, eight groups in each of the
+// row's four threads): the TOP-th largest group maximum, since TOP groups
+// hold a score at least as large.  Slots 32 apart, not blocks of adjacent
+// ones: a block's sentences are neighbours in the tree, so its high scores
+// come in runs, which strided groups spread over many maxima.  Every
+// thread of the quad ``quad`` gets the same bound.
+__device__ __forceinline__ float top_bound(const float* row, int qd,
+                                           unsigned quad) {
+  float m[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float mx = __int_as_float(0xff800000);
+#pragma unroll
+    for (int i = 0; i < TOP; ++i) mx = fmaxf(mx, row[qd + 4 * k + 32 * i]);
+    m[k] = mx;
+  }
+#pragma unroll
+  for (int k = 2; k <= 8; k <<= 1) {      // bitonic sort, descending
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int l = i ^ j;
+        if (l > i) {
+          if ((i & k) == 0) {
+            cexv(m[i], m[l]);
+          } else {
+            cexv(m[l], m[i]);
+          }
+        }
+      }
+    }
+  }
+  float t[16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    t[i] = m[i];
+    t[8 + i] = __shfl_xor_sync(quad, m[7 - i], 1);
+  }
+  clean16(t);                             // the pair's 16, descending
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    t[i] = fmaxf(t[i], __shfl_xor_sync(quad, t[15 - i], 2));
+  }
+  clean16(t);                             // the quad's first 16
+  return t[15];
+}
+
+// Shared memory of the bf16 kernel.  During the M loop: the query tile (KB
+// boxes of 64 rows) and ``stages`` ring stages, each KB boxes of the
+// [movt | ivt] chunk and 2 NT / 64 boxes of W (MC rows each).  After it,
+// over the same bytes: the score tile [TQ][LDT] f32, the lists of the
+// cluster merge, scores [TQ][L] and u16 slots [TQ][L], and at NT = 256 the
+// filtered candidates: counts [TQ], scores [TQ][CAND], slots [TQ][CAND].
+// Then the mbarriers: the query tile's, ``stages`` full, ``stages`` empty.
+struct Layout {
+  int KB, WB, stage_bytes, kbytes, ldt, bars, total;
+  __host__ __device__ Layout(int Dp, int NT, int stages, int L) {
+    KB = 2 * Dp / BOXC;
+    WB = 2 * NT / BOXC;
+    kbytes = KB * MC * ROWB;
+    stage_bytes = kbytes + WB * MC * ROWB;
+    ldt = 2 * NT + 8;                     // padded: fewer bank conflicts
+    const int main_bytes = KB * TQ * ROWB + stages * stage_bytes;
+    const int epi_bytes = TQ * ldt * 4 + (TQ * L * 6 + 15) / 16 * 16
+                        + (NT == 256 ? TQ * 4 + TQ * CAND * 8 : 0);
+    bars = ((main_bytes > epi_bytes ? main_bytes : epi_bytes) + 7) / 8 * 8;
+    total = 1024 + bars + 8 * (1 + 2 * stages);   // 1024: alignment slack
+  }
+};
+
+template <int NT>
+__global__ void __launch_bounds__(BF16_THREADS, 1)
+blocked_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tq2,
+                    const __grid_constant__ CUtensorMap tmv,
+                    const __grid_constant__ CUtensorMap tiv,
+                    const __grid_constant__ CUtensorMap tw,
+                    const float* __restrict__ cst,
+                    const uint8_t* __restrict__ valid,
+                    float* __restrict__ out_s, int* __restrict__ out_t,
+                    int B, int M, int Dp, int TS, int kk, int stages) {
+  constexpr int NACC = NT / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int L = min(kk, 2 * NT);          // a list's length
+  const Layout lay(Dp, NT, stages, L);
+  const uint32_t qs = smem_u32(base);
+  const uint32_t ring = qs + lay.KB * TQ * ROWB;
+  const uint32_t bar_q = qs + lay.bars;
+  const uint32_t bar_full = bar_q + 8;
+  const uint32_t bar_empty = bar_full + 8 * stages;
+
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int q0 = blockIdx.y * TQ, nb = blockIdx.z;
+  const int ts0 = split * 2 * NT;
+  const int nchunks = (M + MC - 1) / MC;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // -- producer warpgroup: one thread issues every TMA load --------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid == CONSUMERS) {
+      const int db = lay.KB / 2;          // boxes of q (and of movt)
+      mbar_expect_tx(bar_q, lay.KB * TQ * ROWB);
+      for (int kb = 0; kb < lay.KB; ++kb) {
+        tma_2d(qs + kb * TQ * ROWB, kb < db ? &tq : &tq2, (kb % db) * BOXC,
+               q0, bar_q);
+      }
+      for (int c = 0; c < nchunks; ++c) {
+        const int s = c % stages, n = c / stages;
+        if (n > 0) mbar_wait(bar_empty + 8 * s, (n - 1) & 1);
+        const uint32_t st = ring + s * lay.stage_bytes;
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, lay.stage_bytes);
+        for (int kb = 0; kb < lay.KB; ++kb) {
+          tma_3d(st + kb * MC * ROWB, kb < db ? &tmv : &tiv,
+                 (kb % db) * BOXC, c * MC, nb, full);
+        }
+        for (int wb = 0; wb < lay.WB; ++wb) {
+          tma_3d(st + lay.kbytes + wb * MC * ROWB, &tw, ts0 + wb * BOXC,
+                 c * MC, nb, full);
+        }
+      }
+    }
+    __syncwarp();
+    if (nsplit > 1) {
+      cluster_sync();                     // every list is written
+      cluster_sync();                     // every merge has read them
+    }
+    return;
+  }
+
+  // -- consumer warpgroups ---------------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int cq = lane & 3;
+  const int r0 = warp * 16 + (lane >> 2);   // this thread's rows: r0, r0 + 8
+
+  // this thread's valid slots: bit 2j + e for column 8j + 2cq + e
+  const uint8_t* vb = valid + (size_t)nb * TS;
+  uint64_t vbits = 0;
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int t = ts0 + wg * NT + 8 * j + 2 * cq + e;
+      if (t < TS && vb[t]) vbits |= 1ull << (2 * j + e);
+    }
+  }
+
+  // the query tile: [q | q^2] -> [q | -0.5 q^2], exact in bf16
+  mbar_wait(bar_q, 0);
+  {
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(
+        base + (lay.KB / 2) * TQ * ROWB);
+    const int n = (lay.KB / 2) * TQ * ROWB / 4;
+    for (int e = tid; e < n; e += CONSUMERS) {
+      const float2 v = __bfloat1622float2(h[e]);
+      h[e] = __floats2bfloat162_rn(-0.5f * v.x, -0.5f * v.y);
+    }
+  }
+  fence_async_smem();
+  consumers_sync();
+
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  const float* cb = cst + (size_t)nb * M;
+
+  float nlp[32];
+  uint32_t a[16];
+  for (int c = 0; c < nchunks; ++c) {
+    const int s = c % stages, n = c / stages;
+    mbar_wait(bar_full + 8 * s, n & 1);
+    const uint32_t st = ring + s * lay.stage_bytes;
+    gemm1(nlp, qs, st, lay.KB);
+    wgmma_wait<0>();
+    fence_regs<32>(nlp);
+    round_nlp(nlp, a, cb, c * MC, M, cq);
+    // GEMM2: this warpgroup's NT slots += P (64 x MC) . W chunk (MC x NT)
+    const uint32_t wbase = st + lay.kbytes + (wg * NT / BOXC) * MC * ROWB;
+    fence_regs<NACC>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < MC / 16; ++kt) {
+      wgmma_rs<NT>(acc, a + 4 * kt,
+                   smem_desc(wbase + kt * 16 * ROWB, MC * ROWB));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NACC>(acc);
+    mbar_arrive(bar_empty + 8 * s);
+  }
+
+  // -- the score tile over the ring, invalid slots NEG ----------------------
+  fence_async_smem();
+  consumers_sync();                       // both warpgroups are done with it
+  float* tile = reinterpret_cast<float*>(base);
+  const int ldt = lay.ldt;
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j) {
+    const int col = wg * NT + 8 * j + 2 * cq;
+    const bool u0 = (vbits >> (2 * j)) & 1, u1 = (vbits >> (2 * j + 1)) & 1;
+    *reinterpret_cast<float2*>(tile + r0 * ldt + col) =
+        make_float2(u0 ? acc[4 * j] : NEG, u1 ? acc[4 * j + 1] : NEG);
+    *reinterpret_cast<float2*>(tile + (r0 + 8) * ldt + col) =
+        make_float2(u0 ? acc[4 * j + 2] : NEG, u1 ? acc[4 * j + 3] : NEG);
+  }
+  float* ls = tile + TQ * ldt;
+  uint16_t* lt = reinterpret_cast<uint16_t*>(ls + TQ * L);
+  int* cand_n = reinterpret_cast<int*>(
+      reinterpret_cast<uint8_t*>(ls) + (TQ * L * 6 + 15) / 16 * 16);
+  float* cand_s = reinterpret_cast<float*>(cand_n + TQ);
+  int* cand_t = reinterpret_cast<int*>(cand_s + TQ * CAND);
+  if (NT == 256 && tid < TQ) cand_n[tid] = 0;
+  consumers_sync();
+
+  // -- the first L candidates of each query row of the slice ----------------
+  // With one CTA a block (nsplit == 1) they are the output; else lists for
+  // the cluster merge.  A real candidate goes out as (score, slot), an
+  // exhausted place as (NEG, 0).
+  const int qv = min(TQ, B - q0);
+  const int W2 = 2 * NT;
+  auto emit = [&](int r, int i, float v, int slot) {
+    if (nsplit == 1) {
+      const size_t o = ((size_t)nb * B + q0 + r) * kk + i;
+      const bool real = v > NEG;
+      out_s[o] = real ? v : NEG;
+      out_t[o] = real ? slot : 0;
+    } else {
+      ls[r * L + i] = v;
+      lt[r * L + i] = static_cast<uint16_t>(slot);
+    }
+  };
+  const int cw = tid >> 5;                // consumer warp 0..7
+  if (kk <= TOP) {
+    // four threads a row (warp cw: rows 8cw .. 8cw + 7), merging their
+    // sorted lists by shuffles within the quad
+    const int r = cw * 8 + (lane >> 2), qd = lane & 3;
+    const unsigned quad = 0xfu << (lane & ~3);
+    if (cw * 8 < qv) {
+      const float* row = tile + r * ldt;
+      float v[TOP];
+      int c[TOP];
+      bool done = false;
+      if constexpr (NT == 256) {
+        // Only slots at or above the bound can be among the first TOP:
+        // gather them and sort those.  A row with more than CAND of them
+        // (ties, or few valid slots) takes the full sort below.
+        const float tau = top_bound(row, qd, quad);
+#pragma unroll 1
+        for (int b = qd; b < W2 / TOP; b += 4) {
+#pragma unroll
+          for (int i = 0; i < TOP; i += 4) {
+            const float4 x = *reinterpret_cast<const float4*>(row + b * TOP +
+                                                              i);
+            const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              if (xs[k] >= tau) {
+                const int at = atomicAdd(cand_n + r, 1);
+                if (at < CAND) {
+                  cand_s[r * CAND + at] = xs[k];
+                  cand_t[r * CAND + at] = b * TOP + i + k;
+                }
+              }
+            }
+          }
+        }
+        __syncwarp();
+        const int n = *reinterpret_cast<volatile int*>(cand_n + r);
+        if (n <= CAND) {
+#pragma unroll
+          for (int i = 0; i < TOP; ++i) {
+            const int at = qd * TOP + i;
+            v[i] = at < n ? cand_s[r * CAND + at] : __int_as_float(0xff800000);
+            c[i] = at < n ? cand_t[r * CAND + at] : 0x7fffffff;
+          }
+          sort_top(v, c);
+          done = true;
+        }
+      }
+      if (!done) {
+        // each thread sorts its blocks of TOP slots, keeping the first TOP
+#pragma unroll 1
+        for (int b = qd; b < W2 / TOP; b += 4) {
+          float w[TOP];
+          int d[TOP];
+          load_block(row, b, w, d);
+          sort_top(w, d);
+          if (b == qd) {
+#pragma unroll
+            for (int i = 0; i < TOP; ++i) {
+              v[i] = w[i];
+              c[i] = d[i];
+            }
+          } else {
+            keep_top(v, c, w, d);
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        float w[TOP];
+        int d[TOP];
+#pragma unroll
+        for (int i = 0; i < TOP; ++i) {
+          w[i] = __shfl_xor_sync(quad, v[i], off);
+          d[i] = __shfl_xor_sync(quad, c[i], off);
+        }
+        keep_top(v, c, w, d);
+      }
+      if (qd == 0 && r < qv) {
+#pragma unroll
+        for (int i = 0; i < TOP; ++i) {
+          if (i < L) emit(r, i, v[i], ts0 + c[i]);
+        }
+      }
+    }
+  } else {
+    // a warp a row: L rounds of max/argmax, the taken slot set to NEG
+    for (int r = cw; r < qv; r += CONSUMERS / 32) {
+      float* row = tile + r * ldt;
+      for (int i = 0; i < L; ++i) {
+        float best = __int_as_float(0xff800000);   // -inf
+        int bi = 0x7fffffff;
+        for (int t = lane; t < W2; t += 32) {       // ascending: first max
+          if (row[t] > best) { best = row[t]; bi = t; }
+        }
+#pragma unroll
+        for (int off = 16; off; off >>= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+          if (before(ov, oi, best, bi)) { best = ov; bi = oi; }
+        }
+        if (lane == 0) {
+          emit(r, i, best, ts0 + bi);
+          row[bi] = NEG;
+        }
+        __syncwarp();
+      }
+    }
+  }
+  if (nsplit == 1) return;
+
+  // -- merge the cluster's lists of each query row --------------------------
+  // This CTA writes the rows r = split (mod nsplit): first (NEG, 0) in all
+  // kk places, then every real candidate of the cluster's lists at its
+  // rank, the number of candidates before it in all lists (each list is in
+  // round order, so a binary search counts them).
+  const int nrows = qv > split ? (qv - split + nsplit - 1) / nsplit : 0;
+  for (int x = tid; x < nrows * kk; x += CONSUMERS) {
+    const int r = split + nsplit * (x / kk);
+    const size_t o = ((size_t)nb * B + q0 + r) * kk + x % kk;
+    out_s[o] = NEG;
+    out_t[o] = 0;
+  }
+  cluster_sync();                         // every list is written
+  consumers_sync();                       // the (NEG, 0) places are written
+  const uint32_t ls_a = smem_u32(ls), lt_a = smem_u32(lt);
+  for (int x = tid; x < nrows * nsplit * L; x += CONSUMERS) {
+    const int p = x % L, l = (x / L) % nsplit;
+    const int r = split + nsplit * (x / (L * nsplit));
+    const uint32_t at = r * L + p;
+    const float v = ld_cluster_f32(cluster_addr(ls_a + at * 4, l));
+    if (!(v > NEG)) continue;             // an exhausted place
+    const int t = ld_cluster_u16(cluster_addr(lt_a + at * 2, l));
+    int rank = p;
+    for (int m = 0; m < nsplit && rank < kk; ++m) {
+      if (m == l) continue;
+      const uint32_t ms = cluster_addr(ls_a + r * L * 4, m);
+      const uint32_t mt = cluster_addr(lt_a + r * L * 2, m);
+      int lo = 0, hi = L;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (before(ld_cluster_f32(ms + 4 * mid),
+                   ld_cluster_u16(mt + 2 * mid), v, t)) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      rank += lo;
+    }
+    if (rank < kk) {
+      const size_t o = ((size_t)nb * B + q0 + r) * kk + rank;
+      out_s[o] = v;
+      out_t[o] = t;
+    }
+  }
+  cluster_sync();                         // no CTA leaves while read
+}
+
+// -- f32 kernel: CUDA cores --------------------------------------------------
+
+constexpr int THREADS = 256;              // 8 warps
+constexpr int NWARP = THREADS / 32;
 
 // Mask invalid slots to NEG, then per query (one warp at a time) kk rounds
 // of max/argmax over the TS staged scores: ties to the lower slot; the
@@ -133,131 +913,6 @@ __device__ __forceinline__ void select_topk(float* sc, const uint8_t* vb,
       __syncwarp();
     }
   }
-}
-
-template <int MT>
-__global__ void __launch_bounds__(THREADS, 2)
-blocked_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ q2,
-                    const bf16* __restrict__ ivt,
-                    const bf16* __restrict__ movt,
-                    const float* __restrict__ cst,
-                    const bf16* __restrict__ W,
-                    const uint8_t* __restrict__ valid,
-                    float* __restrict__ out_s, int* __restrict__ out_t,
-                    int B, int M, int D, int TS, int kk, int vec) {
-  using namespace nvcuda;
-  constexpr int TQ = 16 * MT;
-  constexpr int NJ = 8 / MT;            // 16-column tiles a warp owns
-  constexpr int NNT = MC / 16;          // nlp tiles per query row-tile
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);                 // [TQ][LDS]
-  bf16* q2s = qs + TQ * LDS;                                // [TQ][LDS]
-  bf16* mvs = q2s + TQ * LDS;                               // [MC][LDS]
-  bf16* ivs = mvs + MC * LDS;                               // [MC][LDS]
-  float* nlpf = reinterpret_cast<float*>(ivs + MC * LDS);   // [TQ][LDF]
-  bf16* nlpb = reinterpret_cast<bf16*>(nlpf + TQ * LDF);    // [TQ][LDB]
-  float* sc = reinterpret_cast<float*>(smem);  // [TQ][TS] after the M loop
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int q0 = blockIdx.x * TQ, nb = blockIdx.y;
-  const int qv = min(TQ, B - q0);
-  const int NT = TS / 16;
-  const int nD = (D + DC - 1) / DC;
-  const bool nlp_tile = warp < MT * NNT;
-  const int tm = warp / NNT, tn = warp % NNT;
-
-  const bf16* mv_blk = movt + (size_t)nb * M * D;
-  const bf16* iv_blk = ivt + (size_t)nb * M * D;
-  const float* c_blk = cst + (size_t)nb * M;
-  const bf16* w_blk = W + (size_t)nb * M * TS;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT][NJ];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) wmma::fill_fragment(acc[m][j], 0.f);
-
-  for (int m0 = 0; m0 < M; m0 += MC) {
-    const int mn = min(MC, M - m0);       // a multiple of 16
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> fa, fb;
-    wmma::fill_fragment(fa, 0.f);
-    wmma::fill_fragment(fb, 0.f);
-    for (int dc = 0; dc < nD; ++dc) {
-      const int d0 = dc * DC;
-      __syncthreads();                    // staging buffers free again
-      if (nD > 1 || m0 == 0) {
-        stage(qs, q + (size_t)q0 * D, TQ, qv, D, d0, vec);
-        stage(q2s, q2 + (size_t)q0 * D, TQ, qv, D, d0, vec);
-      }
-      stage(mvs, mv_blk + (size_t)m0 * D, MC, mn, D, d0, vec);
-      stage(ivs, iv_blk + (size_t)m0 * D, MC, mn, D, d0, vec);
-      __syncthreads();
-      if (nlp_tile) {
-        const int kmax = min(DC, (D - d0 + 15) / 16 * 16);
-        for (int k = 0; k < kmax; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-              a, a2;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-              b, b2;
-          wmma::load_matrix_sync(a, qs + tm * 16 * LDS + k, LDS);
-          wmma::load_matrix_sync(a2, q2s + tm * 16 * LDS + k, LDS);
-          wmma::load_matrix_sync(b, mvs + tn * 16 * LDS + k, LDS);
-          wmma::load_matrix_sync(b2, ivs + tn * 16 * LDS + k, LDS);
-          wmma::mma_sync(fa, a, b, fa);
-          wmma::mma_sync(fb, a2, b2, fb);
-        }
-      }
-    }
-    if (nlp_tile) {
-#pragma unroll
-      for (int i = 0; i < fa.num_elements; ++i) fa.x[i] -= 0.5f * fb.x[i];
-      wmma::store_matrix_sync(nlpf + tm * 16 * LDF + tn * 16, fa, LDF,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int e = tid; e < TQ * MC; e += THREADS) {
-      const int r = e / MC, c = e % MC;
-      const float v = c < mn ? nlpf[r * LDF + c] + c_blk[m0 + c] : 0.f;
-      nlpb[r * LDB + c] = __float2bfloat16(v);      // round to the W dtype
-    }
-    __syncthreads();
-    for (int k = 0; k < mn; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          a[MT];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        wmma::load_matrix_sync(a[m], nlpb + m * 16 * LDB + k, LDB);
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = warp + NWARP * j;
-        if (n < NT) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, w_blk + (size_t)(m0 + k) * TS + n * 16,
-                                 TS);
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            wmma::mma_sync(acc[m][j], a[m], b, acc[m][j]);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();                        // the score tile aliases staging
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int n = warp + NWARP * j;
-    if (n < NT) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        wmma::store_matrix_sync(sc + m * 16 * TS + n * 16, acc[m][j], TS,
-                                wmma::mem_row_major);
-      }
-    }
-  }
-  __syncthreads();
-  select_topk(sc, valid + (size_t)nb * TS, out_s, out_t, B, q0, qv, nb, TS,
-              kk, TQ);
 }
 
 // f32 index: exact f32 FMAs on the CUDA cores; the TQ x TS score tile
@@ -318,30 +973,6 @@ blocked_f32_kernel(const float* __restrict__ q, const float* __restrict__ q2,
 }
 
 template <int MT>
-int launch_bf16(const void* q, const void* q2, const void* ivt,
-                const void* movt, const void* cst, const void* W,
-                const void* valid, void* out_s, void* out_t, int B, int NB,
-                int M, int D, int TS, int kk, cudaStream_t stream) {
-  constexpr int TQ = 16 * MT;
-  size_t smem = staging_bytes<MT>();
-  const size_t tile = (size_t)TQ * TS * sizeof(float);
-  if (tile > smem) smem = tile;
-  cudaError_t e = cudaFuncSetAttribute(
-      blocked_bf16_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((B + TQ - 1) / TQ, NB);
-  blocked_bf16_kernel<MT><<<grid, THREADS, smem, stream>>>(
-      reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(q2),
-      reinterpret_cast<const bf16*>(ivt), reinterpret_cast<const bf16*>(movt),
-      reinterpret_cast<const float*>(cst), reinterpret_cast<const bf16*>(W),
-      reinterpret_cast<const uint8_t*>(valid),
-      reinterpret_cast<float*>(out_s), reinterpret_cast<int*>(out_t), B, M,
-      D, TS, kk, D % 8 == 0 ? 1 : 0);
-  return (int)cudaGetLastError();
-}
-
-template <int MT>
 int launch_f32(const void* q, const void* q2, const void* ivt,
                const void* movt, const void* cst, const void* W,
                const void* valid, void* out_s, void* out_t, int B, int NB,
@@ -364,11 +995,101 @@ int launch_f32(const void* q, const void* q2, const void* ivt,
   return (int)cudaGetLastError();
 }
 
+// -- bf16 launch -------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's tensor-map encoder, through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &res);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &res);
+#endif
+    if (res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A bf16 tensor of ``rank`` dims (innermost first) read in boxes of 64
+// columns (128 bytes, swizzled) x ``rows``; zero fill out of bounds.
+bool tensor_map(CUtensorMap* map, const void* ptr, int rank,
+                const cuuint64_t* dims, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t strides[2] = {dims[0] * 2, dims[0] * dims[1] * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)BOXC, (cuuint32_t)rows, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(ptr), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 132;
+}
+
+template <int NT>
+int launch_bf16(const CUtensorMap* maps, const void* cst, const void* valid,
+                void* out_s, void* out_t, int B, int NB, int M, int Dp,
+                int TS, int kk, cudaStream_t stream) {
+  const int L = kk < 2 * NT ? kk : 2 * NT;
+  int stages = 2;
+  while (stages < MAX_STAGES &&
+         Layout(Dp, NT, stages + 1, L).total <= SMEM_LIMIT) {
+    ++stages;
+  }
+  const int smem = Layout(Dp, NT, stages, L).total;
+  cudaError_t e = cudaFuncSetAttribute(
+      blocked_bf16_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const int nsplit = (TS + 2 * NT - 1) / (2 * NT);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nsplit, (B + TQ - 1) / TQ, NB);
+  cfg.blockDim = dim3(BF16_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, blocked_bf16_kernel<NT>, maps[0], maps[1],
+                         maps[2], maps[3], maps[4],
+                         reinterpret_cast<const float*>(cst),
+                         reinterpret_cast<const uint8_t*>(valid),
+                         reinterpret_cast<float*>(out_s),
+                         reinterpret_cast<int*>(out_t), B, M, Dp, TS, kk,
+                         stages);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Shapes: q, q2 (B, D); ivt, movt (NB, M, D); cst (NB, M) f32; W (NB, M, TS);
 // valid (NB, TS) bool; out_s/out_t (NB, B, kk).  The caller guarantees
-// M % 16 == 0, TS % 16 == 0, TS <= 1024, 1 <= kk <= TS, NB <= 65535.
+// M % 16 == 0, TS % 16 == 0, TS <= 1024, 1 <= kk <= TS, NB <= 65535, and
+// for bf16 D % 8 == 0 and D <= 256.
 extern "C" int blocked_topk_bf16(const void* q, const void* q2,
                                  const void* ivt, const void* movt,
                                  const void* cst, const void* W,
@@ -376,12 +1097,46 @@ extern "C" int blocked_topk_bf16(const void* q, const void* q2,
                                  int B, int NB, int M, int D, int TS, int kk,
                                  void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (TS <= 512) {
-    return launch_bf16<2>(q, q2, ivt, movt, cst, W, valid, out_s, out_t, B,
-                          NB, M, D, TS, kk, s);
+  if (D % 8 != 0 || D > 256 || TS > 1024) return (int)cudaErrorInvalidValue;
+  const int Dp = (D + BOXC - 1) / BOXC * BOXC;
+  CUtensorMap maps[5];
+  const cuuint64_t dq[2] = {(cuuint64_t)D, (cuuint64_t)B};
+  const cuuint64_t dn[3] = {(cuuint64_t)D, (cuuint64_t)M, (cuuint64_t)NB};
+  const cuuint64_t dw[3] = {(cuuint64_t)TS, (cuuint64_t)M, (cuuint64_t)NB};
+  if (!tensor_map(&maps[0], q, 2, dq, TQ) ||
+      !tensor_map(&maps[1], q2, 2, dq, TQ) ||
+      !tensor_map(&maps[2], movt, 3, dn, MC) ||
+      !tensor_map(&maps[3], ivt, 3, dn, MC) ||
+      !tensor_map(&maps[4], W, 3, dw, MC)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return launch_bf16<1>(q, q2, ivt, movt, cst, W, valid, out_s, out_t, B, NB,
-                        M, D, TS, kk, s);
+  // The widest slice that covers TS (two warpgroups of NT slots each),
+  // narrowed while the CTAs would not give every SM one, then while shared
+  // memory does not fit.
+  int nt = 64;
+  while (nt < 256 && 2 * nt < TS) nt *= 2;
+  const long tiles = (long)((B + TQ - 1) / TQ) * NB;
+  while (nt > 64 && tiles * ((TS + 2 * nt - 1) / (2 * nt)) < sm_count()) {
+    nt /= 2;
+  }
+  auto smem = [&](int n) {
+    return Layout(Dp, n, 2, kk < 2 * n ? kk : 2 * n).total;
+  };
+  while (nt > 64 && smem(nt) > SMEM_LIMIT) nt /= 2;
+  if (smem(nt) > SMEM_LIMIT ||
+      (TS + 2 * nt - 1) / (2 * nt) > MAX_SPLIT) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (nt == 256) {
+    return launch_bf16<256>(maps, cst, valid, out_s, out_t, B, NB, M, Dp, TS,
+                            kk, s);
+  }
+  if (nt == 128) {
+    return launch_bf16<128>(maps, cst, valid, out_s, out_t, B, NB, M, Dp, TS,
+                            kk, s);
+  }
+  return launch_bf16<64>(maps, cst, valid, out_s, out_t, B, NB, M, Dp, TS, kk,
+                         s);
 }
 
 extern "C" int blocked_topk_f32(const void* q, const void* q2,

@@ -174,6 +174,46 @@ def test_exhausted_rounds_match_pallas_interpret(forests, blocked):
                                    rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("width", [16, 32, 64])
+@pytest.mark.parametrize("case", ["ties", "exhausted"])
+def test_split_merge_equals_block_candidates(case, width):
+    """The bf16 kernel's split of a block's slots into slices of ``width``
+    and its exact merge of their lists, in plain PyTorch, give
+    ``block_candidates_plain``'s candidates in the same order: on scores
+    with many exact ties (ties go to the lower slot) and with more rounds
+    than the last block has valid slots ((NEG, 0) after them).  Dyadic f32
+    terms keep every score exact, so slicing changes no sum."""
+    rng = np.random.default_rng(width)
+    NB, M, D, TS, B = 3, 16, 8, 64, 5
+
+    def dyadic(lo, hi, shape, den):
+        return torch.as_tensor(rng.integers(lo, hi, shape) / den,
+                               dtype=torch.float32)
+
+    W = torch.as_tensor(rng.random((NB, M, TS)) < 0.5, dtype=torch.float32)
+    valid = torch.ones((NB, TS), dtype=torch.bool)
+    if case == "ties":
+        W[:, 4:] = 0.0              # 16 weight patterns over 64 slots
+        kk = 12
+    else:
+        valid[-1, 10:] = False
+        kk = 24
+    bidx = tidx.BlockedIndex(
+        ivt_b=dyadic(1, 17, (NB, M, D), 16),
+        movt_b=dyadic(-8, 9, (NB, M, D), 16),
+        const_b=dyadic(-64, 65, (NB, M), 4), W=W, valid=valid,
+        sid_of_slot=torch.zeros((NB, TS), dtype=torch.int32))
+    q, q2 = bt._queries(bidx, dyadic(-8, 9, (B, D), 8))
+    args = (q, q2, bidx.ivt_b, bidx.movt_b, bidx.const_b, W, valid)
+    want_s, want_t = bt.block_candidates_plain(*args, kk)
+    got_s, got_t = bt.merge_lists_plain(*bt.slice_lists_plain(*args, kk,
+                                                               width), kk)
+    assert torch.equal(got_s, want_s)
+    assert torch.equal(got_t, want_t)
+    if case == "exhausted":
+        assert bool((want_s[-1, :, 10:] == bt.NEG).all())
+
+
 @pytest.mark.parametrize("k", [4, 30])
 def test_leaf_lp_rerank_matches_jax(forests, k):
     jf, tf, xs = forests
@@ -268,7 +308,7 @@ def test_blocked_engine_serves_the_jax_ids(pair, monkeypatch, engine,
     assert sum(b in got[b] for b in range(24)) >= 22
 
 
-def test_kernel_pool_too_small_serves_another_engine(pair, monkeypatch):
+def test_kernel_serves_a_pool_above_its_block_candidates(pair, monkeypatch):
     """A re-rank pool larger than NB * pallas_block_k: the JAX package
     serves another engine (here its XLA blocked sweep); the port still
     serves the kernel, each block giving its exact top-pool, and the

@@ -78,10 +78,11 @@ def _holds(ks, ki, ps, full, tol):
     assert bool(((at - ks).abs() <= tol)[real].all())
 
 
-def _blocked_index(card, dtype, NB, M, D, TS, S_last, seed):
+def _blocked_index(card, dtype, NB, M, D, TS, S_last, seed, ties=False):
     """Random blocked index with small dyadic terms (nlp exact in f32, so
     the kernel and the plain version round the same nlp to bf16) and
-    ~P=6 nonzero path weights per slot."""
+    ~P=6 nonzero path weights per slot; ``ties``: 0/1 weights on the first
+    8 nodes only, so many slots share a score exactly."""
     from rag_cobweb_tpu_torch.core.index import BlockedIndex
     g = torch.Generator(device=card).manual_seed(seed)
 
@@ -92,6 +93,10 @@ def _blocked_index(card, dtype, NB, M, D, TS, S_last, seed):
     W = torch.rand((NB, M, TS), generator=g, device=card)
     W = torch.where(torch.rand((NB, M, TS), generator=g, device=card)
                     < 6.0 / M, W, torch.zeros_like(W))
+    if ties:
+        W = (torch.rand((NB, M, TS), generator=g, device=card)
+             < 0.5).float()
+        W[:, 8:] = 0.0
     valid = torch.ones((NB, TS), dtype=torch.bool, device=card)
     valid[-1, S_last:] = False
     return BlockedIndex(
@@ -107,9 +112,11 @@ def _blocked_index(card, dtype, NB, M, D, TS, S_last, seed):
 @pytest.mark.parametrize("B,NB,M,D,TS,S_last,kk", [
     (1, 1, 16, 8, 16, 16, 1),          # smallest tiles
     (37, 5, 80, 20, 64, 40, 8),        # ragged B, D and M chunk
-    (70, 3, 144, 136, 512, 200, 16),   # D over one staged chunk
-    (33, 2, 32, 128, 1024, 700, 4),    # TS > 512: the 16-query tile
+    (70, 3, 144, 136, 512, 200, 16),   # D over two 64-column TMA boxes
+    (33, 2, 32, 128, 1024, 700, 4),    # TS > 512: a cluster per block
     (20, 2, 48, 16, 32, 5, 12),        # kk above the valid slots: NEG
+    (5, 2, 64, 16, 64, 50, 64),        # kk = TS
+    (9, 2, 48, 24, 512, 300, 512),     # kk = TS = 512: the lists of a split
 ])
 def test_blocked_topk_kernel_matches_plain(card, dtype, B, NB, M, D, TS,
                                            S_last, kk):
@@ -129,6 +136,54 @@ def test_blocked_topk_kernel_matches_plain(card, dtype, B, NB, M, D, TS,
     neg = ps <= bt.NEG / 2          # exhausted rounds: NEG at slot 0
     assert torch.equal(neg, ks <= bt.NEG / 2)
     assert bool((ki[neg] == 0).all())
+
+
+@pytest.mark.parametrize("B", [1, 8, 32, 200])
+def test_blocked_topk_kernel_at_the_served_shape(card, B):
+    """The 100k cell's block shape (M=768, D=128, TS=512, kk=16) on a
+    dyadic index of 40 blocks: at B <= 32 (40 query tiles, fewer than the
+    card's SMs) each block's slots are split over a cluster of CUDA
+    blocks; at B=200 one CUDA block takes all 512 slots and filters its
+    rows before sorting them."""
+    from rag_cobweb_tpu_torch.ops import blocked_topk as bt
+    bidx = _blocked_index(card, torch.bfloat16, 40, 768, 128, 512, 400, B)
+    g = torch.Generator(device=card).manual_seed(B)
+    q = (torch.randint(-8, 9, (B, 128), generator=g, device=card).float()
+         / 8).to(torch.bfloat16)
+    qd, q2 = bt._queries(bidx, q)
+    ks, ki = bt._block_candidates(qd, q2, bidx, 16)
+    ps, pi = bt.block_candidates_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
+                                       bidx.const_b, bidx.W, bidx.valid, 16)
+    full, _ = bt.block_scores_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
+                                    bidx.const_b, bidx.W, bidx.valid)
+    torch.cuda.synchronize()
+    _holds(ks, ki, ps, full, 1e-3 + 1e-3 * ps.abs())
+
+
+@pytest.mark.parametrize("ties,S_last", [(True, 512), (False, 5),
+                                          (True, 9)])
+def test_blocked_topk_kernel_ties_and_exhausted_rows(card, ties, S_last):
+    """All 512 slots in one CUDA block (70 blocks x 3 query tiles fill the
+    card), with exactly tied scores (the order falls to the lower slot)
+    and a last block of few valid slots (its rows give (NEG, 0) after
+    them): the same candidates, in the same order, as the plain version."""
+    from rag_cobweb_tpu_torch.ops import blocked_topk as bt
+    bidx = _blocked_index(card, torch.bfloat16, 70, 64, 16, 512, S_last,
+                          S_last, ties=ties)
+    g = torch.Generator(device=card).manual_seed(S_last)
+    q = (torch.randint(-8, 9, (130, 16), generator=g, device=card).float()
+         / 8).to(torch.bfloat16)
+    qd, q2 = bt._queries(bidx, q)
+    ks, ki = bt._block_candidates(qd, q2, bidx, 16)
+    ps, pi = bt.block_candidates_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
+                                       bidx.const_b, bidx.W, bidx.valid, 16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ks, ps, rtol=1e-3, atol=1e-3)
+    neg = ps <= bt.NEG / 2
+    assert torch.equal(neg, ks <= bt.NEG / 2)
+    assert bool((ki[neg] == 0).all())
+    if ties:            # exact scores: the tie order is the plain one
+        assert torch.equal(ki, pi)
 
 
 def test_blocked_entries_agree_on_the_card(card):
