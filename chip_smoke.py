@@ -13,8 +13,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    never calls: the fused pool at the flagship and 1M-row shapes, the
    re-rank, the blocked sweep on a dyadic index of the 100k cell's
    recorded shape at B = 1, 8, 32, 1024 and 4096 (exact scores: no id may
-   differ; untimed), a 40-block one at B=8
-   (each block split over a cluster), a small f32 index, and the group
+   differ; untimed), one of TS=1024 (each block split over a cluster) and
+   one of D=768 (query segments carried through the ring), a small f32
+   index, and the group
    pool at the flagship shape (per_group 1 and 2); kernels 1 and 5 also
    at B=1 and B=32, the batches of the flagship's latency probes;
 3. the flagship slice: ``rag_cobweb_tpu_torch.bench.headline`` at the
@@ -432,11 +433,16 @@ def main() -> int:
     for B in (1, 8, 32, 1024, 4096):
         check_blocked(blocked_topk, q[:B], bidx, 16, reps=0)
         torch.cuda.empty_cache()
-    # 40 blocks at B=8 give fewer query tiles than the card has SMs: each
-    # block's slots are split over a cluster of CUDA blocks and merged
-    q, bidx = dyadic_blocked(8, 40, 768, 128, 512, 300, torch.bfloat16,
+    # TS=1024: each block's slots split over a cluster of CUDA blocks and
+    # merged; D=768 (an index without a whitener at the encoder's width):
+    # the query tile goes through the ring in segments, timed
+    q, bidx = dyadic_blocked(40, 40, 768, 128, 1024, 700, torch.bfloat16,
                              seed=8)
-    check_blocked(blocked_topk, q, bidx, 16, reps=20)
+    check_blocked(blocked_topk, q, bidx, 16, reps=0)
+    q, bidx = dyadic_blocked(1024, 196, 768, 768, 512, 300, torch.bfloat16,
+                             seed=9)
+    for B, reps in ((8, 20), (1024, 5)):
+        check_blocked(blocked_topk, q[:B], bidx, 16, reps=reps)
     q, bidx = dyadic_blocked(37, 5, 48, 20, 64, 40, torch.float32, seed=6)
     check_blocked(blocked_topk, q, bidx, 8, reps=0)
     del q, bidx

@@ -2,12 +2,12 @@
 
     python -m rag_cobweb_tpu_torch.bench.blocked_phases
 
-For a card without a device profiler at hand: it builds an instrumented
-copy of ``csrc/blocked_topk.cu`` (into ``build/torch_kernels/``), in
-which the first consumer thread of every CUDA block
-stamps ``clock64()`` before the query tile arrives, after it, after the M
-loop, after the score tile is stored and after the selection, and every
-row that fails the selection's filter and takes the full sort is
+For a card without a device profiler at hand: it builds
+``csrc/blocked_topk.cu`` with ``-DBLOCKED_PHASES`` (into
+``build/torch_kernels/``), where the first consumer thread of every CUDA
+block stamps ``clock64()`` before the query tile arrives, after it, after
+the M loop, after the score tile is stored and after the selection, and
+every row that fails the selection's filter and takes the full sort is
 counted.  It runs on the 100k cell's served index (``blocked_ab.py``'s)
 at B = 1, 32 and 1024 and prints, per batch size, the median cycles of
 each phase over the CUDA blocks, their shares of the block's time, and
@@ -31,73 +31,19 @@ from rag_cobweb_tpu_torch.ops import _build
 from rag_cobweb_tpu_torch.ops import blocked_topk as bt
 
 PHASES = ("query_tile", "m_loop", "tile_store", "selection")
-SLOTS = 65536          # CUDA blocks that can be stamped
-
-
-def _stamp(k: int) -> str:
-    return ("  if (tid == 0) g_stamps[((size_t)(blockIdx.z * gridDim.y + "
-            "blockIdx.y) * gridDim.x + blockIdx.x) * 8 + %d] = clock64();\n"
-            % k)
-
-
-def instrumented_source() -> str:
-    """The kernel source with the stamps and the full-sort counter."""
-    src = (_build._CSRC / "blocked_topk.cu").read_text()
-    edits = (
-        ("namespace {\n\nusing bf16",
-         "__device__ long long g_stamps[%d * 8];\n"
-         "__device__ unsigned long long g_full_rows;\n"
-         "namespace {\n\nusing bf16" % SLOTS),
-        ("  mbar_wait(bar_q, 0);\n",
-         _stamp(0) + "  mbar_wait(bar_q, 0);\n" + _stamp(1)),
-        ("  // -- the score tile over the ring",
-         _stamp(2) + "  // -- the score tile over the ring"),
-        ("  // -- the first L candidates of each",
-         _stamp(3) + "  // -- the first L candidates of each"),
-        ("  if (nsplit == 1) return;\n",
-         _stamp(4) + "  if (nsplit == 1) return;\n"),
-        ("      if (!done) {\n",
-         "      if (!done) {\n"
-         "        if (qd == 0) atomicAdd(&g_full_rows, 1ull);\n"),
-    )
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"blocked_topk.cu changed: no single {old!r}")
-        src = src.replace(old, new)
-    return src + '''
-extern "C" int read_stamps(void* host, unsigned long long* full) {
-  cudaError_t e = cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));
-  if (e == cudaSuccess) {
-    e = cudaMemcpyFromSymbol(full, g_full_rows, sizeof(*full));
-  }
-  return (int)e;
-}
-
-extern "C" int clear_stamps() {
-  void* p = nullptr;
-  cudaError_t e = cudaGetSymbolAddress(&p, g_stamps);
-  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(g_stamps));
-  const unsigned long long zero = 0;
-  if (e == cudaSuccess) {
-    e = cudaMemcpyToSymbol(g_full_rows, &zero, sizeof(zero));
-  }
-  return (int)e;
-}
-'''
+SLOTS = 65536          # CUDA blocks that can be stamped (g_stamps)
 
 
 def build():
-    src = instrumented_source()
-    digest = hashlib.sha1(src.encode()).hexdigest()[:12]
+    src = _build._CSRC / "blocked_topk.cu"
+    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = _build.BUILD_DIR / f"blocked_phases_{digest}.cu"
-    so = cu.with_suffix(".so")
+    so = _build.BUILD_DIR / f"blocked_phases_{digest}.so"
     if not so.exists():
-        cu.write_text(src)
         subprocess.run([_build._nvcc(), "-gencode",
                         "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                        "-shared", "-Xcompiler", "-fPIC", "-o", str(so),
-                        str(cu)], check=True)
+                        "-DBLOCKED_PHASES", "-shared", "-Xcompiler", "-fPIC",
+                        "-o", str(so), str(src)], check=True)
     lib = ctypes.CDLL(str(so))
     lib.blocked_topk_bf16.argtypes = \
         _build._SIGNATURES["blocked_topk"]["blocked_topk_bf16"]

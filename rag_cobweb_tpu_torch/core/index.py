@@ -206,12 +206,21 @@ def _leaf_lp_rerank(index: PredictionIndex, queries: torch.Tensor,
     return top, cand.gather(1, pos)
 
 
+def pad_width(x: torch.Tensor, D: int) -> torch.Tensor:
+    """``x`` with its last dimension zero-padded to ``D``.  A blocked index
+    keeps its width a multiple of 8 (the blocked kernel loads rows of
+    16-byte multiples); zero columns, in the queries too, add nothing."""
+    if x.shape[-1] >= D:
+        return x
+    return torch.nn.functional.pad(x, (0, D - x.shape[-1]))
+
+
 class BlockedIndex(NamedTuple):
     """Block-local dense form of the prediction index: per block of ``TS``
     sentences, its own copy of the GEMM terms of the ``M`` (padded) nodes
     its paths touch and the dense path weights over them."""
 
-    ivt_b: torch.Tensor        # (NB, M, D) inverse variances
+    ivt_b: torch.Tensor        # (NB, M, D) inverse variances, D % 8 == 0
     movt_b: torch.Tensor       # (NB, M, D) mean / variance
     const_b: torch.Tensor      # (NB, M) f32
     W: torch.Tensor            # (NB, M, TS) local path weights
@@ -226,8 +235,9 @@ def build_blocked_index(index: PredictionIndex, block_size: int = 512,
     block's path entries (from the index's host copies), the W scatter and
     the stats gather on the device.  ``M`` is the largest per-block node
     count rounded up to ``node_pad``; pad node rows carry ``ivt=1,
-    movt=0, const=0`` and a zero W row, so they add nothing.  A bf16
-    ``dtype`` halves the sweep's bytes; pair it with a re-rank."""
+    movt=0, const=0`` and a zero W row, so they add nothing; D is
+    zero-padded to a multiple of 8 (``pad_width``).  A bf16 ``dtype``
+    halves the sweep's bytes; pair it with a re-rank."""
     paths, weights, order = index.paths_h, index.weights_h, index.order_h
     S, P = paths.shape
     TS = block_size
@@ -278,6 +288,8 @@ def build_blocked_index(index: PredictionIndex, block_size: int = 512,
     ivt_b = torch.where(pad.unsqueeze(2), 1.0, index.inv_var_T.T[nodes])
     movt_b = torch.where(pad.unsqueeze(2), 0.0, index.mu_over_var_T.T[nodes])
     const_b = torch.where(pad, 0.0, index.const[nodes])
+    D8 = -(-ivt_b.shape[2] // 8) * 8
+    ivt_b, movt_b = pad_width(ivt_b, D8), pad_width(movt_b, D8)
     return BlockedIndex(
         ivt_b=ivt_b.to(dtype).contiguous(),
         movt_b=movt_b.to(dtype).contiguous(),
@@ -298,7 +310,7 @@ def blocked_scores(bidx: BlockedIndex, queries: torch.Tensor) -> torch.Tensor:
     the second product, as in the JAX package.  f32 operands need TF32 off
     on the card (``device.full_f32_matmul``)."""
     dt = bidx.ivt_b.dtype
-    q = queries.to(dt)
+    q = pad_width(queries, bidx.ivt_b.shape[2]).to(dt)
     nlp = (torch.einsum("bd,smd->sbm", q.float(), bidx.movt_b.float())
            - 0.5 * torch.einsum("bd,smd->sbm", torch.square(q).float(),
                                 bidx.ivt_b.float())

@@ -318,8 +318,9 @@ class CobwebIndex:
         (few blocks), each block gives its exact top-pool instead, so the
         merge is the exact top-pool of the blocked scores; there the JAX
         package gave way to another engine.  It also gave way when no query
-        chunk fitted VMEM; the kernel tiles queries and M in shared
-        memory, so every batch fits and that branch has no counterpart."""
+        chunk fitted VMEM; the kernel streams M, and a wide D, through
+        shared memory by query tile, so every batch and width fits and
+        that branch has no counterpart."""
         bk = self.pallas_block_k
         if rerank and bidx.ivt_b.shape[0] * bk < max(kk, rerank):
             bk = 0          # blocked_topk: per-block candidates = the pool

@@ -22,14 +22,20 @@
 // P = bf16(Q K^T + const), V = W, and the epilogue is the mask and the kk
 // argmax rounds.  One CUDA block (CTA) owns 64 queries (one wgmma M), one
 // sentence block and a slice of 2 NT of its TS slots (NT = 64, 128 or 256):
-//   * a producer warpgroup (one thread issues) loads the 64 x 2D query tile
-//     once and then streams M in chunks of MC = 64 nodes through a ring of
-//     2-4 stages, each holding the chunk's [movt | ivt] rows and its W rows
-//     of the slice, by TMA (128-byte swizzle, zero fill past M, D, TS and
-//     B) on mbarriers;
+//   * a producer warpgroup (one thread issues) streams M in chunks of MC =
+//     64 nodes through a ring of 2-4 stages, each holding the chunk's
+//     [movt | ivt] rows and its W rows of the slice, by TMA (128-byte
+//     swizzle, zero fill past M, D, TS and B) on mbarriers.  Up to 2D =
+//     512 columns the 64 x 2D query tile is loaded once and stays beside
+//     the ring.  A wider one does not fit: then a chunk's [movt | ivt]
+//     comes in segments of 128 columns (256 when NT < 256), one a stage,
+//     each stage carries the query tile's matching segment, and the
+//     chunk's W rows come with its last segment (a template parameter, so
+//     the resident kernel has no segment loop);
 //   * two consumer warpgroups (240 registers each by setmaxnreg; the
 //     producer keeps 24) each run GEMM1 (nlp chunk, 64 x 64, K = 2D, both
-//     operands in shared memory) with wgmma, add const and round to bf16 in
+//     operands in shared memory, one wgmma group a segment) with wgmma,
+//     add const and round to bf16 in
 //     registers exactly where the TPU kernel rounds (pallas_query.py:
 //     67-69), and feed that as wgmma's register A operand to GEMM2 into
 //     their own NT slots (64 x NT f32 in registers: 128 a thread at NT =
@@ -49,14 +55,14 @@
 //     candidate's rank is the number before it in all lists (score
 //     descending, ties to the lower slot), and (NEG, 0) fills the rest.
 // The query tile is 64 (the WMMA kernel had 32), so the L2 re-reads of
-// each block's index halve.  The launcher chooses NT: the widest slice
-// that covers TS (or 256, with more CTAs in the cluster for TS > 512), cut
-// while the CTAs would not give every SM one (a small batch over few
-// blocks: the split lets the whole card stream the index) and while shared
-// memory does not fit.  D must be a multiple of 8 (16-byte TMA rows; the
-// wrapper pads) and at most 256 (the query tile stays resident).  An f32
-// index runs on the CUDA cores at full f32 (fmaf), with the score tile in
-// shared memory.
+// each block's index halve.  The launcher chooses NT from TS and shared
+// memory alone: the widest slice that covers TS (or 256, with more CTAs in
+// the cluster for TS > 512), halved while shared memory does not fit.  A
+// split of TS = 512 over a cluster when query tiles x blocks leave SMs
+// idle lost to one CTA a block at B <= 64 on the served index, so there
+// is none.  D must be a multiple of 8 (16-byte TMA rows;
+// build_blocked_index pads it).  An f32 index runs on the CUDA cores at
+// full f32 (fmaf), with the score tile in shared memory.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -80,6 +86,7 @@ constexpr int BF16_THREADS = CONSUMERS + 128;  // + the producer warpgroup
 constexpr int MAX_STAGES = 4;
 constexpr int MAX_SPLIT = 8;              // portable cluster size
 constexpr int SMEM_LIMIT = 232448;        // a CTA's shared memory on sm_90
+constexpr int RESIDENT_BOXES = 8;         // a query tile of 2D <= 512 stays
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -335,12 +342,10 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
   }
 }
 
-// GEMM1, issued and committed: nlp (64 queries x MC nodes) = the query
-// tile at ``qs`` . the [movt | ivt] chunk at ``kc``, K = 64 KB columns.
+// GEMM1, issued and committed: nlp (64 queries x MC nodes) += the query
+// boxes at ``qs`` . the [movt | ivt] boxes at ``kc``, K = 64 KB columns.
 __device__ __forceinline__ void gemm1(float* nlp, uint32_t qs, uint32_t kc,
                                       int KB) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) nlp[i] = 0.f;
   fence_regs<32>(nlp);
   wgmma_fence();
   for (int ks = 0; ks < KB * 4; ++ks) {
@@ -513,22 +518,61 @@ __device__ __forceinline__ float top_bound(const float* row, int qd,
   return t[15];
 }
 
-// Shared memory of the bf16 kernel.  During the M loop: the query tile (KB
-// boxes of 64 rows) and ``stages`` ring stages, each KB boxes of the
-// [movt | ivt] chunk and 2 NT / 64 boxes of W (MC rows each).  After it,
-// over the same bytes: the score tile [TQ][LDT] f32, the lists of the
+// Query boxes (64 rows) of q^2 -> -0.5 q^2, exact in bf16, by the
+// consumers; then seen by wgmma and by both warpgroups.
+__device__ __forceinline__ void halve_neg(uint8_t* p, int boxes) {
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(p);
+  const int n = boxes * TQ * ROWB / 4;
+  for (int e = threadIdx.x; e < n; e += CONSUMERS) {
+    const float2 v = __bfloat1622float2(h[e]);
+    h[e] = __floats2bfloat162_rn(-0.5f * v.x, -0.5f * v.y);
+  }
+  fence_async_smem();
+  consumers_sync();
+}
+
+#ifdef BLOCKED_PHASES
+// bench/blocked_phases.py builds with -DBLOCKED_PHASES: the first consumer
+// thread of every CTA stamps clock64() at the phase boundaries, and the
+// rows that fail the selection's filter are counted.
+__device__ long long g_stamps[65536 * 8];
+__device__ unsigned long long g_full_rows;
+#define STAMP(k)                                                            \
+  do {                                                                      \
+    if (threadIdx.x == 0) {                                                 \
+      g_stamps[((size_t)(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + \
+                blockIdx.x) * 8 + (k)] = clock64();                         \
+    }                                                                       \
+  } while (0)
+#define COUNT_FULL_ROW() atomicAdd(&g_full_rows, 1ull)
+#else
+#define STAMP(k) do {} while (0)
+#define COUNT_FULL_ROW() do {} while (0)
+#endif
+
+// Shared memory of the bf16 kernel.  During the M loop: the resident
+// query tile (KB boxes of 64 rows; none when it is carried) and
+// ``stages`` ring stages.  A stage holds, each in boxes of 64 rows: the
+// carried query segment (SB boxes; none when resident), SB boxes of the
+// [movt | ivt] chunk and 2 NT / 64 boxes of W.  After the loop, over the
+// same bytes: the score tile [TQ][LDT] f32, the lists of the
 // cluster merge, scores [TQ][L] and u16 slots [TQ][L], and at NT = 256 the
 // filtered candidates: counts [TQ], scores [TQ][CAND], slots [TQ][CAND].
 // Then the mbarriers: the query tile's, ``stages`` full, ``stages`` empty.
 struct Layout {
-  int KB, WB, stage_bytes, kbytes, ldt, bars, total;
+  int KB, SB, NS, WB, qres, qbytes, wofs, stage_bytes, ldt, bars, total;
   __host__ __device__ Layout(int Dp, int NT, int stages, int L) {
     KB = 2 * Dp / BOXC;
+    // boxes of a segment: 256 columns, 128 at NT = 256 (two stages fit)
+    SB = KB <= RESIDENT_BOXES ? KB : NT == 256 ? 2 : 4;
+    NS = (KB + SB - 1) / SB;              // segments of a chunk
     WB = 2 * NT / BOXC;
-    kbytes = KB * MC * ROWB;
-    stage_bytes = kbytes + WB * MC * ROWB;
+    qres = NS == 1 ? KB * TQ * ROWB : 0;  // the resident query tile
+    qbytes = NS == 1 ? 0 : SB * TQ * ROWB;    // a stage's query segment
+    wofs = qbytes + SB * MC * ROWB;
+    stage_bytes = wofs + WB * MC * ROWB;
     ldt = 2 * NT + 8;                     // padded: fewer bank conflicts
-    const int main_bytes = KB * TQ * ROWB + stages * stage_bytes;
+    const int main_bytes = qres + stages * stage_bytes;
     const int epi_bytes = TQ * ldt * 4 + (TQ * L * 6 + 15) / 16 * 16
                         + (NT == 256 ? TQ * 4 + TQ * CAND * 8 : 0);
     bars = ((main_bytes > epi_bytes ? main_bytes : epi_bytes) + 7) / 8 * 8;
@@ -536,7 +580,9 @@ struct Layout {
   }
 };
 
-template <int NT>
+// CARRIED: the query tile comes through the ring in segments (2D > 512);
+// a template parameter, so that the resident kernel has no segment loop.
+template <int NT, bool CARRIED>
 __global__ void __launch_bounds__(BF16_THREADS, 1)
 blocked_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tq2,
@@ -553,8 +599,10 @@ blocked_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int L = min(kk, 2 * NT);          // a list's length
   const Layout lay(Dp, NT, stages, L);
+  const int NS = CARRIED ? lay.NS : 1, SB = CARRIED ? lay.SB : lay.KB;
+  const int qbytes = CARRIED ? lay.qbytes : 0;
   const uint32_t qs = smem_u32(base);
-  const uint32_t ring = qs + lay.KB * TQ * ROWB;
+  const uint32_t ring = qs + lay.qres;
   const uint32_t bar_q = qs + lay.bars;
   const uint32_t bar_full = bar_q + 8;
   const uint32_t bar_empty = bar_full + 8 * stages;
@@ -580,23 +628,35 @@ blocked_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (tid == CONSUMERS) {
       const int db = lay.KB / 2;          // boxes of q (and of movt)
-      mbar_expect_tx(bar_q, lay.KB * TQ * ROWB);
-      for (int kb = 0; kb < lay.KB; ++kb) {
-        tma_2d(qs + kb * TQ * ROWB, kb < db ? &tq : &tq2, (kb % db) * BOXC,
-               q0, bar_q);
+      if (!CARRIED) {
+        mbar_expect_tx(bar_q, lay.qres);
+        for (int kb = 0; kb < lay.KB; ++kb) {
+          tma_2d(qs + kb * TQ * ROWB, kb < db ? &tq : &tq2,
+                 (kb % db) * BOXC, q0, bar_q);
+        }
       }
-      for (int c = 0; c < nchunks; ++c) {
-        const int s = c % stages, n = c / stages;
+      // ring item i: segment g of chunk c
+      for (int i = 0; i < nchunks * NS; ++i) {
+        const int c = i / NS, g = i % NS;
+        const int s = i % stages, n = i / stages;
         if (n > 0) mbar_wait(bar_empty + 8 * s, (n - 1) & 1);
         const uint32_t st = ring + s * lay.stage_bytes;
         const uint32_t full = bar_full + 8 * s;
-        mbar_expect_tx(full, lay.stage_bytes);
-        for (int kb = 0; kb < lay.KB; ++kb) {
-          tma_3d(st + kb * MC * ROWB, kb < db ? &tmv : &tiv,
+        const int k0 = g * SB, nk = min(SB, lay.KB - k0);
+        const bool last = g == NS - 1;
+        mbar_expect_tx(full, nk * ((CARRIED ? TQ : 0) + MC) * ROWB +
+                                 (last ? lay.WB * MC * ROWB : 0));
+        for (int j = 0; j < nk; ++j) {
+          const int kb = k0 + j;
+          if (CARRIED) {
+            tma_2d(st + j * TQ * ROWB, kb < db ? &tq : &tq2,
+                   (kb % db) * BOXC, q0, full);
+          }
+          tma_3d(st + qbytes + j * MC * ROWB, kb < db ? &tmv : &tiv,
                  (kb % db) * BOXC, c * MC, nb, full);
         }
-        for (int wb = 0; wb < lay.WB; ++wb) {
-          tma_3d(st + lay.kbytes + wb * MC * ROWB, &tw, ts0 + wb * BOXC,
+        for (int wb = 0; last && wb < lay.WB; ++wb) {
+          tma_3d(st + lay.wofs + wb * MC * ROWB, &tw, ts0 + wb * BOXC,
                  c * MC, nb, full);
         }
       }
@@ -627,19 +687,15 @@ blocked_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     }
   }
 
-  // the query tile: [q | q^2] -> [q | -0.5 q^2], exact in bf16
-  mbar_wait(bar_q, 0);
-  {
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(
-        base + (lay.KB / 2) * TQ * ROWB);
-    const int n = (lay.KB / 2) * TQ * ROWB / 4;
-    for (int e = tid; e < n; e += CONSUMERS) {
-      const float2 v = __bfloat1622float2(h[e]);
-      h[e] = __floats2bfloat162_rn(-0.5f * v.x, -0.5f * v.y);
-    }
+  // the query tile: [q | q^2] -> [q | -0.5 q^2], exact in bf16; a carried
+  // one segment by segment in the M loop
+  const int db = lay.KB / 2;
+  STAMP(0);
+  if (!CARRIED) {
+    mbar_wait(bar_q, 0);
+    halve_neg(base + db * TQ * ROWB, db);
   }
-  fence_async_smem();
-  consumers_sync();
+  STAMP(1);
 
   float acc[NACC];
 #pragma unroll
@@ -649,15 +705,30 @@ blocked_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   float nlp[32];
   uint32_t a[16];
   for (int c = 0; c < nchunks; ++c) {
-    const int s = c % stages, n = c / stages;
-    mbar_wait(bar_full + 8 * s, n & 1);
-    const uint32_t st = ring + s * lay.stage_bytes;
-    gemm1(nlp, qs, st, lay.KB);
-    wgmma_wait<0>();
+    uint32_t st = 0;
+    int s = 0;
+    for (int g = 0; g < NS; ++g) {
+      const int i = c * NS + g;
+      s = i % stages;
+      mbar_wait(bar_full + 8 * s, (i / stages) & 1);
+      st = ring + s * lay.stage_bytes;
+      if (g == 0) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) nlp[j] = 0.f;
+      }
+      const int k0 = g * SB, nk = min(SB, lay.KB - k0);
+      if (CARRIED && k0 + nk > db) {
+        const int h = max(db - k0, 0);    // the segment's first q^2 box
+        halve_neg(base + (st - qs) + h * TQ * ROWB, nk - h);
+      }
+      gemm1(nlp, CARRIED ? st : qs + k0 * TQ * ROWB, st + qbytes, nk);
+      wgmma_wait<0>();
+      if (g + 1 < NS) mbar_arrive(bar_empty + 8 * s);
+    }
     fence_regs<32>(nlp);
     round_nlp(nlp, a, cb, c * MC, M, cq);
     // GEMM2: this warpgroup's NT slots += P (64 x MC) . W chunk (MC x NT)
-    const uint32_t wbase = st + lay.kbytes + (wg * NT / BOXC) * MC * ROWB;
+    const uint32_t wbase = st + lay.wofs + (wg * NT / BOXC) * MC * ROWB;
     fence_regs<NACC>(acc);
     wgmma_fence();
 #pragma unroll
@@ -672,6 +743,7 @@ blocked_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   // -- the score tile over the ring, invalid slots NEG ----------------------
+  STAMP(2);
   fence_async_smem();
   consumers_sync();                       // both warpgroups are done with it
   float* tile = reinterpret_cast<float*>(base);
@@ -693,6 +765,7 @@ blocked_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   int* cand_t = reinterpret_cast<int*>(cand_s + TQ * CAND);
   if (NT == 256 && tid < TQ) cand_n[tid] = 0;
   consumers_sync();
+  STAMP(3);
 
   // -- the first L candidates of each query row of the slice ----------------
   // With one CTA a block (nsplit == 1) they are the output; else lists for
@@ -760,6 +833,7 @@ blocked_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
       if (!done) {
+        if (qd == 0) COUNT_FULL_ROW();
         // each thread sorts its blocks of TOP slots, keeping the first TOP
 #pragma unroll 1
         for (int b = qd; b < W2 / TOP; b += 4) {
@@ -820,6 +894,7 @@ blocked_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   }
+  STAMP(4);
   if (nsplit == 1) return;
 
   // -- merge the cluster's lists of each query row --------------------------
@@ -1038,14 +1113,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int rank,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 132;
-}
-
-template <int NT>
+template <int NT, bool CARRIED>
 int launch_bf16(const CUtensorMap* maps, const void* cst, const void* valid,
                 void* out_s, void* out_t, int B, int NB, int M, int Dp,
                 int TS, int kk, cudaStream_t stream) {
@@ -1056,9 +1124,9 @@ int launch_bf16(const CUtensorMap* maps, const void* cst, const void* valid,
     ++stages;
   }
   const int smem = Layout(Dp, NT, stages, L).total;
+  auto kernel = blocked_bf16_kernel<NT, CARRIED>;
   cudaError_t e = cudaFuncSetAttribute(
-      blocked_bf16_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int nsplit = (TS + 2 * NT - 1) / (2 * NT);
   cudaLaunchConfig_t cfg = {};
@@ -1073,8 +1141,8 @@ int launch_bf16(const CUtensorMap* maps, const void* cst, const void* valid,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, blocked_bf16_kernel<NT>, maps[0], maps[1],
-                         maps[2], maps[3], maps[4],
+  e = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], maps[2], maps[3],
+                         maps[4],
                          reinterpret_cast<const float*>(cst),
                          reinterpret_cast<const uint8_t*>(valid),
                          reinterpret_cast<float*>(out_s),
@@ -1089,7 +1157,7 @@ int launch_bf16(const CUtensorMap* maps, const void* cst, const void* valid,
 // Shapes: q, q2 (B, D); ivt, movt (NB, M, D); cst (NB, M) f32; W (NB, M, TS);
 // valid (NB, TS) bool; out_s/out_t (NB, B, kk).  The caller guarantees
 // M % 16 == 0, TS % 16 == 0, TS <= 1024, 1 <= kk <= TS, NB <= 65535, and
-// for bf16 D % 8 == 0 and D <= 256.
+// for bf16 D % 8 == 0.
 extern "C" int blocked_topk_bf16(const void* q, const void* q2,
                                  const void* ivt, const void* movt,
                                  const void* cst, const void* W,
@@ -1097,7 +1165,7 @@ extern "C" int blocked_topk_bf16(const void* q, const void* q2,
                                  int B, int NB, int M, int D, int TS, int kk,
                                  void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (D % 8 != 0 || D > 256 || TS > 1024) return (int)cudaErrorInvalidValue;
+  if (D % 8 != 0 || TS > 1024) return (int)cudaErrorInvalidValue;
   const int Dp = (D + BOXC - 1) / BOXC * BOXC;
   CUtensorMap maps[5];
   const cuuint64_t dq[2] = {(cuuint64_t)D, (cuuint64_t)B};
@@ -1111,14 +1179,9 @@ extern "C" int blocked_topk_bf16(const void* q, const void* q2,
     return (int)cudaErrorInvalidValue;
   }
   // The widest slice that covers TS (two warpgroups of NT slots each),
-  // narrowed while the CTAs would not give every SM one, then while shared
-  // memory does not fit.
+  // narrowed while shared memory does not fit.
   int nt = 64;
   while (nt < 256 && 2 * nt < TS) nt *= 2;
-  const long tiles = (long)((B + TQ - 1) / TQ) * NB;
-  while (nt > 64 && tiles * ((TS + 2 * nt - 1) / (2 * nt)) < sm_count()) {
-    nt /= 2;
-  }
   auto smem = [&](int n) {
     return Layout(Dp, n, 2, kk < 2 * n ? kk : 2 * n).total;
   };
@@ -1127,16 +1190,28 @@ extern "C" int blocked_topk_bf16(const void* q, const void* q2,
       (TS + 2 * nt - 1) / (2 * nt) > MAX_SPLIT) {
     return (int)cudaErrorInvalidValue;
   }
+  if (2 * Dp / BOXC > RESIDENT_BOXES) {
+    if (nt == 256) {
+      return launch_bf16<256, true>(maps, cst, valid, out_s, out_t, B, NB, M,
+                                    Dp, TS, kk, s);
+    }
+    if (nt == 128) {
+      return launch_bf16<128, true>(maps, cst, valid, out_s, out_t, B, NB, M,
+                                    Dp, TS, kk, s);
+    }
+    return launch_bf16<64, true>(maps, cst, valid, out_s, out_t, B, NB, M,
+                                 Dp, TS, kk, s);
+  }
   if (nt == 256) {
-    return launch_bf16<256>(maps, cst, valid, out_s, out_t, B, NB, M, Dp, TS,
-                            kk, s);
+    return launch_bf16<256, false>(maps, cst, valid, out_s, out_t, B, NB, M,
+                                   Dp, TS, kk, s);
   }
   if (nt == 128) {
-    return launch_bf16<128>(maps, cst, valid, out_s, out_t, B, NB, M, Dp, TS,
-                            kk, s);
+    return launch_bf16<128, false>(maps, cst, valid, out_s, out_t, B, NB, M,
+                                   Dp, TS, kk, s);
   }
-  return launch_bf16<64>(maps, cst, valid, out_s, out_t, B, NB, M, Dp, TS, kk,
-                         s);
+  return launch_bf16<64, false>(maps, cst, valid, out_s, out_t, B, NB, M, Dp,
+                                TS, kk, s);
 }
 
 extern "C" int blocked_topk_f32(const void* q, const void* q2,
@@ -1153,3 +1228,24 @@ extern "C" int blocked_topk_f32(const void* q, const void* q2,
   return launch_f32<1>(q, q2, ivt, movt, cst, W, valid, out_s, out_t, B, NB,
                        M, D, TS, kk, s);
 }
+
+#ifdef BLOCKED_PHASES
+extern "C" int read_stamps(void* host, unsigned long long* full) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));
+  if (e == cudaSuccess) {
+    e = cudaMemcpyFromSymbol(full, g_full_rows, sizeof(*full));
+  }
+  return (int)e;
+}
+
+extern "C" int clear_stamps() {
+  void* p = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, g_stamps);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(g_stamps));
+  const unsigned long long zero = 0;
+  if (e == cudaSuccess) {
+    e = cudaMemcpyToSymbol(g_full_rows, &zero, sizeof(zero));
+  }
+  return (int)e;
+}
+#endif

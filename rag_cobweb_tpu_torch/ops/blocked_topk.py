@@ -23,20 +23,17 @@ tiled entry merged with ``approx_max_k``, which PyTorch lacks.  The JAX
 package sized its query chunks to VMEM (``pallas_vmem_estimate``,
 ``_v2_tile``), padded a ragged batch to its query tile and refused a batch
 that did not fit; the kernel masks a ragged query tile itself and streams
-M through shared memory, so every batch fits as it is.
+M (and, for a wide index, D) through shared memory, so every batch and
+width fits as it is.
 
-When TS is above 512, or a batch over few blocks would leave SMs idle,
-the bf16 kernel splits each block's TS slots over the CUDA blocks of a
-cluster and merges their sorted lists exactly; ``slice_lists_plain`` and
-``merge_lists_plain`` are that split and merge in plain PyTorch.  Its TMA loads need rows of a multiple of 16
-bytes, so an index whose D is not a multiple of 8 goes to the kernel
-through a zero-padded copy, made once per index (``_padded``), and the
-queries are padded the same way: the products do not change.
+When TS is above 512 the bf16 kernel splits each block's slots over the
+CUDA blocks of a cluster and merges their sorted lists exactly, inside
+the kernel.  Its TMA loads need rows of a multiple of 16 bytes, so D must
+be a multiple of 8: ``build_blocked_index`` zero-pads it, and the queries
+are padded to the index's width here (zero columns add nothing).
 """
 
 from __future__ import annotations
-
-import weakref
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +41,6 @@ import torch.nn.functional as F
 from rag_cobweb_tpu_torch.ops import _build
 
 NEG = -3e38
-_PADDED: dict = {}   # id(ivt_b) -> (ref, ivt_b, movt_b padded to D % 8 == 0)
 
 
 def _check(q, q2, bidx, kk: int):
@@ -98,61 +94,6 @@ def block_candidates_plain(q, q2, ivt_b, movt_b, const_b, W, valid,
             torch.cat(slot, dim=2).to(torch.int32))
 
 
-def slice_lists_plain(q, q2, ivt_b, movt_b, const_b, W, valid, kk: int,
-                      width: int):
-    """The kernel's split in plain PyTorch: each slice of ``width`` slots
-    gives its own top-min(kk, width) list, slots counted from the block's
-    first; (G, NB, B, L) scores and int32 slots, one list per slice."""
-    TS = W.shape[2]
-    L = min(kk, width)
-    out_s, out_t = [], []
-    for a in range(0, TS, width):
-        b = min(a + width, TS)
-        s, t = block_candidates_plain(q, q2, ivt_b, movt_b, const_b,
-                                      W[:, :, a:b], valid[:, a:b],
-                                      min(L, b - a))
-        if b - a < L:               # a narrow last slice: pad its list
-            pad = (0, L - (b - a))
-            s, t = F.pad(s, pad, value=NEG), F.pad(t, pad)
-        out_s.append(s)
-        out_t.append(t + a)
-    return torch.stack(out_s), torch.stack(out_t)
-
-
-def merge_lists_plain(list_s, list_t, kk: int):
-    """The kernel's merge in plain PyTorch: (G, NB, B, L) lists, each in
-    round order -> (NB, B, kk) scores and int32 slots, score descending
-    with ties to the lower slot; NEG entries count as exhausted, and once
-    every list is, the rounds give (NEG, 0)."""
-    G, NB, B, L = list_s.shape
-    s = list_s.permute(1, 2, 0, 3).reshape(NB, B, G * L)
-    t = list_t.permute(1, 2, 0, 3).reshape(NB, B, G * L).long()
-    o = torch.argsort(t, dim=2, stable=True)
-    s, t = s.gather(2, o), t.gather(2, o)
-    o = torch.argsort(s, dim=2, descending=True, stable=True)
-    s, t = s.gather(2, o)[:, :, :kk], t.gather(2, o)[:, :, :kk]
-    if s.shape[2] < kk:
-        s = F.pad(s, (0, kk - s.shape[2]), value=NEG)
-        t = F.pad(t, (0, kk - t.shape[2]))
-    real = s > NEG
-    return (torch.where(real, s, torch.full_like(s, NEG)),
-            torch.where(real, t, torch.zeros_like(t)).to(torch.int32))
-
-
-def _padded(bidx):
-    """ivt_b and movt_b with D zero-padded to a multiple of 8, made once
-    per index and kept while its ivt_b lives."""
-    key = id(bidx.ivt_b)
-    hit = _PADDED.get(key)
-    if hit is None or hit[0]() is not bidx.ivt_b:
-        pad = (0, -bidx.ivt_b.shape[2] % 8)
-        hit = (weakref.ref(bidx.ivt_b), F.pad(bidx.ivt_b, pad).contiguous(),
-               F.pad(bidx.movt_b, pad).contiguous())
-        _PADDED[key] = hit
-        weakref.finalize(bidx.ivt_b, _PADDED.pop, key, None)
-    return hit[1], hit[2]
-
-
 def _block_candidates(q, q2, bidx, kk: int):
     """(NB, B, kk) candidates of every block, by the kernel on the card
     (counted on ``blocked_topk.launches``) or the plain version on the
@@ -167,17 +108,13 @@ def _block_candidates(q, q2, bidx, kk: int):
         raise ValueError(f"the kernel takes M and TS multiples of 16, "
                          f"TS <= 1024 and NB <= 65535; got M={M} TS={TS} "
                          f"NB={NB}")
-    ivt_b, movt_b = bidx.ivt_b, bidx.movt_b
-    if bidx.W.dtype == torch.bfloat16:
-        if D > 256:
-            raise ValueError(f"the bf16 kernel keeps its query tile in "
-                             f"shared memory: D <= 256, got D={D}")
-        if D % 8:
-            ivt_b, movt_b = _padded(bidx)
-            q, q2 = F.pad(q, (0, -D % 8)), F.pad(q2, (0, -D % 8))
-            D = ivt_b.shape[2]
-    ts = (("queries", q), ("q2", q2), ("ivt_b", ivt_b), ("movt_b", movt_b),
-          ("const_b", bidx.const_b), ("W", bidx.W), ("valid", bidx.valid))
+    if bidx.W.dtype == torch.bfloat16 and D % 8:
+        raise ValueError(f"the bf16 kernel loads rows of 16-byte multiples: "
+                         f"D must be a multiple of 8 (build_blocked_index "
+                         f"pads it), got D={D}")
+    ts = (("queries", q), ("q2", q2), ("ivt_b", bidx.ivt_b),
+          ("movt_b", bidx.movt_b), ("const_b", bidx.const_b), ("W", bidx.W),
+          ("valid", bidx.valid))
     for name, t in ts:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -199,9 +136,12 @@ def _block_candidates(q, q2, bidx, kk: int):
 
 
 def _queries(bidx, queries):
-    """Squares in f32, then ONE cast to the index dtype (as the JAX
-    entries do)."""
+    """Zero-padded to the index's width, squared in f32, then ONE cast to
+    the index dtype (as the JAX entries do)."""
     dt = bidx.ivt_b.dtype
+    D = bidx.ivt_b.shape[2]
+    if queries.shape[1] < D:
+        queries = F.pad(queries, (0, D - queries.shape[1]))
     q2 = torch.square(queries.float()).to(dt).contiguous()
     return queries.to(dt).contiguous(), q2
 

@@ -88,7 +88,8 @@ def test_flat_index_matches_jax(forests):
 @pytest.mark.parametrize("source", ["port_flat", "jax_flat"])
 def test_blocked_build_matches_jax(forests, dtype, source):
     """From the port's own flat index, or from the JAX flat index's arrays
-    carried over with ``interop.prediction_index_from_numpy``."""
+    carried over with ``interop.prediction_index_from_numpy``.  The port
+    zero-pads D (12 here) to a multiple of 8."""
     jf, tf, _ = forests
     jflat = jf.flat_index()
     if source == "port_flat":
@@ -107,12 +108,17 @@ def test_blocked_build_matches_jax(forests, dtype, source):
         np.testing.assert_array_equal(
             getattr(got, f).float().numpy(),
             np.asarray(getattr(want, f)).astype(np.float32), err_msg=f)
+    D = want.ivt_b.shape[2]
+    assert got.ivt_b.shape[2] == -(-D // 8) * 8       # padded to 8s
     rtol = 1e-5 if dtype == "float32" else 2.0 ** -7
     for f in ("ivt_b", "movt_b", "const_b"):
+        g = getattr(got, f).float()
+        if f != "const_b":
+            assert not bool(g[..., D:].any()), f    # zero columns
+            g = g[..., :D]
         np.testing.assert_allclose(
-            getattr(got, f).float().numpy(),
-            np.asarray(getattr(want, f)).astype(np.float32), rtol=rtol,
-            atol=1e-5, err_msg=f)
+            g.numpy(), np.asarray(getattr(want, f)).astype(np.float32),
+            rtol=rtol, atol=1e-5, err_msg=f)
 
 
 @pytest.mark.parametrize("k", [5, 16])
@@ -174,44 +180,42 @@ def test_exhausted_rounds_match_pallas_interpret(forests, blocked):
                                    rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("width", [16, 32, 64])
-@pytest.mark.parametrize("case", ["ties", "exhausted"])
-def test_split_merge_equals_block_candidates(case, width):
-    """The bf16 kernel's split of a block's slots into slices of ``width``
-    and its exact merge of their lists, in plain PyTorch, give
-    ``block_candidates_plain``'s candidates in the same order: on scores
-    with many exact ties (ties go to the lower slot) and with more rounds
-    than the last block has valid slots ((NEG, 0) after them).  Dyadic f32
-    terms keep every score exact, so slicing changes no sum."""
-    rng = np.random.default_rng(width)
-    NB, M, D, TS, B = 3, 16, 8, 64, 5
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [5, 12, 20])
+def test_padded_width_serves_the_unpadded_results(D, dtype):
+    """A blocked index keeps D a multiple of 8 (``pad_width``, as
+    ``build_blocked_index`` pads it); the sweep entries and the PyTorch
+    sweep pad the queries to it, and the zero columns change no score and
+    no id.  Dyadic terms keep every sum exact in any order."""
+    rng = np.random.default_rng(D)
+    NB, M, TS, B = 3, 16, 32, 6
 
     def dyadic(lo, hi, shape, den):
         return torch.as_tensor(rng.integers(lo, hi, shape) / den,
                                dtype=torch.float32)
 
-    W = torch.as_tensor(rng.random((NB, M, TS)) < 0.5, dtype=torch.float32)
     valid = torch.ones((NB, TS), dtype=torch.bool)
-    if case == "ties":
-        W[:, 4:] = 0.0              # 16 weight patterns over 64 slots
-        kk = 12
-    else:
-        valid[-1, 10:] = False
-        kk = 24
-    bidx = tidx.BlockedIndex(
-        ivt_b=dyadic(1, 17, (NB, M, D), 16),
-        movt_b=dyadic(-8, 9, (NB, M, D), 16),
-        const_b=dyadic(-64, 65, (NB, M), 4), W=W, valid=valid,
-        sid_of_slot=torch.zeros((NB, TS), dtype=torch.int32))
-    q, q2 = bt._queries(bidx, dyadic(-8, 9, (B, D), 8))
-    args = (q, q2, bidx.ivt_b, bidx.movt_b, bidx.const_b, W, valid)
-    want_s, want_t = bt.block_candidates_plain(*args, kk)
-    got_s, got_t = bt.merge_lists_plain(*bt.slice_lists_plain(*args, kk,
-                                                               width), kk)
-    assert torch.equal(got_s, want_s)
-    assert torch.equal(got_t, want_t)
-    if case == "exhausted":
-        assert bool((want_s[-1, :, 10:] == bt.NEG).all())
+    valid[-1, 20:] = False
+    bare = tidx.BlockedIndex(
+        ivt_b=dyadic(1, 17, (NB, M, D), 16).to(dtype),
+        movt_b=dyadic(-8, 9, (NB, M, D), 16).to(dtype),
+        const_b=dyadic(-64, 65, (NB, M), 4),
+        W=(torch.as_tensor(rng.random((NB, M, TS)) < 0.3)
+           .to(dtype).contiguous()),
+        valid=valid,
+        sid_of_slot=torch.arange(NB * TS, dtype=torch.int32).view(NB, TS))
+    D8 = -(-D // 8) * 8
+    padded = bare._replace(ivt_b=tidx.pad_width(bare.ivt_b, D8),
+                           movt_b=tidx.pad_width(bare.movt_b, D8))
+    assert padded.ivt_b.shape[2] % 8 == 0
+    q = dyadic(-8, 9, (B, D), 8)
+    for fn in (lambda b: bt.blocked_topk(b, q, 10, block_k=4),
+               lambda b: bt.blocked_topk_tiled(b, q, 10),
+               lambda b: tidx.blocked_query_topk(b, q, 10)):
+        want_s, want_i = fn(bare)
+        got_s, got_i = fn(padded)
+        assert torch.equal(got_s, want_s)
+        assert torch.equal(got_i, want_i)
 
 
 @pytest.mark.parametrize("k", [4, 30])

@@ -82,8 +82,9 @@ def _blocked_index(card, dtype, NB, M, D, TS, S_last, seed, ties=False):
     """Random blocked index with small dyadic terms (nlp exact in f32, so
     the kernel and the plain version round the same nlp to bf16) and
     ~P=6 nonzero path weights per slot; ``ties``: 0/1 weights on the first
-    8 nodes only, so many slots share a score exactly."""
-    from rag_cobweb_tpu_torch.core.index import BlockedIndex
+    8 nodes only, so many slots share a score exactly.  D is zero-padded to
+    a multiple of 8, as ``build_blocked_index`` pads it."""
+    from rag_cobweb_tpu_torch.core.index import BlockedIndex, pad_width
     g = torch.Generator(device=card).manual_seed(seed)
 
     def ints(lo, hi, shape):
@@ -99,9 +100,10 @@ def _blocked_index(card, dtype, NB, M, D, TS, S_last, seed, ties=False):
         W[:, 8:] = 0.0
     valid = torch.ones((NB, TS), dtype=torch.bool, device=card)
     valid[-1, S_last:] = False
+    D8 = -(-D // 8) * 8
     return BlockedIndex(
-        ivt_b=(ints(1, 17, (NB, M, D)) / 16).to(dtype),
-        movt_b=(ints(-8, 9, (NB, M, D)) / 16).to(dtype),
+        ivt_b=pad_width(ints(1, 17, (NB, M, D)) / 16, D8).to(dtype),
+        movt_b=pad_width(ints(-8, 9, (NB, M, D)) / 16, D8).to(dtype),
         const_b=ints(-64, 65, (NB, M)) / 4, W=W.to(dtype).contiguous(),
         valid=valid,
         sid_of_slot=torch.arange(NB * TS, device=card,
@@ -113,6 +115,9 @@ def _blocked_index(card, dtype, NB, M, D, TS, S_last, seed, ties=False):
     (1, 1, 16, 8, 16, 16, 1),          # smallest tiles
     (37, 5, 80, 20, 64, 40, 8),        # ragged B, D and M chunk
     (70, 3, 144, 136, 512, 200, 16),   # D over two 64-column TMA boxes
+    (40, 3, 144, 384, 512, 300, 16),   # 2D > 512: query segments carried
+    (65, 2, 80, 768, 512, 100, 16),    # the encoder width, unwhitened
+    (9, 2, 64, 300, 256, 200, 20),     # a short last segment
     (33, 2, 32, 128, 1024, 700, 4),    # TS > 512: a cluster per block
     (20, 2, 48, 16, 32, 5, 12),        # kk above the valid slots: NEG
     (5, 2, 64, 16, 64, 50, 64),        # kk = TS
@@ -141,10 +146,9 @@ def test_blocked_topk_kernel_matches_plain(card, dtype, B, NB, M, D, TS,
 @pytest.mark.parametrize("B", [1, 8, 32, 200])
 def test_blocked_topk_kernel_at_the_served_shape(card, B):
     """The 100k cell's block shape (M=768, D=128, TS=512, kk=16) on a
-    dyadic index of 40 blocks: at B <= 32 (40 query tiles, fewer than the
-    card's SMs) each block's slots are split over a cluster of CUDA
-    blocks; at B=200 one CUDA block takes all 512 slots and filters its
-    rows before sorting them."""
+    dyadic index of 40 blocks: one CUDA block takes all 512 slots of a
+    block and query tile (40 of them at B <= 32, 160 at B=200) and
+    filters its rows before sorting them."""
     from rag_cobweb_tpu_torch.ops import blocked_topk as bt
     bidx = _blocked_index(card, torch.bfloat16, 40, 768, 128, 512, 400, B)
     g = torch.Generator(device=card).manual_seed(B)
