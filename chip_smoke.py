@@ -10,21 +10,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    all at once) with the build seconds and ptxas register lines;
 2. kernels against their plain PyTorch versions on the card, each timed
    beside its bound, its plain version and a library yardstick the port
-   never calls: the fused pool at the flagship and 1M-row shapes, the
-   re-rank, the blocked sweep on a dyadic index of the 100k cell's
-   recorded shape at B = 1, 8, 32, 1024 and 4096 (exact scores: no id may
-   differ; untimed), one of TS=1024 (each block split over a cluster) and
-   one of D=768 (query segments carried through the ring), a small f32
-   index, and the group
-   pool at the flagship shape (per_group 1 and 2); kernels 1 and 5 also
-   at B=1 and B=32, the batches of the flagship's latency probes;
+   never calls (device time: the timed calls queue behind a sleeping
+   kernel, so the host's launch time is not counted): the fused pool at
+   the flagship shape, a ragged one, 1M rows (kappa 16) and 2D = 1536 (the
+   query boxes carried through the ring), the re-rank at the flagship
+   shape and at 1M rows, the blocked sweep on a dyadic index of the 100k
+   cell's recorded shape at B = 1, 8, 32, 1024 and 4096 (exact scores: no
+   id may differ; untimed), one of TS=1024 (each block split over a
+   cluster) and one of D=768 (query segments carried through the ring), a
+   small f32 index, and the group pool at the flagship shape (per_group 1
+   and 2); kernels 1 and 5 also at B=1 and B=32, the batches of the
+   flagship's latency probes;
 3. the flagship slice: ``rag_cobweb_tpu_torch.bench.headline`` at the
    flagship settings (c=10000, 1000 queries, 768-d, PCA 0.96, 32 lanes,
    k=10, pool 1024, batch 1024) with the kernels' launch counters set to
    0 just before the serving and read just after; recall@10 must be
    within 0.005 of the exact scan's and both kernels must have launched.
-   Then the group pool over the serving FusedIndex with the whitened
-   queries, in its own counter window, held against its plain version;
+   Then, outside that window: kernel 5 held and timed on the served pools
+   (the 1000 queries' exact top-1024 from kernel 1), the stream time of
+   each stage of one served batch by CUDA events (upload, whitening,
+   kernel 1, pool merge, kernel 5, final top-k, to host), and the group
+   pool over the serving FusedIndex with the whitened queries, in its own
+   counter window, held against its plain version;
 3b. the blocked slice: the 100k cell (c=100000, 4096 queries, 768-d,
    PCA to 128, 64 lanes, k=10, pool 512, batch 1024) built once and
    served by the engines ``blocked_kernel``, ``blocked`` and ``fused``,
@@ -33,7 +40,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    kernels and not the fused one.  The blocked kernel is then held
    against its plain version on the served index with the whitened
    queries and timed there at each batch size the serving gives it
-   (1, 8, 32, 1024) and at 4096;
+   (1, 8, 32, 1024) and at 4096; kernel 1 likewise on the served fused
+   index (kappa 512) at B = 1, 32 and 1024;
 4. one JSON line of per-kernel numbers, the nvidia-smi line, and the
    final ``{"ok": true, "device": {...}}`` line.
 
@@ -50,6 +58,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # the card's published peaks (H100 SXM data sheet, dense)
@@ -63,10 +72,13 @@ def log(*a):
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events).  The
+    calls queue behind a sleeping kernel, so the device runs them back to
+    back and the host's time to launch them is not counted."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(4e5 * reps))   # ~0.2 ms a call of host lead
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -82,10 +94,8 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def check_fused(fused_topk, B, twoD, Sp, kappa, S, reps, seed):
-    """Kernel 1 against its plain version on random bf16 inputs with
-    ``Sp - S`` padding rows.  Returns the record of this shape."""
-    SLAB = fused_topk.SLAB
+def fused_inputs(B, twoD, Sp, S, seed):
+    """Random bf16 sweep inputs with ``Sp - S`` padding rows."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     q = torch.randn((B, twoD // 2), generator=g, device=dev)
@@ -97,8 +107,17 @@ def check_fused(fused_topk, B, twoD, Sp, kappa, S, reps, seed):
     GT = (0.05 * torch.randn((twoD, Sp), generator=g, device=dev)) \
         .to(torch.bfloat16).contiguous()
     c = torch.randn((Sp,), generator=g, device=dev)
-    valid = torch.arange(Sp, device=dev) < S
+    return qq, GT, c, torch.arange(Sp, device=dev) < S
 
+
+def check_fused(fused_topk, qq, GT, c, valid, kappa, reps, label=""):
+    """Kernel 1 against its plain version.  Returns the record of this
+    shape."""
+    SLAB = fused_topk.SLAB
+    dev = "cuda"
+    B, twoD = qq.shape
+    Sp = GT.shape[1]
+    S = int(valid.sum())
     ks, ki = fused_topk.slab_topk(qq, GT, c, valid, kappa)
     ps, pi = fused_topk.slab_topk_plain(qq, GT, c, valid, kappa)
     torch.cuda.synchronize()
@@ -129,7 +148,7 @@ def check_fused(fused_topk, B, twoD, Sp, kappa, S, reps, seed):
             raise AssertionError(f"fused_topk: {n_diff} pool ids differ "
                                  "beyond boundary ties")
         del full, kth, near
-    del mk, mp, diff
+    del mk, mp, diff, ks, ki, ps, pi
 
     ms = cuda_ms(lambda: fused_topk.slab_topk(qq, GT, c, valid, kappa), reps)
     plain_ms = cuda_ms(
@@ -144,16 +163,16 @@ def check_fused(fused_topk, B, twoD, Sp, kappa, S, reps, seed):
     nbytes = (qq.numel() * 2 + GT.numel() * 2 + Sp * 4 + Sp
               + NS * B * kappa * 8)
     b_ms, b_by = bound(nbytes, 2.0 * B * twoD * Sp, PEAK_BF16_FLOPS)
-    log(f"[kernel] fused_topk B={B} 2D={twoD} Sp={Sp} kappa={kappa} "
-        f"valid={S}: max_abs_err={err:.3g} boundary_tie_ids={n_diff} "
-        f"ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) plain_ms={plain_ms:.4f} "
-        f"library_ms={lib_ms:.4f}")
+    log(f"[kernel] fused_topk{label} B={B} 2D={twoD} Sp={Sp} "
+        f"kappa={kappa} valid={S}: max_abs_err={err:.3g} "
+        f"boundary_tie_ids={n_diff} ms={ms:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
-def check_rerank(rerank, B, C, D, S, reps, seed):
-    """Kernel 2 against its plain version; some candidates non-finite."""
+def rerank_inputs(B, C, D, S, seed):
+    """Random store, queries and uniform candidates, the last 7 -inf."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     emb = torch.randn((S, D), generator=g, device=dev)
@@ -162,20 +181,34 @@ def check_rerank(rerank, B, C, D, S, reps, seed):
                          dtype=torch.int32)
     cs = torch.randn((B, C), generator=g, device=dev)
     cs[:, -7:] = -math.inf
-    pv = 1.0 / (2.0 * math.e * math.pi)
+    return emb, q, cand, cs
 
+
+def check_rerank(rerank, emb, q, cand, cs, reps, label="",
+                 pv=1.0 / (2.0 * math.e * math.pi)):
+    """Kernel 5 against its plain version.  Returns the record of this
+    shape."""
+    (S, D), (B, C) = emb.shape, cand.shape
     lk = rerank.rerank_lp(emb, q, cand, cs, pv)
     lp = rerank.rerank_lp_plain(emb, q, cand, cs, pv)
     torch.cuda.synchronize()
     fin = torch.isfinite(lp)
     if not torch.equal(fin, torch.isfinite(lk)):
         raise AssertionError("rerank: -inf pattern differs")
-    torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-5, atol=0.0)
-    err = float((lk[fin] - lp[fin]).abs().max())
+    # float32 sums in another order: 1e-5 of the larger term of
+    # lp = -0.5 d2 / pv - 0.5 D log pv (on real pools the two nearly cancel)
+    err_all = (lk[fin] - lp[fin]).abs()
+    tol = 1e-5 * (lp[fin].abs() + 0.5 * D * abs(math.log(pv)))
+    if bool((err_all > tol).any()):
+        raise AssertionError(f"rerank{label}: lp differs beyond 1e-5 of its "
+                             f"terms (max {float(err_all.max()):.3g})")
+    err = float(err_all.max())
+    del err_all, tol
     tk = torch.sort(torch.topk(lk, 10, dim=1).indices, dim=1).values
     tp = torch.sort(torch.topk(lp, 10, dim=1).indices, dim=1).values
     if not torch.equal(tk, tp):
         raise AssertionError("rerank: top-10 ids differ")
+    del lk, lp
 
     ms = cuda_ms(lambda: rerank.rerank_lp(emb, q, cand, cs, pv), reps)
     plain_ms = cuda_ms(lambda: rerank.rerank_lp_plain(emb, q, cand, cs, pv),
@@ -186,9 +219,9 @@ def check_rerank(rerank, B, C, D, S, reps, seed):
     nbytes = rows * D * 4 + B * D * 4 + 3 * B * C * 4
     n_fin = int(fin.sum())
     b_ms, b_by = bound(nbytes, 3.0 * n_fin * D, PEAK_F32_FLOPS)
-    log(f"[kernel] rerank_l2 B={B} C={C} D={D} S={S}: max_abs_err="
-        f"{err:.3g} ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-        f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
+    log(f"[kernel] rerank_l2{label} B={B} C={C} D={D} S={S} distinct_rows="
+        f"{rows}: max_abs_err={err:.3g} ms={ms:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
@@ -298,7 +331,8 @@ def check_blocked(bt, q, bidx, kk, reps, real=False):
         kk), reps)
     lib_ms = cuda_ms(library, reps)
     log(f"[kernel] blocked_topk{' (served index)' if real else ''} B={B} "
-        f"NB={NB} M={M} D={D} TS={TS} kk={kk} {bidx.W.dtype}: max_abs_err={err:.3g} boundary_tie_ids={n_diff} "
+        f"NB={NB} M={M} D={D} TS={TS} kk={kk} {bidx.W.dtype}: "
+        f"max_abs_err={err:.3g} boundary_tie_ids={n_diff} "
         f"ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) plain_ms={plain_ms:.4f} "
         f"library_ms={lib_ms:.4f}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -361,6 +395,53 @@ def check_group(fused_topk, qq, GT, c, valid, per_group, reps):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
+def stage_split(db, data, pool: int, k: int = 10) -> dict:
+    """Stream ms of each stage of one served batch (all the cell's queries,
+    as the headline serves them; a stage whose launches the host issues
+    slower than the device runs them counts that gap too), by CUDA events
+    around the calls that
+    ``CobwebIndex.query_ids`` makes: upload, whitening, kernel 1 (with the
+    query terms), pool merge (``torch.topk``), kernel 5, final
+    ``torch.topk`` and gather, ids to the host.  The last of three runs,
+    beside the host's wall time of that run."""
+    from rag_cobweb_tpu_torch.ops import fused_topk, rerank
+    host = np.ascontiguousarray(data.query_embs, np.float32)
+    fidx, emb = db._fused_index(), db._emb_device()
+    kappa = min(pool, fused_topk.SLAB)
+    pv = float(db.cfg.prior_var)
+    names = ("upload", "whitening", "kernel 1", "pool merge", "kernel 5",
+             "final top-k", "to host")
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        qs = torch.as_tensor(host, device="cuda")
+        ev[1].record()
+        q = db.whitener.transform_torch(qs)
+        ev[2].record()
+        out = fused_topk.slab_topk(fused_topk.query_terms(q, fidx.GT.dtype),
+                                   fidx.GT, fidx.c, fidx.valid, kappa)
+        ev[3].record()
+        cs, cand = fused_topk.merge(*out, pool)
+        ev[4].record()
+        lp = rerank.rerank_lp(emb, qs.float().contiguous(),
+                              cand.to(torch.int32).contiguous(),
+                              cs.contiguous(), pv)
+        ev[5].record()
+        ids = cand.gather(1, torch.topk(lp, k, dim=1).indices)
+        ev[6].record()
+        ids.cpu()
+        ev[7].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    split = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    split["sum"] = sum(split.values())
+    split["wall"] = wall
+    split["B"] = len(host)
+    return split
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -401,25 +482,31 @@ def main() -> int:
                 log(f"[ptxas] {kname}: {line.strip()}")
 
     # -- 2. kernels against their plain versions ------------------------
-    main_f = check_fused(fused_topk, B=1024, twoD=496, Sp=10240, kappa=1024,
-                         S=10240, reps=20, seed=0)
-    check_fused(fused_topk, B=1000, twoD=250, Sp=10240, kappa=1024, S=9000,
-                reps=5, seed=1)
-    check_fused(fused_topk, B=1024, twoD=496, Sp=1 << 20, kappa=16,
-                S=(1 << 20) - 1000, reps=3, seed=2)
+    main_f = check_fused(fused_topk, *fused_inputs(1024, 496, 10240, 10240,
+                                                   seed=0), 1024, reps=20)
+    check_fused(fused_topk, *fused_inputs(1000, 250, 10240, 9000, seed=1),
+                1024, reps=5)
+    check_fused(fused_topk, *fused_inputs(1024, 496, 1 << 20,
+                                          (1 << 20) - 1000, seed=2), 16,
+                reps=3)
+    # 2D = 1536 (an index at the encoder's width): query boxes carried
+    check_fused(fused_topk, *fused_inputs(1024, 1536, 10240, 10000, seed=5),
+                1024, reps=5)
     torch.cuda.empty_cache()
-    main_r = check_rerank(rerank, B=1024, C=1024, D=768, S=10240, reps=20,
-                          seed=3)
-    check_rerank(rerank, B=1024, C=1024, D=768, S=1 << 20, reps=5, seed=4)
+    main_r = check_rerank(rerank, *rerank_inputs(1024, 1024, 768, 10240,
+                                                 seed=3), reps=20)
+    check_rerank(rerank, *rerank_inputs(1024, 1024, 768, 1 << 20, seed=4),
+                 reps=5)
     # the flagship serving's latency probes give kernels 1 and 5 batches of
     # 1 and 32 as well: each timed there beside its bound and library call
     small = {}
     for B in (1, 32):
         small[f"fused_topk B={B}"] = check_fused(
-            fused_topk, B=B, twoD=496, Sp=10240, kappa=1024, S=10240,
-            reps=50, seed=10 + B)
+            fused_topk, *fused_inputs(B, 496, 10240, 10240, seed=10 + B),
+            1024, reps=50)
         small[f"rerank_l2 B={B}"] = check_rerank(
-            rerank, B=B, C=1024, D=768, S=10240, reps=50, seed=20 + B)
+            rerank, *rerank_inputs(B, 1024, 768, 10240, seed=20 + B),
+            reps=50)
     log("[kernel] small batches, ms / bound ms / library ms: " + json.dumps(
         {k: [r["ms"], r["bound_ms"], r["library_ms"]]
          for k, r in small.items()}))
@@ -471,13 +558,27 @@ def main() -> int:
         qs = torch.as_tensor(data.query_embs[:n], device="cuda")
         return db.whitener.transform_torch(qs)
 
+    flag = {}
+
     def flagship_hook(event, engine, db, data):
         if event == "start":
             zero()
             return
         windows["fused"] = read()
+        # kernel 5 on the served pools: the flagship's queries (one batch)
+        # and their exact top-1024 pools from kernel 1
+        from rag_cobweb_tpu_torch.core.index import fused_query_topk
+        fidx = db._fused_index()
+        cs, cand = fused_query_topk(fidx, whitened(db, data, 1024), 1024)
+        flag["rerank"] = check_rerank(
+            rerank, db._emb_device(),
+            torch.as_tensor(data.query_embs[:1024], device="cuda"),
+            cand.to(torch.int32).contiguous(), cs.contiguous(), reps=20,
+            label=" (served pools)", pv=float(db.cfg.prior_var))
+        del cs, cand
+        flag["split"] = stage_split(db, data, 1024)
         # the group pool over the serving FusedIndex, its own window
-        fidx, qw = db._fused_index(), whitened(db, data, 1024)
+        qw = whitened(db, data, 1024)
         zero()
         fused_topk.fused_group_topk(fidx, qw, 1024, per_group=2)
         torch.cuda.synchronize()
@@ -492,6 +593,10 @@ def main() -> int:
                        log=lambda *a: log(*a), hook=flagship_hook)[0]
     log(json.dumps(rec))
     log(f"[slice] kernel launches on the main path: {windows['fused']}")
+    log("[slice] flagship stage split, stream ms between CUDA events, one "
+        "batch: "
+        + json.dumps(flag["split"]) + f" | headline batch ms "
+        f"{rec['value'] * flag['split']['B']:.4f}")
     log(f"[slice] group pool over the serving index: {windows['group']}")
     if rec["device"] != name:
         raise AssertionError(f"headline ran on {rec['device']}")
@@ -511,13 +616,24 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3b. the blocked slice: the 100k cell -----------------------------
-    served = {}
+    served, served_f = {}, {}
 
     def blocked_hook(event, engine, db, data):
         if event == "start":
             zero()
             return
         windows[engine] = read()
+        if engine == "fused":
+            # kernel 1 held and timed on the cell's served fused index at
+            # the batch sizes the serving gives it (kappa = the pool, 512)
+            fidx = db._fused_index()
+            qw = whitened(db, data, 1024)
+            for B, reps in ((1, 50), (32, 50), (1024, 10)):
+                served_f[B] = check_fused(
+                    fused_topk, fused_topk.query_terms(qw[:B], fidx.GT.dtype),
+                    fidx.GT, fidx.c, fidx.valid, 512, reps,
+                    label=" (served 100k index)")
+            return
         if engine != "blocked_kernel":
             return
         bidx = db._blocked_index()
@@ -561,6 +677,10 @@ def main() -> int:
     launches["blocked_topk"] = wk["blocked_topk"]
     log("[blocked] blocked_topk ms on the served index by batch size: "
         + json.dumps({B: r["ms"] for B, r in sorted(served.items())}))
+    log("[blocked] fused_topk ms / bound ms / library ms on the served fused "
+        "index by batch size: " + json.dumps(
+            {B: [r["ms"], r["bound_ms"], r["library_ms"]]
+             for B, r in sorted(served_f.items())}))
 
     # -- 4. result lines ----------------------------------------------------
     src = "rag_cobweb_tpu_torch/csrc/"

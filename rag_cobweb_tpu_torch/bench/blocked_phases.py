@@ -8,18 +8,17 @@ For a card without a device profiler at hand: it builds
 block stamps ``clock64()`` before the query tile arrives, after it, after
 the M loop, after the score tile is stored and after the selection, and
 every row that fails the selection's filter and takes the full sort is
-counted.  It runs on the 100k cell's served index (``blocked_ab.py``'s)
+counted.  It runs on the 100k cell's served index (``kernel_ab.py``'s)
 at B = 1, 32 and 1024 and prints, per batch size, the median cycles of
 each phase over the CUDA blocks, their shares of the block's time, and
 the rows of the full sort; then the card's name and power limit.  The
 stamps cost a few instructions a block; time the kernel itself with
-``blocked_ab.py`` or ``chip_smoke.py``.
+``kernel_ab.py`` or ``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import json
 import subprocess
 import sys
@@ -36,14 +35,11 @@ SLOTS = 65536          # CUDA blocks that can be stamped (g_stamps)
 
 def build():
     src = _build._CSRC / "blocked_topk.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _build.BUILD_DIR / f"blocked_phases_{digest}.so"
+    so = _build.BUILD_DIR / f"blocked_phases_{_build.digest(src)}.so"
     if not so.exists():
-        subprocess.run([_build._nvcc(), "-gencode",
-                        "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                        "-DBLOCKED_PHASES", "-shared", "-Xcompiler", "-fPIC",
-                        "-o", str(so), str(src)], check=True)
+        subprocess.run(_build.nvcc_command(src, so, "-DBLOCKED_PHASES"),
+                       check=True)
     lib = ctypes.CDLL(str(so))
     lib.blocked_topk_bf16.argtypes = \
         _build._SIGNATURES["blocked_topk"]["blocked_topk_bf16"]
@@ -58,7 +54,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("blocked_phases: no CUDA device", file=sys.stderr)
         return 2
-    from rag_cobweb_tpu_torch.bench.blocked_ab import served_index
+    from rag_cobweb_tpu_torch.bench.kernel_ab import served_index
     lib = build()
     bidx, queries, kk = served_index()
     NB, M, D = bidx.ivt_b.shape

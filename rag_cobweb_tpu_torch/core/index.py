@@ -460,7 +460,7 @@ def exact_rerank(emb: torch.Tensor, queries: torch.Tensor,
                  cand: torch.Tensor, cand_scores: torch.Tensor, k: int,
                  prior_var: float = 1.0):
     """Re-rank (B, C) candidates by the fresh-leaf closed form on their
-    stored rows (kernel 2), ``-0.5 (||q - x||^2 / prior_var + D log
+    stored rows (kernel 5), ``-0.5 (||q - x||^2 / prior_var + D log
     prior_var)``, non-finite candidates dropped -> (scores, ids) (B, k)."""
     lp = rerank.rerank_lp(emb, queries.float().contiguous(),
                           cand.to(torch.int32).contiguous(),

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Builds
 happen at first use, never at import, into ``build/torch_kernels/`` at the
-repository root; the library name carries a hash of its source, so an
-edited kernel is rebuilt and an unchanged one is reused.  All missing
+repository root; the library name carries a hash of its source and of
+the shared headers beside it (``csrc/*.cuh``), so an edited kernel is
+rebuilt and an unchanged one is reused.  All missing
 libraries build at once, one ``nvcc`` process per source.  A failed build
 raises: there is no fallback.
 """
@@ -35,7 +36,7 @@ _SIGNATURES = {
         "blocked_topk_f32": [_P] * 9 + [_I] * 6 + [_P],
     },
     "rerank_l2": {
-        "rerank_l2": [_P] * 5 + [_I] * 3 + [_F, _F, _P],
+        "rerank_l2": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
     },
 }
 _libs: dict = {}
@@ -50,10 +51,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def digest(src: Path) -> str:
+    """Hash of a kernel source and the headers of its directory."""
+    h = hashlib.sha1(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def nvcc_command(src: Path, out: Path, *flags: str) -> list:
+    """The one ``nvcc`` command line of every kernel library."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", *flags, "-shared", "-Xcompiler", "-fPIC",
+            "-o", str(out), str(src)]
+
+
 def library_path(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    return BUILD_DIR / f"lib{name}_{digest(_CSRC / f'{name}.cu')}.so"
 
 
 def build_all() -> dict:
@@ -67,9 +81,7 @@ def build_all() -> dict:
         if so.exists():
             continue
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        cmd = nvcc_command(_CSRC / f"{name}.cu", tmp, "-Xptxas", "-v")
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, so)
@@ -99,6 +111,17 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _libs[name] = lib
     return _libs[name]
+
+
+def launch(t, call):
+    """``call(stream)`` on ``t``'s device and its current stream, the
+    handle a plain int; the current device is switched only where it
+    differs (a switch costs host time on every call)."""
+    import torch
+    if t.device.index == torch.cuda.current_device():
+        return call(torch.cuda.current_stream(t.device).cuda_stream)
+    with torch.cuda.device(t.device):
+        return call(torch.cuda.current_stream().cuda_stream)
 
 
 def check(rc: int, what: str) -> None:

@@ -126,11 +126,9 @@ def _block_candidates(q, q2, bidx, kk: int):
     lib = _build.library("blocked_topk")
     fn = (lib.blocked_topk_bf16 if bidx.W.dtype == torch.bfloat16
           else lib.blocked_topk_f32)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(fn(*(t.data_ptr() for _, t in ts), out_s.data_ptr(),
-                        out_t.data_ptr(), B, NB, M, D, TS, kk, stream),
-                     "blocked_topk launch")
+    _build.check(_build.launch(q, lambda stream: fn(
+        *(t.data_ptr() for _, t in ts), out_s.data_ptr(), out_t.data_ptr(),
+        B, NB, M, D, TS, kk, stream)), "blocked_topk launch")
     blocked_topk.launches += 1
     return out_s, out_t
 

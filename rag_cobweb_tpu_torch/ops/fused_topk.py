@@ -102,11 +102,10 @@ def _launch(fn_name: str, qq, GT, c, valid, sel: int, width: int):
     lib = _build.library("fused_topk")
     suffix = "bf16" if GT.dtype == torch.bfloat16 else "f32"
     fn = getattr(lib, f"{fn_name}_{suffix}")
-    with torch.cuda.device(qq.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(fn(qq.data_ptr(), GT.data_ptr(), c.data_ptr(),
-                        valid.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-                        B, twoD, Sp, sel, stream), f"{fn_name} launch")
+    _build.check(_build.launch(qq, lambda stream: fn(
+        qq.data_ptr(), GT.data_ptr(), c.data_ptr(), valid.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), B, twoD, Sp, sel, stream)),
+        f"{fn_name} launch")
     return out_s, out_i
 
 

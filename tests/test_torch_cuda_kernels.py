@@ -47,6 +47,112 @@ def test_fused_topk_kernel_matches_plain(card, dtype, B, twoD, kappa):
                        torch.sort(pi, dim=2).values)
 
 
+def _dyadic_sweep(card, dtype, B, twoD, Sp, S, seed):
+    """Sweep inputs whose scores are exact in float32 in any order (small
+    multiples of powers of two, at most 18 significant bits a score), so
+    the kernel and the plain version tie exactly where they tie."""
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=card).float()
+
+    qq = (ints(-8, 9, (B, twoD)) / 8).to(dtype)
+    GT = (ints(-16, 17, (twoD, Sp)) / 16).to(dtype)
+    c = ints(-64, 65, (Sp,)) / 4
+    return qq, GT, c, torch.arange(Sp, device=card) < S
+
+
+def _same_pool(fused_topk, qq, GT, c, valid, kappa):
+    ks, ki = fused_topk.slab_topk(qq, GT, c, valid, kappa)
+    ps, pi = fused_topk.slab_topk_plain(qq, GT, c, valid, kappa)
+    torch.cuda.synchronize()
+    assert ks.shape == ps.shape and ki.dtype == torch.int32
+    # each slab's pool is unordered in the kernel, sorted in the plain one
+    assert torch.equal(torch.sort(ks, dim=2, descending=True).values, ps)
+    assert torch.equal(torch.sort(ki, dim=2).values,
+                       torch.sort(pi, dim=2).values)
+    # every id carries its score
+    full = fused_topk.slab_scores_plain(qq, GT, c, valid, float("-inf"))
+    base = (torch.arange(ks.shape[0], device=ks.device) * fused_topk.SLAB)
+    at = full.permute(1, 0, 2).gather(2, (ki - base.view(-1, 1, 1)).long())
+    assert torch.equal(at, ks)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,twoD,kappa", [
+    (1, 8, 1), (63, 99, 16), (65, 496, 1024), (1024, 1536, 2048),
+    (65, 1536, 16), (1024, 496, 1024), (63, 8, 2048), (1, 99, 1024)])
+def test_fused_topk_kernel_exact_on_dyadic_scores(card, dtype, B, twoD,
+                                                  kappa):
+    """Scores exact in any order, many of them tied: the same pool as the
+    plain version's, ids and all, for B over one and two query tiles, 2D
+    ragged, resident (<= 512) and carried through the ring, and kappa
+    from 1 to the whole slab."""
+    from rag_cobweb_tpu_torch.ops import fused_topk
+    _same_pool(fused_topk, *_dyadic_sweep(card, dtype, B, twoD, 4096, 3500,
+                                          B + twoD + kappa), kappa)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_topk_ties_straddle_the_cluster_blocks(card, dtype):
+    """kappa = 1024 of 2048 where the kappa-th score is shared by rows on
+    both sides of a CUDA block boundary (every 256 rows): query b scores
+    2 at rows (i + b) % 3 == 0 and 1 elsewhere, so the 341-342 rows of
+    score 1 it takes are the lowest ids, across the first two blocks; the
+    second slab is all invalid (-inf): its pool is its first 1024 rows."""
+    from rag_cobweb_tpu_torch.ops import fused_topk
+    twoD, Sp, B = 16, 4096, 40
+    i = torch.arange(Sp, device=card)
+    GT = torch.stack([torch.where((i + r) % 3 == 0, 2.0, 1.0)
+                      for r in range(twoD)]).to(dtype)
+    qq = torch.zeros((B, twoD), device=card)
+    qq[torch.arange(B), torch.arange(B) % 3] = 1.0
+    c = torch.zeros(Sp, device=card)
+    valid = i < 2048
+    _same_pool(fused_topk, qq.to(dtype), GT, c, valid, 1024)
+    ks, ki = fused_topk.slab_topk(qq.to(dtype), GT, c, valid, 1024)
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(ks[1]).all())
+    assert torch.equal(torch.sort(ki[1], dim=1).values,
+                       (2048 + torch.arange(1024, device=card,
+                                            dtype=torch.int32)).expand(B, -1))
+
+
+@pytest.mark.parametrize("B,D,S,C", [(1, 768, 3000, 300),
+                                     (32, 50, 3000, 300),
+                                     (1024, 768, 3000, 300),
+                                     (1024, 766, 3000, 300),
+                                     (1024, 50, 500, 300),
+                                     (32, 768, 1 << 20, 1024)])
+def test_rerank_kernel_batches_duplicates_and_empty_rows(card, B, D, S, C):
+    """B = 1, 32 and 1024 (at 1024 with 3000 rows each row is a candidate
+    of ~3 queries of a 32-query tile, so rows are grouped and read once),
+    D ragged, ids repeated within a query's list, one query with every
+    candidate -inf, and 1M rows at B = 32."""
+    from rag_cobweb_tpu_torch.ops import rerank
+    g = torch.Generator(device=card).manual_seed(B + D + C)
+    emb = torch.randn((S, D), generator=g, device=card)
+    q = torch.randn((B, D), generator=g, device=card)
+    cand = torch.randint(0, S, (B, C), generator=g, device=card,
+                         dtype=torch.int32)
+    cand[:, 1::3] = cand[:, ::3][:, :cand[:, 1::3].shape[1]]
+    cs = torch.randn((B, C), generator=g, device=card)
+    cs[:, ::7] = -math.inf
+    cs[B // 2] = -math.inf
+    pv = 1.0 / (2.0 * math.e * math.pi)
+    lk = rerank.rerank_lp(emb, q, cand, cs, pv)
+    lp = rerank.rerank_lp_plain(emb, q, cand, cs, pv)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(lp)
+    assert torch.equal(fin, torch.isfinite(lk))
+    assert not bool(fin[B // 2].any())
+    torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-5, atol=0.0)
+    dup = cand[:, 1::3] == cand[:, ::3][:, :cand[:, 1::3].shape[1]]
+    both = fin[:, 1::3] & fin[:, ::3][:, :dup.shape[1]]
+    assert torch.equal(lk[:, 1::3][dup & both],
+                       lk[:, ::3][:, :dup.shape[1]][dup & both])
+
+
 @pytest.mark.parametrize("D", [768, 50])
 def test_rerank_kernel_matches_plain(card, D):
     from rag_cobweb_tpu_torch.ops import rerank

@@ -95,3 +95,24 @@ def test_chip_smoke_refuses_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel library is rebuilt when its source or a header beside it
+    (``csrc/*.cuh``) changes, and only then."""
+    from rag_cobweb_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    hdr = tmp_path / "h.cuh"
+    hdr.write_text("// one\n")
+    (tmp_path / "notes.txt").write_text("a")
+    first = _build.digest(src)
+    (tmp_path / "notes.txt").write_text("b")
+    assert _build.digest(src) == first
+    hdr.write_text("// two\n")
+    assert _build.digest(src) != first
+    assert _build.library_path("fused_topk").name.startswith("libfused_topk_")
+    cmd = _build.nvcc_command(src, tmp_path / "k.so", "-DX")
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-DX" in cmd
+    assert cmd[-1] == str(src)

@@ -84,3 +84,14 @@ def test_rerank_rejects_bad_inputs():
         rerank.rerank_lp(emb, q[:, :5], cand, cs, PV)
     with pytest.raises(ValueError):
         rerank.rerank_lp(emb, q, cand, cs[:, :3], PV)
+
+
+@pytest.mark.parametrize("D", [1, 50, 768, 1536])
+@pytest.mark.parametrize("pv", [PV, 1.0, 0.37, 2.5])
+def test_kernel_prior_terms_match_the_plain_version(D, pv):
+    """The kernel's float32 prior terms, taken on the host with numpy,
+    against the plain version's torch ones: within one float32 step."""
+    hp, hd = rerank.host_terms(pv, D)
+    tp, td = rerank._pv_terms(pv, D, "cpu")
+    assert hp == float(tp)
+    assert abs(hd - float(td)) <= abs(float(np.spacing(np.float32(td))))
