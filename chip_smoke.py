@@ -42,8 +42,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    queries and timed there at each batch size the serving gives it
    (1, 8, 32, 1024) and at 4096; kernel 1 likewise on the served fused
    index (kappa 512) at B = 1, 32 and 1024;
-4. one JSON line of per-kernel numbers, the nvidia-smi line, and the
-   final ``{"ok": true, "device": {...}}`` line.
+4. one JSON line of per-kernel numbers (kernel 1 at the flagship shape,
+   kernel 5 on the flagship's served pools, the blocked kernel on the
+   100k served index at B=1024, the group pool), the nvidia-smi line, and
+   the final ``{"ok": true, "device": {...}}`` line.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero before printing any result.
@@ -493,8 +495,8 @@ def main() -> int:
     check_fused(fused_topk, *fused_inputs(1024, 1536, 10240, 10000, seed=5),
                 1024, reps=5)
     torch.cuda.empty_cache()
-    main_r = check_rerank(rerank, *rerank_inputs(1024, 1024, 768, 10240,
-                                                 seed=3), reps=20)
+    check_rerank(rerank, *rerank_inputs(1024, 1024, 768, 10240, seed=3),
+                 reps=20)
     check_rerank(rerank, *rerank_inputs(1024, 1024, 768, 1 << 20, seed=4),
                  reps=5)
     # the flagship serving's latency probes give kernels 1 and 5 batches of
@@ -690,7 +692,7 @@ def main() -> int:
              launches=launches["fused_topk"], **main_f),
         dict(name="rerank_l2", route="cuda", source=src + "rerank_l2.cu",
              replaces="scripts/gather_probe.py:55",
-             launches=launches["rerank_l2"], **main_r),
+             launches=launches["rerank_l2"], **flag["rerank"]),
         # one CUDA kernel for both TPU kernels: _kernel_v2's body is _kernel
         dict(name="blocked_topk", route="cuda",
              source=src + "blocked_topk.cu",

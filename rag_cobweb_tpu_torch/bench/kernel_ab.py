@@ -221,7 +221,6 @@ def fused_cases(other):
 def rerank_cases(other):
     from rag_cobweb_tpu_torch.core.index import fused_query_topk
     from rag_cobweb_tpu_torch.ops import rerank
-    with_rows = len(other.argtypes) == 12      # the entry takes S
     pv = 1.0 / (2.0 * math.e * math.pi)
 
     def case(label, emb, q, cand, cs):
@@ -230,10 +229,9 @@ def rerank_cases(other):
         d_log_pv = D * math.log(pv)
 
         def run_other():
-            rows = [S] if with_rows else []
             _build.check(other(emb.data_ptr(), q.data_ptr(), cand.data_ptr(),
-                               cs.data_ptr(), out.data_ptr(), B, C, D, *rows,
-                               pv, d_log_pv,
+                               cs.data_ptr(), out.data_ptr(), B, C, D, pv,
+                               d_log_pv,
                                torch.cuda.current_stream().cuda_stream),
                          "other kernel")
             return out

@@ -12,72 +12,30 @@
 // the C candidates stays outside the kernel (torch.topk), as lax.top_k sat
 // outside the Pallas kernel.  Duplicate ids within a list are allowed.
 //
-// What bounds it on an H100 ("NVIDIA H100 80GB HBM3, 700.00 W"): bytes.
-// Each distinct row is read once at least: at the c=10k main path (S =
-// 10240, D = 768, B = C = 1024) the 31 MB store plus the (B, C) ids,
-// scores and output, 36 us at 3.35 TB/s; at 1M rows nearly every pair is
-// its own row, 3.2 GB, ~0.96 ms.  A gather pair by pair reads B C D 4
-// bytes (3.2 GB at the main path, out of L2) for 3 operations an element.
+// What bounds it on an H100 ("NVIDIA H100 80GB HBM3, 700.00 W"): the
+// gather.  Pair by pair it reads B C D 4 bytes of rows (3.2 GB at the c=10k
+// main path, B = C = 1024, D = 768) for 3 operations an element; there the
+// 31 MB store sits in the 50 MB L2, so the rows come out of L2 at ~9 TB/s,
+// and at 1M rows from HBM (~0.96 ms at 3.35 TB/s).  Only reading a row once
+// for several queries could go below that.  Grouping a query tile's pairs
+// by row in shared memory did so on uniform candidates but lost on served
+// pools: their rows come in runs of the store's order that L2 already
+// serves, and every pair still read its query row from shared memory.
 //
-// What this design does: two kernels, chosen by the launcher from the
-// bytes each would read from L2.
-//   * grouped (reuse): a CUDA block owns a tile of 32 queries (in shared
-//     memory, f32) and the rows of one residue mod the blocks of its tile
-//     (a residue, not a range: a tile's candidates come in runs of the
-//     store's order).  It scans the tile's candidates (16-byte loads),
-//     counts those in its share per row, prefix-sums the counts and places
-//     each (query, slot) pair in a list grouped by row (a counting sort in
-//     shared memory).  Each of 24 warps then loads a row once, in float4,
-//     with the next two rows in flight, and takes the difference with every
-//     query of the tile that lists it, two pairs at a time.  At the main
-//     path a row is a candidate of ~3 queries of a tile, so the rows are
-//     read ~3x less often than pair by pair; the query rows then come from
-//     shared memory once a pair (3 KB), which bounds this kernel.  The grid
-//     is one wave: the query tiles x as many residues as fill the SMs;
-//   * direct (no reuse: small batches, 1M rows): a warp a pair, the query
-//     row in shared memory, float4 row loads and a shuffle reduction, 64
-//     pairs a block of 8 warps, or 8 when that leaves SMs idle (B = 1 runs
-//     128 blocks).
-// D not a multiple of 4 (or an unaligned row) takes scalar loads.
+// What this design does: a warp a pair, the query row in shared memory,
+// float4 row loads (768 f32 = 6 a lane, contiguous 512-byte warp reads)
+// and a shuffle reduction; a block of 8 warps takes 64 pairs of one query,
+// or 8 when 64 would leave SMs idle (a small batch: B = 1 runs 128 blocks
+// instead of 16).  The (B, C, D) gather is never materialised, so callers
+// need no byte-budget chunking.  D not a multiple of 4 (or an unaligned
+// row) takes scalar loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <cmath>
-
 namespace {
 
-constexpr int MAX_D = 1024;               // grouped: a row in 8 float4 a lane
-constexpr int RQ = 32;                    // queries of a grouped tile
-constexpr int G_THREADS = 768;            // 24 warps (1024 spill)
-constexpr int G_WARPS = G_THREADS / 32;
-constexpr int MAX_BINS = 8 * G_THREADS;   // rows of a range (8 a thread)
-constexpr int D_WARPS = 8;                // direct: pairs in flight a block
-constexpr int SMEM_LIMIT = 232448;
-
-__device__ __forceinline__ float lp_of(float d2, float pv, float dlog) {
-  return -0.5f * (d2 / pv + dlog);
-}
-
-// Floats [0, n) of ``x``, n <= 128 NV, into the lane's registers: v[i]
-// holds floats 4 (lane + 32 i) .. + 3, zero past n.
-template <int NV>
-__device__ __forceinline__ void load_part(const float* __restrict__ x, int n,
-                                          bool vec, int lane, float4* v) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int d = 4 * (lane + 32 * i);
-    if (vec) {
-      v[i] = d < n ? __ldg(reinterpret_cast<const float4*>(x + d))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-      v[i] = make_float4(d < n ? __ldg(x + d) : 0.f,
-                         d + 1 < n ? __ldg(x + d + 1) : 0.f,
-                         d + 2 < n ? __ldg(x + d + 2) : 0.f,
-                         d + 3 < n ? __ldg(x + d + 3) : 0.f);
-    }
-  }
-}
+constexpr int WARPS = 8;                  // pairs in flight a block
 
 __device__ __forceinline__ float sq_diff(const float4& a, const float4& v,
                                          float acc) {
@@ -89,22 +47,16 @@ __device__ __forceinline__ float sq_diff(const float4& a, const float4& v,
   return acc;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
-}
-
-// -- direct: a warp a pair, the query row in shared memory ------------------
-
-__global__ void __launch_bounds__(D_WARPS * 32)
-rerank_direct(const float* __restrict__ emb, const float* __restrict__ q,
-              const int* __restrict__ cand,
-              const float* __restrict__ cand_scores,
-              float* __restrict__ out, int C, int D, int per_block, float pv,
-              float dlog, bool vec) {
+// PER_BLOCK: the pairs of a block.  VEC: float4 loads (the launcher
+// checks the alignment); the test of D & 3 stays in the kernel, since
+// without it the row addresses cost 3% at B = 1024
+template <int PER_BLOCK, bool VEC>
+__global__ void __launch_bounds__(WARPS * 32)
+rerank_l2_kernel(const float* __restrict__ emb, const float* __restrict__ q,
+                 const int* __restrict__ cand,
+                 const float* __restrict__ cand_scores,
+                 float* __restrict__ out, int C, int D, float pv,
+                 float dlog) {
   extern __shared__ __align__(16) float qr[];   // [D]
   const int b = blockIdx.x;
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
@@ -112,219 +64,34 @@ rerank_direct(const float* __restrict__ emb, const float* __restrict__ q,
   }
   __syncthreads();
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int j_end = min(C, (blockIdx.y + 1) * per_block);
-  for (int j = blockIdx.y * per_block + w; j < j_end; j += D_WARPS) {
+  const int j_end = min(C, (blockIdx.y + 1) * PER_BLOCK);
+  for (int j = blockIdx.y * PER_BLOCK + w; j < j_end; j += WARPS) {
     const size_t o = (size_t)b * C + j;
     float lp = __int_as_float(0xff800000);   // -inf
     if (isfinite(cand_scores[o])) {          // uniform across the warp
       const float* x = emb + (size_t)cand[o] * D;
       float acc = 0.f;
-      if (vec) {
+      if (VEC && (D & 3) == 0) {
         const float4* x4 = reinterpret_cast<const float4*>(x);
         const float4* q4 = reinterpret_cast<const float4*>(qr);
 #pragma unroll 4
         for (int d = lane; d < (D >> 2); d += 32) {
-          acc = sq_diff(q4[d], __ldg(x4 + d), acc);
+          acc = sq_diff(q4[d], x4[d], acc);
         }
       } else {
         for (int d = lane; d < D; d += 32) {
-          const float t = qr[d] - __ldg(x + d);
+          const float t = qr[d] - x[d];
           acc = fmaf(t, t, acc);
         }
       }
-      lp = lp_of(warp_sum(acc), pv, dlog);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      }
+      lp = -0.5f * (acc / pv + dlog);
     }
     if (lane == 0) out[o] = lp;
   }
-}
-
-// -- grouped: a query tile x a row range, each row read once ----------------
-
-__host__ __device__ inline size_t grouped_smem(int D, int RR, int C) {
-  return (size_t)RQ * ((D + 3) / 4) * 16 + (size_t)(RR + 1) * 4
-       + ((size_t)RQ * C * 2 + 15) / 16 * 16;
-}
-
-template <int NV>
-__global__ void __launch_bounds__(G_THREADS, 1)
-rerank_grouped(const float* __restrict__ emb, const float* __restrict__ q,
-               const int* __restrict__ cand,
-               const float* __restrict__ cand_scores,
-               float* __restrict__ out, int B, int C, int D, int S, int RR,
-               float pv, float dlog, float inv_c, bool vec, bool ids4) {
-  extern __shared__ float4 gsm[];
-  __shared__ uint32_t wsum[G_WARPS];
-  const int D4 = (D + 3) / 4;
-  float4* qs = gsm;                                        // [RQ][D4]
-  uint32_t* bins = reinterpret_cast<uint32_t*>(qs + RQ * D4);   // [RR + 1]
-  uint16_t* list = reinterpret_cast<uint16_t*>(bins + RR + 1);  // [RQ C]
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  // block p takes the rows r = p (mod P), x = r / P: the rows a tile's
-  // candidates share come in runs of the store's order, which a range per
-  // block would give to one block
-  const int p = blockIdx.x, P = gridDim.x, b0 = blockIdx.y * RQ;
-  const int qv = min(RQ, B - b0);
-  const int nrows = S > p ? (S - p + P - 1) / P : 0;
-  const size_t o0 = (size_t)b0 * C;
-  const int npairs = qv * C;              // the tile's pairs, o0 + e
-
-  // the query tile, zero past D; the counts
-  for (int e = tid; e < qv * D4; e += G_THREADS) {
-    const float* src = q + (size_t)(b0 + e / D4) * D;
-    const int d = 4 * (e % D4);
-    qs[e] = vec ? __ldg(reinterpret_cast<const float4*>(src + d))
-                : make_float4(d < D ? src[d] : 0.f,
-                              d + 1 < D ? src[d + 1] : 0.f,
-                              d + 2 < D ? src[d + 2] : 0.f,
-                              d + 3 < D ? src[d + 3] : 0.f);
-  }
-  for (int e = tid; e <= RR; e += G_THREADS) bins[e] = 0u;
-  __syncthreads();
-  // f(e, score, id) over the tile's pairs, four at a time where aligned
-  auto each_pair = [&](auto&& f) {
-    if (ids4) {
-      const float4* s4 = reinterpret_cast<const float4*>(cand_scores + o0);
-      const int4* r4 = reinterpret_cast<const int4*>(cand + o0);
-      for (int e = tid; e < npairs / 4; e += G_THREADS) {
-        const float4 sc = __ldg(s4 + e);
-        const int4 r = __ldg(r4 + e);
-        f(4 * e, sc.x, r.x);
-        f(4 * e + 1, sc.y, r.y);
-        f(4 * e + 2, sc.z, r.z);
-        f(4 * e + 3, sc.w, r.w);
-      }
-    } else {
-      for (int e = tid; e < npairs; e += G_THREADS) {
-        f(e, __ldg(cand_scores + o0 + e), __ldg(cand + o0 + e));
-      }
-    }
-  };
-  const float ninf = __int_as_float(0xff800000);
-  each_pair([&](int e, float sc, int r) {
-    if (!isfinite(sc)) {
-      if (p == 0) out[o0 + e] = ninf;
-    } else if (r % P == p && r >= 0 && r < S) {
-      atomicAdd(&bins[r / P], 1u);
-    }
-  });
-  __syncthreads();
-
-  // exclusive prefix sum of the counts, 8 bins a thread
-  uint32_t loc[8], tsum = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int x = tid * 8 + i;
-    loc[i] = x < nrows ? bins[x] : 0u;
-    tsum += loc[i];
-  }
-  uint32_t incl = tsum;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const uint32_t t = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += t;
-  }
-  if (lane == 31) wsum[w] = incl;
-  __syncthreads();
-  uint32_t at = incl - tsum;
-  for (int k = 0; k < w; ++k) at += wsum[k];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int x = tid * 8 + i;
-    if (x < nrows) bins[x] = at;
-    at += loc[i];
-  }
-  __syncthreads();
-
-  // the pairs grouped by row: afterwards bins[x] is the end of row x's
-  // pairs and bins[x - 1] their start
-  each_pair([&](int e, float sc, int r) {
-    if (isfinite(sc) && r % P == p && r >= 0 && r < S) {
-      list[atomicAdd(&bins[r / P], 1u)] = (uint16_t)e;
-    }
-  });
-  __syncthreads();
-
-  // each warp: rows w, w + 24, ...; each row once, the next two in
-  // flight, its pairs two at a time
-  auto begin = [&](int x) { return x > 0 ? bins[x - 1] : 0u; };
-  auto next = [&](int x) {
-    while (x < nrows && begin(x) == bins[x]) x += G_WARPS;
-    return x;
-  };
-  auto load = [&](int x, float4* v) {
-    if (x < nrows) {
-      load_part<NV>(emb + ((size_t)x * P + p) * D, D, vec, lane, v);
-    }
-  };
-  // lane's part of ||q - x||^2 for pair e, four independent sums; the
-  // query is e / C (exact in f32 for e < 65536)
-  auto part = [&](const float4* v, int e) {
-    const float4* a = qs + __float2int_rz((e + 0.5f) * inv_c) * D4;
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int k = 0; k < NV; ++k) {
-      const int d4 = lane + 32 * k;
-      if (d4 < D4) {
-        const float4 t = a[d4];
-        float u;
-        u = t.x - v[k].x; s.x = fmaf(u, u, s.x);
-        u = t.y - v[k].y; s.y = fmaf(u, u, s.y);
-        u = t.z - v[k].z; s.z = fmaf(u, u, s.z);
-        u = t.w - v[k].w; s.w = fmaf(u, u, s.w);
-      }
-    }
-    return (s.x + s.y) + (s.z + s.w);
-  };
-  int x = next(w), x1 = next(x + G_WARPS);
-  float4 v[NV], v1[NV];
-  load(x, v);
-  load(x1, v1);
-  while (x < nrows) {
-    const int x2 = next(x1 + G_WARPS);
-    float4 v2[NV];
-    load(x2, v2);
-    const uint32_t end = bins[x];
-    for (uint32_t i = begin(x); i < end; i += 2) {
-      const int e0 = list[i];
-      const bool two = i + 1 < end;
-      const int e1 = two ? list[i + 1] : e0;
-      float d0 = part(v, e0), d1 = part(v, e1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        d0 += __shfl_xor_sync(0xffffffffu, d0, off);
-        d1 += __shfl_xor_sync(0xffffffffu, d1, off);
-      }
-      if (lane == 0) {
-        out[o0 + e0] = lp_of(d0, pv, dlog);
-        if (two) out[o0 + e1] = lp_of(d1, pv, dlog);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < NV; ++k) {
-      v[k] = v1[k];
-      v1[k] = v2[k];
-    }
-    x = x1;
-    x1 = x2;
-  }
-}
-
-template <int NV>
-int launch_grouped(const void* emb, const void* q, const void* cand,
-                   const void* cand_scores, void* out, int B, int C, int D,
-                   int S, int P, int RR, size_t smem, float pv, float dlog,
-                   bool vec, bool ids4, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(
-      rerank_grouped<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  rerank_grouped<NV><<<dim3(P, (B + RQ - 1) / RQ), G_THREADS, smem, st>>>(
-      reinterpret_cast<const float*>(emb), reinterpret_cast<const float*>(q),
-      reinterpret_cast<const int*>(cand),
-      reinterpret_cast<const float*>(cand_scores),
-      reinterpret_cast<float*>(out), B, C, D, S, RR, pv, dlog, 1.f / C, vec,
-      ids4);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -333,9 +100,8 @@ int launch_grouped(const void* emb, const void* q, const void* cand,
 // cand_scores (B, C) is finite; out (B, C) f32.
 extern "C" int rerank_l2(const void* emb, const void* q, const void* cand,
                          const void* cand_scores, void* out, int B, int C,
-                         int D, int S, float prior_var, float d_log_pv,
+                         int D, float prior_var, float d_log_pv,
                          void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (B <= 0 || C <= 0) return 0;
   const bool vec = D % 4 == 0 &&
                    (reinterpret_cast<uintptr_t>(emb) & 15) == 0 &&
@@ -343,46 +109,24 @@ extern "C" int rerank_l2(const void* emb, const void* q, const void* cand,
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // grouped when its bytes from L2 (the query tiles, two scans of the
-  // ids and scores, the expected distinct rows of each tile) are well
-  // below those of the pair-by-pair gather
-  // (one wave: each of the QT query tiles takes P blocks of row ranges)
-  const int QT = (B + RQ - 1) / RQ;
-  const int P = QT >= sms ? 1 : sms / QT;
-  const bool ids4 = C % 4 == 0 &&
-                    (reinterpret_cast<uintptr_t>(cand) & 15) == 0 &&
-                    (reinterpret_cast<uintptr_t>(cand_scores) & 15) == 0;
-  const int RR = (S + P - 1) / P;
-  const double row = 4.0 * D, pairs_t = (double)RQ * C;
-  const double direct = (double)B * C * (row + 8);
-  const double grouped =
-      (double)QT * P * (RQ * row + 2 * pairs_t * 8) +
-      (double)QT * S * (1.0 - std::exp(-pairs_t / S)) * row;
-  const size_t smem = grouped_smem(D, RR, C);
-  if (D <= MAX_D && RR <= MAX_BINS && RQ * C <= 65536 && S > 0 &&
-      smem + 1024 <= SMEM_LIMIT && grouped < 0.7 * direct) {
-    // the row's float4 a lane: 2, 4, 6 or 8
-    const int nv = (D + 255) / 256 * 2;
-    auto go = nv == 2 ? launch_grouped<2> : nv == 4 ? launch_grouped<4>
-            : nv == 6 ? launch_grouped<6> : launch_grouped<8>;
-    return go(emb, q, cand, cand_scores, out, B, C, D, S, P, RR, smem,
-              prior_var, d_log_pv, vec, ids4, st);
-  }
   // 64 pairs a block; 8 (one a warp) when that leaves SMs idle
-  const int per_block = (long long)B * ((C + 63) / 64) < 2 * sms ? 8 : 64;
-  const size_t qsmem = (size_t)D * sizeof(float);
-  if (qsmem > 48 * 1024) {
+  const bool small = (long long)B * ((C + 63) / 64) < 2 * sms;
+  auto kernel = small ? (vec ? rerank_l2_kernel<8, true>
+                             : rerank_l2_kernel<8, false>)
+                      : (vec ? rerank_l2_kernel<64, true>
+                             : rerank_l2_kernel<64, false>);
+  const int per_block = small ? 8 : 64;
+  const size_t smem = (size_t)D * sizeof(float);
+  if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        rerank_direct, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)qsmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  rerank_direct<<<dim3(B, (C + per_block - 1) / per_block), D_WARPS * 32,
-                  qsmem, st>>>(
+  kernel<<<dim3(B, (C + per_block - 1) / per_block), WARPS * 32, smem,
+           reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float*>(emb), reinterpret_cast<const float*>(q),
       reinterpret_cast<const int*>(cand),
       reinterpret_cast<const float*>(cand_scores),
-      reinterpret_cast<float*>(out), C, D, per_block, prior_var, d_log_pv,
-      vec);
+      reinterpret_cast<float*>(out), C, D, prior_var, d_log_pv);
   return (int)cudaGetLastError();
 }

@@ -36,7 +36,7 @@ _SIGNATURES = {
         "blocked_topk_f32": [_P] * 9 + [_I] * 6 + [_P],
     },
     "rerank_l2": {
-        "rerank_l2": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
+        "rerank_l2": [_P] * 5 + [_I] * 3 + [_F, _F, _P],
     },
 }
 _libs: dict = {}

@@ -6,15 +6,13 @@ Port of the row-gather + squared-L2 Pallas kernel of
 ``cand[b, j]`` the fresh-leaf log-probability
 ``-0.5 * (||q_b - emb[cand[b, j]]||^2 / prior_var + D * log(prior_var))``
 in the diff form, -inf where ``cand_scores[b, j]`` is not finite.  The
-CUDA kernel is ``csrc/rerank_l2.cu`` (rows shared by several queries of a
-32-query tile are read once there); ``rerank_lp_plain`` is the same
+CUDA kernel is ``csrc/rerank_l2.cu``; ``rerank_lp_plain`` is the same
 function in plain PyTorch.  A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from rag_cobweb_tpu_torch.ops import _build
@@ -40,13 +38,6 @@ def _pv_terms(prior_var, D: int, device):
     return pv, D * torch.log(pv)
 
 
-def host_terms(prior_var, D: int):
-    """``_pv_terms`` in float32 on the host, as the kernel takes them:
-    numpy's, so that launching the kernel never waits on the device."""
-    pv = np.float32(prior_var)
-    return float(pv), float(np.float32(D) * np.log(pv))
-
-
 def rerank_lp_plain(emb, queries, cand, cand_scores, prior_var):
     pv, d_log_pv = _pv_terms(prior_var, queries.shape[1], emb.device)
     x = emb[cand.long()]                                    # (B, C, D)
@@ -66,14 +57,14 @@ def rerank_lp(emb, queries, cand, cand_scores, prior_var):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     B, C = cand.shape
-    S, D = emb.shape
-    pv, d_log_pv = host_terms(prior_var, D)
+    D = emb.shape[1]
+    pv, d_log_pv = _pv_terms(prior_var, D, "cpu")   # host: no device sync
     out = torch.empty((B, C), dtype=torch.float32, device=emb.device)
     lib = _build.library("rerank_l2")
     _build.check(_build.launch(emb, lambda stream: lib.rerank_l2(
         emb.data_ptr(), queries.data_ptr(), cand.data_ptr(),
-        cand_scores.data_ptr(), out.data_ptr(), B, C, D, S, pv, d_log_pv,
-        stream)), "rerank_l2 launch")
+        cand_scores.data_ptr(), out.data_ptr(), B, C, D, float(pv.item()),
+        float(d_log_pv.item()), stream)), "rerank_l2 launch")
     rerank_lp.launches += 1
     return out
 

@@ -125,10 +125,9 @@ def test_fused_topk_ties_straddle_the_cluster_blocks(card, dtype):
                                      (1024, 50, 500, 300),
                                      (32, 768, 1 << 20, 1024)])
 def test_rerank_kernel_batches_duplicates_and_empty_rows(card, B, D, S, C):
-    """B = 1, 32 and 1024 (at 1024 with 3000 rows each row is a candidate
-    of ~3 queries of a 32-query tile, so rows are grouped and read once),
-    D ragged, ids repeated within a query's list, one query with every
-    candidate -inf, and 1M rows at B = 32."""
+    """B = 1, 32 and 1024 (B * C / 64 below and above twice the SMs, so
+    both block sizes run), D ragged, ids repeated within a query's list,
+    one query with every candidate -inf, and 1M rows at B = 32."""
     from rag_cobweb_tpu_torch.ops import rerank
     g = torch.Generator(device=card).manual_seed(B + D + C)
     emb = torch.randn((S, D), generator=g, device=card)
