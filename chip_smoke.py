@@ -19,7 +19,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    id may differ; untimed), one of TS=1024 (each block split over a
    cluster) and one of D=768 (query segments carried through the ring), a
    small f32 index, and the group pool at the flagship shape (per_group 1
-   and 2); kernels 1 and 5 also at B=1 and B=32, the batches of the
+   and 2); kernels 1, 2 and 5 also at B=1 and B=32, the batches of the
    flagship's latency probes;
 3. the flagship slice: ``rag_cobweb_tpu_torch.bench.headline`` at the
    flagship settings (c=10000, 1000 queries, 768-d, PCA 0.96, 32 lanes,
@@ -40,12 +40,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
    kernels and not the fused one.  The blocked kernel is then held
    against its plain version on the served index with the whitened
    queries and timed there at each batch size the serving gives it
-   (1, 8, 32, 1024) and at 4096; kernel 1 likewise on the served fused
-   index (kappa 512) at B = 1, 32 and 1024;
-4. one JSON line of per-kernel numbers (kernel 1 at the flagship shape,
-   kernel 5 on the flagship's served pools, the blocked kernel on the
-   100k served index at B=1024, the group pool), the nvidia-smi line, and
-   the final ``{"ok": true, "device": {...}}`` line.
+   (1, 8, 32, 1024) and at 4096; kernels 1 (kappa 512) and 2 (per_group
+   2) likewise on the served fused index at B = 1, 32 and 1024;
+4. one JSON line of per-kernel numbers, a row per CUDA kernel (kernel 1
+   at the flagship shape, kernel 5 on the flagship's served pools, the
+   blocked kernel on the 100k served index at B=1024, replacing TPU
+   kernels 3 and 4, whose bodies are one, with its record at B=4096 under
+   ``B4096``, the group pool at the flagship shape), the nvidia-smi line,
+   and the final
+   ``{"ok": true, "device": {...}}`` line.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero before printing any result.
@@ -352,7 +355,7 @@ def group_inputs(B, twoD, Sp, S, seed):
     return qq, GT, c, torch.arange(Sp, device=dev) < S
 
 
-def check_group(fused_topk, qq, GT, c, valid, per_group, reps):
+def check_group(fused_topk, qq, GT, c, valid, per_group, reps, label=""):
     """The group-pool entry against its plain version: f32 sums in another
     order only, so scores within 1e-3 + 1e-3 |score| and ids equal except
     among rows tied within that.  Returns the record of this shape."""
@@ -374,7 +377,7 @@ def check_group(fused_topk, qq, GT, c, valid, per_group, reps):
     nbytes = qq.numel() * 2 + GT.numel() * 2 + Sp * 4 + Sp + NS * B * KO * 8
     b_ms, b_by = bound(nbytes, 2.0 * B * twoD * Sp, PEAK_BF16_FLOPS)
     if reps == 0:
-        log(f"[kernel] fused_group_topk (real index) B={B} 2D={twoD} "
+        log(f"[kernel] fused_group_topk{label} B={B} 2D={twoD} "
             f"Sp={Sp} per_group={per_group}: max_abs_err={err:.3g} "
             f"boundary_tie_ids={n_diff}")
         return None
@@ -389,7 +392,7 @@ def check_group(fused_topk, qq, GT, c, valid, per_group, reps):
     plain_ms = cuda_ms(lambda: fused_topk.slab_group_topk_plain(
         qq, GT, c, valid, per_group), reps)
     lib_ms = cuda_ms(library, reps)
-    log(f"[kernel] fused_group_topk B={B} 2D={twoD} Sp={Sp} "
+    log(f"[kernel] fused_group_topk{label} B={B} 2D={twoD} Sp={Sp} "
         f"per_group={per_group}: max_abs_err={err:.3g} boundary_tie_ids="
         f"{n_diff} ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
         f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
@@ -486,6 +489,7 @@ def main() -> int:
     # -- 2. kernels against their plain versions ------------------------
     main_f = check_fused(fused_topk, *fused_inputs(1024, 496, 10240, 10240,
                                                    seed=0), 1024, reps=20)
+    # ragged: 2D = 250 (the wrapper pads qq's rows to 16 bytes for TMA)
     check_fused(fused_topk, *fused_inputs(1000, 250, 10240, 9000, seed=1),
                 1024, reps=5)
     check_fused(fused_topk, *fused_inputs(1024, 496, 1 << 20,
@@ -509,6 +513,9 @@ def main() -> int:
         small[f"rerank_l2 B={B}"] = check_rerank(
             rerank, *rerank_inputs(B, 1024, 768, 10240, seed=20 + B),
             reps=50)
+        small[f"fused_group_topk B={B}"] = check_group(
+            fused_topk, *group_inputs(B, 496, 10240, 10000, seed=30 + B),
+            per_group=2, reps=50)
     log("[kernel] small batches, ms / bound ms / library ms: " + json.dumps(
         {k: [r["ms"], r["bound_ms"], r["library_ms"]]
          for k, r in small.items()}))
@@ -587,7 +594,8 @@ def main() -> int:
         windows["group"] = read()
         q = qw.float()
         qq = torch.cat([q, q * q], 1).to(fidx.GT.dtype).contiguous()
-        check_group(fused_topk, qq, fidx.GT, fidx.c, fidx.valid, 2, reps=0)
+        check_group(fused_topk, qq, fidx.GT, fidx.c, fidx.valid, 2, reps=0,
+                    label=" (served index)")
 
     rec = headline.run(corpus_size=10000, queries=1000, dim=768,
                        pca_dim=0.96, k=10, batch=1024, dataset="hard",
@@ -618,7 +626,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3b. the blocked slice: the 100k cell -----------------------------
-    served, served_f = {}, {}
+    served, served_f, served_g = {}, {}, {}
 
     def blocked_hook(event, engine, db, data):
         if event == "start":
@@ -631,9 +639,12 @@ def main() -> int:
             fidx = db._fused_index()
             qw = whitened(db, data, 1024)
             for B, reps in ((1, 50), (32, 50), (1024, 10)):
+                qq = fused_topk.query_terms(qw[:B], fidx.GT.dtype)
                 served_f[B] = check_fused(
-                    fused_topk, fused_topk.query_terms(qw[:B], fidx.GT.dtype),
-                    fidx.GT, fidx.c, fidx.valid, 512, reps,
+                    fused_topk, qq, fidx.GT, fidx.c, fidx.valid, 512, reps,
+                    label=" (served 100k index)")
+                served_g[B] = check_group(
+                    fused_topk, qq, fidx.GT, fidx.c, fidx.valid, 2, reps,
                     label=" (served 100k index)")
             return
         if engine != "blocked_kernel":
@@ -679,10 +690,12 @@ def main() -> int:
     launches["blocked_topk"] = wk["blocked_topk"]
     log("[blocked] blocked_topk ms on the served index by batch size: "
         + json.dumps({B: r["ms"] for B, r in sorted(served.items())}))
-    log("[blocked] fused_topk ms / bound ms / library ms on the served fused "
-        "index by batch size: " + json.dumps(
-            {B: [r["ms"], r["bound_ms"], r["library_ms"]]
-             for B, r in sorted(served_f.items())}))
+    for kernel, recs_b in (("fused_topk", served_f),
+                           ("fused_group_topk", served_g)):
+        log(f"[blocked] {kernel} ms / bound ms / library ms on the served "
+            "fused index by batch size: " + json.dumps(
+                {B: [r["ms"], r["bound_ms"], r["library_ms"]]
+                 for B, r in sorted(recs_b.items())}))
 
     # -- 4. result lines ----------------------------------------------------
     src = "rag_cobweb_tpu_torch/csrc/"
@@ -693,12 +706,15 @@ def main() -> int:
         dict(name="rerank_l2", route="cuda", source=src + "rerank_l2.cu",
              replaces="scripts/gather_probe.py:55",
              launches=launches["rerank_l2"], **flag["rerank"]),
-        # one CUDA kernel for both TPU kernels: _kernel_v2's body is _kernel
+        # one CUDA kernel and counter for both TPU kernels (_kernel_v2's
+        # body is _kernel): the served index at B=1024, and under "B4096"
+        # at the batch of _kernel_v2's measurement
         dict(name="blocked_topk", route="cuda",
              source=src + "blocked_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:40; "
                       "rag_cobweb_tpu/ops/pallas_query.py:126",
-             launches=launches["blocked_topk"], **served[1024]),
+             launches=launches["blocked_topk"], **served[1024],
+             B4096=served[4096]),
         dict(name="fused_group_topk", route="cuda",
              source=src + "fused_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:270",

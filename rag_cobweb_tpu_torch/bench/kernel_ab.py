@@ -2,9 +2,11 @@
 checkout (``--parent``), in turns on one card.
 
     python -m rag_cobweb_tpu_torch.bench.kernel_ab \\
-        --kernel {blocked_topk,fused_topk,rerank_l2} --parent DIR
+        --kernel {blocked_topk,fused_topk,fused_group_topk,rerank_l2} \\
+        --parent DIR
 
-The other checkout's ``csrc/<kernel>.cu`` (with the headers beside it) is
+The other checkout's kernel source (``csrc/<source>.cu``, with the headers
+beside it; kernel 2, ``fused_group_topk``, lives in ``fused_topk.cu``) is
 built with the same ``nvcc`` command into ``build/torch_kernels/`` and
 called through its own C entry, whose argument list is read from that
 checkout's ``ops/_build.py``.  At each shape both kernels are held against
@@ -24,6 +26,10 @@ name and power limit.  Shapes:
   Sp=100352, kappa=512) at B = 1, 32 and 1024, then random bf16 inputs of
   the flagship shape at B=1024 and of 1M rows with kappa=16; sorted pool
   scores within 1e-3 + 1e-3 |score| (both cells are built first, ~1 min);
+* ``fused_group_topk``: the same served indexes and batches, and random
+  bf16 inputs of the flagship shape at B=1024, per_group=2; scores in
+  round order within 1e-3 + 1e-3 |score|, each id carrying its score
+  within that, exhausted rounds (NEG) at the plain version's rows;
 * ``rerank_l2``: the flagship's served pools (its 1000 queries' exact
   top-1024 from kernel 1, the raw 768-d store), then uniform random
   candidates (C=1024, D=768, some -inf) on 10240 rows at B = 1, 32 and
@@ -45,9 +51,11 @@ import torch
 
 from rag_cobweb_tpu_torch.ops import _build
 
-KERNELS = ("blocked_topk", "fused_topk", "rerank_l2")
+KERNELS = ("blocked_topk", "fused_topk", "fused_group_topk", "rerank_l2")
 ENTRY = {"blocked_topk": "blocked_topk_bf16", "fused_topk": "fused_topk_bf16",
+         "fused_group_topk": "fused_group_topk_bf16",
          "rerank_l2": "rerank_l2"}
+SOURCE = {"fused_group_topk": "fused_topk"}    # else the kernel's own name
 
 
 def parent_entry(parent: Path, kernel: str):
@@ -58,13 +66,14 @@ def parent_entry(parent: Path, kernel: str):
         "_parent_build", pkg / "ops" / "_build.py")
     other = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(other)
-    src = pkg / "csrc" / f"{kernel}.cu"
+    source = SOURCE.get(kernel, kernel)
+    src = pkg / "csrc" / f"{source}.cu"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _build.BUILD_DIR / f"lib{kernel}_other_{_build.digest(src)}.so"
+    so = _build.BUILD_DIR / f"lib{source}_other_{_build.digest(src)}.so"
     if not so.exists():
         subprocess.run(_build.nvcc_command(src, so), check=True)
     fn = getattr(ctypes.CDLL(str(so)), ENTRY[kernel])
-    fn.argtypes = other._SIGNATURES[kernel][ENTRY[kernel]]
+    fn.argtypes = other._SIGNATURES[source][ENTRY[kernel]]
     fn.restype = ctypes.c_int
     return fn
 
@@ -218,6 +227,69 @@ def fused_cases(other):
         yield case("random", qq, GT, c, valid, kappa)
 
 
+def group_cases(other):
+    from rag_cobweb_tpu_torch.ops import fused_topk as ft
+    per_group = 2                   # pallas_fused_group_topk's default
+
+    def case(label, qq, GT, c, valid):
+        B, twoD = qq.shape
+        Sp = GT.shape[1]
+        NS, KO = Sp // ft.SLAB, per_group * ft.NG
+        out_s = torch.empty((NS, B, KO), device="cuda")
+        out_i = torch.empty((NS, B, KO), dtype=torch.int32, device="cuda")
+
+        def run_other():
+            _build.check(other(qq.data_ptr(), GT.data_ptr(), c.data_ptr(),
+                               valid.data_ptr(), out_s.data_ptr(),
+                               out_i.data_ptr(), B, twoD, Sp, per_group,
+                               torch.cuda.current_stream().cuda_stream),
+                         "other kernel")
+            return out_s, out_i
+
+        ps, pi = ft.slab_group_topk_plain(qq, GT, c, valid, per_group)
+        full = ft.slab_scores_plain(qq, GT, c, valid, ft.NEG) \
+            .permute(1, 0, 2)
+        base = (torch.arange(NS, device="cuda") * ft.SLAB).view(NS, 1, 1)
+        tol = 1e-3 + 1e-3 * ps.abs()
+        neg = ps <= ft.NEG / 2
+
+        def check(out):
+            ks, ki = out
+            err = (ks - ps).abs()
+            at = full.gather(2, (ki - base).long())
+            ok = (bool((err <= tol).all())
+                  and torch.equal(neg, ks <= ft.NEG / 2)
+                  and torch.equal(ki[neg], pi[neg])
+                  and bool(((at - ks).abs() <= tol)[~neg].all()))
+            return float(err.max()), ok
+
+        nbytes = qq.numel() * 2 + GT.numel() * 2 + Sp * 5 + NS * B * KO * 8
+        return ({"inputs": label, "B": B, "2D": twoD, "Sp": Sp,
+                 "per_group": per_group,
+                 "bound_ms": max(2.0 * B * twoD * Sp / 989e12,
+                                 nbytes / 3.35e12) * 1e3},
+                lambda: ft.slab_group_topk(qq, GT, c, valid, per_group),
+                run_other, check)
+
+    for cell, batches in (("flagship", (1, 32, 1000)),
+                          ("100k", (1, 32, 1024))):
+        got = served(cell, "fused")
+        fidx = got["db"]._fused_index()
+        for B in batches:
+            yield case(f"served {cell}", ft.query_terms(got["q"][:B],
+                                                        fidx.GT.dtype),
+                       fidx.GT, fidx.c, fidx.valid)
+        del got, fidx
+    g = torch.Generator(device="cuda").manual_seed(7)
+    B, twoD, Sp = 1024, 496, 10240
+    q = torch.randn((B, twoD // 2), generator=g, device="cuda")
+    qq = torch.cat([q, q * q], 1).to(torch.bfloat16).contiguous()
+    GT = (0.05 * torch.randn((twoD, Sp), generator=g, device="cuda")) \
+        .to(torch.bfloat16).contiguous()
+    c = torch.randn((Sp,), generator=g, device="cuda")
+    yield case("random", qq, GT, c, torch.arange(Sp, device="cuda") < 10000)
+
+
 def rerank_cases(other):
     from rag_cobweb_tpu_torch.core.index import fused_query_topk
     from rag_cobweb_tpu_torch.ops import rerank
@@ -286,6 +358,7 @@ def main(argv=None) -> int:
     _build.build_all()
     other = parent_entry(args.parent, args.kernel)
     cases = {"blocked_topk": blocked_cases, "fused_topk": fused_cases,
+             "fused_group_topk": group_cases,
              "rerank_l2": rerank_cases}[args.kernel](other)
     for shape, run_this, run_other, check in cases:
         errs = {}

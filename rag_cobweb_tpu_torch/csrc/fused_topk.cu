@@ -1,78 +1,90 @@
-// Fused path-score sweep with a per-slab top-kappa pool.
+// Fused path-score sweep with a per-slab top-kappa pool (kernel 1) and with
+// a per-group max/argmax pool (kernel 2).
 //
-// Replaces: rag_cobweb_tpu/ops/pallas_query.py::_fused_kernel (the Pallas
-// kernel behind pallas_fused_topk).  For every 2048-row slab s and query b:
+// Kernel 1 replaces rag_cobweb_tpu/ops/pallas_query.py::_fused_kernel (the
+// Pallas kernel behind pallas_fused_topk).  For every 2048-row slab s and
+// query b:
 //   scores[b, t] = sum_d qq[b, d] * GT[d, t] + c[t]   (invalid rows: -inf)
 // and the slab's top-kappa (score, global row id), ties to the lower id,
 // in no particular order (the caller's merge takes a top-k over them).
 // The (B, Sp) score matrix never reaches device memory: it lives in shared
 // memory, a (slab, query tile) at a time.
 //
-// What bounds it on an H100 ("NVIDIA H100 80GB HBM3, 700.00 W"): at the
-// c=10k main path (2D = 496, Sp = 10240, kappa = 1024) the sweep is 2 B 2D
-// Sp operations (10.4 GFLOP at B = 1024, 11 us at 989 TFLOP/s bf16) on a
-// 10 MB GT, and the pool it writes is NS B kappa (score, id) pairs (42 MB
-// at B = 1024, 12.5 us at 3.35 TB/s): bytes bound it, 16 us at B = 1024
-// and 3 us at B <= 32 (GT alone).  At 1M rows (kappa = 16) the operations
-// do: 1.07 TFLOP, 1.1 ms.
+// Kernel 2 replaces _fused_group_kernel (behind pallas_fused_group_topk):
+// the same sweep, invalid rows NEG = -3e38 as in the TPU kernel, then for
+// each 128-row group ``per_group`` rounds of max/argmax (ties to the lower
+// row, the taken row set to NEG; once every row is NEG a round returns NEG
+// at the group's lowest row, as JAX's argmax does).  Column i * 16 + g of
+// the (NS, B, per_group * 16) output holds round i of group g, with the
+// global row slab * 2048 + g * 128 + argmax.
 //
-// What the bf16 design does (slab_topk_wgmma, the serving path):
-//   * one CUDA block (CTA) owns 64 queries (one wgmma M) and 256 columns of
-//     one slab, and the 8 CTAs of a slab form a cluster, so B = 1 runs 8
-//     CTAs a slab (40 at the main path, 5 before) and the 64 x 2048 f32
-//     score tile (512 KB) is spread over 8 shared memories;
-//   * a producer warpgroup streams GT in 64-row chunks of the CTA's 256
-//     columns (four 128-byte swizzled TMA boxes, zero fill past 2D: the
-//     ragged depth needs no staging) through a ring of 2-4 mbarrier stages;
-//     GT is (2D, Sp) row-major, so the chunk is wgmma's B operand MN-major.
-//     The 64 x 2D query tile is wgmma's A operand in shared memory: the
-//     producer stores it swizzled itself (any 2D, zero past B and 2D); up
-//     to 2D = 512 it is stored once and stays, a wider one comes with each
-//     chunk through the ring (a template parameter);
+// What bounds them on an H100 ("NVIDIA H100 80GB HBM3, 700.00 W"): at the
+// c=10k main path (2D = 496, Sp = 10240) the sweep is 2 B 2D Sp operations
+// (10.4 GFLOP at B = 1024, 11 us at 989 TFLOP/s bf16) on a 10 MB GT; kernel
+// 1's pool (kappa = 1024) is NS B kappa (score, id) pairs (42 MB at B =
+// 1024, 12.5 us at 3.35 TB/s): bytes bound it, 16 us at B = 1024 and 3 us
+// at B <= 32 (GT alone).  Kernel 2's pool is per_group * 16 pairs a slab
+// and query, so operations bound it at B = 1024 (11 us).  At 1M rows
+// (kappa = 16) operations bound kernel 1: 1.07 TFLOP, 1.1 ms.
+//
+// What the bf16 design does (slab_topk_wgmma, group_topk_wgmma):
+//   * an item is 64 queries (one wgmma M) x 256 columns of one slab; a CTA
+//     is persistent and walks its items in turn, so the loads of the next
+//     item overlap the epilogue of this one;
+//   * a producer thread streams each 64-row chunk of the item by TMA into
+//     a ring of mbarrier stages: the query box (64 queries x 64 depths;
+//     qq's rows are padded to 16-byte multiples) and four 128-byte
+//     swizzled GT boxes of the item's 256 columns (zero fill past 2D and B:
+//     ragged shapes need no staging).  GT is (2D, Sp) row-major, so a chunk
+//     is wgmma's B operand MN-major;
 //   * two consumer warpgroups each run m64n128k16 wgmma over 128 columns,
 //     one chunk's group in flight while the next is issued;
-//   * the scores (+ c, invalid rows -inf) go to shared memory over the
-//     drained ring, and an exact radix select on order-preserving 32-bit
-//     keys (up to 4 passes of 8 bits) runs over the cluster: every CTA
-//     counts the digits of its columns for its 64 queries (16-bit counts,
-//     one thread a query, 4 keys a 16-byte load), pushes each query's
-//     counts by 16-byte stores into the inbox of the CTA that owns it
-//     (query q: CTA q % 8), and the owner sums them, picks the digit and
-//     pushes the decision to every CTA.  Pulling the counts instead (4-byte
-//     loads of distributed shared memory) took 4x longer.  It stops once
-//     every query's chosen bin is taken whole (3 passes on random scores);
-//   * the tie rule across CTAs: the owner also keeps each CTA's count of
-//     keys above the kappa-th key T and in its bin, and hands each CTA its
-//     offsets: the keys above T of the CTAs to its left, and their keys
-//     equal to T.  A CTA writes its keys above T there and its keys equal
-//     to T in row order after all keys above T, up to the count to take:
-//     the lowest-id rows equal to T, as one warp a slab did before, with
-//     no exchange after the last pass.
+//   * kernel 2: a warpgroup's 128 columns are one group, so the group pool
+//     is taken from the accumulators in registers: a quad of lanes holds
+//     one query's 128 columns (32 each, column 8j + 2cq + e), a round is a
+//     32-register max, two shuffles across the quad (ties to the lower
+//     column) and a compare-and-select that masks the taken column; no
+//     score tile, no exchange between CTAs.  The ring takes the rest of
+//     shared memory (5 stages);
+//   * kernel 1: the 8 CTAs of a slab form a cluster, and the clusters that
+//     fit the card (cudaOccupancyMaxActiveClusters) walk the (slab, query
+//     tile) items in the same order on all 8 CTAs.  The scores (+ c,
+//     invalid rows -inf) go to a score tile beside the 2-stage ring, so the
+//     producer loads the next item's first chunks while the CTA selects
+//     this one.  An exact radix select on order-preserving 32-bit keys runs
+//     over the cluster, a pass splitting each query's window of keys (at
+//     first all 2^32) into 256 bins: every CTA counts the bins of its
+//     columns for its 64 queries (16-bit counts, one thread a query, 4 keys
+//     a 16-byte load), pushes each query's counts by 16-byte stores into
+//     the inbox of the CTA that owns it (query q: CTA q % 8), and the owner
+//     sums them (clearing the inbox as it reads, so it is empty for the
+//     next pass and item), picks the bin of the kappa-th key and pushes the
+//     decision to every CTA.  Pulling the counts instead (4-byte loads of
+//     distributed shared memory) took 4x longer.  A query's select stops
+//     once its bin is taken whole or holds one key (3 passes on random
+//     scores), and the item's on the same pass in every CTA, since all read
+//     the same decisions.  A pass costs two cluster barriers and a
+//     histogram, so an item of the same query tile as the cluster's last
+//     one (B <= 64) starts from a guessed window of 2^24 keys around each
+//     query's last kappa-th key (a query's slabs give it scores of one
+//     scale; on the 100k cell's index a window spans +-256 around scores
+//     of -350): its first pass also counts the keys above the window, and
+//     the owner checks that the kappa-th key is in it (2 passes where it
+//     is; else the query starts over, one pass more);
+//   * kernel 1's tie rule across CTAs: the owner also keeps each CTA's
+//     count of keys above the kappa-th key T and in its bin, and hands each
+//     CTA its offsets: the keys above T of the CTAs to its left, and their
+//     keys equal to T.  A CTA writes its keys above T there and its keys
+//     equal to T in row order after all keys above T, up to the count to
+//     take: the lowest-id rows equal to T, with no exchange after the last
+//     pass.
 // The f32 path (the exact f32 index) keeps exact f32 FMAs on the CUDA cores
 // in d order: one block per (slab, 16-query tile), 512 threads, each 16
 // queries x 4 adjacent columns, the 16 x 2048 scores in 128 KB of shared
-// memory, then one warp a query selects with the same radix select
-// (fused_topk_kernel).
-
-// Second entry, the group-max pool (fused_group_topk_*): replaces
-// rag_cobweb_tpu/ops/pallas_query.py::_fused_group_kernel (behind
-// pallas_fused_group_topk).  fused_topk_kernel's sweep (a bf16 GT on WMMA,
-// mma.sync m16n16k16, B fragments read from GT) and score tile, invalid
-// rows NEG = -3e38 as in the TPU kernel; then, instead of the radix select,
-// each warp takes its query's 16 groups of 128 adjacent rows and runs
-// ``per_group`` rounds of max/argmax per group (ties to the lower row, the
-// taken row set to NEG; once every row is NEG a round returns NEG at the
-// group's lowest row, as JAX's argmax does).  Column i * 16 + g of the
-// (NS, B, per_group * 16) output holds round i of group g, with the global
-// row slab * 2048 + g * 128 + argmax.  Its bound is the sweep's (~10.4
-// GFLOP at the flagship shape, ~11 us): the selection is 4 registers a
-// lane and a 5-step shuffle per round, cheap next to the radix select.
-
-#include <mma.h>
+// memory, then one warp a query selects with the same radix select or runs
+// the group rounds on 4 registers a lane (fused_topk_kernel).
 
 #include "hopper.cuh"
-
-#include <type_traits>
 
 namespace {
 
@@ -143,73 +155,6 @@ __device__ __forceinline__ void sweep_fma(const float* __restrict__ qq,
   }
 }
 
-// bf16 GT: tensor cores (mma.sync through WMMA, m16n16k16, f32
-// accumulation).  The block's 16 queries are one m16 tile; warp w owns the
-// slab's columns [128w, 128w + 128) as eight n16 tiles, read straight from
-// GT.  A last depth chunk that 2D does not fill is staged zero-padded in
-// the (still unused) score buffer, so no row past 2D is read.
-__device__ __forceinline__ void sweep_mma(const __nv_bfloat16* __restrict__ qq,
-                                          const __nv_bfloat16* __restrict__ gt,
-                                          float* sc, float* qs, int B,
-                                          int twoD, int Sp, int q0,
-                                          int slab) {
-  using namespace nvcuda;
-  const int tid = threadIdx.x;
-  const int wcol = (tid >> 5) * 128;
-  __nv_bfloat16* qb = reinterpret_cast<__nv_bfloat16*>(qs);  // [TQ][DCH]
-  __nv_bfloat16* tail = reinterpret_cast<__nv_bfloat16*>(sc); // [16][SLAB]
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  const __nv_bfloat16* gslab = gt + (size_t)slab * SLAB;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
-#pragma unroll
-  for (int t = 0; t < 8; ++t) wmma::fill_fragment(acc[t], 0.f);
-
-  for (int d0 = 0; d0 < twoD; d0 += DCH) {
-    const int dn = min(DCH, twoD - d0);
-    __syncthreads();
-    for (int e = tid; e < TQ * DCH; e += THREADS) {
-      const int q = e / DCH, d = e % DCH;
-      qb[e] = (q0 + q < B && d < dn) ? qq[(size_t)(q0 + q) * twoD + d0 + d]
-                                     : zero;
-    }
-    __syncthreads();
-    for (int k0 = 0; k0 < dn; k0 += 16) {
-      const int dk = d0 + k0;
-      const bool ragged = dk + 16 > twoD;               // block-uniform
-      if (ragged) {
-        for (int e = tid; e < 16 * SLAB; e += THREADS) {
-          const int r = e / SLAB;
-          tail[e] = (dk + r < twoD) ? gslab[(size_t)(dk + r) * Sp + e % SLAB]
-                                    : zero;
-        }
-        __syncthreads();
-      }
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::load_matrix_sync(a, qb + k0, DCH);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> b;
-        if (ragged) {
-          wmma::load_matrix_sync(b, tail + wcol + t * 16, SLAB);
-        } else {
-          wmma::load_matrix_sync(b, gslab + (size_t)dk * Sp + wcol + t * 16,
-                                 Sp);
-        }
-        wmma::mma_sync(acc[t], a, b, acc[t]);
-      }
-    }
-  }
-  __syncthreads();                      // the ragged staging aliased sc
-#pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    wmma::store_matrix_sync(sc + wcol + t * 16, acc[t], SLAB,
-                            wmma::mem_row_major);
-  }
-}
-
 // Group pool of one query (warp-uniform): per 128-row group, ``per_group``
 // rounds of max/argmax over the four rows each lane holds in registers.
 __device__ __forceinline__ void group_select(const float* rs, float* out_s,
@@ -248,12 +193,12 @@ __device__ __forceinline__ void group_select(const float* rs, float* out_s,
   }
 }
 
-// One block per (slab, 16-query tile).  GROUP_POOL = false: per-slab
+// f32: one block per (slab, 16-query tile).  GROUP_POOL = false: per-slab
 // top-kappa by radix select (``sel`` = kappa, invalid rows -inf); true:
 // the group pool (``sel`` = per_group, invalid rows NEG).
-template <typename T, bool GROUP_POOL>
+template <bool GROUP_POOL>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_topk_kernel(const T* __restrict__ qq, const T* __restrict__ gt,
+fused_topk_kernel(const float* __restrict__ qq, const float* __restrict__ gt,
                   const float* __restrict__ c,
                   const uint8_t* __restrict__ valid,
                   float* __restrict__ out_s, int* __restrict__ out_i,
@@ -270,11 +215,7 @@ fused_topk_kernel(const T* __restrict__ qq, const T* __restrict__ gt,
   const int col = tid * CPT;                          // within the slab
   const size_t gcol = (size_t)slab * SLAB + col;      // within GT
 
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    sweep_mma(qq, gt, sc, qs, B, twoD, Sp, q0, slab);
-  } else {
-    sweep_fma(qq, gt, sc, qs, B, twoD, Sp, q0, gcol, col);
-  }
+  sweep_fma(qq, gt, sc, qs, B, twoD, Sp, q0, gcol, col);
   __syncthreads();
 
   // bias and validity mask on the staged scores
@@ -381,18 +322,18 @@ fused_topk_kernel(const T* __restrict__ qq, const T* __restrict__ gt,
   }
 }
 
-template <typename T, bool GROUP_POOL>
-int launch(const void* qq, const void* gt, const void* c, const void* valid,
-           void* out_s, void* out_i, int B, int twoD, int Sp, int sel,
-           void* stream) {
+template <bool GROUP_POOL>
+int launch_f32(const void* qq, const void* gt, const void* c,
+               const void* valid, void* out_s, void* out_i, int B, int twoD,
+               int Sp, int sel, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      fused_topk_kernel<T, GROUP_POOL>,
+      fused_topk_kernel<GROUP_POOL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((B + TQ - 1) / TQ, Sp / SLAB);
-  fused_topk_kernel<T, GROUP_POOL><<<grid, THREADS, SMEM,
-                                     reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const T*>(qq), reinterpret_cast<const T*>(gt),
+  fused_topk_kernel<GROUP_POOL><<<grid, THREADS, SMEM,
+                                  reinterpret_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float*>(qq), reinterpret_cast<const float*>(gt),
       reinterpret_cast<const float*>(c),
       reinterpret_cast<const uint8_t*>(valid),
       reinterpret_cast<float*>(out_s), reinterpret_cast<int*>(out_i), B,
@@ -400,430 +341,574 @@ int launch(const void* qq, const void* gt, const void* c, const void* valid,
   return (int)cudaGetLastError();
 }
 
-// -- bf16 top-kappa: wgmma on a TMA ring, radix select over a cluster -------
+// -- bf16: wgmma on a TMA ring, persistent CTAs -------------------------------
 
-using bf16 = __nv_bfloat16;
-
-constexpr int SPLIT = 8;                  // CTAs of a slab: one cluster
-constexpr int NTC = SLAB / SPLIT;         // 256 slab columns a CTA
-constexpr int WTQ = 64;                   // queries a CTA (wgmma M)
-constexpr int KC = BOXC;                  // GT rows a ring stage = a query box
+constexpr int SPLIT = 8;                  // CTAs of a slab (kernel 1: cluster)
+constexpr int NTC = SLAB / SPLIT;         // 256 slab columns an item
+constexpr int WTQ = 64;                   // queries an item (wgmma M)
+constexpr int KC = BOXC;                  // depth of a chunk = a query box
 constexpr int WG = 128;                   // threads of a warpgroup
 constexpr int W_CONSUMERS = 2 * WG;       // 128 columns each
 constexpr int W_THREADS = W_CONSUMERS + WG;   // + the producer warpgroup
-constexpr int W_MAX_STAGES = 4;
-constexpr int W_RESIDENT = 8;             // query boxes that stay: 2D <= 512
+constexpr int QBOX = WTQ * ROWB;                  // a chunk's query box
+constexpr int GBOXES = (NTC / BOXC) * KC * ROWB;  // its four GT boxes
+constexpr int STAGE = QBOX + GBOXES;              // 40 KB, 1024-aligned
 constexpr int LDS = NTC + 4;              // 16-byte rows, conflict-free
-constexpr int HW = BINS / 2 + 1;         // histogram row: words, padded
+constexpr int HW = BINS / 2 + 1;          // histogram row: words, padded
+constexpr int IW = BINS / 2 + 4;          // inbox row: counts, keys above
+// kernel 1's score tile [WTQ][LDS] f32, histograms [WTQ][HW], decisions
+// [WTQ] uint4 and keys above a guessed window [WTQ]; its inbox [SPLIT][WTQ
+// / SPLIT][IW] words
+constexpr int EPI = WTQ * LDS * 4 + WTQ * HW * 4 + WTQ * 16 + WTQ * 4;
+constexpr int INBOX = WTQ * IW * 4;
+// A decision (uint4): .x the first key of the window [.x, .x + 2^wb) that
+// holds the kappa-th key T; .y the rows equal to T still to take in bits
+// 0-15, whether the select of the query is done, whether its next pass
+// checks a guessed window, and wb in bits 24-31; .z, .w the CTA's offsets
+constexpr uint32_t DONE = 1u << 16, GUESS = 1u << 17;
+constexpr int GUESS_BITS = 24;            // a guessed window: 2^24 keys
+constexpr int TOPK_STAGES = 2;            // what fits beside EPI and INBOX
 
-// Shared memory of slab_topk_wgmma.  During the sweep: the resident query
-// tile (KB boxes of 64 rows x 64 columns; none when carried) and the
-// ring, each stage the carried query box (if any) and four GT boxes of
-// KC rows x 64 columns.  After it, over the same bytes: the score tile
-// [WTQ][LDS] f32, the histograms [WTQ][HW] and the per-query decisions.
-// Then, apart (other CTAs write it while the sweep runs), the inbox of the
-// owned queries' counts, and the mbarriers:
-// the query tile's, ``stages`` full, ``stages`` empty.
-struct WLayout {
-  int KB, qres, abytes, stage_bytes, epi, inbox, bars, total;
-  __host__ __device__ WLayout(int twoD, int stages) {
-    KB = (twoD + BOXC - 1) / BOXC;
-    const bool carried = KB > W_RESIDENT;
-    qres = carried ? 0 : KB * WTQ * ROWB;
-    abytes = carried ? WTQ * ROWB : 0;
-    stage_bytes = abytes + (NTC / BOXC) * KC * ROWB;
-    const int main_bytes = qres + stages * stage_bytes;
-    epi = WTQ * LDS * 4 + WTQ * HW * 4 + WTQ * 16;
-    inbox = ((main_bytes > epi ? main_bytes : epi) + 15) / 16 * 16;
-    bars = inbox + WTQ * BINS * 2;
-    total = 1024 + bars + 8 * (1 + 2 * stages);   // 1024: alignment slack
-  }
+#ifdef FUSED_GUESS_STATS
+// Guessed windows (a query's first pass of an item) that held the kappa-th
+// key, and that missed it (bench/fused_guess.py reads them)
+__device__ unsigned long long g_guess[2];
+#endif
+
+// Shared memory: the ring (``stages`` stages of STAGE bytes), then kernel
+// 1's epilogue and inbox, then the mbarriers: ``stages`` full, ``stages``
+// empty.
+struct Layout {
+  int stages, epi, inbox, bars, total;
+  __host__ __device__ Layout(bool select, int s)
+      : stages(s), epi(s * STAGE), inbox(epi + (select ? EPI : 0)),
+        bars(inbox + (select ? INBOX : 0)),
+        total(1024 + bars + 16 * s) {}      // 1024: alignment slack
 };
 
-// Query rows q0 .. q0 + 63, depth boxes [kb0, kb0 + nb), into 128-byte
-// swizzled boxes at ``dst`` as TMA would write them, zero past B and 2D;
-// by the producer warpgroup's thread ``pt``.
-__device__ __forceinline__ void stage_query(uint8_t* dst,
-                                            const bf16* __restrict__ qq,
-                                            int B, int twoD, int q0, int kb0,
-                                            int nb, int pt) {
-  const bool vec = (twoD & 7) == 0 &&
-                   (reinterpret_cast<uintptr_t>(qq) & 15) == 0;
-  constexpr int U = 8;                    // loads in flight a thread
-  const int n = nb * WTQ * 8;             // 16-byte chunks
-  for (int e0 = pt; e0 < n; e0 += U * WG) {
-    uint4 v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int e = e0 + u * WG;
-      const int box = e / (WTQ * 8), r = (e >> 3) % WTQ, ch = e & 7;
-      const int k = (kb0 + box) * BOXC + ch * 8, q = q0 + r;
-      v[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (e < n && q < B && k < twoD) {
-        const bf16* src = qq + (size_t)q * twoD + k;
-        if (vec) {
-          v[u] = *reinterpret_cast<const uint4*>(src);
-        } else {
-          uint32_t h[8];
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            h[t] = k + t < twoD ? __bfloat16_as_ushort(src[t]) : 0u;
-          }
-          v[u] = make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16,
-                            h[4] | h[5] << 16, h[6] | h[7] << 16);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int e = e0 + u * WG;
-      if (e < n) {
-        *reinterpret_cast<uint4*>(dst + e / (WTQ * 8) * WTQ * ROWB +
-                                  swizzle128((e >> 3) % WTQ, e & 7)) = v[u];
-      }
-    }
+// The ring's g-th chunk (counted over all items of the CTA, so the
+// mbarrier parities carry from item to item): its stage and barriers.
+struct Ring {
+  uint32_t stage0, full0, empty0;
+  int stages;
+  __device__ Ring(uint32_t base, const Layout& lay)
+      : stage0(base), full0(base + lay.bars),
+        empty0(base + lay.bars + 8 * lay.stages), stages(lay.stages) {}
+  __device__ uint32_t stage(uint32_t g) const {
+    return stage0 + g % stages * STAGE;
+  }
+  __device__ uint32_t full(uint32_t g) const {
+    return full0 + 8 * (g % stages);
+  }
+  __device__ uint32_t empty(uint32_t g) const {
+    return empty0 + 8 * (g % stages);
+  }
+  __device__ uint32_t parity(uint32_t g) const { return g / stages & 1u; }
+};
+
+// Producer (one thread): chunk k of the item (q0, col0), the ring's g-th,
+// into its stage by TMA once the consumers have released it: the query
+// box, then the GT boxes.
+__device__ __forceinline__ void produce(const Ring& ring, uint32_t g,
+                                        const CUtensorMap* tg,
+                                        const CUtensorMap* tq, int q0,
+                                        int col0, int k) {
+  if (g >= (uint32_t)ring.stages) {
+    mbar_wait(ring.empty(g), ring.parity(g) ^ 1u);
+  }
+  const uint32_t st = ring.stage(g), full = ring.full(g);
+  mbar_expect_tx(full, STAGE);
+  tma_2d(st, tq, k * BOXC, q0, full);
+  for (int b = 0; b < NTC / BOXC; ++b) {
+    tma_2d(st + QBOX + b * KC * ROWB, tg, col0 + b * BOXC, k * KC, full);
   }
 }
 
-template <bool CARRIED>
-__global__ void __launch_bounds__(W_THREADS, 1)
-slab_topk_wgmma(const __grid_constant__ CUtensorMap tg,
-                const bf16* __restrict__ qq, const float* __restrict__ c,
-                const uint8_t* __restrict__ valid,
-                float* __restrict__ out_s, int* __restrict__ out_i, int B,
-                int twoD, int kappa, int stages) {
-  extern __shared__ uint8_t smem_raw[];
-  // 1024-aligned for the swizzled boxes; an offset of the shared array, so
-  // that the compiler keeps shared (not generic) loads, stores and atomics
-  uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  const WLayout lay(twoD, stages);
-  const uint32_t qs = smem_u32(base);
-  const uint32_t ring = qs + lay.qres;
-  const uint32_t bar_q = qs + lay.bars;
-  const uint32_t bar_full = bar_q + 8;
-  const uint32_t bar_empty = bar_full + 8 * stages;
-  const int rank = blockIdx.x;            // the CTA's rank in its cluster
-  const int q0 = blockIdx.y * WTQ, slab = blockIdx.z;
-  const int col0 = slab * SLAB + rank * NTC;   // the CTA's first GT column
-  const int nk = lay.KB;                  // depth chunks (KC = BOXC)
-  const int qv = min(WTQ, B - q0);
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-
-  if (tid == 0) {
-    mbar_init(bar_q, WG);
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(bar_full + 8 * s, CARRIED ? WG + 1 : 1);
-      mbar_init(bar_empty + 8 * s, W_CONSUMERS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  // the inbox starts empty: the other CTAs push into it only after the
-  // cluster barrier this arrives at
-  uint32_t* inbox = reinterpret_cast<uint32_t*>(base + lay.inbox);
-  for (int e = tid; e < WTQ * BINS / 8; e += W_THREADS) {
-    reinterpret_cast<uint4*>(inbox)[e] = make_uint4(0u, 0u, 0u, 0u);
-  }
-  cluster_arrive();
-  __syncthreads();
-
-  float acc[64];
+// Consumer warpgroup ``wg``: its 64 queries x 128 columns of one item from
+// the ring's chunks g0 .. g0 + nk - 1, each stage released once read.
+__device__ __forceinline__ void sweep(float* acc, const Ring& ring,
+                                      uint32_t g0, int nk, int wg) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  if (tid >= W_CONSUMERS) {
-    // -- producer warpgroup: the query tile by hand, GT by TMA -------------
-    const int pt = tid - W_CONSUMERS;
-    auto load_gt = [&](int k) {           // chunk k's GT boxes, by thread 0
-      const int s = k % stages;
-      const uint32_t full = bar_full + 8 * s;
-      mbar_expect_tx(full, (NTC / BOXC) * KC * ROWB);
-      for (int b = 0; b < NTC / BOXC; ++b) {
-        tma_2d(ring + s * lay.stage_bytes + lay.abytes + b * KC * ROWB, &tg,
-               col0 + b * BOXC, k * KC, full);
-      }
-    };
-    // the first stages' GT in flight while the resident tile is stored
-    const int first = CARRIED ? 0 : min(stages, nk);
-    if (pt == 0) {
-      for (int k = 0; k < first; ++k) load_gt(k);
-    }
-    if (!CARRIED) {
-      stage_query(base, qq, B, twoD, q0, 0, nk, pt);
-      fence_async_smem();
-      mbar_arrive(bar_q);
-    }
-    for (int k = first; k < nk; ++k) {
-      const int s = k % stages, n = k / stages;
-      const uint32_t st = ring + s * lay.stage_bytes;
-      const uint32_t full = bar_full + 8 * s;
-      if ((CARRIED || pt == 0) && n > 0) {
-        mbar_wait(bar_empty + 8 * s, (n - 1) & 1);
-      }
-      if (pt == 0) load_gt(k);
-      if (CARRIED) {
-        stage_query(base + (st - qs), qq, B, twoD, q0, k, 1, pt);
-        fence_async_smem();
-        mbar_arrive(full);
-      }
-    }
-  } else {
-    // -- consumer warpgroups: 64 queries x 128 columns each -----------------
-    const int wg = tid >> 7;
-    if (!CARRIED) mbar_wait(bar_q, 0);
-    for (int k = 0; k < nk; ++k) {
-      const int s = k % stages;
-      mbar_wait(bar_full + 8 * s, (k / stages) & 1);
-      const uint32_t st = ring + s * lay.stage_bytes;
-      const uint32_t a = CARRIED ? st : qs + k * WTQ * ROWB;
-      const uint32_t b = st + lay.abytes + wg * 2 * KC * ROWB;
-      fence_regs<64>(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < KC / 16; ++ks) {
-        wgmma_ss_tb_n128(acc, smem_desc(a + ks * 32, 16),
-                         smem_desc(b + ks * 16 * ROWB, KC * ROWB));
-      }
-      wgmma_commit();
-      wgmma_wait<1>();                    // chunk k - 1 is read
-      if (k > 0) mbar_arrive(bar_empty + 8 * ((k - 1) % stages));
-    }
-    wgmma_wait<0>();
+  for (int k = 0; k < nk; ++k) {
+    const uint32_t g = g0 + k;
+    mbar_wait(ring.full(g), ring.parity(g));
+    const uint32_t a = ring.stage(g);
+    const uint32_t b = a + QBOX + wg * 2 * KC * ROWB;
     fence_regs<64>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      wgmma_ss_tb_n128(acc, smem_desc(a + ks * 32, 16),
+                       smem_desc(b + ks * 16 * ROWB, KC * ROWB));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();                      // chunk g - 1 is read
+    if (k > 0) mbar_arrive(ring.empty(g - 1));
   }
-  __syncthreads();                        // the ring is drained
+  wgmma_wait<0>();
+  fence_regs<64>(acc);
+  mbar_arrive(ring.empty(g0 + nk - 1));
+}
 
-  // -- the score tile over the ring: + c, invalid rows -inf ------------------
-  float* sc = reinterpret_cast<float*>(base);
+__device__ __forceinline__ uint8_t* aligned_base(uint8_t* smem_raw) {
+  // 1024-aligned for the swizzled boxes; an offset of the shared array, so
+  // that the compiler keeps shared (not generic) loads, stores and atomics
+  return smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void init_ring(const Ring& ring) {
+  for (int s = 0; s < ring.stages; ++s) {
+    mbar_init(ring.full0 + 8 * s, 1);
+    mbar_init(ring.empty0 + 8 * s, W_CONSUMERS);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Kernel 1: a cluster of 8 CTAs (rank = the slab's 256-column block) walks
+// the items (slab, query tile), tiles of a slab in turn.
+__global__ void __launch_bounds__(W_THREADS, 1)
+slab_topk_wgmma(const __grid_constant__ CUtensorMap tg,
+                const __grid_constant__ CUtensorMap tq,
+                const float* __restrict__ c,
+                const uint8_t* __restrict__ valid,
+                float* __restrict__ out_s, int* __restrict__ out_i, int B,
+                int twoD, int NS, int kappa) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = aligned_base(smem_raw);
+  const Layout lay(true, TOPK_STAGES);
+  const Ring ring(smem_u32(base), lay);
+  const int rank = blockIdx.x;            // the CTA's rank in its cluster
+  const int ntiles = (B + WTQ - 1) / WTQ, items = NS * ntiles;
+  const int nk = (twoD + KC - 1) / KC;    // chunks an item
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  float* sc = reinterpret_cast<float*>(base + lay.epi);
   // [WTQ][HW] words of two 16-bit digit counts (a CTA has 256 columns)
   uint32_t* hist = reinterpret_cast<uint32_t*>(sc + WTQ * LDS);
-  // [WTQ]: the prefix of T; the rows equal to T still to take, | 1 << 16
-  // once they are the whole chosen bin; then this CTA's offsets, the keys
-  // above T and the keys equal to T of the CTAs to its left
+  // [WTQ]: the decisions above; the offsets are this CTA's: the keys above
+  // T and the keys equal to T of the CTAs to its left
   uint4* dec = reinterpret_cast<uint4*>(hist + WTQ * HW);
-  // inbox: [SPLIT source CTAs][WTQ / SPLIT owned queries][BINS / 2] words
+  // [WTQ]: this CTA's keys above a guessed window
+  uint32_t* upc = reinterpret_cast<uint32_t*>(dec + WTQ);
+  // inbox: [SPLIT source CTAs][WTQ / SPLIT owned queries][IW] words
+  uint32_t* inbox = reinterpret_cast<uint32_t*>(base + lay.inbox);
+
+  if (tid == 0) init_ring(ring);
+  // the inbox and histograms start empty; the select leaves them so
+  for (int e = tid; e < INBOX / 16; e += W_THREADS) {
+    reinterpret_cast<uint4*>(inbox)[e] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int e = tid; e < WTQ * HW; e += W_THREADS) hist[e] = 0u;
+  if (tid < WTQ) upc[tid] = 0u;
+  cluster_sync();
+
   const float ninf = __int_as_float(0xff800000);
-  if (tid < W_CONSUMERS) {
-    const int wg = tid >> 7, r0 = ((tid >> 5) & 3) * 16 + (lane >> 2);
-    const int cq = lane & 3;
+  const unsigned full = 0xffffffffu, lt = (1u << lane) - 1u;
+  float acc[64];
+  uint32_t g = 0;                         // the ring's chunks so far
+  int pre = 0;                            // chunks of this item loaded ahead
+  for (int it = blockIdx.y; it < items; it += gridDim.y) {
+    const int slab = it / ntiles, q0 = it % ntiles * WTQ;
+    const int col0 = slab * SLAB + rank * NTC;   // the CTA's first column
+    const int qv = min(WTQ, B - q0);
+    if (tid >= W_CONSUMERS) {
+      // -- producer: this item's chunks, then the next item's first ones,
+      // which load while this item is selected
+      const int nx = it + gridDim.y;
+      const int npre = nx < items ? min(TOPK_STAGES, nk) : 0;
+      if (tid == W_CONSUMERS) {
+        for (int k = pre; k < nk; ++k) {
+          produce(ring, g + k, &tg, &tq, q0, col0, k);
+        }
+        for (int k = 0; k < npre; ++k) {
+          produce(ring, g + nk + k, &tg, &tq, nx % ntiles * WTQ,
+                  nx / ntiles * SLAB + rank * NTC, k);
+        }
+      }
+      pre = npre;
+    } else {
+      // -- consumers: the sweep, then the score tile: + c, invalid -inf
+      const int wg = tid >> 7, r0 = ((tid >> 5) & 3) * 16 + (lane >> 2);
+      const int cq = lane & 3;
+      sweep(acc, ring, g, nk, wg);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = wg * 128 + 8 * j + 2 * cq + e;
+          const bool ok = valid[col0 + col] != 0;
+          const float cb = c[col0 + col];
+          sc[r0 * LDS + col] = ok ? acc[4 * j + e] + cb : ninf;
+          sc[(r0 + 8) * LDS + col] = ok ? acc[4 * j + 2 + e] + cb : ninf;
+        }
+      }
+      // the same query tile as the last item (always at B <= 64): guess a
+      // window of keys around the kappa-th key of its last slab (a query's
+      // slabs give it scores of one scale); else the whole key range
+      if (tid < WTQ) {
+        uint4 d = make_uint4(0u, (uint32_t)kappa | 32u << 24, 0u, 0u);
+        if (it != (int)blockIdx.y && gridDim.y % ntiles == 0) {
+          constexpr uint32_t half = 1u << (GUESS_BITS - 1);
+          const uint32_t t = dec[tid].x & 0xffff0000u;
+          d.x = min(t > half ? t - half : 0u, 0u - (1u << GUESS_BITS));
+          d.y = (uint32_t)kappa | GUESS | (uint32_t)GUESS_BITS << 24;
+        }
+        dec[tid] = d;
+      }
+    }
+    g += nk;
+    __syncthreads();
+
+    // -- radix select over the cluster: passes of 8 bits ---------------------
+    // Each CTA counts its columns' digits per query (a thread a query and
+    // QS columns, read 4 at a time: 64 columns at 64 queries), pushes each
+    // query's counts to the CTA that owns it (query q: CTA q % SPLIT) by
+    // 16-byte stores into that CTA's inbox (those that are not zero: the
+    // owner clears what it has read; the histogram is cleared as it is
+    // pushed), and the owner sums them, picks the digit, keeps each CTA's
+    // count of keys above T and pushes the decision with each CTA's
+    // offsets to that CTA.  A pass splits the query's window of 2^wb keys
+    // into 256 bins (the last pass into 2^wb), and the query's select is
+    // done once its chosen bin is taken whole or holds one key.  A guessed
+    // first pass also counts the keys above its window; if the kappa-th
+    // key is not in it, the query starts over from the whole key range (5
+    // passes at most).
+    int QS = 1;
+    while (QS < qv) QS <<= 1;
+    const int hq = tid % QS, hg = tid / QS;
+    int abv[SPLIT];                       // the owner's: keys above, by CTA
+#pragma unroll
+    for (int m = 0; m < SPLIT; ++m) abv[m] = 0;
+    for (;;) {
+      if (tid < W_CONSUMERS && hq < qv && !(dec[hq].y & DONE)) {
+        const uint4 d = dec[hq];
+        const uint32_t lo = d.x, wb = d.y >> 24;
+        const int shift = max((int)wb - 8, 0);
+        const bool guessed = d.y & GUESS;
+        const float* row = sc + hq * LDS + hg * QS;
+        uint32_t* h = hist + hq * HW;
+        int up = 0;
+        auto count = [&](float x) {
+          const uint32_t k = score_key(x), o = k - lo;
+          if (wb == 32 || o < 1u << wb) {
+            const uint32_t dg = o >> shift;
+            atomicAdd(&h[dg >> 1], 1u << ((dg & 1u) << 4));
+          } else {
+            up += k > lo;
+          }
+        };
+        if (QS >= 4) {
+#pragma unroll 2
+          for (int i = 0; i < QS; i += 4) {
+            const float4 x = *reinterpret_cast<const float4*>(row + i);
+            count(x.x);
+            count(x.y);
+            count(x.z);
+            count(x.w);
+          }
+        } else {
+          for (int i = 0; i < QS; ++i) count(row[i]);
+        }
+        if (guessed && up) atomicAdd(&upc[hq], (uint32_t)up);
+      }
+      __syncthreads();
+      for (int e = tid; e < qv * (IW / 4); e += W_THREADS) {
+        const int q = e / (IW / 4), w4 = e % (IW / 4) * 4;
+        uint4 v;
+        if (w4 < BINS / 2) {
+          uint32_t* h = hist + q * HW + w4;   // read, cleared for the next
+          v = make_uint4(h[0], h[1], h[2], h[3]);
+          h[0] = h[1] = h[2] = h[3] = 0u;
+        } else {
+          v = make_uint4(upc[q], 0u, 0u, 0u);
+          upc[q] = 0u;
+        }
+        if (v.x | v.y | v.z | v.w) {
+          st_cluster_v4(cluster_addr(smem_u32(inbox + (rank * (WTQ / SPLIT) +
+                                                       q / SPLIT) * IW +
+                                              w4),
+                                     q % SPLIT),
+                        v);
+        }
+      }
+      cluster_sync();                     // every owner has its counts
+      const int q = rank + SPLIT * w;     // warp w decides query q
+      if (w < WTQ / SPLIT && q < qv && !(dec[q].y & DONE)) {
+        // lane l owns digits 255-8l down to 248-8l: bin_of(v, j) is digit
+        // 255-8l-j of the counts v
+        const uint4 d = dec[q];
+        uint4 v[SPLIT];
+        int up[SPLIT], upt = 0;
+#pragma unroll
+        for (int m = 0; m < SPLIT; ++m) {
+          uint32_t* row = inbox + (m * (WTQ / SPLIT) + w) * IW;
+          uint4* at = reinterpret_cast<uint4*>(row + BINS / 2 - 4 - 4 * lane);
+          v[m] = *at;
+          *at = make_uint4(0u, 0u, 0u, 0u);
+          up[m] = (int)row[BINS / 2];
+          upt += up[m];
+        }
+        __syncwarp();
+        if (lane < SPLIT) {
+          inbox[(lane * (WTQ / SPLIT) + w) * IW + BINS / 2] = 0u;
+        }
+        auto bin_of = [](const uint4& x, int j) {
+          const uint32_t wd = j < 2 ? x.w : j < 4 ? x.z : j < 6 ? x.y : x.x;
+          return (int)((j & 1) ? wd & 0xffffu : wd >> 16);
+        };
+        int own[8], sum = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          own[j] = 0;
+#pragma unroll
+          for (int m = 0; m < SPLIT; ++m) own[j] += bin_of(v[m], j);
+          sum += own[j];
+        }
+        int cum = sum;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int t = __shfl_up_sync(full, cum, off);
+          if (lane >= off) cum += t;
+        }
+        const int total = __shfl_sync(full, cum, 31);   // in the window
+        const int shift = max((int)(d.y >> 24) - 8, 0);
+        int remaining = (int)(d.y & 0xffffu);
+        uint4 out;
+        const bool held = upt < remaining && remaining <= upt + total;
+#ifdef FUSED_GUESS_STATS
+        if ((d.y & GUESS) && lane == 0) {
+          atomicAdd(&g_guess[held ? 0 : 1], 1ull);
+        }
+#endif
+        if ((d.y & GUESS) && !held) {
+          // the kappa-th key is not in the guessed window: start over
+          out = make_uint4(0u, (uint32_t)remaining | 32u << 24, 0u, 0u);
+        } else {
+          if (d.y & GUESS) {
+            remaining -= upt;
+#pragma unroll
+            for (int m = 0; m < SPLIT; ++m) abv[m] += up[m];
+          }
+          const int L = __ffs(__ballot_sync(full, cum >= remaining)) - 1;
+          int digit = 0, above = 0, sel = 0;
+          if (lane == L) {
+            int at = cum - sum, j = 0;
+            for (; j < 7; ++j) {
+              if (at + own[j] >= remaining) break;
+              at += own[j];
+            }
+            digit = BINS - 1 - 8 * lane - j;
+            above = at;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              if (i == j) sel = own[i];
+            }
+          }
+          digit = __shfl_sync(full, digit, L);
+          above = __shfl_sync(full, above, L);
+          sel = __shfl_sync(full, sel, L);
+          remaining -= above;
+          // each CTA's keys above the digit and in its bin, this pass
+          int gl = 0, el = 0;
+#pragma unroll
+          for (int m = 0; m < SPLIT; ++m) {
+            int a = 0, eq = 0;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int bin = BINS - 1 - 8 * lane - j;
+              a += bin > digit ? bin_of(v[m], j) : 0;
+              eq += bin == digit ? bin_of(v[m], j) : 0;
+            }
+            abv[m] += __reduce_add_sync(full, a);
+            eq = __reduce_add_sync(full, eq);
+            if (m < lane) {
+              gl += abv[m];
+              el += eq;
+            }
+          }
+          out = make_uint4(d.x + ((uint32_t)digit << shift),
+                           (uint32_t)remaining | (uint32_t)shift << 24 |
+                               (sel == remaining || shift == 0 ? DONE : 0u),
+                           (uint32_t)gl, (uint32_t)el);
+        }
+        if (lane < SPLIT) {
+          st_cluster_v4(cluster_addr(smem_u32(dec + q), lane), out);
+        }
+      }
+      cluster_sync();                     // every CTA has every decision
+      // the same decisions in every CTA: the same pass ends the select
+      if (__syncthreads_and(tid >= qv || (dec[tid].y & DONE))) break;
+    }
+
+    // -- the pool: keys above T, then the lowest-id rows equal to T ----------
+    // Keys in T's window count as equal to T: this CTA's keys above T go
+    // after those of the CTAs to its left; its keys equal to T, in row
+    // order, after all kappa - R keys above T and the equal keys of the
+    // CTAs to its left, up to R.
+    for (int q = w; q < qv; q += W_THREADS / 32) {
+      const uint4 d = dec[q];
+      const uint32_t lo = d.x, hi = lo + ((1u << (d.y >> 24)) - 1u);
+      const int R = (int)(d.y & 0xffffu), G = kappa - R;
+      int taken = (int)d.z, eq_seen = (int)d.w;
+      const float* row = sc + q * LDS;
+      const size_t ob = ((size_t)slab * B + q0 + q) * kappa;
+      float v[NTC / 32];
+      unsigned gb[NTC / 32], eb[NTC / 32];
+#pragma unroll
+      for (int t = 0; t < NTC / 32; ++t) {
+        v[t] = row[32 * t + lane];
+        const uint32_t k = score_key(v[t]);
+        gb[t] = __ballot_sync(full, k > hi);
+        eb[t] = __ballot_sync(full, k >= lo && k <= hi);
+      }
+#pragma unroll
+      for (int t = 0; t < NTC / 32; ++t) {
+        int pos = -1;
+        if ((gb[t] >> lane) & 1u) {
+          pos = taken + __popc(gb[t] & lt);
+        } else if ((eb[t] >> lane) & 1u) {
+          const int r = eq_seen + __popc(eb[t] & lt);
+          if (r < R) pos = G + r;
+        }
+        if (pos >= 0) {
+          out_s[ob + pos] = v[t];
+          out_i[ob + pos] = col0 + 32 * t + lane;
+        }
+        taken += __popc(gb[t]);
+        eq_seen += __popc(eb[t]);
+      }
+    }
+    __syncthreads();                      // the tile is read: next scores
+  }
+}
+
+// Kernel 2: each CTA walks the items (slab, 256-column block, query tile),
+// query tiles of a block in turn; warpgroup wg's 128 columns are group
+// 2 * block + wg of the slab.
+__global__ void __launch_bounds__(W_THREADS, 1)
+group_topk_wgmma(const __grid_constant__ CUtensorMap tg,
+                 const __grid_constant__ CUtensorMap tq,
+                 const float* __restrict__ c,
+                 const uint8_t* __restrict__ valid,
+                 float* __restrict__ out_s, int* __restrict__ out_i, int B,
+                 int twoD, int NS, int per_group, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const Layout lay(false, stages);
+  const Ring ring(smem_u32(aligned_base(smem_raw)), lay);
+  const int ntiles = (B + WTQ - 1) / WTQ, items = NS * SPLIT * ntiles;
+  const int nk = (twoD + KC - 1) / KC;
+  const int tid = threadIdx.x;
+  if (tid == 0) init_ring(ring);
+  __syncthreads();
+
+  uint32_t g = 0;
+  if (tid >= W_CONSUMERS) {
+    // -- producer: every item's chunks, as far ahead as the ring allows
+    if (tid != W_CONSUMERS) return;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int q0 = it % ntiles * WTQ, col0 = it / ntiles * NTC;
+      for (int k = 0; k < nk; ++k, ++g) {
+        produce(ring, g, &tg, &tq, q0, col0, k);
+      }
+    }
+    return;
+  }
+
+  // -- consumers: the item's scores in registers, then the group rounds
+  const int wg = tid >> 7, lane = tid & 31, cq = lane & 3;
+  const int r0 = ((tid >> 5) & 3) * 16 + (lane >> 2);  // rows r0, r0 + 8
+  const int KO = per_group * NG;
+  const unsigned full = 0xffffffffu;
+  float acc[64];
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int q0 = it % ntiles * WTQ, blk = it / ntiles;
+    const int slab = blk / SPLIT;
+    const int gi = blk % SPLIT * 2 + wg;            // the group in its slab
+    const int gc0 = slab * SLAB + gi * GROUP;       // its first row
+    sweep(acc, ring, g, nk, wg);
+    g += nk;
+    // + c, invalid rows NEG; this lane's column 8j + 2cq + e of the group
+    // is acc[4j + e] for row r0, acc[4j + 2 + e] for row r0 + 8
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = wg * 128 + 8 * j + 2 * cq + e;
-        const bool ok = valid[col0 + col] != 0;
-        const float cb = c[col0 + col];
-        sc[r0 * LDS + col] = ok ? acc[4 * j + e] + cb : ninf;
-        sc[(r0 + 8) * LDS + col] = ok ? acc[4 * j + 2 + e] + cb : ninf;
+        const int col = 8 * j + 2 * cq + e;
+        const bool ok = valid[gc0 + col] != 0;
+        const float cb = c[gc0 + col];
+        acc[4 * j + e] = ok ? acc[4 * j + e] + cb : NEG;
+        acc[4 * j + 2 + e] = ok ? acc[4 * j + 2 + e] + cb : NEG;
       }
     }
-  }
-  if (tid < WTQ) dec[tid] = make_uint4(0u, (uint32_t)kappa, 0u, 0u);
-
-  // -- radix select over the cluster: up to 4 passes of 8 bits ---------------
-  // Each CTA counts its columns' digits per query (a thread a query and QS
-  // columns, read 4 at a time: 64 columns at 64 queries), pushes each
-  // query's counts to the CTA that owns it (query q: CTA q % SPLIT) by
-  // 16-byte stores into that CTA's inbox (those that are not zero: the
-  // owner clears what it has read; the histogram is cleared as it is
-  // pushed), and the owner sums them,
-  // picks the digit, keeps each CTA's count of keys above T and pushes the
-  // decision with each CTA's offsets to that CTA.  The select stops once
-  // every query's chosen bin is taken whole.
-  int QS = 1;
-  while (QS < qv) QS <<= 1;
-  const int hq = tid % QS, hg = tid / QS;
-  const unsigned full = 0xffffffffu, lt = (1u << lane) - 1u;
-  uint32_t pm = 0u;                       // the key bits fixed so far
-  int abv[SPLIT];                         // the owner's: keys above, by CTA
+    const int qa = q0 + r0, qb = qa + 8;
+    const size_t oa = ((size_t)slab * B + qa) * KO + gi;
+    const size_t ob = oa + (size_t)8 * KO;
+    for (int i = 0; i < per_group; ++i) {
+      // the first maximum in column order, in the lane, then in the quad
+      float va = acc[0], vb = acc[2];
+      int ca = 2 * cq, cb = 2 * cq;
 #pragma unroll
-  for (int m = 0; m < SPLIT; ++m) abv[m] = 0;
-  for (int e = tid; e < WTQ * HW; e += W_THREADS) hist[e] = 0u;
-  cluster_wait();                         // every inbox is empty
-  __syncthreads();
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    if (tid < W_CONSUMERS && hq < qv) {
-      const uint32_t prefix = dec[hq].x;
-      const float* row = sc + hq * LDS + hg * QS;
-      uint32_t* h = hist + hq * HW;
-      if (QS >= 4) {
-#pragma unroll 2
-        for (int i = 0; i < QS; i += 4) {
-          const float4 x = *reinterpret_cast<const float4*>(row + i);
-          const float xs[4] = {x.x, x.y, x.z, x.w};
+      for (int j = 0; j < 16; ++j) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const uint32_t k = score_key(xs[j]);
-            const uint32_t d = (k >> shift) & 255u;
-            if ((k & pm) == prefix) {
-              atomicAdd(&h[d >> 1], 1u << ((d & 1u) << 4));
-            }
-          }
-        }
-      } else {
-        for (int i = 0; i < QS; ++i) {
-          const uint32_t k = score_key(row[i]);
-          const uint32_t d = (k >> shift) & 255u;
-          if ((k & pm) == prefix) atomicAdd(&h[d >> 1], 1u << ((d & 1u) << 4));
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * cq + e;
+          if (acc[4 * j + e] > va) { va = acc[4 * j + e]; ca = col; }
+          if (acc[4 * j + 2 + e] > vb) { vb = acc[4 * j + 2 + e]; cb = col; }
         }
       }
-    }
-    __syncthreads();
-    for (int e = tid; e < qv * (BINS / 8); e += W_THREADS) {
-      const int q = e / (BINS / 8), w4 = e % (BINS / 8) * 4;
-      uint32_t* h = hist + q * HW + w4;   // read, and cleared for the next
-      const uint4 v = make_uint4(h[0], h[1], h[2], h[3]);
-      h[0] = h[1] = h[2] = h[3] = 0u;
-      if (v.x | v.y | v.z | v.w) {
-        st_cluster_v4(cluster_addr(smem_u32(inbox + (rank * (WTQ / SPLIT) +
-                                                     q / SPLIT) * (BINS / 2) +
-                                            w4),
-                                   q % SPLIT),
-                      v);
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float ova = __shfl_xor_sync(full, va, off);
+        const float ovb = __shfl_xor_sync(full, vb, off);
+        const int oca = __shfl_xor_sync(full, ca, off);
+        const int ocb = __shfl_xor_sync(full, cb, off);
+        if (ova > va || (ova == va && oca < ca)) { va = ova; ca = oca; }
+        if (ovb > vb || (ovb == vb && ocb < cb)) { vb = ovb; cb = ocb; }
       }
-    }
-    cluster_sync();                       // every owner has its counts
-    const int q = rank + SPLIT * w;       // warp w decides query q
-    if (w < WTQ / SPLIT && q < qv) {
-      // lane l owns digits 255-8l down to 248-8l: bin_of(v, j) is digit
-      // 255-8l-j of the counts v
-      uint4 v[SPLIT];
-#pragma unroll
-      for (int m = 0; m < SPLIT; ++m) {
-        uint4* at = reinterpret_cast<uint4*>(
-            inbox + (m * (WTQ / SPLIT) + w) * (BINS / 2) + BINS / 2 - 4 -
-            4 * lane);
-        v[m] = *at;
-        *at = make_uint4(0u, 0u, 0u, 0u);
+      if (cq == 0 && qa < B) {
+        out_s[oa + (size_t)i * NG] = va;
+        out_i[oa + (size_t)i * NG] = gc0 + ca;
       }
-      auto bin_of = [](const uint4& x, int j) {
-        const uint32_t wd = j < 2 ? x.w : j < 4 ? x.z : j < 6 ? x.y : x.x;
-        return (int)((j & 1) ? wd & 0xffffu : wd >> 16);
-      };
-      int own[8], sum = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        own[j] = 0;
-#pragma unroll
-        for (int m = 0; m < SPLIT; ++m) own[j] += bin_of(v[m], j);
-        sum += own[j];
+      if (cq == 1 && qb < B) {
+        out_s[ob + (size_t)i * NG] = vb;
+        out_i[ob + (size_t)i * NG] = gc0 + cb;
       }
-      const uint4 d = dec[q];
-      int remaining = (int)(d.y & 0xffffu);
-      int cum = sum;
+      // the taken columns to NEG: a compare-and-select on every register
+      // (an indexed write would move the accumulators to local memory)
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int t = __shfl_up_sync(full, cum, off);
-        if (lane >= off) cum += t;
-      }
-      const int L = __ffs(__ballot_sync(full, cum >= remaining)) - 1;
-      int digit = 0, above = 0, sel = 0;
-      if (lane == L) {
-        int at = cum - sum, j = 0;
-        for (; j < 7; ++j) {
-          if (at + own[j] >= remaining) break;
-          at += own[j];
-        }
-        digit = BINS - 1 - 8 * lane - j;
-        above = at;
+      for (int j = 0; j < 16; ++j) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          if (i == j) sel = own[i];
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * cq + e;
+          acc[4 * j + e] = col == ca ? NEG : acc[4 * j + e];
+          acc[4 * j + 2 + e] = col == cb ? NEG : acc[4 * j + 2 + e];
         }
       }
-      digit = __shfl_sync(full, digit, L);
-      above = __shfl_sync(full, above, L);
-      sel = __shfl_sync(full, sel, L);
-      remaining -= above;
-      // each CTA's keys above the digit and in its bin, this pass
-      int gl = 0, el = 0;
-#pragma unroll
-      for (int m = 0; m < SPLIT; ++m) {
-        int a = 0, eq = 0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int bin = BINS - 1 - 8 * lane - j;
-          a += bin > digit ? bin_of(v[m], j) : 0;
-          eq += bin == digit ? bin_of(v[m], j) : 0;
-        }
-        abv[m] += __reduce_add_sync(full, a);
-        eq = __reduce_add_sync(full, eq);
-        if (m < lane) {
-          gl += abv[m];
-          el += eq;
-        }
-      }
-      if (lane < SPLIT) {
-        st_cluster_v4(cluster_addr(smem_u32(dec + q), lane),
-                      make_uint4(d.x | (uint32_t)digit << shift,
-                                 (uint32_t)remaining |
-                                     (sel == remaining ? 1u << 16 : 0u),
-                                 (uint32_t)gl, (uint32_t)el));
-      }
-    }
-    cluster_sync();                       // every CTA has every decision
-    pm |= 255u << shift;
-    if (__syncthreads_and(tid >= qv || (dec[tid].y >> 16) != 0u)) break;
-  }
-
-  // -- the pool: keys above T, then the lowest-id rows equal to T ------------
-  // On the key bits the select fixed (pm): this CTA's keys above T go after
-  // those of the CTAs to its left; its keys equal to T, in row order, after
-  // all kappa - R keys above T and the equal keys of the CTAs to its left,
-  // up to R.
-  for (int q = w; q < qv; q += W_THREADS / 32) {
-    const uint4 d = dec[q];
-    const uint32_t T = d.x;
-    const int R = (int)(d.y & 0xffffu), G = kappa - R;
-    int taken = (int)d.z, eq_seen = (int)d.w;
-    const float* row = sc + q * LDS;
-    const size_t ob = ((size_t)slab * B + q0 + q) * kappa;
-    float v[NTC / 32];
-    unsigned gb[NTC / 32], eb[NTC / 32];
-#pragma unroll
-    for (int t = 0; t < NTC / 32; ++t) {
-      v[t] = row[32 * t + lane];
-      const uint32_t k = score_key(v[t]) & pm;
-      gb[t] = __ballot_sync(full, k > T);
-      eb[t] = __ballot_sync(full, k == T);
-    }
-#pragma unroll
-    for (int t = 0; t < NTC / 32; ++t) {
-      int pos = -1;
-      if ((gb[t] >> lane) & 1u) {
-        pos = taken + __popc(gb[t] & lt);
-      } else if ((eb[t] >> lane) & 1u) {
-        const int r = eq_seen + __popc(eb[t] & lt);
-        if (r < R) pos = G + r;
-      }
-      if (pos >= 0) {
-        out_s[ob + pos] = v[t];
-        out_i[ob + pos] = col0 + 32 * t + lane;
-      }
-      taken += __popc(gb[t]);
-      eq_seen += __popc(eb[t]);
     }
   }
 }
 
-int launch_wgmma(const void* qq, const void* gt, const void* c,
-                 const void* valid, void* out_s, void* out_i, int B,
-                 int twoD, int Sp, int kappa, cudaStream_t stream) {
-  CUtensorMap tg;
-  const cuuint64_t dims[2] = {(cuuint64_t)Sp, (cuuint64_t)twoD};
-  if (!tensor_map(&tg, gt, 2, dims, KC)) return (int)cudaErrorInvalidValue;
-  const bool carried = (twoD + BOXC - 1) / BOXC > W_RESIDENT;
-  int stages = 2;
-  while (stages < W_MAX_STAGES &&
-         WLayout(twoD, stages + 1).total <= SMEM_LIMIT) {
-    ++stages;
+// The tensor maps of GT (2D rows) and of qq, whose rows are padded to a
+// multiple of 8 (16 bytes, as TMA needs), the pad zero; zero fill past
+// both, so the chunks past 2D add nothing.
+bool wgmma_maps(CUtensorMap* tg, CUtensorMap* tq, const void* qq,
+                const void* gt, int B, int twoD, int Sp) {
+  const cuuint64_t gdims[2] = {(cuuint64_t)Sp, (cuuint64_t)twoD};
+  const cuuint64_t qdims[2] = {(cuuint64_t)(twoD + 7) / 8 * 8,
+                               (cuuint64_t)B};
+  return tensor_map(tg, gt, 2, gdims, KC) &&
+         tensor_map(tq, qq, 2, qdims, WTQ);
+}
+
+int launch_topk(const void* qq, const void* gt, const void* c,
+                const void* valid, void* out_s, void* out_i, int B, int twoD,
+                int Sp, int kappa, cudaStream_t stream) {
+  CUtensorMap tg, tq;
+  if (!wgmma_maps(&tg, &tq, qq, gt, B, twoD, Sp)) {
+    return (int)cudaErrorInvalidValue;
   }
-  const int smem = WLayout(twoD, stages).total;
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  auto kernel = carried ? slab_topk_wgmma<true> : slab_topk_wgmma<false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
+  const int smem = Layout(true, TOPK_STAGES).total;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(SPLIT, (B + WTQ - 1) / WTQ, Sp / SLAB);
   cfg.blockDim = dim3(W_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -834,43 +919,106 @@ int launch_wgmma(const void* qq, const void* gt, const void* c,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, tg, reinterpret_cast<const bf16*>(qq),
+  // the clusters that fit the card at once, asked once per device
+  static int fit[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int& n = fit[dev & 63];
+  if (n == 0) {
+    e = cudaFuncSetAttribute(slab_topk_wgmma,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    cfg.gridDim = dim3(SPLIT);
+    e = cudaOccupancyMaxActiveClusters(&n, slab_topk_wgmma, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (n <= 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int items = Sp / SLAB * ((B + WTQ - 1) / WTQ);
+  cfg.gridDim = dim3(SPLIT, items < n ? items : n);
+  e = cudaLaunchKernelEx(&cfg, slab_topk_wgmma, tg, tq,
                          reinterpret_cast<const float*>(c),
                          reinterpret_cast<const uint8_t*>(valid),
                          reinterpret_cast<float*>(out_s),
-                         reinterpret_cast<int*>(out_i), B, twoD, kappa,
-                         stages);
+                         reinterpret_cast<int*>(out_i), B, twoD, Sp / SLAB,
+                         kappa);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+int launch_group(const void* qq, const void* gt, const void* c,
+                 const void* valid, void* out_s, void* out_i, int B,
+                 int twoD, int Sp, int per_group, cudaStream_t stream) {
+  CUtensorMap tg, tq;
+  if (!wgmma_maps(&tg, &tq, qq, gt, B, twoD, Sp)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int stages = 2;
+  while (Layout(false, stages + 1).total <= SMEM_LIMIT) ++stages;
+  const int smem = Layout(false, stages).total;
+  cudaError_t e = cudaFuncSetAttribute(
+      group_topk_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  static int sms[64] = {};
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (sms[dev & 63] == 0) {
+    e = cudaDeviceGetAttribute(&sms[dev & 63], cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int items = Sp / SLAB * SPLIT * ((B + WTQ - 1) / WTQ);
+  const int grid = items < sms[dev & 63] ? items : sms[dev & 63];
+  group_topk_wgmma<<<grid, W_THREADS, smem, stream>>>(
+      tg, tq, reinterpret_cast<const float*>(c),
+      reinterpret_cast<const uint8_t*>(valid),
+      reinterpret_cast<float*>(out_s), reinterpret_cast<int*>(out_i), B,
+      twoD, Sp / SLAB, per_group, stages);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
+// bf16: qq's rows are padded to a multiple of 8 elements (the query boxes
+// come by TMA), the pad zero; ops/fused_topk.py pads them.
 extern "C" int fused_topk_bf16(const void* qq, const void* gt, const void* c,
                                const void* valid, void* out_s, void* out_i,
                                int B, int twoD, int Sp, int kappa,
                                void* stream) {
-  return launch_wgmma(qq, gt, c, valid, out_s, out_i, B, twoD, Sp, kappa,
-                      reinterpret_cast<cudaStream_t>(stream));
+  return launch_topk(qq, gt, c, valid, out_s, out_i, B, twoD, Sp, kappa,
+                     reinterpret_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_topk_f32(const void* qq, const void* gt, const void* c,
                               const void* valid, void* out_s, void* out_i,
                               int B, int twoD, int Sp, int kappa,
                               void* stream) {
-  return launch<float, false>(qq, gt, c, valid, out_s, out_i, B, twoD, Sp,
-                              kappa, stream);
+  return launch_f32<false>(qq, gt, c, valid, out_s, out_i, B, twoD, Sp,
+                           kappa, stream);
 }
 
-// Group pool: out_s/out_i (NS, B, per_group * 16), 1 <= per_group <= 128.
+#ifdef FUSED_GUESS_STATS
+// Kernel 1's guessed windows since the last call: out[0] held, out[1]
+// missed; the counts restart at 0.
+extern "C" int read_guess_stats(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_guess, sizeof(g_guess));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[2] = {0ull, 0ull};
+  return (int)cudaMemcpyToSymbol(g_guess, zero, sizeof(zero));
+}
+#endif
+
+// Group pool: out_s/out_i (NS, B, per_group * 16), 1 <= per_group <= 128;
+// a bf16 qq padded as for fused_topk_bf16.
 extern "C" int fused_group_topk_bf16(const void* qq, const void* gt,
                                      const void* c, const void* valid,
                                      void* out_s, void* out_i, int B,
                                      int twoD, int Sp, int per_group,
                                      void* stream) {
-  return launch<__nv_bfloat16, true>(qq, gt, c, valid, out_s, out_i, B,
-                                     twoD, Sp, per_group, stream);
+  return launch_group(qq, gt, c, valid, out_s, out_i, B, twoD, Sp, per_group,
+                      reinterpret_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_group_topk_f32(const void* qq, const void* gt,
@@ -878,6 +1026,6 @@ extern "C" int fused_group_topk_f32(const void* qq, const void* gt,
                                     void* out_s, void* out_i, int B,
                                     int twoD, int Sp, int per_group,
                                     void* stream) {
-  return launch<float, true>(qq, gt, c, valid, out_s, out_i, B, twoD, Sp,
-                             per_group, stream);
+  return launch_f32<true>(qq, gt, c, valid, out_s, out_i, B, twoD, Sp,
+                          per_group, stream);
 }

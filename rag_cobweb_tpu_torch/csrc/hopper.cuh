@@ -77,13 +77,6 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
        | (1ull << 62);
 }
 
-// Byte offset of the 16-byte chunk ``ch`` (0-7) of row ``r`` in a
-// 128-byte-swizzled box, as TMA's SWIZZLE_128B writes it: for tiles a
-// kernel stores itself.
-__device__ __forceinline__ uint32_t swizzle128(int r, int ch) {
-  return r * ROWB + ((ch ^ (r & 7)) << 4);
-}
-
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -111,14 +104,6 @@ __device__ __forceinline__ void fence_async_smem() {
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\n"
                "barrier.cluster.wait.acquire;" ::: "memory");
-}
-
-// The two halves of cluster_sync, for a barrier that overlaps other work.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t cluster_addr(uint32_t addr,

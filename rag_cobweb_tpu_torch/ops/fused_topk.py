@@ -95,6 +95,11 @@ def _launch(fn_name: str, qq, GT, c, valid, sel: int, width: int):
         raise ValueError("GT must be 32-byte aligned (tensor-core loads)")
     B, twoD = qq.shape
     Sp = GT.shape[1]
+    if GT.dtype == torch.bfloat16 and (twoD % 8 or qq.data_ptr() % 16):
+        # the query boxes come by TMA: 16-byte rows, the pad zero
+        qp = qq.new_zeros((B, twoD + -twoD % 8))
+        qp[:, :twoD] = qq
+        qq = qp
     out_s = torch.empty((Sp // SLAB, B, width), dtype=torch.float32,
                         device=qq.device)
     out_i = torch.empty((Sp // SLAB, B, width), dtype=torch.int32,

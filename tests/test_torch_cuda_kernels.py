@@ -335,6 +335,128 @@ def test_group_topk_kernel_matches_plain(card, dtype, B, twoD, per_group,
     assert torch.equal(ki[neg], pi[neg])
 
 
+def _group_holds(ft, qq, GT, c, valid, per_group, exact=False):
+    """Kernel 2 against its plain version: scores within 1e-3 + 1e-3 |s|
+    in round order, each id carrying its score (ids differ only among rows
+    tied within that), exhausted rounds (NEG, the group's first row) as
+    the plain version's; ``exact`` (dyadic scores): equal scores and ids."""
+    ks, ki = ft.slab_group_topk(qq, GT, c, valid, per_group)
+    ps, pi = ft.slab_group_topk_plain(qq, GT, c, valid, per_group)
+    torch.cuda.synchronize()
+    assert ks.shape == ps.shape and ki.dtype == torch.int32
+    if exact:
+        assert torch.equal(ks, ps) and torch.equal(ki, pi)
+        return
+    full = ft.slab_scores_plain(qq, GT, c, valid, ft.NEG).permute(1, 0, 2)
+    base = (torch.arange(GT.shape[1] // ft.SLAB, device=qq.device)
+            * ft.SLAB).view(-1, 1, 1)
+    _holds(ks, ki - base, ps, full, 1e-3 + 1e-3 * ps.abs())
+    neg = ps <= ft.NEG / 2
+    assert torch.equal(neg, ks <= ft.NEG / 2)
+    assert torch.equal(ki[neg], pi[neg])
+
+
+@pytest.mark.parametrize("per_group", [1, 2, 16, 128])
+@pytest.mark.parametrize("B", [1, 32, 1000])
+@pytest.mark.parametrize("twoD", [496, 256])
+def test_group_topk_kernel_at_the_served_widths(card, twoD, B, per_group):
+    """The served indexes' widths (flagship 2D=496, 100k 2D=256), the
+    batches the serving gives a kernel, and per_group from 1 to the whole
+    group (the last rounds of a group with invalid rows are exhausted)."""
+    from rag_cobweb_tpu_torch.ops import fused_topk as ft
+    g = torch.Generator(device=card).manual_seed(B + twoD + per_group)
+    Sp, S = 6144, 5000
+    q = torch.randn((B, twoD // 2), generator=g, device=card)
+    qq = torch.cat([q, q * q], 1).to(torch.bfloat16)
+    GT = (0.05 * torch.randn((twoD, Sp), generator=g, device=card)) \
+        .to(torch.bfloat16)
+    c = torch.randn((Sp,), generator=g, device=card)
+    _group_holds(ft, qq, GT, c, torch.arange(Sp, device=card) < S,
+                 per_group)
+
+
+@pytest.mark.parametrize("B,twoD,per_group", [(1, 8, 3), (65, 99, 2),
+                                              (130, 256, 7), (63, 520, 128)])
+def test_group_topk_kernel_ties_across_the_groups_of_a_block(card, B, twoD,
+                                                             per_group):
+    """Dyadic scores (exact in any order) taking few values, so every group
+    holds many rows tied with each other and with the rows of the group
+    beside it in the same 256-column block: the same rounds, ids and all,
+    as the plain version's; B ragged, 2D odd (qq's rows padded for TMA)
+    and above 512, the last slab partly invalid."""
+    from rag_cobweb_tpu_torch.ops import fused_topk as ft
+    g = torch.Generator(device=card).manual_seed(B + twoD)
+    Sp, S = 4096, 3000
+    qq = (torch.randint(0, 2, (B, twoD), generator=g, device=card).float()
+          / 2).to(torch.bfloat16)
+    GT = (torch.randint(0, 2, (twoD, Sp), generator=g, device=card).float()
+          / 4).to(torch.bfloat16)
+    c = torch.randint(0, 3, (Sp,), generator=g, device=card).float()
+    _group_holds(ft, qq, GT, c, torch.arange(Sp, device=card) < S,
+                 per_group, exact=True)
+
+
+@pytest.mark.parametrize("B", [1, 32, 1024])
+def test_fused_topk_kernel_at_the_100k_shape(card, B):
+    """Kernel 1 at the 100k cell's served fused index shape (2D=256,
+    Sp=100352: 49 slabs, kappa=512), on dyadic scores: the same pool, ids
+    and all; 49 to 784 items over the clusters that fit the card."""
+    from rag_cobweb_tpu_torch.ops import fused_topk
+    _same_pool(fused_topk, *_dyadic_sweep(card, torch.bfloat16, B, 256,
+                                          100352, 100000, B), 512)
+
+
+@pytest.mark.parametrize("B,kappa", [(40, 1024), (130, 700)])
+def test_fused_topk_persistent_clusters_keep_the_tie_rule(card, B, kappa):
+    """More (slab, query tile) items than clusters fit the card (40 and 120
+    items), each with the kappa-th score shared by rows on both sides of a
+    CUDA block boundary (rows (i + b) % 3 == 0 score 2, the rest 1), so
+    every item's select, inbox and offsets start clean: the same pools as
+    the plain version's, and the lowest rows of score 1."""
+    from rag_cobweb_tpu_torch.ops import fused_topk
+    twoD, Sp = 16, 40 * 2048
+    i = torch.arange(Sp, device=card)
+    GT = torch.stack([torch.where((i + r) % 3 == 0, 2.0, 1.0)
+                      for r in range(twoD)]).to(torch.bfloat16)
+    qq = torch.zeros((B, twoD), device=card)
+    qq[torch.arange(B), torch.arange(B) % 3] = 1.0
+    c = torch.zeros(Sp, device=card)
+    valid = i < Sp - 3000
+    _same_pool(fused_topk, qq.to(torch.bfloat16), GT, c, valid, kappa)
+
+
+@pytest.mark.parametrize("B", [1, 40])
+def test_fused_topk_guessed_window_misses(card, B):
+    """Each slab's scores shifted by 0, +4096 or -4096 at random, so that
+    where a cluster's next slab has another shift than its last one, the
+    window guessed from the last kappa-th key misses and the select starts
+    over, and where it has the same, the guess holds: the same pools, ids
+    and all, as the plain version's on dyadic scores."""
+    from rag_cobweb_tpu_torch.ops import fused_topk
+    qq, GT, c, valid = _dyadic_sweep(card, torch.bfloat16, B, 64, 40 * 2048,
+                                     40 * 2048 - 700, B)
+    g = torch.Generator(device=card).manual_seed(B)
+    shift = 4096.0 * torch.randint(-1, 2, (40,), generator=g, device=card)
+    c = c + shift.repeat_interleave(2048)
+    _same_pool(fused_topk, qq, GT, c, valid, 300)
+
+
+@pytest.mark.parametrize("twoD", [64, 98])
+def test_fused_kernels_take_an_unaligned_query_batch(card, twoD):
+    """qq contiguous but 2 bytes off a 16-byte boundary (a view into a
+    flat buffer): the wrappers copy it to padded, aligned rows for TMA, so
+    both kernels give the plain version's pools, ids and all."""
+    from rag_cobweb_tpu_torch.ops import fused_topk
+    qq, GT, c, valid = _dyadic_sweep(card, torch.bfloat16, 33, twoD, 4096,
+                                     3900, twoD)
+    buf = torch.zeros(qq.numel() + 1, dtype=qq.dtype, device=card)
+    buf[1:] = qq.flatten()
+    qu = buf[1:].view(qq.shape)
+    assert qu.is_contiguous() and qu.data_ptr() % 16
+    _same_pool(fused_topk, qu, GT, c, valid, 100)
+    _group_holds(fused_topk, qu, GT, c, valid, 3, exact=True)
+
+
 def test_kernels_count_their_launches(card):
     from rag_cobweb_tpu_torch.ops import blocked_topk as bt
     from rag_cobweb_tpu_torch.ops import fused_topk, rerank

@@ -100,6 +100,61 @@ def test_three_groups_per_group_2(wide, k):
     _compare(*want, *got)
 
 
+@pytest.mark.parametrize("per_group,keep,k", [(3, 2, 48), (3, 0, 20),
+                                              (1, 5, 16), (5, 3, 37)])
+def test_ragged_groups_against_pallas(wide, per_group, keep, k):
+    """Group 1 cut to its first ``keep`` valid rows, so per_group rounds
+    exhaust it (keep < per_group): the pool (all of it where k is the
+    slab's per_group * 16 candidates) is the Pallas kernel's."""
+    jf, xs = wide
+    fidx = jf.fused_index()
+    v = np.asarray(fidx.valid).copy()
+    v[ft.GROUP + keep:2 * ft.GROUP] = False
+    fidx = fidx._replace(valid=jnp.asarray(v))
+    want = pallas_fused_group_topk(fidx, jnp.asarray(xs[:5]), k,
+                                   interpret=True, per_group=per_group)
+    got = ft.fused_group_topk(_port_index(fidx), torch.as_tensor(xs[:5]), k,
+                              per_group=per_group)
+    _compare(*want, *got)
+
+
+@pytest.mark.parametrize("per_group", [1, 3, 128])
+def test_plain_pool_against_a_numpy_oracle(per_group):
+    """Dyadic scores (exact in f32, many ties) over two slabs, a group
+    partly and the rest of the last slab wholly invalid: round i of group g
+    is the i-th row in (score descending, row ascending) order, and once
+    the valid rows are taken, (NEG, the group's first row)."""
+    rng = np.random.default_rng(per_group)
+    B, twoD, Sp, S = 3, 6, 2 * ft.SLAB, 3000
+    qq = rng.integers(-4, 5, size=(B, twoD)) / 4
+    GT = rng.integers(-4, 5, size=(twoD, Sp)) / 4
+    c = rng.integers(-8, 9, size=Sp) / 2
+    valid = np.arange(Sp) < S
+    s = qq @ GT + c
+    KO = per_group * ft.NG
+    want_s = np.empty((Sp // ft.SLAB, B, KO), np.float32)
+    want_i = np.empty((Sp // ft.SLAB, B, KO), np.int32)
+    for b in range(B):
+        for gg in range(Sp // ft.GROUP):
+            rows = np.arange(gg * ft.GROUP, (gg + 1) * ft.GROUP)
+            rows = rows[valid[rows]]
+            order = rows[np.lexsort((rows, -s[b, rows]))]
+            slab, g = divmod(gg, ft.NG)
+            for i in range(per_group):
+                at = (slab, b, i * ft.NG + g)
+                if i < len(order):
+                    want_s[at], want_i[at] = s[b, order[i]], order[i]
+                else:
+                    want_s[at], want_i[at] = ft.NEG, gg * ft.GROUP
+    got_s, got_i = ft.slab_group_topk_plain(
+        torch.as_tensor(qq, dtype=torch.float32),
+        torch.as_tensor(GT, dtype=torch.float32),
+        torch.as_tensor(c, dtype=torch.float32), torch.as_tensor(valid),
+        per_group)
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+
+
 def test_plain_pool_layout(wide):
     """Column i * 16 + g holds round i of group g, with the global row id;
     a group without valid rows gives NEG at its first row in every

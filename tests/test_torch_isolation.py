@@ -97,6 +97,19 @@ def test_chip_smoke_refuses_without_a_card():
     assert '"ok"' not in out.stdout
 
 
+@pytest.mark.parametrize("kernel", ["blocked_topk", "fused_topk",
+                                    "fused_group_topk", "rerank_l2"])
+def test_kernel_ab_entries_are_bound(kernel):
+    """Every kernel ``bench/kernel_ab.py`` times names a built source and
+    a C entry with an argument list in ``_build._SIGNATURES``."""
+    from rag_cobweb_tpu_torch.bench import kernel_ab
+    from rag_cobweb_tpu_torch.ops import _build
+    assert kernel in kernel_ab.KERNELS
+    source = kernel_ab.SOURCE.get(kernel, kernel)
+    assert source in _build.SOURCES
+    assert kernel_ab.ENTRY[kernel] in _build._SIGNATURES[source]
+
+
 def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
     """A kernel library is rebuilt when its source or a header beside it
     (``csrc/*.cuh``) changes, and only then."""
