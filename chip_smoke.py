@@ -42,11 +42,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
    queries and timed there at each batch size the serving gives it
    (1, 8, 32, 1024) and at 4096; kernels 1 (kappa 512) and 2 (per_group
    2) likewise on the served fused index at B = 1, 32 and 1024;
-4. one JSON line of per-kernel numbers, a row per CUDA kernel (kernel 1
-   at the flagship shape, kernel 5 on the flagship's served pools, the
+3c. the single-tree slice: ``headline --vforest 1`` at the flagship
+   settings (c=10000, 1000 queries, 768-d, PCA 0.96, one tree built on the
+   card, a warm first 2048 rows then the rest; k=10, pool 1024, batch
+   1024), its build rate printed, served through kernels 1 and 5 (both
+   counted in its window, no f32 launch), the stage split of one served
+   batch as for the flagship.  Its served ids are held
+   against the same pipeline in plain PyTorch on the card (equal except
+   at ties the script shows as ties) and its recall@10 must be within
+   0.005 of that pipeline's; its recall against the exact scan and the
+   golds its 1024-row path-score pool leaves out are printed (a single
+   tree's pool misses golds the forest's keeps, in the JAX package as in
+   the port).  Then, outside that window: kernels 1 and 5 held and timed
+   on the tree's served index and pools; ``rerank=0`` (the exact
+   path-score order) served in its own window through kernel 1's f32
+   entry on the tree's f32 FusedIndex, which is then held against its
+   plain version and timed at B = 1, 32 and 1024 (kappa 10); the f32 group
+   pool over that index and the blocked kernel's f32 entry (an f32
+   blocked index, ``rerank=0``), each in its own window, held and timed;
+4. one JSON line of per-kernel numbers, a row per CUDA kernel entry
+   (kernel 1 at the flagship shape, with its single-tree record under
+   ``single_tree``; kernel 5 on the flagship's served pools, likewise; the
    blocked kernel on the 100k served index at B=1024, replacing TPU
    kernels 3 and 4, whose bodies are one, with its record at B=4096 under
-   ``B4096``, the group pool at the flagship shape), the nvidia-smi line,
+   ``B4096``; the group pool at the flagship shape; the f32 entries of
+   kernel 1 (B=1024, with ``B1``, ``B32``), of the group pool and of the
+   blocked kernel on the single tree's f32 indexes), the nvidia-smi line,
    and the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -99,6 +120,12 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def peak_flops(t: torch.Tensor) -> float:
+    """The card's peak rate for products of ``t``'s type (bf16 on the
+    tensor cores; f32 on the CUDA cores, TF32 off)."""
+    return PEAK_BF16_FLOPS if t.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+
+
 def fused_inputs(B, twoD, Sp, S, seed):
     """Random bf16 sweep inputs with ``Sp - S`` padding rows."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -115,30 +142,49 @@ def fused_inputs(B, twoD, Sp, S, seed):
     return qq, GT, c, torch.arange(Sp, device=dev) < S
 
 
-def check_fused(fused_topk, qq, GT, c, valid, kappa, reps, label=""):
-    """Kernel 1 against its plain version.  Returns the record of this
-    shape."""
+def check_fused(fused_topk, qq, GT, c, valid, kappa, reps, label="",
+                real=False):
+    """Kernel 1 against its plain version: scores within 1e-3 + 1e-3
+    |score|, ids equal except among scores tied within that with a slab's
+    kappa-th.  ``real``: a served index, whose scores are small sums of
+    large terms that cancel; the tolerance adds 1e-5 of each score's
+    terms, sum_d |qq_d GT_dt| + |c_t| (float32 sums taken in another
+    order), and the record gives the largest error in units of the terms.
+    Returns the record of this shape."""
     SLAB = fused_topk.SLAB
-    dev = "cuda"
+    dev = qq.device
     B, twoD = qq.shape
     Sp = GT.shape[1]
     S = int(valid.sum())
+    NS = Sp // SLAB
     ks, ki = fused_topk.slab_topk(qq, GT, c, valid, kappa)
     ps, pi = fused_topk.slab_topk_plain(qq, GT, c, valid, kappa)
     torch.cuda.synchronize()
+    base = (torch.arange(NS, device=dev) * SLAB).view(NS, 1, 1)
+    terms = None
+    if real:
+        terms = (torch.matmul(qq.float().abs(), GT.float().abs())
+                 + c.abs()).view(B, NS, SLAB).permute(1, 0, 2)
     # the kernel leaves each slab's pool unordered; the plain one sorts it
     ks = torch.sort(ks, dim=2, descending=True).values
     fin = torch.isfinite(ps)
     if not torch.equal(fin, torch.isfinite(ks)):
         raise AssertionError("fused_topk: -inf pattern differs")
-    torch.testing.assert_close(ks[fin], ps[fin], rtol=1e-3, atol=1e-3)
-    err = float((ks[fin] - ps[fin]).abs().max())
+    d = (ks - ps).abs()[fin]
+    tol = 1e-3 + 1e-3 * ps.abs()[fin]
+    rec_terms = {}
+    if real:
+        at = terms.gather(2, (pi - base).long())[fin]
+        tol = tol + 1e-5 * at
+        rec_terms = {"max_err_over_terms": float((d / at).max())}
+    if bool((d > tol).any()):
+        raise AssertionError(f"fused_topk{label}: scores differ beyond the "
+                             f"tolerance (max {float(d.max()):.3g})")
+    err = float(d.max())
     # pool ids: equal except among scores tied (within the tolerance) with
     # the slab's kappa-th score
-    NS = Sp // SLAB
     mk = torch.zeros((NS, B, SLAB), dtype=torch.bool, device=dev)
     mp = torch.zeros_like(mk)
-    base = (torch.arange(NS, device=dev) * SLAB).view(NS, 1, 1)
     mk.scatter_(2, (ki - base).long(), True)
     mp.scatter_(2, (pi - base).long(), True)
     diff = mk ^ mp
@@ -148,12 +194,15 @@ def check_fused(fused_topk, qq, GT, c, valid, kappa, reps, label=""):
         full = torch.where(valid, full, torch.full_like(full, -math.inf))
         full = full.view(B, NS, SLAB).permute(1, 0, 2)
         kth = ps[:, :, -1:].expand_as(full)
-        near = (full - kth).abs() <= 1e-3 + 1e-3 * kth.abs()
+        band = 1e-3 + 1e-3 * kth.abs()
+        if real:
+            band = band + 1e-5 * terms
+        near = (full - kth).abs() <= band
         if bool((diff & ~near).any()):
             raise AssertionError(f"fused_topk: {n_diff} pool ids differ "
                                  "beyond boundary ties")
-        del full, kth, near
-    del mk, mp, diff, ks, ki, ps, pi
+        del full, kth, near, band
+    del mk, mp, diff, ks, ki, ps, pi, terms
 
     ms = cuda_ms(lambda: fused_topk.slab_topk(qq, GT, c, valid, kappa), reps)
     plain_ms = cuda_ms(
@@ -165,15 +214,18 @@ def check_fused(fused_topk, qq, GT, c, valid, kappa, reps, label=""):
         return torch.topk(s.view(B, NS, SLAB), kappa, dim=2)
 
     lib_ms = cuda_ms(library, reps)
-    nbytes = (qq.numel() * 2 + GT.numel() * 2 + Sp * 4 + Sp
+    esz = GT.element_size()
+    nbytes = (qq.numel() * esz + GT.numel() * esz + Sp * 4 + Sp
               + NS * B * kappa * 8)
-    b_ms, b_by = bound(nbytes, 2.0 * B * twoD * Sp, PEAK_BF16_FLOPS)
+    b_ms, b_by = bound(nbytes, 2.0 * B * twoD * Sp, peak_flops(GT))
     log(f"[kernel] fused_topk{label} B={B} 2D={twoD} Sp={Sp} "
-        f"kappa={kappa} valid={S}: max_abs_err={err:.3g} "
-        f"boundary_tie_ids={n_diff} ms={ms:.4f} bound_ms={b_ms:.4f} "
-        f"({b_by}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
+        f"kappa={kappa} valid={S} {GT.dtype}: max_abs_err={err:.3g} "
+        f"{rec_terms} boundary_tie_ids={n_diff} ms={ms:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by}) plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            **rec_terms}
 
 
 def rerank_inputs(B, C, D, S, seed):
@@ -287,7 +339,9 @@ def check_blocked(bt, q, bidx, kk, reps, real=False):
     1e-3 + 1e-3 |score|, and on a dyadic index no id may differ; on real
     data plus, per (block, query), one bf16 step of every nlp term
     weighted by |W| (the f32 sums run in another order and may round to
-    the neighbouring bf16 value).  Returns the record of this shape."""
+    the neighbouring bf16 value), or on an f32 index 1e-5 of the nlp
+    terms weighted by |W| (f32 sums of cancelling terms in another
+    order).  Returns the record of this shape."""
     qd, q2 = bt._queries(bidx, q)
     B, D = qd.shape
     NB, M, _ = bidx.ivt_b.shape
@@ -303,6 +357,15 @@ def check_blocked(bt, q, bidx, kk, reps, real=False):
         step = torch.matmul(nlp.abs() * 2.0 ** -7, bidx.W.float().abs())
         tol = tol + step.amax(dim=2, keepdim=True)
         del step
+    elif real:
+        tn = (torch.einsum("bd,smd->sbm", qd.float().abs(),
+                           bidx.movt_b.float().abs())
+              + 0.5 * torch.einsum("bd,smd->sbm", q2.float().abs(),
+                                   bidx.ivt_b.float().abs())
+              + bidx.const_b.abs().unsqueeze(1))
+        step = torch.matmul(tn * 1e-5, bidx.W.float().abs())
+        tol = tol + step.amax(dim=2, keepdim=True)
+        del tn, step
     err, n_diff = hold(f"blocked_topk B={B}", ks, ki, ps, pi, full, tol)
     del full, nlp, tol
     if n_diff and not real:
@@ -355,9 +418,11 @@ def group_inputs(B, twoD, Sp, S, seed):
     return qq, GT, c, torch.arange(Sp, device=dev) < S
 
 
-def check_group(fused_topk, qq, GT, c, valid, per_group, reps, label=""):
+def check_group(fused_topk, qq, GT, c, valid, per_group, reps, label="",
+                real=False):
     """The group-pool entry against its plain version: f32 sums in another
-    order only, so scores within 1e-3 + 1e-3 |score| and ids equal except
+    order only, so scores within 1e-3 + 1e-3 |score| (``real``: plus 1e-5
+    of each score's terms, as in ``check_fused``) and ids equal except
     among rows tied within that.  Returns the record of this shape."""
     SLAB, NG, GROUP = fused_topk.SLAB, fused_topk.NG, fused_topk.GROUP
     B, twoD = qq.shape
@@ -369,13 +434,20 @@ def check_group(fused_topk, qq, GT, c, valid, per_group, reps, label=""):
         .permute(1, 0, 2)
     torch.cuda.synchronize()
     base = (torch.arange(NS, device=qq.device) * SLAB).view(NS, 1, 1)
+    tol = 1e-3 + 1e-3 * ps.abs()
+    if real:
+        terms = (torch.matmul(qq.float().abs(), GT.float().abs())
+                 + c.abs()).view(B, NS, SLAB).permute(1, 0, 2)
+        tol = tol + 1e-5 * terms.gather(2, (pi - base).long())
+        del terms
     err, n_diff = hold(f"fused_group_topk per_group={per_group}", ks,
-                       ki - base, ps, pi - base, full,
-                       1e-3 + 1e-3 * ps.abs())
-    del full
+                       ki - base, ps, pi - base, full, tol)
+    del full, tol
     KO = per_group * NG
-    nbytes = qq.numel() * 2 + GT.numel() * 2 + Sp * 4 + Sp + NS * B * KO * 8
-    b_ms, b_by = bound(nbytes, 2.0 * B * twoD * Sp, PEAK_BF16_FLOPS)
+    esz = GT.element_size()
+    nbytes = (qq.numel() * esz + GT.numel() * esz + Sp * 4 + Sp
+              + NS * B * KO * 8)
+    b_ms, b_by = bound(nbytes, 2.0 * B * twoD * Sp, peak_flops(GT))
     if reps == 0:
         log(f"[kernel] fused_group_topk{label} B={B} 2D={twoD} "
             f"Sp={Sp} per_group={per_group}: max_abs_err={err:.3g} "
@@ -393,7 +465,8 @@ def check_group(fused_topk, qq, GT, c, valid, per_group, reps, label=""):
         qq, GT, c, valid, per_group), reps)
     lib_ms = cuda_ms(library, reps)
     log(f"[kernel] fused_group_topk{label} B={B} 2D={twoD} Sp={Sp} "
-        f"per_group={per_group}: max_abs_err={err:.3g} boundary_tie_ids="
+        f"per_group={per_group} {GT.dtype}: max_abs_err={err:.3g} "
+        "boundary_tie_ids="
         f"{n_diff} ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
         f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -421,7 +494,7 @@ def stage_split(db, data, pool: int, k: int = 10) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev[0].record()
-        qs = torch.as_tensor(host, device="cuda")
+        qs = torch.as_tensor(host, device=db.device)
         ev[1].record()
         q = db.whitener.transform_torch(qs)
         ev[2].record()
@@ -445,6 +518,177 @@ def stage_split(db, data, pool: int, k: int = 10) -> dict:
     split["wall"] = wall
     split["B"] = len(host)
     return split
+
+
+def plain_serving(db, data, k: int, pool: int, served: np.ndarray) -> dict:
+    """The served pipeline of ``db`` (whitening, the fused pool, the exact
+    re-rank) in plain PyTorch on the card, held against ``served`` (the
+    kernels' ids for the same queries): ids equal except where the test
+    shows the two as ties (kernel 5's keys within 1e-5 of their terms at
+    the k-th place, or path scores within 1e-3 + 1e-5 of their terms of
+    the pool's last).  Also the golds outside the pool (plain f32 path
+    scores).  Returns the record."""
+    from rag_cobweb_tpu_torch.ops import fused_topk, rerank
+    fidx, emb = db._fused_index(), db._emb_device()
+    pv, D = float(db.cfg.prior_var), emb.shape[1]
+    qs = torch.as_tensor(data.query_embs, device=emb.device)
+    qq = fused_topk.query_terms(db.whitener.transform_torch(qs),
+                                fidx.GT.dtype)
+    full = fused_topk.slab_scores_plain(qq, fidx.GT, fidx.c, fidx.valid,
+                                        float("-inf")).reshape(len(qq), -1)
+    terms = torch.matmul(qq.float().abs(), fidx.GT.float().abs()) \
+        + fidx.c.abs()
+    cs, cand = torch.topk(full, pool, dim=1)
+    lp = rerank.rerank_lp_plain(emb, qs, cand.to(torch.int32), cs, pv)
+    plain = cand.gather(1, torch.topk(lp, k, dim=1).indices).cpu().numpy()
+    gold = torch.as_tensor(np.asarray(data.target_ids), device=emb.device)
+    g_score = full.gather(1, gold.view(-1, 1))
+    outside = int(((full > g_score).sum(1) >= pool).sum())
+    differ = np.nonzero((plain != served).any(axis=1))[0]
+    for qi in differ:
+        ids = torch.as_tensor(np.union1d(plain[qi], served[qi]),
+                              device=emb.device)
+        keys = rerank.rerank_lp_plain(
+            emb, qs[qi:qi + 1], ids.view(1, -1).to(torch.int32),
+            torch.zeros((1, len(ids)), device=emb.device), pv)[0]
+        kth = float(torch.topk(keys, k).values[-1])
+        last = float(cs[qi, -1])
+        for sid in set(plain[qi]) ^ set(served[qi]):
+            j = int((ids == int(sid)).nonzero()[0, 0])
+            key_tie = abs(float(keys[j]) - kth) <= 1e-5 * (
+                abs(kth) + 0.5 * D * abs(math.log(pv)))
+            pool_tie = abs(float(full[qi, int(sid)]) - last) <= \
+                1e-3 + 1e-5 * float(terms[qi, int(sid)])
+            if not (key_tie or pool_tie):
+                raise AssertionError(
+                    f"query {qi}: served id {sid} differs from the plain "
+                    f"pipeline's and is no tie (key {float(keys[j])} vs "
+                    f"{k}-th {kth}; path score {float(full[qi, int(sid)])}"
+                    f" vs the pool's last {last})")
+    return {"plain_recall@10": float(np.mean(
+        [t in row for t, row in zip(data.target_ids, plain)])),
+        "queries_differing_from_plain": int(len(differ)),
+        "golds_outside_pool": outside}
+
+
+def single_tree_slice(headline, zero, read, windows, launches,
+                      name: str, corpus_size=10000, queries=1000, dim=768,
+                      device="cuda") -> tuple:
+    """Phase 3c: the single tree at the flagship settings, built on the
+    card and served through kernels 1 and 5 in a counter window; then the
+    kernels held and timed on its indexes and the f32 entries, each in its
+    own window.  Returns (the headline record, the kernel records)."""
+    from rag_cobweb_tpu_torch.bench.metrics import to_host
+    from rag_cobweb_tpu_torch.core.index import fused_query_topk
+    from rag_cobweb_tpu_torch.ops import blocked_topk, fused_topk, rerank
+    single = {}
+
+    def single_hook(event, engine, db, data):
+        if event == "start":
+            zero()
+            return
+        windows["single"] = read()
+        served = to_host(db.query_ids(data.query_embs, 10, rerank=1024))
+        single["plain"] = plain_serving(db, data, 10, 1024, served)
+        single["plain"]["served_recall@10"] = float(np.mean(
+            [t in row for t, row in zip(data.target_ids, served)]))
+        single["split"] = stage_split(db, data, 1024)
+        raw = torch.as_tensor(data.query_embs[:1024], device=device)
+        qw = db.whitener.transform_torch(raw)
+        # kernels 1 and 5 on the single tree's served index and pools
+        fidx = db._fused_index()
+        single["fused"] = check_fused(
+            fused_topk, fused_topk.query_terms(qw, fidx.GT.dtype), fidx.GT,
+            fidx.c, fidx.valid, 1024, reps=10, label=" (single tree)",
+            real=True)
+        cs, cand = fused_query_topk(fidx, qw, 1024)
+        single["rerank"] = check_rerank(
+            rerank, db._emb_device(), raw, cand.to(torch.int32).contiguous(),
+            cs.contiguous(), reps=10, label=" (single tree, served pools)",
+            pv=float(db.cfg.prior_var))
+        del cs, cand
+        # rerank=0: the exact path-score order, through kernel 1's f32
+        # entry on the f32 FusedIndex, in its own window
+        zero()
+        ids0 = to_host(db.query_ids(data.query_embs, 10, rerank=0))
+        windows["single_f32"] = read()
+        single["recall_rerank0"] = float(np.mean(
+            [t in row for t, row in zip(data.target_ids, ids0)]))
+        f32 = db._fused_index(exact=True)
+        if f32.GT.dtype != torch.float32:
+            raise AssertionError(f"rerank=0 served a {f32.GT.dtype} index")
+        qq = fused_topk.query_terms(qw, torch.float32)
+        for B, reps in ((1, 50), (32, 50), (1024, 10)):
+            single[f"fused_f32 B={B}"] = check_fused(
+                fused_topk, qq[:B], f32.GT, f32.c, f32.valid, 10, reps,
+                label=" f32 (single tree, rerank=0)", real=True)
+        # the f32 group pool over the same index, its own window
+        zero()
+        fused_topk.fused_group_topk(f32, qw, 1024, per_group=2)
+        torch.cuda.synchronize()
+        windows["single_group_f32"] = read()
+        single["group_f32"] = check_group(
+            fused_topk, qq, f32.GT, f32.c, f32.valid, 2, reps=10,
+            label=" f32 (single tree)", real=True)
+        # the blocked kernel over an f32 blocked index (blocked_dtype
+        # float32) at rerank=0: its f32 entry, its own window
+        db.use_fused, db.use_pallas, db.pallas_threshold = False, True, 0
+        db.blocked_dtype, db._blocked = "float32", None
+        zero()
+        to_host(db.query_ids(data.query_embs, 10, rerank=0))
+        windows["single_blocked_f32"] = read()
+        single["blocked_f32"] = check_blocked(
+            blocked_topk, qw, db._blocked_index(), 10, reps=10, real=True)
+        db.use_fused, db.use_pallas = True, False
+
+    rec1 = headline.run(corpus_size=corpus_size, queries=queries, dim=dim,
+                        pca_dim=0.96, k=10, batch=1024, dataset="hard",
+                        n_lanes=1, rerank=1024, device=device,
+                        log=lambda *a: log(*a), hook=single_hook)[0]
+    log(json.dumps(rec1))
+    log(f"[single] tree build {rec1['build_inserts_per_s']:.1f} inserts/s "
+        f"after the first 2048 rows ({rec1['compile_warmup_s']:.1f}s); "
+        f"{rec1['build_total_s']:.1f}s in all")
+    for w in ("single", "single_f32", "single_group_f32",
+              "single_blocked_f32"):
+        log(f"[single] {w} launches: {windows[w]}")
+    log(f"[single] recall@10 at rerank=0 (path-score order): "
+        f"{single['recall_rerank0']}")
+    log("[single] stage split, stream ms between CUDA events, one batch: "
+        + json.dumps(single["split"]) + f" | headline batch ms "
+        f"{rec1['value'] * single['split']['B']:.4f}")
+    log(f"[single] served vs the plain pipeline on the card and vs the "
+        f"exact scan: {single['plain']} exact_recall@10="
+        f"{rec1['exact_recall@10']}")
+    if rec1["n_subtrees"] != 1 or rec1["device"] != name:
+        raise AssertionError(f"the single-tree headline ran as {rec1}")
+    # the gate: serving through the kernels loses nothing against the
+    # single tree's own pipeline in plain PyTorch (its pool of the top
+    # 1024 path scores leaves golds out, in the JAX package too, so the
+    # exact scan's recall is not the single tree's)
+    if not rec1["recall@10"] >= single["plain"]["plain_recall@10"] - 0.005:
+        raise AssertionError(
+            f"single tree: recall@10 {rec1['recall@10']} is more than "
+            f"0.005 below its plain pipeline's "
+            f"{single['plain']['plain_recall@10']}")
+    ws = windows["single"]
+    if not (ws["fused_topk"] > 0 and ws["rerank_l2"] > 0
+            and ws["fused_topk_f32"] == 0):
+        raise AssertionError(f"the single tree did not serve through "
+                             f"kernels 1 and 5: {ws}")
+    checks = (("single_f32", "fused_topk_f32"),
+              ("single_group_f32", "fused_group_topk_f32"),
+              ("single_blocked_f32", "blocked_topk_f32"))
+    for w, k in checks:
+        if windows[w][k] <= 0:
+            raise AssertionError(f"{k} never launched in its window: "
+                                 f"{windows[w]}")
+        launches[k] = windows[w][k]
+    log("[single] fused_topk f32 ms / bound ms / library ms by batch size: "
+        + json.dumps({k: [r["ms"], r["bound_ms"], r["library_ms"]]
+                      for k, r in single.items()
+                      if k.startswith("fused_f32")}))
+    return rec1, single
 
 
 def main() -> int:
@@ -559,9 +803,16 @@ def main() -> int:
     def zero():
         for fn in counters.values():
             fn.launches = 0
+            if hasattr(fn, "launches_f32"):
+                fn.launches_f32 = 0
 
     def read():
-        return {k: fn.launches for k, fn in counters.items()}
+        out = {k: fn.launches for k, fn in counters.items()}
+        for k, fn in counters.items():
+            if hasattr(fn, "launches_f32"):
+                out[k] -= fn.launches_f32
+                out[k + "_f32"] = fn.launches_f32
+        return out
 
     def whitened(db, data, n):
         qs = torch.as_tensor(data.query_embs[:n], device="cuda")
@@ -620,6 +871,8 @@ def main() -> int:
                                  "path")
     if windows["group"]["fused_group_topk"] <= 0:
         raise AssertionError("fused_group_topk never launched")
+    if windows["fused"]["fused_topk_f32"]:
+        raise AssertionError("the flagship served an f32 index")
     launches["fused_topk"] = windows["fused"]["fused_topk"]
     launches["rerank_l2"] = windows["fused"]["rerank_l2"]
     launches["fused_group_topk"] = windows["group"]["fused_group_topk"]
@@ -697,15 +950,23 @@ def main() -> int:
                 {B: [r["ms"], r["bound_ms"], r["library_ms"]]
                  for B, r in sorted(recs_b.items())}))
 
+    # -- 3c. the single-tree slice --------------------------------------
+    rec1, single = single_tree_slice(headline, zero, read, windows, launches,
+                                     name)
+
     # -- 4. result lines ----------------------------------------------------
     src = "rag_cobweb_tpu_torch/csrc/"
     kernels = [
         dict(name="fused_topk", route="cuda", source=src + "fused_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:243",
-             launches=launches["fused_topk"], **main_f),
+             launches=launches["fused_topk"], **main_f,
+             single_tree=dict(launches=windows["single"]["fused_topk"],
+                              **single["fused"])),
         dict(name="rerank_l2", route="cuda", source=src + "rerank_l2.cu",
              replaces="scripts/gather_probe.py:55",
-             launches=launches["rerank_l2"], **flag["rerank"]),
+             launches=launches["rerank_l2"], **flag["rerank"],
+             single_tree=dict(launches=windows["single"]["rerank_l2"],
+                              **single["rerank"])),
         # one CUDA kernel and counter for both TPU kernels (_kernel_v2's
         # body is _kernel): the served index at B=1024, and under "B4096"
         # at the batch of _kernel_v2's measurement
@@ -719,6 +980,22 @@ def main() -> int:
              source=src + "fused_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:270",
              launches=launches["fused_group_topk"], **main_g),
+        # the f32 entries (CUDA cores) on the single tree's f32 indexes
+        dict(name="fused_topk_f32", route="cuda",
+             source=src + "fused_topk.cu",
+             replaces="rag_cobweb_tpu/ops/pallas_query.py:243",
+             launches=launches["fused_topk_f32"],
+             **single["fused_f32 B=1024"],
+             B1=single["fused_f32 B=1"], B32=single["fused_f32 B=32"]),
+        dict(name="fused_group_topk_f32", route="cuda",
+             source=src + "fused_topk.cu",
+             replaces="rag_cobweb_tpu/ops/pallas_query.py:270",
+             launches=launches["fused_group_topk_f32"], **single["group_f32"]),
+        dict(name="blocked_topk_f32", route="cuda",
+             source=src + "blocked_topk.cu",
+             replaces="rag_cobweb_tpu/ops/pallas_query.py:40; "
+                      "rag_cobweb_tpu/ops/pallas_query.py:126",
+             launches=launches["blocked_topk_f32"], **single["blocked_f32"]),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

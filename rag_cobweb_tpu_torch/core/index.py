@@ -1,9 +1,9 @@
-"""Serving indexes: the fused and blocked subsets of
+"""Serving indexes: the prediction, fused and blocked subsets of
 ``rag_cobweb_tpu/core/index.py``.
 
-**Flat prediction index** (``PredictionIndex``,
-``build_flat_forest_index``): the whole K-lane forest compacted in one
-multi-root BFS, with per-sentence root->leaf paths, per-hop weights and
+**Flat prediction index** (``PredictionIndex``, ``build_index`` for one
+tree, ``build_flat_forest_index`` for a forest): the K-lane state (K = 1
+for a single tree) compacted in one multi-root BFS, with per-sentence root->leaf paths, per-hop weights and
 the sentences laid out in DFS (lexicographic path) order.  The structure
 pass is host numpy over the ``children``/``parent`` arrays, copied once;
 the node statistics are gathered on the device.  The host copies of
@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from rag_cobweb_tpu_torch.ops import fused_topk, rerank
+from rag_cobweb_tpu_torch.ops.gaussian import batched_node_log_probs
 
 DEFAULT_LEVEL_WEIGHTS = (1.0, 1.0, 1.0, 1.0, 1.0, 1.0)
 _FUSED_ROW_BUCKET = fused_topk.SLAB   # 2048
@@ -67,6 +68,14 @@ class PredictionIndex(NamedTuple):
     paths_h: np.ndarray          # host copies of paths, path_weights and
     weights_h: np.ndarray        # sentence_order: the blocked build's input
     order_h: np.ndarray
+
+    @property
+    def num_nodes(self) -> int:
+        return self.const.shape[0]
+
+    @property
+    def num_sentences(self) -> int:
+        return self.paths.shape[0]
 
 
 def build_flat_forest_index(cfg, st, leaf_global: np.ndarray,
@@ -180,6 +189,68 @@ def build_flat_forest_index(cfg, st, leaf_global: np.ndarray,
         leaf_sentence_count=up(leaf_count.astype(np.int64)),
         sentence_order=up(sent_order.astype(np.int64)),
         paths_h=paths, weights_h=weights, order_h=sent_order)
+
+
+def build_index(tree, leaf_of_sentence,
+                level_weights: Sequence[float] = DEFAULT_LEVEL_WEIGHTS,
+                pad_depth_to: int = 4) -> PredictionIndex:
+    """The PredictionIndex of one tree (``core/tree.CobwebTree``):
+    ``leaf_of_sentence[s]`` is the tree slot of sentence s's leaf.  A
+    single tree is a one-lane state whose lane offset is 0, so its slot
+    ids are the flat builder's global ids and its one root starts the
+    BFS: the JAX ``build_index`` (``_build_index_from_arrays`` with one
+    root), array for array."""
+    if tree.state.lanes != 1:
+        raise ValueError(f"build_index takes one tree, got "
+                         f"{tree.state.lanes} lanes")
+    return build_flat_forest_index(
+        tree.cfg, tree.state, np.asarray(leaf_of_sentence, np.int64),
+        level_weights, pad_depth_to)
+
+
+def path_scores_from_nlp(paths: torch.Tensor, path_weights: torch.Tensor,
+                         nlp: torch.Tensor) -> torch.Tensor:
+    """Weighted path sum: (B, N) node log-probs -> (B, S) sentence
+    scores, one gather per hop (P is small)."""
+    safe = paths.clamp(min=0)
+    acc = torch.zeros((nlp.shape[0], paths.shape[0]), dtype=torch.float32,
+                      device=nlp.device)
+    for p in range(paths.shape[1]):
+        acc = acc + nlp[:, safe[:, p]] * path_weights[:, p].unsqueeze(0)
+    return acc
+
+
+def rank_scores(index: PredictionIndex, queries: torch.Tensor):
+    """Per-sentence path scores of a (B, D) query batch -> (B, S): each
+    node's Gaussian log-prob summed with its level weight along every
+    sentence's root->leaf path.  Plain autograd: differentiable in the
+    queries (and the index terms)."""
+    nlp = batched_node_log_probs(queries, index.inv_var_T,
+                                 index.mu_over_var_T, index.const)
+    return path_scores_from_nlp(index.paths, index.path_weights, nlp)
+
+
+def query_topk(index: PredictionIndex, queries: torch.Tensor, k: int,
+               generator: "torch.Generator | None" = None):
+    """Top-k path scores -> (scores (B, k), sentence ids (B, k)).  The JAX
+    package computes this in XLA, so here it is plain PyTorch: the
+    products, the path gather and ``torch.topk``.  ``generator`` adds the
+    reference's 1e-6 Gaussian tie noise (the JAX ``noise_key``)."""
+    scores = rank_scores(index, queries)
+    if generator is not None:
+        scores = scores + 1e-6 * torch.randn(
+            scores.shape, generator=generator, device=scores.device)
+    return torch.topk(scores, min(k, scores.shape[1]), dim=1)
+
+
+def query_topk_rerank(index: PredictionIndex, queries: torch.Tensor, k: int,
+                      rerank: int = 128):
+    """Path-score top-``rerank`` pool re-ranked by leaf log-prob, then the
+    final top-k -> (scores (B, k), ids (B, k))."""
+    scores = rank_scores(index, queries)
+    c = min(max(rerank, k), scores.shape[1])
+    cand_scores, cand = torch.topk(scores, c, dim=1)
+    return _leaf_lp_rerank(index, queries, cand, cand_scores, min(k, c))
 
 
 def _sentence_leaf_nodes(index: PredictionIndex) -> torch.Tensor:
@@ -340,6 +411,36 @@ class FusedIndex(NamedTuple):
     @property
     def num_slots(self) -> int:
         return self.c.shape[0]
+
+
+def build_fused_index(index: PredictionIndex,
+                      dtype=torch.float32) -> FusedIndex:
+    """The fused form of a built PredictionIndex (the single tree's route
+    to the fused sweep): the per-sentence coefficients accumulated in
+    float32 with one (S,)-row gather per path hop, cast to ``dtype`` at
+    the end; rows padded to the 2048-row bucket."""
+    S, P = index.paths.shape
+    D = index.inv_var_T.shape[0]
+    dev = index.const.device
+    Sp = -(-max(S, 1) // _FUSED_ROW_BUCKET) * _FUSED_ROW_BUCKET
+    movt, ivt = index.mu_over_var_T.T, index.inv_var_T.T
+    A = torch.zeros((S, D), dtype=torch.float32, device=dev)
+    Bm = torch.zeros((S, D), dtype=torch.float32, device=dev)
+    c = torch.zeros((S,), dtype=torch.float32, device=dev)
+    for p in range(P):
+        ids = index.paths[:, p]
+        safe = ids.clamp(min=0)
+        w = torch.where(ids >= 0, index.path_weights[:, p],
+                        torch.zeros_like(index.path_weights[:, p]))
+        A = A + w.unsqueeze(1) * movt[safe]
+        Bm = Bm + w.unsqueeze(1) * ivt[safe]
+        c = c + w * index.const[safe]
+    GT = torch.zeros((2 * D, Sp), dtype=dtype, device=dev)
+    GT[:, :S] = torch.cat([A, -0.5 * Bm], dim=1).T.to(dtype)
+    cp = torch.zeros((Sp,), dtype=torch.float32, device=dev)
+    cp[:S] = c
+    return FusedIndex(GT=GT, c=cp,
+                      valid=torch.arange(Sp, device=dev) < S)
 
 
 def _fused_block_from_state(st, leaf_block: torch.Tensor, lw: torch.Tensor,

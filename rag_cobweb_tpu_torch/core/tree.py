@@ -31,6 +31,10 @@ duplicate indices has no defined order on CUDA).
 from __future__ import annotations
 
 import dataclasses
+import heapq
+import json
+import math
+import os
 from collections import defaultdict, deque
 
 import numpy as np
@@ -615,8 +619,14 @@ def analyze_arrays(children, n_children, root: int) -> dict:
 
 
 class CobwebTree:
-    """One Cobweb tree (a one-lane state): ``fit``, ``analyze_structure``
-    and ``signature``."""
+    """One Cobweb tree (a one-lane state): the host facade of the JAX
+    package's ``CobwebTree`` (reference ``CobwebTorchTree``): ``fit``,
+    ``ifit``, ``categorize``, ``dump_json``/``load_json``,
+    ``save_npz``/``load_npz`` and the structure inspectors.
+
+    On the card each descent step replays a captured CUDA graph
+    (``StepGraph``), recaptured when capacity growth reallocates the
+    state; on the host the same step runs eagerly."""
 
     def __init__(self, cfg: TreeConfig, capacity: int = 4096, seed: int = 0,
                  device="cuda"):
@@ -626,41 +636,94 @@ class CobwebTree:
                                 self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        self._graph: "StepGraph | None" = None
+        self._on = torch.ones((1,), dtype=torch.bool, device=self.device)
         self.n_inserted = 0
 
+    # -- capacity management ------------------------------------------------
     def _ensure_capacity(self, n_new: int):
+        """Grow when the next ``n_new`` inserts could overflow (at most 2
+        fresh nodes each, plus slack), as the JAX package does."""
         st = self.state
         needed = int(st.n_alloc[0]) + 2 * n_new + 8
         if needed > st.capacity:
             self.state = grow_state(
                 st, align_capacity(max(needed, 2 * st.capacity)))
 
-    def _insert(self, x: torch.Tensor, max_steps: int) -> int:
-        on = torch.ones((1,), dtype=torch.bool, device=self.device)
-        return int(descend(self.state, x.unsqueeze(0), on, self.cfg,
-                           max_steps, self._gen)[0])
+    def _step_graph(self) -> "StepGraph | None":
+        """On the card, the descent step captured for the current state
+        arrays (recaptured after they are reallocated)."""
+        if self.device.type != "cuda":
+            return None
+        if self._graph is None or not self._graph.matches(self.state):
+            self._graph = StepGraph(self.state, self.cfg)
+        return self._graph
 
-    def fit(self, xs, batch_size: int = 2048) -> np.ndarray:
-        """Insert every row in order; returns each row's leaf slot.  As in
-        the JAX package, a descent deeper than 48 steps is retried on the
-        256-step exact path after the rest of its ``batch_size`` chunk."""
-        xs = torch.as_tensor(np.asarray(xs, np.float32), device=self.device)
+    # -- insertion ----------------------------------------------------------
+    def _descend(self, x: torch.Tensor, max_steps: int) -> torch.Tensor:
+        """One insert of ``x`` (D,); the leaf slot as a (1,) device tensor,
+        -1 when the budget cut the descent (which then applied nothing)."""
+        return descend(self.state, x.unsqueeze(0), self._on, self.cfg,
+                       max_steps, self._gen, self._step_graph())
+
+    def _exact(self, x: torch.Tensor) -> int:
+        leaf = int(self._descend(x, EXACT_STEPS)[0])
+        if leaf < 0:
+            raise RuntimeError(f"insert descent exceeded {EXACT_STEPS} steps")
+        return leaf
+
+    def ifit(self, x) -> int:
+        """Insert one instance; returns its leaf slot.  A descent deeper
+        than 48 steps is retried at once on the 256-step exact path."""
+        x = torch.as_tensor(x, dtype=torch.float32,
+                            device=self.device).reshape(-1)
+        self._ensure_capacity(1)
+        leaf = int(self._descend(x, 48)[0])
+        if leaf < 0:
+            leaf = self._exact(x)
+        self.n_inserted += 1
+        return leaf
+
+    def fit(self, xs, batch_size: int = 2048, iterations: int = 1,
+            randomize_first: bool = False, seed: int = 0) -> np.ndarray:
+        """Insert every row in order; returns each row's leaf slot (of the
+        final pass when ``iterations`` > 1: the first pass optionally
+        shuffled by ``seed``, later passes land on exact-match leaves).  As
+        in the JAX package, a descent deeper than 48 steps is retried on
+        the 256-step exact path after the rest of its ``batch_size``
+        chunk.  ``xs`` is an array or a tensor (kept on its device)."""
+        xs = torch.as_tensor(xs, dtype=torch.float32, device=self.device)
+        if iterations > 1 or randomize_first:
+            order = np.arange(len(xs))
+            if randomize_first:
+                np.random.default_rng(seed).shuffle(order)
+            leaves_last = None
+            for it in range(iterations):
+                pass_xs = xs[torch.as_tensor(order, device=self.device)] \
+                    if it == 0 else xs
+                got = self.fit(pass_xs, batch_size=batch_size)
+                if it == 0:
+                    inv = np.empty_like(order)
+                    inv[order] = np.arange(len(order))
+                    got = got[inv]
+                leaves_last = got
+            return leaves_last
         leaves = np.empty((len(xs),), np.int64)
         for s in range(0, len(xs), batch_size):
             chunk = xs[s:s + batch_size]
             self._ensure_capacity(len(chunk))
-            got = np.array([self._insert(x, 48) for x in chunk], np.int64)
+            got = torch.cat([self._descend(x, 48) for x in chunk]) \
+                .cpu().numpy()
             for j in np.nonzero(got < 0)[0]:
-                got[j] = self._insert(chunk[j], EXACT_STEPS)
-                if got[j] < 0:
-                    raise RuntimeError(
-                        f"insert descent exceeded {EXACT_STEPS} steps")
+                got[j] = self._exact(chunk[j])
             leaves[s:s + len(chunk)] = got
         self.n_inserted += len(xs)
         return leaves
 
+    # -- inspection ---------------------------------------------------------
     def host_arrays(self) -> dict:
-        """The tree's arrays on the host, lane axis dropped."""
+        """The tree's arrays on the host in the JAX single tree's layout:
+        lane axis dropped, int32 structure, scalar root/n_alloc/free_top."""
         return {k: v[0] for k, v in state_to_numpy(self.state).items()}
 
     def analyze_structure(self) -> dict:
@@ -671,3 +734,156 @@ class CobwebTree:
         a = self.host_arrays()
         return structure_signature(a["counts"], a["means"], a["children"],
                                    a["n_children"], a["root"])
+
+    # -- categorize (host best-first search) --------------------------------
+    def categorize(self, x, max_nodes: int = 100_000,
+                   retrieve_k: "int | None" = None, greedy: bool = False,
+                   leaf_has_sentences=None,
+                   rng: "np.random.Generator | None" = None):
+        """Best-first heap search over the host arrays (reference
+        ``_cobweb_categorize``), numpy as in the JAX package.
+        ``leaf_has_sentences`` (node -> bool) marks retrievable leaves
+        (default: every leaf).  Returns the best node, or with
+        ``retrieve_k`` the retrieved leaves in visit order."""
+        a = self.host_arrays()
+        counts, means, m2s = a["counts"], a["means"], a["m2s"]
+        children, n_children = a["children"], a["n_children"]
+        x = np.asarray(x, np.float32)
+        rng = rng or np.random.default_rng(0)
+        cfg = self.cfg
+
+        def lp(n):
+            var = m2s[n] / max(float(counts[n]), 1.0)
+            if cfg.acuity_cutoff:
+                var = np.maximum(var, cfg.prior_var)
+            else:
+                var = var + cfg.prior_var
+            if float(counts[n]) <= 0:
+                var = np.full_like(var, cfg.prior_var)
+            d = x - means[n]
+            return float(-0.5 * np.sum(np.log(var) + math.log(2 * math.pi)
+                                       + d * d / var))
+
+        if leaf_has_sentences is None:
+            def leaf_has_sentences(n):
+                return int(n_children[n]) == 0
+
+        root = int(a["root"])
+        heap = [(-lp(root), rng.random(), root)]
+        best, best_score = root, -np.inf
+        retrieved: list = []
+        visited = 0
+        while heap:
+            neg, _, cur = heapq.heappop(heap)
+            visited += 1
+            if -neg > best_score:
+                best, best_score = cur, -neg
+            if greedy:      # keep only the best frontier
+                heap = []
+            if visited >= max_nodes:
+                break
+            if int(n_children[cur]) == 0 and leaf_has_sentences(cur):
+                retrieved.append(cur)
+            if retrieve_k is not None and len(retrieved) == retrieve_k:
+                break
+            for i in range(int(n_children[cur])):
+                ch = int(children[cur, i])
+                heapq.heappush(heap, (-lp(ch), rng.random(), ch))
+        if retrieve_k is None:
+            return best
+        return retrieved[:retrieve_k]
+
+    # -- serialization --------------------------------------------------------
+    def dump_json(self, leaf_sentence_ids: "dict | None" = None) -> str:
+        """The reference's nested {count, mean, meanSq, sentence_id,
+        children} schema under the config's keys (iterative)."""
+        a = self.host_arrays()
+        leaf_sentence_ids = leaf_sentence_ids or {}
+
+        def node_dict(n):
+            return {"count": float(a["counts"][n]),
+                    "mean": a["means"][n].tolist(),
+                    "meanSq": a["m2s"][n].tolist(),
+                    "sentence_id": leaf_sentence_ids.get(n, []),
+                    "children": []}
+
+        root = int(a["root"])
+        root_d = node_dict(root)
+        stack = [(root, root_d)]
+        while stack:
+            n, d = stack.pop()
+            for i in range(int(a["n_children"][n])):
+                ch = int(a["children"][n, i])
+                cd = node_dict(ch)
+                d["children"].append(cd)
+                stack.append((ch, cd))
+        params = self.cfg.to_json_dict()
+        params["root"] = root_d
+        return json.dumps(params)
+
+    @classmethod
+    def load_json(cls, json_string: str, seed: int = 0, device="cuda"):
+        """Rebuild the tree from the nested schema, numbering the slots as
+        the JAX package does (pop order, children pushed in reverse, so
+        siblings take consecutive slots left to right).  Returns (tree,
+        {leaf slot: sentence ids})."""
+        data = json.loads(json_string)
+        cfg = TreeConfig.from_json_dict(data)
+        n_nodes, max_fanout = 0, cfg.max_fanout
+        stack = [data["root"]]
+        while stack:
+            d = stack.pop()
+            n_nodes += 1
+            max_fanout = max(max_fanout, len(d["children"]))
+            stack.extend(d["children"])
+        if max_fanout > cfg.max_fanout:
+            cfg = dataclasses.replace(cfg, max_fanout=max_fanout)
+        cap, dim, F = 2 * n_nodes + 8, cfg.dim, cfg.max_fanout
+        counts = np.zeros((cap,), np.float32)
+        means = np.zeros((cap, dim), np.float32)
+        m2s = np.zeros((cap, dim), np.float32)
+        parent = np.full((cap,), NULL, np.int32)
+        children = np.full((cap, F), NULL, np.int32)
+        n_children = np.zeros((cap,), np.int32)
+        leaf_sids: dict = {}
+        idx = 0
+        stack = [(data["root"], NULL)]
+        while stack:
+            d, par = stack.pop()
+            n = idx
+            idx += 1
+            counts[n] = d["count"]
+            means[n] = np.asarray(d["mean"], np.float32)
+            m2s[n] = np.asarray(d["meanSq"], np.float32)
+            parent[n] = par
+            if d.get("sentence_id"):
+                leaf_sids[n] = list(d["sentence_id"])
+            if par >= 0:
+                children[par, n_children[par]] = n
+                n_children[par] += 1
+            for c in reversed(d["children"]):
+                stack.append((c, n))
+        from rag_cobweb_tpu_torch.interop import tree_from_numpy
+        tree = tree_from_numpy(dict(
+            counts=counts, means=means, m2s=m2s, parent=parent,
+            children=children, n_children=n_children, root=0, n_alloc=idx,
+            free_stack=np.full((cap,), NULL, np.int32), free_top=0),
+            cfg, seed=seed, n_inserted=int(counts[0]), device=device)
+        return tree, leaf_sids
+
+    def save_npz(self, path: str, **extra_arrays):
+        """Binary checkpoint in the JAX single tree's layout (scalar root,
+        n_alloc and free_top; no lane axis), so either package loads it."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez_compressed(
+            path, __cfg__=np.frombuffer(
+                json.dumps(self.cfg.to_json_dict()).encode(), dtype=np.uint8),
+            n_inserted=np.asarray(self.n_inserted), **self.host_arrays(),
+            **extra_arrays)
+
+    @classmethod
+    def load_npz(cls, path: str, seed: int = 0, device="cuda"):
+        """Restore a checkpoint of either package; returns (tree, dict of
+        the extra arrays)."""
+        from rag_cobweb_tpu_torch.interop import load_jax_tree_npz
+        return load_jax_tree_npz(path, seed=seed, device=device)

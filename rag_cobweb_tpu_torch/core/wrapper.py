@@ -1,14 +1,18 @@
-"""CobwebIndex: the forest-mode subset of ``rag_cobweb_tpu/core/wrapper.py``.
+"""CobwebIndex: a port of ``rag_cobweb_tpu/core/wrapper.py``.
 
-Forest mode (``n_subtrees >= 2``, round-robin lanes), optionally with a
-wrapper-owned whitener: embeddings arrive RAW, the forest and the
-candidate pool run in whitened space, and the raw float32 vector store
-feeds the exact re-rank, so the final ranking is exact raw-space search
-whenever the gold row is in the pool.
+Single-tree mode (``n_subtrees=1``, the default: one ``CobwebTree``, the
+reference's ``CobwebWrapper``) or forest mode (``n_subtrees >= 2``,
+round-robin lanes), optionally with a wrapper-owned whitener: embeddings
+arrive RAW, the tree and the candidate pool run in whitened space, and
+the raw float32 vector store feeds the exact re-rank, so the final
+ranking is exact raw-space search whenever the gold row is in the pool.
 
 Serving: ``query_ids`` -> ``_engine_topk``, which picks the engine as the
 JAX package does:
 
+* below ``blocked_threshold`` sentences (a single tree only): the path
+  scores of the prediction index in PyTorch (``index.query_topk``), then
+  the re-rank;
 * ``use_pallas`` and at least ``pallas_threshold`` sentences: the blocked
   sweep kernel (``_pallas_topk`` -> ``ops/blocked_topk.blocked_topk``);
 * ``use_fused`` (the default): ``_product_chunked`` ->
@@ -17,16 +21,19 @@ JAX package does:
 * otherwise the blocked sweep in PyTorch (``index.blocked_query_topk``).
 
 A re-rank pool goes through ``_rerank_step``: the exact stored-row
-re-rank, or the leaf log-prob re-rank when no vector store is kept.  Not
+re-rank, or the leaf log-prob re-rank when no vector store is kept.  A
+single tree reaches the fused sweep through its prediction index
+(``index.build_fused_index``), a forest straight from its state.  Not
 carried yet (each raises ``NotImplementedError`` where it would run): the
-single-tree index, the small-forest engine that serves below
-``blocked_threshold`` sentences, the pending/delta tier (here an add drops
-the serving indexes and the next query rebuilds them) and the whitened
-backstop pool.
+small-forest engine that serves a forest below ``blocked_threshold``
+sentences (and the forest's stacked index and rank scores), the
+pending/delta tier (here an add drops the serving indexes and the next
+query rebuilds them) and the whitened backstop pool.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Callable, Optional
 
 import numpy as np
@@ -34,7 +41,7 @@ import torch
 
 from rag_cobweb_tpu_torch.core import index as index_mod
 from rag_cobweb_tpu_torch.core.config import TreeConfig
-from rag_cobweb_tpu_torch.core.tree import align_capacity
+from rag_cobweb_tpu_torch.core.tree import CobwebTree, align_capacity
 from rag_cobweb_tpu_torch.device import full_f32_matmul, resolve_device
 from rag_cobweb_tpu_torch.ops import blocked_topk
 from rag_cobweb_tpu_torch.parallel.vforest import VForest
@@ -45,7 +52,8 @@ def _identity_encode(x):
 
 
 class CobwebIndex:
-    """Hierarchical vector database over a K-lane Cobweb forest."""
+    """Hierarchical vector database over a Cobweb tree or a K-lane
+    forest."""
 
     # engine choice, under the JAX package's names and defaults
     use_fused = True
@@ -71,13 +79,10 @@ class CobwebIndex:
         # float32 products run in full float32 on the card (TF32 off): the
         # counterpart of the JAX package's Precision.HIGHEST
         full_f32_matmul()
-        if n_subtrees < 2:
-            raise NotImplementedError(
-                "the single-tree index (n_subtrees=1) is not ported yet; "
-                "use forest mode, n_subtrees >= 2")
         self.encode_func = encode_func
         self.whitener = whitener
         self.sentences: list = []
+        self.leaf_of_sentence: list = []
         self.n_subtrees = int(n_subtrees)
 
         if corpus_embeddings is not None:
@@ -98,19 +103,18 @@ class CobwebIndex:
         n0 = len(corpus_embeddings) if corpus_embeddings is not None else (
             len(corpus) if corpus else 0)
         cap = capacity or max(1024, 4 * n0 + 16)
-        self.forest = VForest(self.cfg, n_subtrees=self.n_subtrees,
-                              capacity_per_tree=max(1024,
-                                                    cap // self.n_subtrees),
-                              seed=seed, routing=routing, device=self.device)
-        self.cfg = self.forest.cfg
-
-        self.store_embeddings = True
-        self._vec_chunks: list = []
-        self._emb_dev_cache = None
-        self._emb_dev_n = 0
-        self._emb_dev_cap = 0
-        self._invalidate_index()
-        self.blocked_threshold = 8192
+        if self.n_subtrees > 1:
+            self.tree = None
+            self.forest = VForest(
+                self.cfg, n_subtrees=self.n_subtrees,
+                capacity_per_tree=max(1024, cap // self.n_subtrees),
+                seed=seed, routing=routing, device=self.device)
+            self.cfg = self.forest.cfg
+        else:
+            self.forest = None
+            self.tree = CobwebTree(self.cfg, capacity=cap, seed=seed,
+                                   device=self.device)
+        self._init_serving()
 
         if corpus_embeddings is not None:
             if corpus is None:
@@ -119,15 +123,28 @@ class CobwebIndex:
         elif corpus:
             self.add_sentences(corpus)
 
+    def _init_serving(self):
+        """Vector store, serving caches and engine settings of a new or
+        loaded index."""
+        self.store_embeddings = True
+        self._vec_chunks: list = []
+        self._emb_dev_cache = None
+        self._emb_dev_n = 0
+        self._emb_dev_cap = 0
+        self._invalidate_index()
+        self.blocked_threshold = 8192
+
     def __len__(self):
         return len(self.sentences)
 
     # ---------------------------------------------------------------- #
     # ingestion                                                        #
     # ---------------------------------------------------------------- #
-    def add_sentences(self, new_sentences, new_vectors=None):
-        """Insert sentences/embeddings; returns their global ids.  Any
-        serving index is dropped and rebuilt by the next query."""
+    def add_sentences(self, new_sentences, new_vectors=None,
+                      batch_size: int = 2048):
+        """Insert sentences/embeddings; returns each row's leaf slot (one
+        tree) or its global id (forest).  Any serving index is dropped and
+        rebuilt by the next query."""
         if new_vectors is None:
             new_vectors = self.encode_func(new_sentences)
         store_vecs = np.asarray(new_vectors, np.float32)
@@ -142,15 +159,20 @@ class CobwebIndex:
         if len(new_sentences) != len(store_vecs):
             raise ValueError(f"{len(new_sentences)} sentences != "
                              f"{len(store_vecs)} vectors")
-        gids = self.forest.add(tree_vecs)
+        if self.forest is not None:
+            out = self.forest.add(tree_vecs)
+        else:
+            out = self.tree.fit(tree_vecs, batch_size=batch_size)
+            self.leaf_of_sentence.extend(int(v) for v in out)
         self.sentences.extend(new_sentences)
         if self.store_embeddings:
             self._vec_chunks.append(store_vecs)
             self._emb_dev_cache = None
         self._invalidate_index()
-        return gids
+        return out
 
     def _invalidate_index(self):
+        self._index = None
         self._fused = None
         self._fused_f32 = None
         self._blocked = None
@@ -189,7 +211,12 @@ class CobwebIndex:
         dtype = (torch.float32 if attr == "_fused_f32"
                  else getattr(torch, self.fused_dtype))
         if getattr(self, attr) is None:
-            setattr(self, attr, self.forest.fused_index(dtype=dtype))
+            if self.forest is not None:
+                fidx = self.forest.fused_index(dtype=dtype)
+            else:
+                fidx = index_mod.build_fused_index(self._flat_pred_index(),
+                                                   dtype=dtype)
+            setattr(self, attr, fidx)
         return getattr(self, attr)
 
     def _auto_rerank(self) -> int:
@@ -217,8 +244,43 @@ class CobwebIndex:
 
     def _flat_pred_index(self) -> index_mod.PredictionIndex:
         """The flat PredictionIndex over global sentence ids: the whole
-        forest flattened (``VForest.flat_index``, cached until an add)."""
-        return self.forest.flat_index()
+        forest flattened (``VForest.flat_index``, cached until an add), or
+        a single tree's prediction index."""
+        if self.forest is not None:
+            return self.forest.flat_index()
+        return self.build_prediction_index()
+
+    def build_prediction_index(self) -> index_mod.PredictionIndex:
+        """The single tree's PredictionIndex (``index.build_index``),
+        cached until the next add."""
+        if self.forest is not None:
+            raise NotImplementedError(
+                "a forest's prediction index is the small-forest engine's "
+                "stacked index, which is not ported yet")
+        if self._index is None:
+            self._index = index_mod.build_index(
+                self.tree, np.asarray(self.leaf_of_sentence, np.int64))
+        return self._index
+
+    def force_rebuild_index(self):
+        self._invalidate_index()
+        self.build_prediction_index()
+
+    def get_prediction_index_info(self) -> dict:
+        """Diagnostics of the current prediction index (reference
+        ``get_prediction_index_info``)."""
+        valid = self._index is not None
+        info = {
+            "index_valid": valid,
+            "total_nodes": self._index.num_nodes if valid else 0,
+            "leaf_paths_cached": self._index.num_sentences if valid else 0,
+            "means_cached": valid,
+            "vars_cached": valid,
+        }
+        if valid:
+            info["means_shape"] = (self._index.num_nodes, self.cfg.dim)
+            info["vars_shape"] = info["means_shape"]
+        return info
 
     def _blocked_index(self, exact: bool = False) -> index_mod.BlockedIndex:
         """The serving BlockedIndex in ``blocked_dtype``; ``exact``: an f32
@@ -270,11 +332,21 @@ class CobwebIndex:
                 torch.cat([o[1] for o in outs]))
 
     def _engine_topk(self, q, kk: int, rerank: int, q_store=None):
-        """Dispatch to the engines: the blocked sweep kernel (opt-in, above
+        """Dispatch to the engines: below ``blocked_threshold`` the path
+        scores of the prediction index (a single tree; a forest never gets
+        here), else the blocked sweep kernel (opt-in, above
         ``pallas_threshold``), else the fused engine, else the blocked
         sweep in PyTorch; each with the optional re-rank.  ``rerank=0``:
         the raw path-score order from an f32 index."""
         n_indexed = len(self.sentences)
+        if n_indexed < self.blocked_threshold:
+            idx = self._flat_pred_index()
+            if rerank:
+                c = min(max(rerank, kk), idx.num_sentences)
+                cs, cand = index_mod.query_topk(idx, q, c)
+                return self._rerank_step(idx, q, cand, cs, kk,
+                                         q_store=q_store)
+            return index_mod.query_topk(idx, q, kk)
         if self.use_pallas and n_indexed >= self.pallas_threshold:
             return self._pallas_topk(self._blocked_index(), q, kk, rerank,
                                      q_store=q_store)
@@ -332,6 +404,32 @@ class CobwebIndex:
             return self._rerank_step(None, q, cand, cs, kk, q_store=q_store)
         return blocked_topk.blocked_topk(bidx, q, kk)
 
+    def _as_query_batch(self, input, is_embedding: bool):
+        """A query input (embeddings, or text for ``encode_func``) as a
+        (B, D) tree-space device batch, and whether it was one query."""
+        if is_embedding:
+            arr = np.asarray(input, np.float32)
+            single = arr.ndim == 1
+        else:
+            single = isinstance(input, str)
+            arr = np.asarray(self.encode_func([input] if single
+                                              else list(input)), np.float32)
+        qs = torch.as_tensor(np.atleast_2d(arr), device=self.device)
+        q = (self.whitener.transform_torch(qs)
+             if self.whitener is not None else qs)
+        return q, single
+
+    def rank_scores(self, input, is_embedding: bool = False):
+        """Per-sentence path scores of the single tree (reference
+        ``cobweb_rank_scores``): (B, D) -> (B, S), one query -> (S,)."""
+        if self.forest is not None:
+            raise NotImplementedError(
+                "a forest's rank scores (vforest_rank_scores) are not "
+                "ported yet")
+        q, single = self._as_query_batch(input, is_embedding)
+        scores = index_mod.rank_scores(self.build_prediction_index(), q)
+        return scores[0] if single else scores
+
     def query_ids(self, queries, k: int, rerank: Optional[int] = None):
         """(B, D) raw embeddings -> (B, k) sentence ids, a device tensor."""
         qs = torch.as_tensor(np.asarray(queries, np.float32),
@@ -341,7 +439,8 @@ class CobwebIndex:
         q = (self.whitener.transform_torch(qs)
              if self.whitener is not None else qs)
         kk = min(k, len(self.sentences))
-        if len(self.sentences) < self.blocked_threshold:
+        if (self.forest is not None
+                and len(self.sentences) < self.blocked_threshold):
             raise NotImplementedError(
                 f"{len(self.sentences)} sentences is below blocked_threshold"
                 f"={self.blocked_threshold}: the small-forest engine "
@@ -349,3 +448,55 @@ class CobwebIndex:
         if rerank is None:
             rerank = self._auto_rerank()
         return self._engine_topk(q, kk, rerank, q_store=qs)[1]
+
+    # ---------------------------------------------------------------- #
+    # persistence                                                      #
+    # ---------------------------------------------------------------- #
+    def _require_single_tree(self, what: str):
+        if self.forest is not None:
+            raise ValueError(
+                f"{what} requires single-tree mode (n_subtrees=1)")
+
+    def dump_json(self, save_path: Optional[str] = None) -> str:
+        """The reference-parity JSON: the tree in the nested schema with
+        each leaf's sentence ids, the sentences and the tree width (no
+        whitener, no vector store); loads in either package."""
+        self._require_single_tree("dump_json")
+        sids_by_leaf: dict = {}
+        for sid, leaf in enumerate(self.leaf_of_sentence):
+            sids_by_leaf.setdefault(leaf, []).append(sid)
+        blob = json.dumps({
+            "tree": json.loads(self.tree.dump_json(sids_by_leaf)),
+            "sentences": self.sentences,
+            "embedding_dim": self.cfg.dim,
+        }, indent=2)
+        if save_path:
+            with open(save_path, "w") as f:
+                f.write(blob)
+        return blob
+
+    @staticmethod
+    def load_json(json_data, encode_func: Callable = _identity_encode,
+                  device="cuda") -> "CobwebIndex":
+        """An index from ``dump_json``'s output (a string or its parsed
+        dict), of either package: no whitener and no vector store, so
+        pools re-rank by leaf log-prob."""
+        data = json.loads(json_data) if isinstance(json_data, str) \
+            else json_data
+        tree, leaf_sids = CobwebTree.load_json(json.dumps(data["tree"]),
+                                               device=device)
+        obj = CobwebIndex.__new__(CobwebIndex)
+        obj.device = tree.device
+        obj.encode_func = encode_func
+        obj.whitener = None
+        obj.sentences = data.get("sentences", [])
+        obj.cfg = tree.cfg
+        obj.tree = tree
+        obj.forest = None
+        obj.n_subtrees = 1
+        leaf_of = np.full((len(obj.sentences),), -1, np.int64)
+        for leaf, sids in leaf_sids.items():
+            leaf_of[np.asarray(sids, np.int64)] = leaf
+        obj.leaf_of_sentence = [int(v) for v in leaf_of]
+        obj._init_serving()
+        return obj

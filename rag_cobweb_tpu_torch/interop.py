@@ -17,6 +17,7 @@ from rag_cobweb_tpu_torch.core import tree as tree_mod
 from rag_cobweb_tpu_torch.core.config import TreeConfig
 from rag_cobweb_tpu_torch.core.index import (BlockedIndex, FusedIndex,
                                              PredictionIndex)
+from rag_cobweb_tpu_torch.core.tree import CobwebTree
 from rag_cobweb_tpu_torch.device import resolve_device
 from rag_cobweb_tpu_torch.parallel.vforest import VForest
 from rag_cobweb_tpu_torch.whitening.models import PCAICAWhiteningModel
@@ -63,6 +64,56 @@ def load_jax_npz(path: str, device="cuda") -> VForest:
                               for s in range(len(n_local))],
         }
         return forest_from_numpy(arrays, meta, device=device)
+
+
+_SCALARS = ("root", "n_alloc", "free_top")
+_NULL_PAD = {"parent", "children", "free_stack"}
+
+
+def tree_from_numpy(arrays: dict, cfg, seed: int = 0, n_inserted=None,
+                    device="cuda") -> CobwebTree:
+    """A port CobwebTree from a JAX single tree's state arrays
+    (``jax.device_get(tree.state)._asdict()``, or the fields of its
+    ``.npz``): counts (N,), means/m2s (N, D), parent (N,), children (N, F),
+    n_children (N,), free_stack (N,) and the scalars root, n_alloc,
+    free_top.  ``cfg`` is a TreeConfig or its JSON dict.  The lane axis is
+    added here; a capacity that is not aligned (the JAX ``load_json``
+    sizes it exactly) is padded with empty slots, so every slot keeps its
+    id."""
+    if not isinstance(cfg, TreeConfig):
+        cfg = TreeConfig.from_json_dict(cfg)
+    cap = int(np.asarray(arrays["counts"]).shape[0])
+    tree = CobwebTree(cfg, capacity=cap, seed=seed, device=device)
+    full = tree.state.capacity
+    lane = {}
+    for name in tree_mod.FIELDS:
+        a = np.asarray(arrays[name])
+        if name in _SCALARS:
+            lane[name] = a.reshape(1)
+            continue
+        if full > cap:
+            pad = np.full((full - cap,) + a.shape[1:],
+                          -1 if name in _NULL_PAD else 0, a.dtype)
+            a = np.concatenate([a, pad])
+        lane[name] = a[None]
+    tree.state = tree_mod.state_from_numpy(lane, tree.device)
+    tree.n_inserted = int(n_inserted) if n_inserted is not None else 0
+    return tree
+
+
+def load_jax_tree_npz(path: str, seed: int = 0, device="cuda"):
+    """A port CobwebTree from a single-tree ``.npz`` of either package
+    (the JAX ``CobwebTree.save_npz`` layout); returns (tree, dict of the
+    extra arrays saved beside the state)."""
+    with np.load(path, allow_pickle=False) as data:
+        cfg = json.loads(bytes(data["__cfg__"]).decode())
+        arrays = {k: data[k] for k in tree_mod.FIELDS}
+        extras = {k: data[k] for k in data.files
+                  if k not in set(tree_mod.FIELDS) | {"__cfg__",
+                                                      "n_inserted"}}
+        n_inserted = int(data["n_inserted"])
+    return tree_from_numpy(arrays, cfg, seed=seed, n_inserted=n_inserted,
+                           device=device), extras
 
 
 def _float_tensor(a, dev) -> torch.Tensor:

@@ -130,6 +130,7 @@ def _block_candidates(q, q2, bidx, kk: int):
         *(t.data_ptr() for _, t in ts), out_s.data_ptr(), out_t.data_ptr(),
         B, NB, M, D, TS, kk, stream)), "blocked_topk launch")
     blocked_topk.launches += 1
+    blocked_topk.launches_f32 += bidx.W.dtype == torch.float32
     return out_s, out_t
 
 
@@ -164,7 +165,8 @@ def blocked_topk(bidx, queries, k: int, block_k: int = 0):
     return _merge(out_s, out_t, bidx, k)
 
 
-blocked_topk.launches = 0
+blocked_topk.launches = 0       # every launch of the kernel
+blocked_topk.launches_f32 = 0   # those of its f32 entry
 
 
 def blocked_topk_tiled(bidx, queries, k: int, block_k: int = 16):

@@ -12,8 +12,10 @@ max/argmax (ties to the lower row, the taken row set to NEG); column
 ``i * 16 + g`` holds round i of group g.  ``fused_group_topk`` is the
 entry of ``pallas_fused_group_topk`` over a serving ``FusedIndex``.
 
-Both kernels live in ``csrc/fused_topk.cu``; each ``*_plain`` function is
-the same function in plain PyTorch.  A CPU tensor takes the plain version;
+Both kernels live in ``csrc/fused_topk.cu``, each with a bf16 entry (on
+wgmma) and an f32 entry (CUDA cores); a wrapper's ``launches`` counts
+every launch and ``launches_f32`` those of the f32 entry.  Each
+``*_plain`` function is the same function in plain PyTorch.  A CPU tensor takes the plain version;
 a CUDA tensor launches the kernel or raises.
 """
 
@@ -121,10 +123,12 @@ def slab_topk(qq, GT, c, valid, kappa: int):
         return slab_topk_plain(qq, GT, c, valid, kappa)
     out = _launch("fused_topk", qq, GT, c, valid, kappa, kappa)
     slab_topk.launches += 1
+    slab_topk.launches_f32 += GT.dtype == torch.float32
     return out
 
 
-slab_topk.launches = 0
+slab_topk.launches = 0       # every launch of the kernel
+slab_topk.launches_f32 = 0   # those of its f32 entry
 
 
 def slab_group_topk_plain(qq, GT, c, valid, per_group: int):
@@ -156,10 +160,12 @@ def slab_group_topk(qq, GT, c, valid, per_group: int):
     out = _launch("fused_group_topk", qq, GT, c, valid, per_group,
                   per_group * NG)
     slab_group_topk.launches += 1
+    slab_group_topk.launches_f32 += GT.dtype == torch.float32
     return out
 
 
-slab_group_topk.launches = 0
+slab_group_topk.launches = 0       # every launch of the kernel
+slab_group_topk.launches_f32 = 0   # those of its f32 entry
 
 
 def fused_group_topk(fidx, queries, k: int, per_group: int = 2):

@@ -98,6 +98,18 @@ def log_prob(x: torch.Tensor, mean: torch.Tensor,
         torch.log(var) + _LOG_2PI + torch.square(x - mean) / var, dim=-1)
 
 
+def batched_node_log_probs(x: torch.Tensor, inv_var_T: torch.Tensor,
+                           mu_over_var_T: torch.Tensor,
+                           const: torch.Tensor) -> torch.Tensor:
+    """(B, D) queries against N node Gaussians -> (B, N) log-probs (the
+    prediction index's, without the 2 pi constant) by two float32
+    products: ``x @ (mu/var)^T - 0.5 x^2 @ (1/var)^T + const`` (full f32
+    on the card: ``device.full_f32_matmul``, the counterpart of the JAX
+    package's ``Precision.HIGHEST``)."""
+    return (torch.matmul(x, mu_over_var_T)
+            - 0.5 * torch.matmul(torch.square(x), inv_var_T) + const)
+
+
 def compute_score(mu1, var1, mu2, var2, cfg: TreeConfig) -> torch.Tensor:
     """Concept-divergence score: KL(N1 || N2) (use_info & use_kl), the
     entropy delta (use_info only), or the classic continuous category

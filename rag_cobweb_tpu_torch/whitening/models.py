@@ -4,7 +4,10 @@
 The fit is host numpy in float64, copied from the JAX package, so both
 packages fit the same model.  ``transform_torch`` is the device transform:
 center -> project -> scale -> unmix precomposed into one (d_in, d_out)
-matrix ``M`` and bias ``b``, applied as one float32 product (TF32 off).
+matrix ``M`` and bias ``b``, applied as one product accumulated in float64
+and rounded once to float32, so the card and the host give the same rows
+(a float32 product rounds in each device's summation order, and the
+tree's near-tie decisions see a last-bit difference).
 ``save``/``load`` use the JAX package's pickle layout (a dict of numpy
 arrays), so either package loads the other's file.
 """
@@ -71,22 +74,25 @@ class PCAICAWhiteningModel:
         out = out.astype(np.float32)
         return out[0] if single else out
 
-    def affine(self):
-        """The precomposed float32 transform ``(M (d_in, d_out), b)``."""
+    def affine(self, dtype=np.float32):
+        """The precomposed transform ``(M (d_in, d_out), b)`` in ``dtype``
+        (computed in float64)."""
         scale = 1.0 / np.sqrt(self.pca_explained_var + self.eps)
         M = (self.pca_components.T * scale[None, :]) @ self.ica_unmixing.T
         b = -(self.mean @ M)
-        return M.astype(np.float32), b.astype(np.float32)
+        return M.astype(dtype), b.astype(dtype)
 
     def transform_torch(self, x: torch.Tensor) -> torch.Tensor:
-        """Device transform of a (B, d_in) tensor: ``x @ M + b`` in f32."""
+        """Device transform of a (B, d_in) tensor: ``x @ M + b`` with
+        ``M``, ``b`` and the sums in float64, the result rounded to
+        float32: the same rows on every device."""
         key = str(x.device)
         if key not in self._torch_cache:
-            M, b = self.affine()
+            M, b = self.affine(np.float64)
             self._torch_cache[key] = (torch.as_tensor(M, device=x.device),
                                       torch.as_tensor(b, device=x.device))
         M, b = self._torch_cache[key]
-        return torch.matmul(x.float(), M) + b
+        return (torch.matmul(x.double(), M) + b).float()
 
     @classmethod
     def fit(cls, X, pca_dim=256, eps: float = 1e-8,

@@ -533,3 +533,146 @@ def test_forest_build_on_the_card_equals_the_host(card, budget):
         np.testing.assert_array_equal(a[f], b[f], err_msg=f)
     for f in ("means", "m2s"):
         np.testing.assert_allclose(a[f], b[f], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["fit", "ifit"])
+def test_single_tree_on_the_card_equals_the_host(card, mode):
+    """The single tree built on the card (one lane, each descent step
+    replayed from a CUDA graph, recaptured as capacity grows) gives the
+    host's tree slot for slot and the same leaves; statistics to float32
+    rounding."""
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.core.tree import CobwebTree
+    rng = np.random.default_rng(1)
+    D = 16
+    xs = (rng.normal(scale=2.0, size=(8, D))[rng.integers(0, 8, 300)]
+          + 0.5 * rng.normal(size=(300, D))).astype(np.float32)
+    trees, leaves = [], []
+    for dev in ("cpu", card):
+        t = CobwebTree(TreeConfig(dim=D), capacity=16, device=dev)
+        if mode == "fit":
+            lv = np.concatenate([t.fit(p, batch_size=64)
+                                 for p in np.array_split(xs, 3)])
+        else:
+            lv = np.asarray([t.ifit(x) for x in xs])
+        trees.append(t.host_arrays())
+        leaves.append(lv)
+    np.testing.assert_array_equal(leaves[1], leaves[0])
+    a, b = trees
+    for f in ("parent", "children", "n_children", "free_stack", "free_top",
+              "n_alloc", "root", "counts"):
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+    for f in ("means", "m2s"):
+        np.testing.assert_allclose(a[f], b[f], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("threshold,fused_dtype,rerank",
+                         [(8192, "float32", 32), (8192, "float32", 0),
+                          (64, "float32", 32), (64, "float32", 0),
+                          (64, "bfloat16", 32)])
+def test_single_tree_serves_the_same_ids_on_the_card(card, threshold,
+                                                     fused_dtype, rerank):
+    """The single-tree CobwebIndex built and served on the card and on
+    the host from the same rows: the same leaves, and the same served ids
+    below ``blocked_threshold`` (path scores in PyTorch, then kernel 5)
+    and on the fused branch (kernel 1, bf16 or f32, then kernel 5; at
+    rerank=0 kernel 1's f32 entry alone); with the bf16 index the same
+    recall (bf16 sums may reorder near-ties inside the pool)."""
+    from rag_cobweb_tpu_torch.bench.datasets import synthetic_retrieval_hard
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    from rag_cobweb_tpu_torch.ops import fused_topk, rerank as rr
+    from rag_cobweb_tpu_torch.whitening import PCAICAWhiteningModel
+    data = synthetic_retrieval_hard(400, 50, 48, seed=6)
+    w = PCAICAWhiteningModel.fit(data.corpus_embs, pca_dim=0.9,
+                                 ica_max_iter=200, seed=0)
+    rows = w.transform(data.corpus_embs).astype(np.float32)
+    qs = w.transform(data.query_embs).astype(np.float32)
+    out, leaves = [], []
+    for dev in ("cpu", card):
+        db = CobwebIndex(corpus_embeddings=rows, device=dev)
+        db.blocked_threshold = threshold
+        db.fused_dtype = fused_dtype
+        k1, k5 = fused_topk.slab_topk.launches, rr.rerank_lp.launches
+        out.append(db.query_ids(qs, 10, rerank=rerank).cpu().numpy())
+        leaves.append(db.leaf_of_sentence)
+    assert leaves[1] == leaves[0]
+    if dev == card and threshold < len(rows):
+        assert fused_topk.slab_topk.launches > k1
+    if rerank:
+        assert rr.rerank_lp.launches > k5
+    if fused_dtype == "float32" and rerank:
+        np.testing.assert_array_equal(out[1], out[0])
+    elif fused_dtype == "float32":     # raw path-score order: ties permute
+        assert all(set(a) == set(b) for a, b in zip(out[1], out[0]))
+    else:
+        recall = [np.mean([t in row for t, row in
+                           zip(data.target_ids, ids)]) for ids in out]
+        assert recall[1] == recall[0]
+
+
+def test_flagship_path_serves_the_hosts_ids_on_the_card(card):
+    """The flagship path end to end from raw rows on a hard synthetic
+    corpus (whitener in the wrapper, an 8-lane forest, the bf16 fused
+    index, an exact re-rank pool), once on the card and once on the host:
+    the same whitened rows, the same forest slot for slot, and the same
+    served ids, except where the test shows the two ids as ties (kernel
+    5's keys within 1e-5 of their terms at the 10th place, or path scores
+    within 1e-3 of the pool's last, where bf16 products summed in another
+    order may take either)."""
+    from rag_cobweb_tpu_torch.bench.datasets import synthetic_retrieval_hard
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.core.index import fused_query_topk
+    from rag_cobweb_tpu_torch.core.tree import state_to_numpy
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    from rag_cobweb_tpu_torch.ops import fused_topk, rerank
+    from rag_cobweb_tpu_torch.whitening import PCAICAWhiteningModel
+    data = synthetic_retrieval_hard(3000, 300, 128, seed=11)
+    w = PCAICAWhiteningModel.fit(data.corpus_embs, pca_dim=0.96,
+                                 ica_max_iter=200, seed=0)
+    raw = data.corpus_embs
+    assert torch.equal(w.transform_torch(torch.as_tensor(raw, device=card))
+                       .cpu(), w.transform_torch(torch.as_tensor(raw)))
+    k, pool = 10, 256
+    dbs, out = [], []
+    for dev in ("cpu", card):
+        db = CobwebIndex(config=TreeConfig(dim=w.dim_out), n_subtrees=8,
+                         whitener=w, device=dev)
+        db.blocked_threshold = 64
+        db.add_sentences([None] * len(raw), raw)
+        out.append(db.query_ids(data.query_embs, k, rerank=pool)
+                   .cpu().numpy())
+        dbs.append(db)
+    host, dev = dbs
+    np.testing.assert_array_equal(dev.forest._leaf_global(),
+                                  host.forest._leaf_global())
+    a, b = state_to_numpy(host.forest.state), state_to_numpy(dev.forest.state)
+    for f in ("parent", "children", "n_children", "counts"):
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+    differ = np.nonzero((out[0] != out[1]).any(axis=1))[0]
+    pv = float(dev.cfg.prior_var)
+    D = raw.shape[1]
+    for qi in differ:
+        qs = torch.as_tensor(data.query_embs[qi:qi + 1], device=card)
+        q = w.transform_torch(qs)
+        fidx = dev._fused_index()
+        qq = fused_topk.query_terms(q, fidx.GT.dtype)
+        full = fused_topk.slab_scores_plain(qq, fidx.GT, fidx.c, fidx.valid,
+                                            float("-inf"))[0].reshape(-1)
+        cs, cand = fused_query_topk(fidx, q, pool)
+        last = float(cs[0, -1])
+        ids = torch.as_tensor(np.union1d(out[0][qi], out[1][qi]),
+                              device=card)
+        keys = rerank.rerank_lp_plain(
+            dev._emb_device(), qs, ids.view(1, -1).to(torch.int32),
+            torch.zeros((1, len(ids)), device=card), pv)[0]
+        kth = float(torch.topk(keys, k).values[-1])
+        tol = 1e-5 * (abs(kth) + 0.5 * D * abs(math.log(pv)))
+        for sid in set(out[0][qi]) ^ set(out[1][qi]):
+            j = int((ids == int(sid)).nonzero()[0, 0])
+            key_tie = abs(float(keys[j]) - kth) <= tol
+            pool_tie = abs(float(full[int(sid)]) - last) <= \
+                1e-3 * (1 + abs(last))
+            assert key_tie or pool_tie, (
+                f"query {qi}: id {sid} differs and is no tie (key "
+                f"{float(keys[j])} vs 10th {kth}; path score "
+                f"{float(full[int(sid)])} vs pool's last {last})")

@@ -74,14 +74,22 @@ def test_import_and_host_path_build_nothing(monkeypatch):
 def test_entry_points_refuse_the_host_by_default():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
+    import json
+    from rag_cobweb_tpu_torch import interop
     from rag_cobweb_tpu_torch.bench.baselines import FlatIndex
     from rag_cobweb_tpu_torch.core.config import TreeConfig
     from rag_cobweb_tpu_torch.core.tree import CobwebTree
     from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
     from rag_cobweb_tpu_torch.parallel.vforest import VForest
     cfg = TreeConfig(dim=4)
+    tree = CobwebTree(cfg, device="cpu")
     for make in (lambda: CobwebTree(cfg), lambda: VForest(cfg),
                  lambda: CobwebIndex(config=cfg, n_subtrees=2),
+                 lambda: CobwebIndex(config=cfg),
+                 lambda: CobwebIndex.load_json(json.dumps(
+                     {"tree": json.loads(tree.dump_json())})),
+                 lambda: CobwebTree.load_json(tree.dump_json()),
+                 lambda: interop.tree_from_numpy(tree.host_arrays(), cfg),
                  lambda: FlatIndex(torch.zeros((3, 4)).numpy())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -125,5 +125,6 @@ def test_unported_engines_raise(setup):
     tdb.backstop_pool = 16
     with pytest.raises(NotImplementedError, match="backstop"):
         tdb.query_ids(data.query_embs[:2], 3)
-    with pytest.raises(NotImplementedError, match="single-tree"):
-        CobwebIndex(config=TreeConfig(dim=4), n_subtrees=1, device="cpu")
+    # the single tree (n_subtrees=1, the default) is ported: it builds
+    one = CobwebIndex(config=TreeConfig(dim=4), n_subtrees=1, device="cpu")
+    assert one.forest is None and one.tree is not None
