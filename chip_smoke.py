@@ -58,8 +58,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    path-score order) served in its own window through kernel 1's f32
    entry on the tree's f32 FusedIndex, which is then held against its
    plain version and timed at B = 1, 32 and 1024 (kappa 10); the f32 group
-   pool over that index and the blocked kernel's f32 entry (an f32
-   blocked index, ``rerank=0``), each in its own window, held and timed;
+   pool over that index, held and timed, and the blocked kernel's f32
+   entry (an f32 blocked index, ``rerank=0``), held and timed at B = 1,
+   8, 32 and 1024 (its library call: 3 ``bmm`` + ``topk``, TF32 off),
+   each in its own window;
 4. one JSON line of per-kernel numbers, a row per CUDA kernel entry
    (kernel 1 at the flagship shape, with its single-tree record under
    ``single_tree``; kernel 5 on the flagship's served pools, likewise; the
@@ -67,7 +69,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    kernels 3 and 4, whose bodies are one, with its record at B=4096 under
    ``B4096``; the group pool at the flagship shape; the f32 entries of
    kernel 1 (B=1024, with ``B1``, ``B32``), of the group pool and of the
-   blocked kernel on the single tree's f32 indexes), the nvidia-smi line,
+   blocked kernel (B=1024, with ``B1``, ``B8``, ``B32``) on the single
+   tree's f32 indexes), the nvidia-smi line,
    and the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -637,8 +640,10 @@ def single_tree_slice(headline, zero, read, windows, launches,
         zero()
         to_host(db.query_ids(data.query_embs, 10, rerank=0))
         windows["single_blocked_f32"] = read()
-        single["blocked_f32"] = check_blocked(
-            blocked_topk, qw, db._blocked_index(), 10, reps=10, real=True)
+        bf32 = db._blocked_index()
+        for B, reps in ((1, 50), (8, 50), (32, 50), (1024, 10)):
+            single[f"blocked_f32 B={B}"] = check_blocked(
+                blocked_topk, qw[:B], bf32, 10, reps=reps, real=True)
         db.use_fused, db.use_pallas = True, False
 
     rec1 = headline.run(corpus_size=corpus_size, queries=queries, dim=dim,
@@ -684,10 +689,11 @@ def single_tree_slice(headline, zero, read, windows, launches,
             raise AssertionError(f"{k} never launched in its window: "
                                  f"{windows[w]}")
         launches[k] = windows[w][k]
-    log("[single] fused_topk f32 ms / bound ms / library ms by batch size: "
-        + json.dumps({k: [r["ms"], r["bound_ms"], r["library_ms"]]
-                      for k, r in single.items()
-                      if k.startswith("fused_f32")}))
+    for name in ("fused_f32", "blocked_f32"):
+        log(f"[single] {name} ms / bound ms / library ms by batch size: "
+            + json.dumps({k: [r["ms"], r["bound_ms"], r["library_ms"]]
+                          for k, r in single.items()
+                          if k.startswith(name + " ")}))
     return rec1, single
 
 
@@ -995,7 +1001,9 @@ def main() -> int:
              source=src + "blocked_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:40; "
                       "rag_cobweb_tpu/ops/pallas_query.py:126",
-             launches=launches["blocked_topk_f32"], **single["blocked_f32"]),
+             launches=launches["blocked_topk_f32"],
+             **single["blocked_f32 B=1024"], B1=single["blocked_f32 B=1"],
+             B8=single["blocked_f32 B=8"], B32=single["blocked_f32 B=32"]),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,8 @@
 checkout (``--parent``), in turns on one card.
 
     python -m rag_cobweb_tpu_torch.bench.kernel_ab \\
-        --kernel {blocked_topk,fused_topk,fused_group_topk,rerank_l2} \\
+        --kernel {blocked_topk,blocked_topk_f32,fused_topk,fused_group_topk,
+              rerank_l2} \\
         --parent DIR
 
 The other checkout's kernel source (``csrc/<source>.cu``, with the headers
@@ -11,8 +12,9 @@ built with the same ``nvcc`` command into ``build/torch_kernels/`` and
 called through its own C entry, whose argument list is read from that
 checkout's ``ops/_build.py``.  At each shape both kernels are held against
 this checkout's plain version, then timed with CUDA events (device time)
-as parent, this, this, parent; one JSON line per shape, then the card's
-name and power limit.  Shapes:
+as parent, this, this, parent (and, where a shape names one, the library
+call after them); one JSON line per shape, then the card's name and power
+limit.  Shapes:
 
 * ``blocked_topk``: the 100k cell's served bf16 blocked index (c=100000,
   768-d, PCA to 128, 64 lanes: NB=196, M=768, D=128, TS=512) and its
@@ -20,6 +22,14 @@ name and power limit.  Shapes:
   batches the serving gives the kernel) and 4096; held within one bf16
   step of every nlp term weighted by |W| (the cell is built first, ~1
   min);
+* ``blocked_topk_f32``: the blocked sweep's f32 entry on a random dyadic
+  f32 blocked index of the single tree's shape (NB=20, M=768, D=248,
+  TS=512, 272 valid slots in the last block, kk=10), so no tree is built
+  and every nlp term and score is exact in f32 in any order: at B = 1, 8,
+  32 and 1000 both kernels give the plain version's scores and ids
+  exactly; each line adds the bound (67 TFLOP/s f32, 3.35 TB/s) and the
+  library call (3 ``bmm`` + ``topk``, f32 with TF32 off) timed in the same
+  turns;
 * ``fused_topk``: the flagship's served fused index (c=10000, 768-d, PCA
   0.96, 32 lanes: 2D=496, Sp=10240) with its whitened queries and
   kappa=1024 at B = 1, 32 and 1000 (its batch), the 100k cell's (2D=256,
@@ -51,11 +61,15 @@ import torch
 
 from rag_cobweb_tpu_torch.ops import _build
 
-KERNELS = ("blocked_topk", "fused_topk", "fused_group_topk", "rerank_l2")
-ENTRY = {"blocked_topk": "blocked_topk_bf16", "fused_topk": "fused_topk_bf16",
+KERNELS = ("blocked_topk", "blocked_topk_f32", "fused_topk",
+           "fused_group_topk", "rerank_l2")
+ENTRY = {"blocked_topk": "blocked_topk_bf16",
+         "blocked_topk_f32": "blocked_topk_f32",
+         "fused_topk": "fused_topk_bf16",
          "fused_group_topk": "fused_group_topk_bf16",
          "rerank_l2": "rerank_l2"}
-SOURCE = {"fused_group_topk": "fused_topk"}    # else the kernel's own name
+SOURCE = {"blocked_topk_f32": "blocked_topk",   # else the kernel's own name
+          "fused_group_topk": "fused_topk"}
 
 
 def parent_entry(parent: Path, kernel: str):
@@ -167,6 +181,84 @@ def blocked_cases(other):
                lambda qd=qd, q2=q2: bt._block_candidates(qd, q2, bidx,
                                                          kk)[0],
                run_other, check)
+
+
+def dyadic_f32_index(NB, M, D, TS, S_last, seed):
+    """A random f32 blocked index whose nlp terms and scores are exact in
+    f32 in any order (small multiples of powers of two; W holds ~12 weights
+    of 0.5 or 1 per slot, as a path does), so ties are exact and go to the
+    lower slot in every version.  The last block has ``S_last`` valid
+    slots."""
+    from rag_cobweb_tpu_torch.core.index import BlockedIndex
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             device="cuda").float()
+
+    W = ints(1, 3, (NB, M, TS)) / 2
+    W = torch.where(torch.rand((NB, M, TS), generator=g, device="cuda")
+                    < 12.0 / M, W, torch.zeros_like(W))
+    valid = torch.ones((NB, TS), dtype=torch.bool, device="cuda")
+    valid[-1, S_last:] = False
+    return BlockedIndex(
+        ivt_b=ints(1, 17, (NB, M, D)) / 16,
+        movt_b=ints(-8, 9, (NB, M, D)) / 16,
+        const_b=ints(-64, 65, (NB, M)) / 4, W=W.contiguous(), valid=valid,
+        sid_of_slot=torch.arange(NB * TS, device="cuda",
+                                 dtype=torch.int32).view(NB, TS))
+
+
+def blocked_f32_cases(other):
+    """The single tree's f32 blocked shape on a dyadic index: scores and
+    ids equal to the plain version's, with the library call beside."""
+    from rag_cobweb_tpu_torch.ops import blocked_topk as bt
+    NB, M, D, TS, kk = 20, 768, 248, 512, 10
+    bidx = dyadic_f32_index(NB, M, D, TS, 10000 - 19 * TS, seed=8)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    queries = torch.randint(-8, 9, (1000, D), generator=g,
+                            device="cuda").float() / 8
+    for B in (1, 8, 32, 1000):
+        qd, q2 = bt._queries(bidx, queries[:B])
+        out_s = torch.empty((NB, B, kk), dtype=torch.float32, device="cuda")
+        out_t = torch.empty((NB, B, kk), dtype=torch.int32, device="cuda")
+        ptrs = [t.data_ptr() for t in (qd, q2, bidx.ivt_b, bidx.movt_b,
+                                       bidx.const_b, bidx.W, bidx.valid)]
+
+        def run_other():
+            _build.check(other(*ptrs, out_s.data_ptr(), out_t.data_ptr(), B,
+                               NB, M, D, TS, kk,
+                               torch.cuda.current_stream().cuda_stream),
+                         "other kernel")
+            return out_s, out_t
+
+        ps, pi = bt.block_candidates_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
+                                           bidx.const_b, bidx.W, bidx.valid,
+                                           kk)
+
+        def check(out, ps=ps, pi=pi):
+            ks, ki = out
+            err = (ks - ps).abs()
+            return float(err.max()), bool(
+                (err <= 1e-3 + 1e-3 * ps.abs()).all()
+                and torch.equal(ki, pi))
+
+        def library(qd=qd, q2=q2, B=B):
+            qT = qd.T.unsqueeze(0).expand(NB, D, B)
+            q2T = q2.T.unsqueeze(0).expand(NB, D, B)
+            nl = (torch.bmm(bidx.movt_b, qT) - 0.5 * torch.bmm(bidx.ivt_b, q2T)
+                  + bidx.const_b.unsqueeze(2))
+            sc = torch.bmm(bidx.W.transpose(1, 2), nl)
+            sc.masked_fill_(~bidx.valid.unsqueeze(2), bt.NEG)
+            return torch.topk(sc, kk, dim=1)
+
+        flops = 2.0 * B * NB * M * (2 * D + TS)
+        nbytes = (4 * (2 * B * D + 2 * NB * M * D + NB * M + NB * M * TS)
+                  + NB * TS + NB * B * kk * 8)
+        yield ({"B": B, "NB": NB, "M": M, "D": D, "TS": TS, "kk": kk,
+                "bound_ms": max(flops / 67e12, nbytes / 3.35e12) * 1e3},
+               lambda qd=qd, q2=q2: bt._block_candidates(qd, q2, bidx, kk),
+               run_other, check, library)
 
 
 def fused_cases(other):
@@ -357,10 +449,11 @@ def main(argv=None) -> int:
     full_f32_matmul()
     _build.build_all()
     other = parent_entry(args.parent, args.kernel)
-    cases = {"blocked_topk": blocked_cases, "fused_topk": fused_cases,
-             "fused_group_topk": group_cases,
+    cases = {"blocked_topk": blocked_cases,
+             "blocked_topk_f32": blocked_f32_cases,
+             "fused_topk": fused_cases, "fused_group_topk": group_cases,
              "rerank_l2": rerank_cases}[args.kernel](other)
-    for shape, run_this, run_other, check in cases:
+    for shape, run_this, run_other, check, *library in cases:
         errs = {}
         for name, fn in (("other", run_other), ("this", run_this)):
             out = fn()
@@ -376,9 +469,11 @@ def main(argv=None) -> int:
         for name in ("other", "this", "this", "other"):
             fn = run_other if name == "other" else run_this
             times[name].append(cuda_ms(fn, reps))
+        lib = {"library_ms": cuda_ms(library[0], reps)} if library else {}
         print(json.dumps({"kernel": args.kernel, **shape,
                           "other_ms": times["other"],
-                          "this_ms": times["this"], "max_abs_err": errs}),
+                          "this_ms": times["this"], **lib,
+                          "max_abs_err": errs}),
               flush=True)
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -62,7 +62,7 @@
 // idle lost to one CTA a block at B <= 64 on the served index, so there
 // is none.  D must be a multiple of 8 (16-byte TMA rows;
 // build_blocked_index pads it).  An f32 index runs on the CUDA cores at
-// full f32 (fmaf), with the score tile in shared memory.
+// full f32 (fmaf) in register-tiled products, below.
 
 #include "hopper.cuh"
 
@@ -701,128 +701,518 @@ blocked_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   cluster_sync();                         // no CTA leaves while read
 }
 
-// -- f32 kernel: CUDA cores --------------------------------------------------
+// -- f32 kernel: register-tiled SGEMMs on the CUDA cores ---------------------
+//
+// The same TPU kernels on an f32 index: _kernel at Precision.HIGHEST
+// (pallas_query.py:59-71), whose products are full f32, and so are these
+// (fmaf on the CUDA cores: TF32 on wgmma keeps ~3 decimal digits, too few
+// for the single tree's sums of large cancelling terms).  What bounds it
+// on an H100 ("NVIDIA H100 80GB HBM3, 700.00 W"): 2 B NB M (2D + TS)
+// operations at the 67 TFLOP/s f32 peak, or the 4 NB M (2D + TS + 1)
+// bytes of the index at 3.35 TB/s.  On the single tree's f32 index (NB =
+// 20, M = 768, D = 248, TS = 512) the operations bound it at B = 1000
+// (0.46 ms), the bytes at B <= 32 (61 MB, 0.018 ms).
+//
+// The design is the register-tiled SGEMM, twice.  One CTA (256 threads,
+// 8 warps) owns TQ queries (8, 16, 32 or 64, the least that holds the
+// batch), one sentence block and a range of M.  M streams in chunks of
+// MC = 64 nodes, each as items of a ring of 6 equal stages (32 KB) that
+// one thread fills by TMA, five items ahead, each stage on its own
+// mbarrier (zero fill past B, M, D and TS):
+//   * the chunk's D slices, 32 columns of the query tile's q and q^2 rows
+//     and the chunk's movt and ivt rows, in 128-byte rows swizzled by TMA,
+//     so that the 8 rows a warp's 16-byte load reads fall in distinct
+//     banks.  GEMM1: each thread holds a (TQ/16) x 4 tile (1 x 2 at TQ =
+//     8) of both products, q . movt and q^2 . ivt, in registers; after the
+//     chunk's last slice it writes nlp = (a - 0.5 b) + const, transposed
+//     (a node a row), to a 64 x TQ tile;
+//   * the chunk's W rows, 16 at a time (8 at TS > 512), in boxes of 256
+//     slots.  GEMM2: each thread keeps a (TQ/8) x 16 tile (x 32 at TS >
+//     512) of the TQ x TS scores in registers across all of M (128 floats
+//     at TQ = 64) and takes outer products of nlp rows and W rows.
+// A warp covers 4 query groups x 8 node (slot) groups, so each of its
+// 16-byte loads of a stage reads 128 distinct bytes at most: one
+// wavefront.  Then the scores go to shared memory over the ring.  Where
+// query tiles x blocks leave SMs idle (B <= 32 on the served index: 20
+// CTAs for 132 SMs) the CTAs of a cluster split M and each keeps the
+// partial scores of its chunks.  The launcher takes the split whose waves
+// of clusters (cudaOccupancyMaxActiveClusters) cost least: on the served
+// index 2 at B = 1000 (5 waves of half CTAs against 3 waves of whole
+// ones), 4 at B <= 32 (20 clusters of 6 do not fit the card's GPCs at
+// once).  Each CTA of a cluster then owns every ns-th query row: it sums
+// that row of the partial tiles in rank order through distributed shared
+// memory and selects it.  The selection runs kk rounds of max/argmax in
+// registers, a warp on 4 rows at once (a lane holds 16 slots: a max tree,
+// its lowest slot, then 5 shuffles), one row a warp where a CTA selects
+// no more rows than it has warps.  At B <= 32 a tile of 8 to 32 queries
+// computes mostly padding, and its small register tiles leave the FMA
+// pipes waiting on shared-memory latency.  D must be a multiple of 4 and
+// q, q2, ivt, movt and W 16-byte aligned (TMA's strides; the wrapper pads
+// and copies where they are not).
 
 constexpr int THREADS = 256;              // 8 warps
 constexpr int NWARP = THREADS / 32;
+constexpr int FDC = 32;                   // columns of a D slice (128 B)
+constexpr int WBOX = 256;                 // W columns of a TMA box
+constexpr int MAX_STAGES_F32 = 6;         // ring stages (items ahead + 1)
+constexpr int MAX_DEVICES = 16;
 
-// Mask invalid slots to NEG, then per query (one warp at a time) kk rounds
-// of max/argmax over the TS staged scores: ties to the lower slot; the
-// taken slot becomes NEG.
-__device__ __forceinline__ void select_topk(float* sc, const uint8_t* vb,
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// GEMM1 runs on a QG1 x NG1 grid of R1 x RN tiles (queries g1q + QG1 i,
+// nodes g1n + NG1 j), GEMM2 on an 8 x 32 grid of (TQ/8) x 4 NV tiles.
+template <int TQ, int NV>
+struct F32Tile {
+  static constexpr int QG1 = TQ < 16 ? TQ : 16, NG1 = THREADS / QG1;
+  static constexpr int R1 = TQ / QG1, RN = MC / NG1;
+  static constexpr int TSP = 128 * NV;            // slots held (TS padded)
+  static constexpr int KW = NV <= 4 ? 16 : 8;     // W rows an item
+  static constexpr int NWI = MC / KW;             // W items a chunk
+  static constexpr int AROWS = 2 * TQ + 2 * MC;   // q, q^2, movt, ivt
+  static constexpr int AF = AROWS * FDC;          // floats of a D slice
+  static constexpr int WF = KW * TSP;             // floats of a W item
+  static constexpr int LDN = TQ + 4;              // nlp tile: a node a row
+  static constexpr int NLP = MC * LDN;
+  static constexpr int STAGE = AF > WF ? AF : WF; // floats a ring stage
+  static constexpr int FIT = (SMEM_LIMIT / 4 - NLP - 2 * MAX_STAGES_F32) /
+                             STAGE;
+  static constexpr int STAGES = FIT < MAX_STAGES_F32 ? FIT : MAX_STAGES_F32;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int SMEM = (RING + NLP) * 4 + STAGES * 8;  // + mbarriers
+  static_assert(STAGES >= 3, "a ring of at least three stages");
+  static_assert(TQ * TSP <= RING, "the score tile lies over the ring");
+  static_assert(STAGE % 256 == 0 && TQ * FDC % 256 == 0,
+                "boxes of swizzled rows start 1024-byte aligned");
+};
+
+// The rows of the score tile (``ld`` floats apart) that this CTA selects,
+// rank, rank + ns, ... below qv: kk rounds of max/argmax in registers, a
+// warp on RR rows at once (lane l holds slots l + 32 m).  Invalid slots
+// are NEG; ties go to the lower slot; a taken slot becomes NEG, so once
+// every slot is NEG a round gives NEG at slot 0, as JAX's argmax does.
+template <int NPL, int RR>
+__device__ __forceinline__ void select_topk(const float* sc, int ld,
+                                            const uint8_t* vb,
                                             float* __restrict__ out_s,
                                             int* __restrict__ out_t, int B,
                                             int q0, int qv, int nb, int TS,
-                                            int kk, int TQ) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  for (int e = tid; e < TQ * TS; e += THREADS) {
-    if (!vb[e % TS]) sc[e] = NEG;
-  }
-  __syncthreads();
-  const unsigned int full = 0xffffffffu;
-  for (int r = warp; r < qv; r += NWARP) {
-    float* row = sc + r * TS;
-    const size_t ob = ((size_t)nb * B + q0 + r) * kk;
+                                            int kk, int rank, int ns) {
+  constexpr int LOG_NPL = NPL == 32 ? 5 : 4;
+  static_assert(NPL == 1 << LOG_NPL, "16 or 32 slots a lane");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nrows = qv > rank ? (qv - rank + ns - 1) / ns : 0;
+  const float ninf = __int_as_float(0xff800000);
+  for (int j0 = warp * RR; j0 < nrows; j0 += NWARP * RR) {
+    float v[RR][NPL];
+    int row[RR];
+#pragma unroll
+    for (int r = 0; r < RR; ++r) {
+      row[r] = j0 + r < nrows ? rank + ns * (j0 + r) : -1;
+    }
+#pragma unroll
+    for (int m = 0; m < NPL; ++m) {
+      const int t = lane + 32 * m;
+      const bool in = t < TS, ok = in && vb[t];
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {
+        v[r][m] = !in ? ninf : ok && row[r] >= 0 ? sc[row[r] * ld + t] : NEG;
+      }
+    }
     for (int i = 0; i < kk; ++i) {
-      float best = __int_as_float(0xff800000);   // -inf
-      int bi = 0x7fffffff;
-      for (int t = lane; t < TS; t += 32) {       // ascending: first max
-        const float v = row[t];
-        if (v > best) { best = v; bi = t; }
+      float best[RR];
+      int bi[RR];
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {              // each lane's first max
+        float x[NPL];
+#pragma unroll
+        for (int m = 0; m < NPL; ++m) x[m] = v[r][m];
+#pragma unroll
+        for (int l = 1; l <= LOG_NPL; ++l) {      // the max, by a tree
+#pragma unroll
+          for (int m = 0; m < NPL / 2; ++m) {
+            if (m < (NPL >> l)) x[m] = fmaxf(x[m], x[m + (NPL >> l)]);
+          }
+        }
+        int bm = 0;
+#pragma unroll
+        for (int m = NPL - 1; m >= 0; --m) {      // its lowest slot
+          if (v[r][m] == x[0]) bm = m;
+        }
+        best[r] = x[0];
+        bi[r] = x[0] > ninf ? lane + 32 * bm : 0x7fffffff;
       }
 #pragma unroll
-      for (int off = 16; off; off >>= 1) {
-        const float ov = __shfl_xor_sync(full, best, off);
-        const int oi = __shfl_xor_sync(full, bi, off);
-        if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
+      for (int off = 16; off; off >>= 1) {        // the warp's, every row
+#pragma unroll
+        for (int r = 0; r < RR; ++r) {
+          const float ov = __shfl_xor_sync(0xffffffffu, best[r], off);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi[r], off);
+          if (ov > best[r] || (ov == best[r] && oi < bi[r])) {
+            best[r] = ov;
+            bi[r] = oi;
+          }
+        }
       }
       if (lane == 0) {
-        out_s[ob + i] = best;
-        out_t[ob + i] = bi;
-        row[bi] = NEG;
+#pragma unroll
+        for (int r = 0; r < RR; ++r) {
+          if (row[r] < 0) continue;
+          const size_t o = ((size_t)nb * B + q0 + row[r]) * kk + i;
+          out_s[o] = best[r];
+          out_t[o] = bi[r];
+        }
       }
-      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {              // the taken slot: NEG
+#pragma unroll
+        for (int m = 0; m < NPL; ++m) {
+          if (bi[r] == lane + 32 * m) v[r][m] = NEG;
+        }
+      }
     }
   }
 }
 
-// f32 index: exact f32 FMAs on the CUDA cores; the TQ x TS score tile
-// accumulates in shared memory, one M chunk at a time.
-template <int MT>
-__global__ void __launch_bounds__(THREADS)
-blocked_f32_kernel(const float* __restrict__ q, const float* __restrict__ q2,
-                   const float* __restrict__ ivt,
-                   const float* __restrict__ movt,
+// GEMM1 over one D slice: fa += q . movt, fb += q^2 . ivt for this
+// thread's queries g1q + QG1 i and nodes g1n + NG1 j, in ascending d.  Rows
+// are 128 bytes, their 16-byte chunks swizzled by TMA (chunk c of row r at
+// c ^ (r % 8)), so the eight rows of a warp's load fall in distinct banks.
+template <int TQ, int QG1, int R1, int RN>
+__device__ __forceinline__ void gemm1_slice(const float* st,
+                                            float (&fa)[R1][RN],
+                                            float (&fb)[R1][RN],
+                                            int g1q, int g1n) {
+  constexpr int NG1 = MC / RN;
+  const float* sq = st + g1q * FDC;
+  const float* sn = st + (2 * TQ + g1n) * FDC;
+  const int zq = g1q & 7, zn = g1n & 7;
+#pragma unroll
+  for (int k = 0; k < FDC / 4; ++k) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {               // q . movt, q^2 . ivt
+      float (&f)[R1][RN] = p ? fb : fa;
+      float4 x[R1];
+#pragma unroll
+      for (int i = 0; i < R1; ++i) {
+        x[i] = ld4(sq + (p * TQ + QG1 * i) * FDC + 4 * (k ^ zq));
+      }
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {            // a node row at a time
+        const float4 y = ld4(sn + (p * MC + NG1 * j) * FDC + 4 * (k ^ zn));
+#pragma unroll
+        for (int i = 0; i < R1; ++i) {
+          f[i][j] = fmaf(x[i].x, y.x, f[i][j]);
+          f[i][j] = fmaf(x[i].y, y.y, f[i][j]);
+          f[i][j] = fmaf(x[i].z, y.z, f[i][j]);
+          f[i][j] = fmaf(x[i].w, y.w, f[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// GEMM2 over one W item: acc += nlp rows . W rows, for this thread's
+// queries (``nl`` points at its first in the item's first nlp row) and
+// slots g2s + 128 v (``w`` points at slot g2s of the item's first row; the
+// item holds boxes of KW rows x 256 slots).
+template <int TQ, int NV>
+__device__ __forceinline__ void gemm2_rows(const float* nl, const float* w,
+                                           float (&acc)[TQ / 8][NV][4]) {
+  using L = F32Tile<TQ, NV>;
+  constexpr int R2 = TQ / 8;
+#pragma unroll
+  for (int k = 0; k < L::KW; ++k) {
+    float a[R2];
+    if constexpr (R2 >= 4) {
+#pragma unroll
+      for (int i = 0; i < R2; i += 4) {
+        const float4 t = ld4(nl + k * L::LDN + i);
+        a[i] = t.x; a[i + 1] = t.y; a[i + 2] = t.z; a[i + 3] = t.w;
+      }
+    } else if constexpr (R2 == 2) {
+      const float2 t = *reinterpret_cast<const float2*>(nl + k * L::LDN);
+      a[0] = t.x; a[1] = t.y;
+    } else {
+      a[0] = nl[k * L::LDN];
+    }
+    float4 b[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      b[v] = ld4(w + (v >> 1) * L::KW * WBOX + k * WBOX + (v & 1) * 128);
+    }
+#pragma unroll
+    for (int i = 0; i < R2; ++i) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        acc[i][v][0] = fmaf(a[i], b[v].x, acc[i][v][0]);
+        acc[i][v][1] = fmaf(a[i], b[v].y, acc[i][v][1]);
+        acc[i][v][2] = fmaf(a[i], b[v].z, acc[i][v][2]);
+        acc[i][v][3] = fmaf(a[i], b[v].w, acc[i][v][3]);
+      }
+    }
+  }
+}
+
+// Grid (split, query tiles, blocks), the split a cluster along M.
+template <int TQ, int NV>
+__global__ void __launch_bounds__(THREADS, 1)
+blocked_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tq2,
+                   const __grid_constant__ CUtensorMap tmv,
+                   const __grid_constant__ CUtensorMap tiv,
+                   const __grid_constant__ CUtensorMap tw,
                    const float* __restrict__ cst,
-                   const float* __restrict__ W,
                    const uint8_t* __restrict__ valid,
                    float* __restrict__ out_s, int* __restrict__ out_t,
                    int B, int M, int D, int TS, int kk) {
-  constexpr int TQ = 16 * MT;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sc = reinterpret_cast<float*>(smem);     // [TQ][TS]
-  float* nlpf = sc + TQ * TS;                     // [TQ][MC]
+  using L = F32Tile<TQ, NV>;
+  constexpr int R1 = L::R1, RN = L::RN, QG1 = L::QG1, R2 = TQ / 8;
+  constexpr int S = L::STAGES;
+  extern __shared__ __align__(1024) float fsm[];
+  float* nlp = fsm + L::RING;                     // [MC][LDN]
+  const uint32_t bars = smem_u32(nlp + L::NLP);   // a full barrier a stage
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * TQ, nb = blockIdx.y;
+  const int rank = blockIdx.x, ns = gridDim.x;
+  const int q0 = blockIdx.y * TQ, nb = blockIdx.z;
   const int qv = min(TQ, B - q0);
-  const float* c_blk = cst + (size_t)nb * M;
-  const float* w_blk = W + (size_t)nb * M * TS;
+  const int nch = (M + MC - 1) / MC, cpr = (nch + ns - 1) / ns;
+  const int c0 = min(nch, rank * cpr), c1 = min(nch, c0 + cpr);
+  const int ND = (D + FDC - 1) / FDC;             // D slices a chunk
+  const int per = ND + L::NWI;                    // items a chunk
+  const int N = (c1 - c0) * per;
 
-  for (int e = tid; e < TQ * TS; e += THREADS) sc[e] = 0.f;
-  for (int m0 = 0; m0 < M; m0 += MC) {
-    const int mn = min(MC, M - m0);
-    __syncthreads();
-    for (int e = tid; e < TQ * MC; e += THREADS) {
-      const int r = e / MC, c = e % MC;
-      float v = 0.f;
-      if (r < qv && c < mn) {
-        const float* qr = q + (size_t)(q0 + r) * D;
-        const float* q2r = q2 + (size_t)(q0 + r) * D;
-        const size_t node = ((size_t)nb * M + m0 + c) * D;
-        float a = 0.f, b = 0.f;
-        for (int d = 0; d < D; ++d) {
-          a = fmaf(qr[d], movt[node + d], a);
-          b = fmaf(q2r[d], ivt[node + d], b);
-        }
-        v = (a - 0.5f * b) + c_blk[m0 + c];
+  // Item i of this CTA, by TMA into ring stage i % S (thread 0): chunk
+  // c0 + i / per; its first ND items are the D slices, the rest its W rows.
+  auto issue = [&](int i) {
+    const int ci = i / per, r = i - ci * per;
+    const int m0 = (c0 + ci) * MC;
+    const uint32_t st = smem_u32(fsm + i % S * L::STAGE);
+    const uint32_t bar = bars + 8 * (i % S);
+    if (r < ND) {
+      const int d0 = r * FDC;
+      mbar_expect_tx(bar, L::AF * 4);
+      tma_2d(st, &tq, d0, q0, bar);
+      tma_2d(st + TQ * FDC * 4, &tq2, d0, q0, bar);
+      tma_3d(st + 2 * TQ * FDC * 4, &tmv, d0, m0, nb, bar);
+      tma_3d(st + (2 * TQ + MC) * FDC * 4, &tiv, d0, m0, nb, bar);
+    } else {
+      const int k0 = m0 + (r - ND) * L::KW;
+      mbar_expect_tx(bar, L::WF * 4);
+#pragma unroll
+      for (int x = 0; x < L::TSP / WBOX; ++x) {
+        tma_3d(st + x * L::KW * WBOX * 4, &tw, x * WBOX, k0, nb, bar);
       }
-      nlpf[e] = v;
     }
+  };
+
+  // A warp covers 4 query groups x 8 node (slot) groups, so each of its
+  // 16-byte loads reads at most 128 distinct bytes: one wavefront.
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g1q = (lane >> 3) + 4 * (warp % (QG1 / 4));  // GEMM1: QG1
+  const int g1n = (lane & 7) + 8 * (warp / (QG1 / 4));   //   x NG1
+  const int g2q = ((lane >> 3) + 4 * (warp & 1)) * R2;  // GEMM2: 8 query
+  const int g2s = 4 * ((lane & 7) + 8 * (warp >> 1));   //   x 32 slot groups
+  float acc[R2][NV][4];
+#pragma unroll
+  for (int i = 0; i < R2; ++i) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[i][v][x] = 0.f;
+    }
+  }
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int i = 0; i < S - 1 && i < N; ++i) issue(i);   // S - 1 ahead
+  }
+  __syncthreads();
+  // Item i: wait for it, then (every thread being done with item i - 1)
+  // thread 0 loads item i + S - 1 into item i - 1's stage.
+  auto next = [&](int i) {
+    mbar_wait(bars + 8 * (i % S), (i / S) & 1);
     __syncthreads();
-    for (int e = tid; e < TQ * TS; e += THREADS) {
-      const int r = e / TS, t = e % TS;
-      float acc = sc[e];
-      for (int c = 0; c < mn; ++c) {
-        acc = fmaf(nlpf[r * MC + c], w_blk[(size_t)(m0 + c) * TS + t], acc);
+    if (tid == 0 && i + S - 1 < N) {
+      fence_async_smem();
+      issue(i + S - 1);
+    }
+    return fsm + i % S * L::STAGE;
+  };
+  for (int i = 0, m0 = c0 * MC; i < N; m0 += MC) {
+    float fa[R1][RN], fb[R1][RN];                 // GEMM1: this chunk only
+#pragma unroll
+    for (int x = 0; x < R1; ++x) {
+#pragma unroll
+      for (int j = 0; j < RN; ++j) fa[x][j] = fb[x][j] = 0.f;
+    }
+    for (int r = 0; r < ND; ++r, ++i) {
+      gemm1_slice<TQ, QG1, R1, RN>(next(i), fa, fb, g1q, g1n);
+    }
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {                // the chunk's nlp tile
+      const int n = g1n + L::NG1 * j;
+      const bool ok = m0 + n < M;
+      const float cv = ok ? cst[(size_t)nb * M + m0 + n] : 0.f;
+#pragma unroll
+      for (int x = 0; x < R1; ++x) {
+        nlp[n * L::LDN + g1q + QG1 * x] =
+            ok ? (fa[x][j] - 0.5f * fb[x][j]) + cv : 0.f;
       }
-      sc[e] = acc;
+    }
+    for (int r = 0; r < L::NWI; ++r, ++i) {
+      const float* st = next(i);                  // also orders the nlp tile
+      gemm2_rows<TQ, NV>(nlp + r * L::KW * L::LDN + g2q, st + g2s, acc);
+    }
+  }
+  __syncthreads();                                // the ring is free
+
+  float* sc = fsm;                                // [TQ][TSP] scores
+#pragma unroll
+  for (int i = 0; i < R2; ++i) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      *reinterpret_cast<float4*>(sc + (g2q + i) * L::TSP + g2s + 128 * v) =
+          make_float4(acc[i][v][0], acc[i][v][1], acc[i][v][2],
+                      acc[i][v][3]);
     }
   }
   __syncthreads();
-  select_topk(sc, valid + (size_t)nb * TS, out_s, out_t, B, q0, qv, nb, TS,
-              kk, TQ);
+  if (ns > 1) {
+    // Each CTA sums, in rank order, the partial tiles' rows that it
+    // selects (rank, rank + ns, ...) into its own tile.
+    cluster_sync();
+    const int nrows = qv > rank ? (qv - rank + ns - 1) / ns : 0;
+    const uint32_t base = smem_u32(sc);
+    for (int e = tid; e < nrows * L::TSP / 4; e += THREADS) {
+      const int j = e / (L::TSP / 4), c = 4 * (e % (L::TSP / 4));
+      float* dst = sc + (rank + ns * j) * L::TSP + c;
+      const uint32_t a = base + 4 * (uint32_t)(dst - sc);
+      float4 s = ld_cluster_f32x4(cluster_addr(a, 0));
+      for (int p = 1; p < ns; ++p) {
+        const float4 o = ld_cluster_f32x4(cluster_addr(a, p));
+        s.x += o.x; s.y += o.y; s.z += o.z; s.w += o.w;
+      }
+      *reinterpret_cast<float4*>(dst) = s;
+    }
+    __syncthreads();
+  }
+  // a warp on 4 rows at once (2 at TS > 512) where this CTA selects more
+  // rows than it has warps, else on one
+  if (qv > rank && (qv - rank + ns - 1) / ns > NWARP) {
+    select_topk<L::TSP / 32, NV <= 4 ? 4 : 2>(
+        sc, L::TSP, valid + (size_t)nb * TS, out_s, out_t, B, q0, qv, nb,
+        TS, kk, rank, ns);
+  } else {
+    select_topk<L::TSP / 32, 1>(sc, L::TSP, valid + (size_t)nb * TS, out_s,
+                                out_t, B, q0, qv, nb, TS, kk, rank, ns);
+  }
+  if (ns > 1) cluster_sync();           // no CTA leaves while others read
 }
 
-template <int MT>
+// An f32 tensor of ``rank`` dims (innermost first) read in boxes of
+// ``cols`` x ``rows`` (x 1), rows of 128 bytes swizzled where ``swizzle``;
+// zero fill out of bounds.
+inline bool tensor_map_f32(CUtensorMap* map, const void* ptr, int rank,
+                           const cuuint64_t* dims, int cols, int rows,
+                           bool swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t strides[2] = {dims[0] * 4, dims[0] * dims[1] * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+            const_cast<void*>(ptr), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int TQ, int NV>
 int launch_f32(const void* q, const void* q2, const void* ivt,
                const void* movt, const void* cst, const void* W,
                const void* valid, void* out_s, void* out_t, int B, int NB,
                int M, int D, int TS, int kk, cudaStream_t stream) {
-  constexpr int TQ = 16 * MT;
-  const size_t smem = (size_t)TQ * (TS + MC) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      blocked_f32_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  using L = F32Tile<TQ, NV>;
+  auto kernel = blocked_f32_kernel<TQ, NV>;
+  CUtensorMap maps[5];
+  const cuuint64_t dq[2] = {(cuuint64_t)D, (cuuint64_t)B};
+  const cuuint64_t dn[3] = {(cuuint64_t)D, (cuuint64_t)M, (cuuint64_t)NB};
+  const cuuint64_t dw[3] = {(cuuint64_t)TS, (cuuint64_t)M, (cuuint64_t)NB};
+  if (!tensor_map_f32(&maps[0], q, 2, dq, FDC, TQ, true) ||
+      !tensor_map_f32(&maps[1], q2, 2, dq, FDC, TQ, true) ||
+      !tensor_map_f32(&maps[2], movt, 3, dn, FDC, MC, true) ||
+      !tensor_map_f32(&maps[3], ivt, 3, dn, FDC, MC, true) ||
+      !tensor_map_f32(&maps[4], W, 3, dw, WBOX, L::KW, false)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // clusters of each size resident at once, by device (0: not asked yet)
+  static int active[MAX_DEVICES][MAX_SPLIT + 1] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((B + TQ - 1) / TQ, NB);
-  blocked_f32_kernel<MT><<<grid, THREADS, smem, stream>>>(
-      reinterpret_cast<const float*>(q), reinterpret_cast<const float*>(q2),
-      reinterpret_cast<const float*>(ivt),
-      reinterpret_cast<const float*>(movt),
-      reinterpret_cast<const float*>(cst), reinterpret_cast<const float*>(W),
-      reinterpret_cast<const uint8_t*>(valid),
-      reinterpret_cast<float*>(out_s), reinterpret_cast<int*>(out_t), B, M,
-      D, TS, kk);
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           L::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (active[dev][1] == 0) {
+    for (int n = 1; n <= MAX_SPLIT; ++n) {
+      cfg.gridDim = dim3(n);
+      attr[0].val.clusterDim.x = n;
+      int a = 0;
+      e = cudaOccupancyMaxActiveClusters(&a, kernel, &cfg);
+      if (e != cudaSuccess) return (int)e;
+      active[dev][n] = a > 0 ? a : -1;
+    }
+    if (active[dev][1] < 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  // The split of M whose waves of clusters cost least, in chunks a CTA
+  // (a split's sum of the partial tiles counted as a quarter chunk); no
+  // rank without a chunk.
+  const int tiles = (B + TQ - 1) / TQ, items = tiles * NB;
+  const int nch = (M + MC - 1) / MC;
+  int ns = 1;
+  double best = (double)((items + active[dev][1] - 1) / active[dev][1]) *
+                nch;
+  for (int n = 2; n <= MAX_SPLIT && n <= nch; ++n) {
+    const int cpr = (nch + n - 1) / n, a = active[dev][n];
+    if ((nch + cpr - 1) / cpr != n || a <= 0) continue;
+    const double cost = (double)((items + a - 1) / a) * (cpr + 0.25);
+    if (cost < best) {
+      best = cost;
+      ns = n;
+    }
+  }
+  cfg.gridDim = dim3(ns, tiles, NB);
+  attr[0].val.clusterDim.x = ns;
+  e = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], maps[2], maps[3],
+                         maps[4], reinterpret_cast<const float*>(cst),
+                         reinterpret_cast<const uint8_t*>(valid),
+                         reinterpret_cast<float*>(out_s),
+                         reinterpret_cast<int*>(out_t), B, M, D, TS, kk);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -872,7 +1262,8 @@ int launch_bf16(const CUtensorMap* maps, const void* cst, const void* valid,
 // Shapes: q, q2 (B, D); ivt, movt (NB, M, D); cst (NB, M) f32; W (NB, M, TS);
 // valid (NB, TS) bool; out_s/out_t (NB, B, kk).  The caller guarantees
 // M % 16 == 0, TS % 16 == 0, TS <= 1024, 1 <= kk <= TS, NB <= 65535, and
-// for bf16 D % 8 == 0.
+// for bf16 D % 8 == 0; for f32 D % 4 == 0 and q, q2, ivt, movt and W
+// 16-byte aligned (else the entry returns cudaErrorInvalidValue).
 extern "C" int blocked_topk_bf16(const void* q, const void* q2,
                                  const void* ivt, const void* movt,
                                  const void* cst, const void* W,
@@ -936,12 +1327,40 @@ extern "C" int blocked_topk_f32(const void* q, const void* q2,
                                 int B, int NB, int M, int D, int TS, int kk,
                                 void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (TS <= 512) {
-    return launch_f32<2>(q, q2, ivt, movt, cst, W, valid, out_s, out_t, B,
-                         NB, M, D, TS, kk, s);
+  const uintptr_t rows = reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(q2) |
+                         reinterpret_cast<uintptr_t>(ivt) |
+                         reinterpret_cast<uintptr_t>(movt) |
+                         reinterpret_cast<uintptr_t>(W);
+  if (D % 4 != 0 || TS > 1024 || (rows & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
   }
-  return launch_f32<1>(q, q2, ivt, movt, cst, W, valid, out_s, out_t, B, NB,
-                       M, D, TS, kk, s);
+  if (TS <= 512) {
+    if (B <= 8) {
+      return launch_f32<8, 4>(q, q2, ivt, movt, cst, W, valid, out_s, out_t,
+                              B, NB, M, D, TS, kk, s);
+    }
+    if (B <= 16) {
+      return launch_f32<16, 4>(q, q2, ivt, movt, cst, W, valid, out_s,
+                               out_t, B, NB, M, D, TS, kk, s);
+    }
+    if (B <= 32) {
+      return launch_f32<32, 4>(q, q2, ivt, movt, cst, W, valid, out_s,
+                               out_t, B, NB, M, D, TS, kk, s);
+    }
+    return launch_f32<64, 4>(q, q2, ivt, movt, cst, W, valid, out_s, out_t,
+                             B, NB, M, D, TS, kk, s);
+  }
+  if (B <= 8) {
+    return launch_f32<8, 8>(q, q2, ivt, movt, cst, W, valid, out_s, out_t, B,
+                            NB, M, D, TS, kk, s);
+  }
+  if (B <= 16) {
+    return launch_f32<16, 8>(q, q2, ivt, movt, cst, W, valid, out_s, out_t,
+                             B, NB, M, D, TS, kk, s);
+  }
+  return launch_f32<32, 8>(q, q2, ivt, movt, cst, W, valid, out_s, out_t, B,
+                           NB, M, D, TS, kk, s);
 }
 
 #ifdef BLOCKED_PHASES

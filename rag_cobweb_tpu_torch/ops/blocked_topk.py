@@ -30,7 +30,12 @@ When TS is above 512 the bf16 kernel splits each block's slots over the
 CUDA blocks of a cluster and merges their sorted lists exactly, inside
 the kernel.  Its TMA loads need rows of a multiple of 16 bytes, so D must
 be a multiple of 8: ``build_blocked_index`` zero-pads it, and the queries
-are padded to the index's width here (zero columns add nothing).
+are padded to the index's width here (zero columns add nothing).  The f32
+entry (register-tiled products on the CUDA cores at full f32, as the JAX
+kernel's ``Precision.HIGHEST``) loads its tiles by TMA too, whose rows
+must start 16-byte aligned: where D % 4 != 0 or a row operand is
+unaligned, this wrapper hands it zero-padded, aligned copies
+(``_f32_rows``).
 """
 
 from __future__ import annotations
@@ -94,6 +99,25 @@ def block_candidates_plain(q, q2, ivt_b, movt_b, const_b, W, valid,
             torch.cat(slot, dim=2).to(torch.int32))
 
 
+def _f32_rows(ts, D: int):
+    """The f32 kernel's TMA loads take rows of 16-byte multiples on
+    16-byte boundaries: where D % 4 != 0 or a row operand is not 16-byte
+    aligned, q, q2, ivt and movt become zero-padded copies of width D
+    rounded up to 4 (zero columns leave both sums unchanged) and W an
+    aligned copy.  No served index needs it (``build_blocked_index`` pads
+    D to a multiple of 8)."""
+    D4 = -(-D // 4) * 4
+    out = []
+    for name, t in ts:
+        if name in ("queries", "q2", "ivt_b", "movt_b") and (
+                D4 != D or t.data_ptr() % 16):
+            t = F.pad(t, (0, D4 - D)) if D4 != D else t.clone()
+        elif name == "W" and t.data_ptr() % 16:
+            t = t.clone()
+        out.append((name, t))
+    return tuple(out), D4
+
+
 def _block_candidates(q, q2, bidx, kk: int):
     """(NB, B, kk) candidates of every block, by the kernel on the card
     (counted on ``blocked_topk.launches``) or the plain version on the
@@ -118,8 +142,10 @@ def _block_candidates(q, q2, bidx, kk: int):
     for name, t in ts:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 32:
+        if bidx.W.dtype == torch.bfloat16 and t.data_ptr() % 32:
             raise ValueError(f"{name} must be 32-byte aligned")
+    if bidx.W.dtype == torch.float32:
+        ts, D = _f32_rows(ts, D)
     B = q.shape[0]
     out_s = torch.empty((NB, B, kk), dtype=torch.float32, device=q.device)
     out_t = torch.empty((NB, B, kk), dtype=torch.int32, device=q.device)

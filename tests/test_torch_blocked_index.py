@@ -180,6 +180,53 @@ def test_exhausted_rounds_match_pallas_interpret(forests, blocked):
                                    rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("B,kk", [(1, 8), (7, 64)])
+def test_f32_block_candidates_match_pallas_interpret(B, kk):
+    """The f32 function that the card's f32 kernel computes, and that its
+    wrapper's zero padding of D to a multiple of 4 must keep: the plain
+    ``block_candidates_plain`` against the JAX ``pallas_blocked_topk``
+    (``Precision.HIGHEST``) in interpret mode, on dyadic inputs (every nlp
+    term and score exact in f32 in any order), with D = 30 (no multiple of
+    4), M = 112 (two 64-node chunks of the kernel, the second ragged) and a
+    last block of 40 valid slots in 64 (kk = 64 runs into exhausted
+    rounds, NEG at slot 0).  Every block's candidates, as (score, sentence
+    id) pairs, within 1e-6 and with equal ids."""
+    rng = np.random.default_rng(B + kk)
+    NB, M, D, TS = 3, 112, 30, 64
+
+    def dyadic(lo, hi, shape, den):
+        return (rng.integers(lo, hi, shape) / den).astype(np.float32)
+
+    W = np.where(rng.random((NB, M, TS)) < 6.0 / M,
+                 dyadic(1, 3, (NB, M, TS), 2), 0.0).astype(np.float32)
+    valid = np.ones((NB, TS), bool)
+    valid[-1, 40:] = False
+    arrays = dict(ivt_b=dyadic(1, 17, (NB, M, D), 16),
+                  movt_b=dyadic(-8, 9, (NB, M, D), 16),
+                  const_b=dyadic(-64, 65, (NB, M), 4), W=W, valid=valid,
+                  sid_of_slot=rng.permutation(NB * TS).astype(
+                      np.int32).reshape(NB, TS))
+    q = dyadic(-8, 9, (B, D), 8)
+    jb = jidx.BlockedIndex(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    want_s, want_i = pallas_blocked_topk(jb, jnp.asarray(q), NB * kk,
+                                         interpret=True, block_k=kk)
+    tb = tidx.BlockedIndex(**{k: torch.as_tensor(v)
+                              for k, v in arrays.items()})
+    qd, q2 = bt._queries(tb, torch.as_tensor(q))
+    got_s, got_t = bt.block_candidates_plain(qd, q2, tb.ivt_b, tb.movt_b,
+                                             tb.const_b, tb.W, tb.valid, kk)
+    sid = tb.sid_of_slot[torch.arange(NB).view(NB, 1, 1), got_t.long()]
+    assert bool((got_s <= bt.NEG / 2).any()) == (kk > 40)
+    for b in range(B):
+        w = sorted(zip((-np.asarray(want_s)[b]).tolist(),
+                       np.asarray(want_i)[b].tolist()))
+        g = sorted(zip((-got_s[:, b]).flatten().tolist(),
+                       sid[:, b].flatten().tolist()))
+        assert [i for _, i in g] == [i for _, i in w]
+        np.testing.assert_allclose([s for s, _ in g], [s for s, _ in w],
+                                   rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [5, 12, 20])
 def test_padded_width_serves_the_unpadded_results(D, dtype):

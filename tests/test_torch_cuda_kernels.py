@@ -295,6 +295,91 @@ def test_blocked_topk_kernel_ties_and_exhausted_rows(card, ties, S_last):
         assert torch.equal(ki, pi)
 
 
+@pytest.mark.parametrize("B", [1, 8, 32, 200])
+def test_blocked_topk_f32_kernel_at_the_served_shape(card, B):
+    """The single tree's f32 blocked index shape (NB=20, M=768, D=248,
+    TS=512, kk=10, 272 valid slots in the last block) on an index of
+    dyadic terms: 8-, 32- and 64-query tiles, M split over a cluster at
+    B <= 32 and not at B=200."""
+    from rag_cobweb_tpu_torch.ops import blocked_topk as bt
+    bidx = _blocked_index(card, torch.float32, 20, 768, 248, 512, 272, B)
+    g = torch.Generator(device=card).manual_seed(B)
+    q = torch.randint(-8, 9, (B, 248), generator=g, device=card).float() / 8
+    qd, q2 = bt._queries(bidx, q)
+    before = bt.blocked_topk.launches_f32
+    ks, ki = bt._block_candidates(qd, q2, bidx, 10)
+    assert bt.blocked_topk.launches_f32 == before + 1
+    ps, pi = bt.block_candidates_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
+                                       bidx.const_b, bidx.W, bidx.valid, 10)
+    full, _ = bt.block_scores_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
+                                    bidx.const_b, bidx.W, bidx.valid)
+    torch.cuda.synchronize()
+    _holds(ks, ki, ps, full, 1e-3 + 1e-3 * ps.abs())
+
+
+def _dyadic_f32(card, NB, M, D, TS, S_last, seed):
+    """An f32 blocked index whose scores are exact in f32 in any order
+    (``bench.kernel_ab``'s), and queries of its width."""
+    from rag_cobweb_tpu_torch.bench.kernel_ab import dyadic_f32_index
+    bidx = dyadic_f32_index(NB, M, D, TS, S_last, seed)
+    g = torch.Generator(device=card).manual_seed(seed)
+    return bidx, torch.randint(-8, 9, (130, D), generator=g,
+                               device=card).float() / 8
+
+
+def _same_candidates(bt, q, bidx, kk):
+    """The kernel's candidates equal the plain version's, score and slot,
+    exhausted rounds (NEG at slot 0) included."""
+    qd, q2 = bt._queries(bidx, q)
+    ks, ki = bt._block_candidates(qd, q2, bidx, kk)
+    ps, pi = bt.block_candidates_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
+                                       bidx.const_b, bidx.W, bidx.valid, kk)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, ps), float((ks - ps).abs().max())
+    assert torch.equal(ki, pi), int((ki != pi).sum())
+    return ps
+
+
+@pytest.mark.parametrize("index,S_last", [("ties", 512), ("ties", 9),
+                                          ("dyadic", 5), ("dyadic", 300)])
+def test_blocked_topk_f32_kernel_ties_and_exhausted_rows(card, index,
+                                                         S_last):
+    """Exact f32 scores: many exactly tied (0/1 path weights on the first 8
+    nodes) or few valid slots in the last block (its rows run into
+    exhausted rounds): the kernel gives the plain version's candidates, in
+    the same order, on 130 queries (three 64-query tiles) of 70 blocks."""
+    from rag_cobweb_tpu_torch.ops import blocked_topk as bt
+    if index == "ties":
+        bidx = _blocked_index(card, torch.float32, 70, 64, 16, 512, S_last,
+                              S_last, ties=True)
+        q = (torch.randint(-8, 9, (130, 16), device=card).float() / 8)
+    else:
+        bidx, q = _dyadic_f32(card, 70, 64, 16, 512, S_last, S_last)
+    ps = _same_candidates(bt, q, bidx, 16)
+    assert bool((ps <= bt.NEG / 2).any()) == (S_last < 16)
+
+
+@pytest.mark.parametrize("case", ["unaligned", "D=30"])
+def test_blocked_topk_f32_kernel_unaligned_batch_and_ragged_width(card,
+                                                                  case):
+    """The wrapper hands the f32 kernel's TMA loads 16-byte aligned rows of
+    a multiple of 4 floats: a query batch 4 bytes off a 16-byte boundary
+    (a view into a flat buffer) is copied, and an index of D=30 (not
+    padded by ``build_blocked_index``) is zero-padded with its queries to
+    D=32; both give the plain version's candidates exactly (M=112: two
+    64-node chunks, the second ragged)."""
+    from rag_cobweb_tpu_torch.ops import blocked_topk as bt
+    D = 30 if case == "D=30" else 24
+    bidx, q = _dyadic_f32(card, 6, 112, D, 64, 50, D)
+    q = q[:45]
+    if case == "unaligned":
+        buf = torch.zeros(q.numel() + 1, device=card)
+        buf[1:] = q.flatten()
+        q = buf[1:].view(q.shape)
+        assert q.is_contiguous() and q.data_ptr() % 16
+    _same_candidates(bt, q, bidx, 8)
+
+
 def test_blocked_entries_agree_on_the_card(card):
     """Both entries on a ragged batch (45 queries, no multiple of the
     kernel's query tile) give the host's plain merged pool, and each call
