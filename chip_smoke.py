@@ -57,8 +57,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    on the tree's served index and pools; ``rerank=0`` (the exact
    path-score order) served in its own window through kernel 1's f32
    entry on the tree's f32 FusedIndex, which is then held against its
-   plain version and timed at B = 1, 32 and 1024 (kappa 10); the f32 group
-   pool over that index, held and timed, and the blocked kernel's f32
+   plain version and timed at B = 1, 32 and 1024 (kappa 10), each line
+   with its bound and library call (``matmul`` + ``topk``, TF32 off); the
+   f32 group pool over that index, held and timed at B = 1, 32 and 1024
+   with its bound and library call, and the blocked kernel's f32
    entry (an f32 blocked index, ``rerank=0``), held and timed at B = 1,
    8, 32 and 1024 (its library call: 3 ``bmm`` + ``topk``, TF32 off),
    each in its own window;
@@ -68,8 +70,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    blocked kernel on the 100k served index at B=1024, replacing TPU
    kernels 3 and 4, whose bodies are one, with its record at B=4096 under
    ``B4096``; the group pool at the flagship shape; the f32 entries of
-   kernel 1 (B=1024, with ``B1``, ``B32``), of the group pool and of the
-   blocked kernel (B=1024, with ``B1``, ``B8``, ``B32``) on the single
+   kernel 1 and of the group pool (B=1024, with ``B1``, ``B32``) and of
+   the blocked kernel (B=1024, with ``B1``, ``B8``, ``B32``) on the single
    tree's f32 indexes), the nvidia-smi line,
    and the final
    ``{"ok": true, "device": {...}}`` line.
@@ -633,6 +635,10 @@ def single_tree_slice(headline, zero, read, windows, launches,
         single["group_f32"] = check_group(
             fused_topk, qq, f32.GT, f32.c, f32.valid, 2, reps=10,
             label=" f32 (single tree)", real=True)
+        for B in (1, 32):
+            single[f"group_f32 B={B}"] = check_group(
+                fused_topk, qq[:B], f32.GT, f32.c, f32.valid, 2, reps=50,
+                label=" f32 (single tree)", real=True)
         # the blocked kernel over an f32 blocked index (blocked_dtype
         # float32) at rerank=0: its f32 entry, its own window
         db.use_fused, db.use_pallas, db.pallas_threshold = False, True, 0
@@ -689,7 +695,7 @@ def single_tree_slice(headline, zero, read, windows, launches,
             raise AssertionError(f"{k} never launched in its window: "
                                  f"{windows[w]}")
         launches[k] = windows[w][k]
-    for name in ("fused_f32", "blocked_f32"):
+    for name in ("fused_f32", "group_f32", "blocked_f32"):
         log(f"[single] {name} ms / bound ms / library ms by batch size: "
             + json.dumps({k: [r["ms"], r["bound_ms"], r["library_ms"]]
                           for k, r in single.items()
@@ -996,7 +1002,8 @@ def main() -> int:
         dict(name="fused_group_topk_f32", route="cuda",
              source=src + "fused_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:270",
-             launches=launches["fused_group_topk_f32"], **single["group_f32"]),
+             launches=launches["fused_group_topk_f32"], **single["group_f32"],
+             B1=single["group_f32 B=1"], B32=single["group_f32 B=32"]),
         dict(name="blocked_topk_f32", route="cuda",
              source=src + "blocked_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:40; "

@@ -2,8 +2,8 @@
 checkout (``--parent``), in turns on one card.
 
     python -m rag_cobweb_tpu_torch.bench.kernel_ab \\
-        --kernel {blocked_topk,blocked_topk_f32,fused_topk,fused_group_topk,
-              rerank_l2} \\
+        --kernel {blocked_topk,blocked_topk_f32,fused_topk,fused_topk_f32,
+              fused_group_topk,rerank_l2} \\
         --parent DIR
 
 The other checkout's kernel source (``csrc/<source>.cu``, with the headers
@@ -36,6 +36,15 @@ limit.  Shapes:
   Sp=100352, kappa=512) at B = 1, 32 and 1024, then random bf16 inputs of
   the flagship shape at B=1024 and of 1M rows with kappa=16; sorted pool
   scores within 1e-3 + 1e-3 |score| (both cells are built first, ~1 min);
+* ``fused_topk_f32``: kernel 1's f32 entry on random dyadic f32 fused
+  indexes, so every score is exact in f32 in any order and ties are
+  exact: the single tree's shape (2D=496, Sp=10240, 10000 valid rows) at
+  kappa 10 and B = 1, 8, 32 and 1000, and at kappa 1024 and B=1000 (the
+  f32 re-rank pool); the 100k shape (2D=256, Sp=100352, 100000 valid
+  rows) at kappa 10 and B = 1 and 1024.  Both kernels give the plain
+  version's pools exactly (scores and ids, each slab's pool sorted); each
+  line adds the bound (67 TFLOP/s f32, 3.35 TB/s) and the library call
+  (``matmul`` + ``topk``, TF32 off) timed in the same turns;
 * ``fused_group_topk``: the same served indexes and batches, and random
   bf16 inputs of the flagship shape at B=1024, per_group=2; scores in
   round order within 1e-3 + 1e-3 |score|, each id carrying its score
@@ -62,14 +71,15 @@ import torch
 from rag_cobweb_tpu_torch.ops import _build
 
 KERNELS = ("blocked_topk", "blocked_topk_f32", "fused_topk",
-           "fused_group_topk", "rerank_l2")
+           "fused_topk_f32", "fused_group_topk", "rerank_l2")
 ENTRY = {"blocked_topk": "blocked_topk_bf16",
          "blocked_topk_f32": "blocked_topk_f32",
          "fused_topk": "fused_topk_bf16",
+         "fused_topk_f32": "fused_topk_f32",
          "fused_group_topk": "fused_group_topk_bf16",
          "rerank_l2": "rerank_l2"}
 SOURCE = {"blocked_topk_f32": "blocked_topk",   # else the kernel's own name
-          "fused_group_topk": "fused_topk"}
+          "fused_topk_f32": "fused_topk", "fused_group_topk": "fused_topk"}
 
 
 def parent_entry(parent: Path, kernel: str):
@@ -319,6 +329,70 @@ def fused_cases(other):
         yield case("random", qq, GT, c, valid, kappa)
 
 
+def fused_f32_cases(other):
+    """Kernel 1's f32 entry on dyadic f32 fused indexes: pools equal to
+    the plain version's, with the library call beside."""
+    from rag_cobweb_tpu_torch.ops import fused_topk as ft
+    for twoD, Sp, S, kappa, batches in ((496, 10240, 10000, 10,
+                                         (1, 8, 32, 1000)),
+                                        (496, 10240, 10000, 1024, (1000,)),
+                                        (256, 100352, 100000, 10,
+                                         (1, 1024))):
+        g = torch.Generator(device="cuda").manual_seed(twoD + Sp + kappa)
+
+        def ints(lo, hi, shape):
+            return torch.randint(lo, hi, shape, generator=g,
+                                 device="cuda").float()
+
+        GT = (ints(-16, 17, (twoD, Sp)) / 16).contiguous()
+        c = ints(-64, 65, (Sp,)) / 4
+        valid = torch.arange(Sp, device="cuda") < S
+        queries = ints(-8, 9, (max(batches), twoD)) / 8
+        NS = Sp // ft.SLAB
+        for B in batches:
+            qq = queries[:B].contiguous()
+            out_s = torch.empty((NS, B, kappa), device="cuda")
+            out_i = torch.empty((NS, B, kappa), dtype=torch.int32,
+                                device="cuda")
+
+            def run_other(qq=qq, B=B, out_s=out_s, out_i=out_i):
+                _build.check(other(qq.data_ptr(), GT.data_ptr(),
+                                   c.data_ptr(), valid.data_ptr(),
+                                   out_s.data_ptr(), out_i.data_ptr(), B,
+                                   twoD, Sp, kappa,
+                                   torch.cuda.current_stream().cuda_stream),
+                             "other kernel")
+                return out_s, out_i
+
+            ps, pi = ft.slab_topk_plain(qq, GT, c, valid, kappa)
+
+            def check(out, ps=ps, pi=pi):
+                ks, ki = out
+                ks = torch.sort(ks, dim=2, descending=True).values
+                fin = torch.isfinite(ps)
+                err = (float((ks[fin] - ps[fin]).abs().max())
+                       if bool(fin.any()) else 0.0)
+                return err, bool(
+                    torch.equal(ks, ps)
+                    and torch.equal(torch.sort(ki, dim=2).values,
+                                    torch.sort(pi, dim=2).values))
+
+            def library(qq=qq, B=B):
+                s = torch.matmul(qq, GT) + c
+                s.masked_fill_(~valid, -math.inf)
+                return torch.topk(s.view(B, NS, ft.SLAB), kappa, dim=2)
+
+            nbytes = (4 * (B * twoD + twoD * Sp + Sp) + Sp
+                      + NS * B * kappa * 8)
+            yield ({"B": B, "2D": twoD, "Sp": Sp, "valid": S,
+                    "kappa": kappa,
+                    "bound_ms": max(2.0 * B * twoD * Sp / 67e12,
+                                    nbytes / 3.35e12) * 1e3},
+                   lambda qq=qq: ft.slab_topk(qq, GT, c, valid, kappa),
+                   run_other, check, library)
+        del GT, c, valid, queries
+
+
 def group_cases(other):
     from rag_cobweb_tpu_torch.ops import fused_topk as ft
     per_group = 2                   # pallas_fused_group_topk's default
@@ -451,7 +525,8 @@ def main(argv=None) -> int:
     other = parent_entry(args.parent, args.kernel)
     cases = {"blocked_topk": blocked_cases,
              "blocked_topk_f32": blocked_f32_cases,
-             "fused_topk": fused_cases, "fused_group_topk": group_cases,
+             "fused_topk": fused_cases, "fused_topk_f32": fused_f32_cases,
+             "fused_group_topk": group_cases,
              "rerank_l2": rerank_cases}[args.kernel](other)
     for shape, run_this, run_other, check, *library in cases:
         errs = {}

@@ -1120,25 +1120,6 @@ blocked_f32_kernel(const __grid_constant__ CUtensorMap tq,
   if (ns > 1) cluster_sync();           // no CTA leaves while others read
 }
 
-// An f32 tensor of ``rank`` dims (innermost first) read in boxes of
-// ``cols`` x ``rows`` (x 1), rows of 128 bytes swizzled where ``swizzle``;
-// zero fill out of bounds.
-inline bool tensor_map_f32(CUtensorMap* map, const void* ptr, int rank,
-                           const cuuint64_t* dims, int cols, int rows,
-                           bool swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t strides[2] = {dims[0] * 4, dims[0] * dims[1] * 4};
-  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
-  const cuuint32_t one[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
-            const_cast<void*>(ptr), dims, strides, box, one,
-            CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int TQ, int NV>
 int launch_f32(const void* q, const void* q2, const void* ivt,
                const void* movt, const void* cst, const void* W,

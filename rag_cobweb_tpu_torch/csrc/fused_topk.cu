@@ -78,27 +78,40 @@
 //     equal to T in row order after all keys above T, up to the count to
 //     take: the lowest-id rows equal to T, with no exchange after the last
 //     pass.
-// The f32 path (the exact f32 index) keeps exact f32 FMAs on the CUDA cores
-// in d order: one block per (slab, 16-query tile), 512 threads, each 16
-// queries x 4 adjacent columns, the 16 x 2048 scores in 128 KB of shared
-// memory, then one warp a query selects with the same radix select or runs
-// the group rounds on 4 registers a lane (fused_topk_kernel).
+// The f32 entries (an exact f32 index, the TPU kernels at
+// Precision.HIGHEST) keep full f32 FMAs on the CUDA cores, in ascending
+// depth, no TF32.  What bounds kernel 1's on the single tree's f32 index
+// (2D = 496, Sp = 10240, 20.3 MB): the bytes at B <= 32 (6.1 us at 3.35
+// TB/s), the operations at B = 1000 (10.2 GFLOP, 0.152 ms at 67 TFLOP/s).
+// Its design (slab_topk_f32, below): the bf16 kernel's 8-CTA clusters of
+// 256 columns a slab, a register-tiled SGEMM fed by TMA through an
+// mbarrier ring, the depth split over thread groups at small query tiles
+// so that few queries still keep 8 x 8 register tiles (a shared-memory
+// load must feed 16 FMAs to keep pace with the FMA pipes); kappa <= 32 by
+// rounds in registers and a merge across the cluster, larger kappa by the
+// cluster radix select.  Kernel 2's f32 entry is one block per (slab,
+// 16-query tile), 512 threads, each 16 queries x 4 adjacent columns, the
+// 16 x 2048 scores in 128 KB of shared memory, then one warp a query runs
+// the group rounds on 4 registers a lane (group_f32_kernel).
+
+#include <cmath>
 
 #include "hopper.cuh"
 
 namespace {
 
 constexpr int SLAB = 2048;                   // rows per slab (= row bucket)
-constexpr int TQ = 16;                       // queries per block
-constexpr int THREADS = 512;                 // 16 warps, one query each
-constexpr int CPT = SLAB / THREADS;          // 4 adjacent columns a thread
-constexpr int DCH = 64;                      // qq depth chunk in shared
 constexpr int BINS = 256;                    // radix digit: 8 bits
 constexpr int GROUP = 128;                   // rows per group (group pool)
 constexpr int NG = SLAB / GROUP;             // groups per slab
 constexpr float NEG = -3e38f;                // the TPU kernels' mask value
+
+// kernel 2's f32 entry (group_f32_kernel)
+constexpr int TQ = 16;                       // queries per block
+constexpr int THREADS = 512;                 // 16 warps, one query each
+constexpr int CPT = SLAB / THREADS;          // 4 adjacent columns a thread
+constexpr int DCH = 64;                      // qq depth chunk in shared
 constexpr size_t SMEM = (size_t)TQ * SLAB * sizeof(float)
-                      + (size_t)TQ * BINS * sizeof(unsigned int)
                       + (size_t)TQ * DCH * sizeof(float);
 
 // Order-preserving key: a larger score gives a larger key, and -0 == +0
@@ -193,21 +206,17 @@ __device__ __forceinline__ void group_select(const float* rs, float* out_s,
   }
 }
 
-// f32: one block per (slab, 16-query tile).  GROUP_POOL = false: per-slab
-// top-kappa by radix select (``sel`` = kappa, invalid rows -inf); true:
-// the group pool (``sel`` = per_group, invalid rows NEG).
-template <bool GROUP_POOL>
+// Kernel 2's f32 entry: one block per (slab, 16-query tile), the group
+// pool (invalid rows NEG) of ``per_group`` rounds.
 __global__ void __launch_bounds__(THREADS, 1)
-fused_topk_kernel(const float* __restrict__ qq, const float* __restrict__ gt,
-                  const float* __restrict__ c,
-                  const uint8_t* __restrict__ valid,
-                  float* __restrict__ out_s, int* __restrict__ out_i,
-                  int B, int twoD, int Sp, int sel) {
+group_f32_kernel(const float* __restrict__ qq, const float* __restrict__ gt,
+                 const float* __restrict__ c,
+                 const uint8_t* __restrict__ valid,
+                 float* __restrict__ out_s, int* __restrict__ out_i,
+                 int B, int twoD, int Sp, int per_group) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* sc = reinterpret_cast<float*>(smem);                    // [TQ][SLAB]
-  unsigned int* hs =
-      reinterpret_cast<unsigned int*>(sc + TQ * SLAB);           // [TQ][BINS]
-  float* qs = reinterpret_cast<float*>(hs + TQ * BINS);          // [TQ][DCH]
+  float* qs = sc + TQ * SLAB;                                    // [TQ][DCH]
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * TQ;
@@ -219,7 +228,6 @@ fused_topk_kernel(const float* __restrict__ qq, const float* __restrict__ gt,
   __syncthreads();
 
   // bias and validity mask on the staged scores
-  const float masked = GROUP_POOL ? NEG : __int_as_float(0xff800000);
   float cb[CPT];
   bool ok[CPT];
 #pragma unroll
@@ -231,113 +239,36 @@ fused_topk_kernel(const float* __restrict__ qq, const float* __restrict__ gt,
   for (int q = 0; q < TQ; ++q) {
     float4* p = reinterpret_cast<float4*>(sc + q * SLAB + col);
     float4 v = *p;
-    v.x = ok[0] ? v.x + cb[0] : masked;
-    v.y = ok[1] ? v.y + cb[1] : masked;
-    v.z = ok[2] ? v.z + cb[2] : masked;
-    v.w = ok[3] ? v.w + cb[3] : masked;
+    v.x = ok[0] ? v.x + cb[0] : NEG;
+    v.y = ok[1] ? v.y + cb[1] : NEG;
+    v.z = ok[2] ? v.z + cb[2] : NEG;
+    v.w = ok[3] ? v.w + cb[3] : NEG;
     *p = v;
   }
   __syncthreads();
 
-  // exact selection: warp w handles query w (warp-uniform branch)
-  const int w = tid >> 5, lane = tid & 31;
+  // warp w handles query w (warp-uniform branch)
+  const int w = tid >> 5;
   const int qg = q0 + w;
   if (qg >= B) return;
-  const float* rs = sc + w * SLAB;
-  if constexpr (GROUP_POOL) {
-    group_select(rs, out_s, out_i, ((size_t)slab * B + qg) * sel * NG, slab,
-                 sel);
-    return;
-  }
-  const int kappa = sel;
-  unsigned int* hist = hs + w * BINS;
-  const unsigned int full = 0xffffffffu;
-  // radix select: after pass p, `prefix` holds the top 8(p+1) bits of the
-  // kappa-th largest key and `remaining` how many keys sharing them are
-  // still to take
-  unsigned int prefix = 0u, pmask = 0u;
-  int remaining = kappa;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int b = lane; b < BINS; b += 32) hist[b] = 0u;
-    __syncwarp();
-    for (int i = lane; i < SLAB; i += 32) {
-      const unsigned int k = score_key(rs[i]);
-      if ((k & pmask) == prefix) atomicAdd(&hist[(k >> shift) & 255u], 1u);
-    }
-    __syncwarp();
-    // lane l owns digits 255-8l down to 248-8l: a scan over lanes counts
-    // the keys at or above each lane's lowest digit
-    unsigned int own[8];
-    int sum = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      own[j] = hist[BINS - 1 - 8 * lane - j];
-      sum += (int)own[j];
-    }
-    int cum = sum;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_up_sync(full, cum, off);
-      if (lane >= off) cum += t;
-    }
-    const int L = __ffs(__ballot_sync(full, cum >= remaining)) - 1;
-    int digit = 0, above = 0;
-    if (lane == L) {
-      int acc = cum - sum, j = 0;
-      for (; j < 7; ++j) {
-        if (acc + (int)own[j] >= remaining) break;
-        acc += (int)own[j];
-      }
-      digit = BINS - 1 - 8 * lane - j;
-      above = acc;
-    }
-    digit = __shfl_sync(full, digit, L);
-    above = __shfl_sync(full, above, L);
-    remaining -= above;
-    prefix |= (unsigned int)digit << shift;
-    pmask |= 255u << shift;
-    __syncwarp();                 // histogram read before the next clear
-  }
-
-  // write the keys above the kappa-th, then the `remaining` lowest-id
-  // rows equal to it, in row order
-  const unsigned int lt = (1u << lane) - 1u;
-  const size_t base = ((size_t)slab * B + qg) * kappa;
-  int taken = 0, eq_seen = 0;
-  for (int i0 = 0; i0 < SLAB && taken < kappa; i0 += 32) {
-    const int i = i0 + lane;
-    const float v = rs[i];
-    const unsigned int k = score_key(v);
-    const unsigned int eqb = __ballot_sync(full, k == prefix);
-    const bool take = k > prefix ||
-        (k == prefix && eq_seen + __popc(eqb & lt) < remaining);
-    const unsigned int tb = __ballot_sync(full, take);
-    if (take) {
-      const int pos = taken + __popc(tb & lt);
-      out_s[base + pos] = v;
-      out_i[base + pos] = slab * SLAB + i;
-    }
-    taken += __popc(tb);
-    eq_seen += __popc(eqb);
-  }
+  group_select(sc + w * SLAB, out_s, out_i,
+               ((size_t)slab * B + qg) * per_group * NG, slab, per_group);
 }
 
-template <bool GROUP_POOL>
-int launch_f32(const void* qq, const void* gt, const void* c,
-               const void* valid, void* out_s, void* out_i, int B, int twoD,
-               int Sp, int sel, void* stream) {
+int launch_group_f32(const void* qq, const void* gt, const void* c,
+                     const void* valid, void* out_s, void* out_i, int B,
+                     int twoD, int Sp, int per_group, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      fused_topk_kernel<GROUP_POOL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+      group_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((B + TQ - 1) / TQ, Sp / SLAB);
-  fused_topk_kernel<GROUP_POOL><<<grid, THREADS, SMEM,
-                                  reinterpret_cast<cudaStream_t>(stream)>>>(
+  group_f32_kernel<<<grid, THREADS, SMEM, stream>>>(
       reinterpret_cast<const float*>(qq), reinterpret_cast<const float*>(gt),
       reinterpret_cast<const float*>(c),
       reinterpret_cast<const uint8_t*>(valid),
       reinterpret_cast<float*>(out_s), reinterpret_cast<int*>(out_i), B,
-      twoD, Sp, sel);
+      twoD, Sp, per_group);
   return (int)cudaGetLastError();
 }
 
@@ -465,6 +396,249 @@ __device__ __forceinline__ void init_ring(const Ring& ring) {
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
 
+// -- kernel 1's select: a radix select over the cluster -----------------------
+//
+// The score tile ``sc`` ([WTQ][LDS]) holds this CTA's NTC columns of each
+// query below qv; ``dec`` each query's first window (the whole key range,
+// or a guessed one).  NT threads, the first NTC of which count.
+//
+// Each CTA counts its columns' digits per query (a thread a query and
+// QS columns, read 4 at a time: 64 columns at 64 queries), pushes each
+// query's counts to the CTA that owns it (query q: CTA q % SPLIT) by
+// 16-byte stores into that CTA's inbox (those that are not zero: the
+// owner clears what it has read; the histogram is cleared as it is
+// pushed), and the owner sums them, picks the digit, keeps each CTA's
+// count of keys above T and pushes the decision with each CTA's
+// offsets to that CTA.  A pass splits the query's window of 2^wb keys
+// into 256 bins (the last pass into 2^wb), and the query's select is
+// done once its chosen bin is taken whole or holds one key.  A guessed
+// first pass also counts the keys above its window; if the kappa-th
+// key is not in it, the query starts over from the whole key range (5
+// passes at most).
+template <int NT>
+__device__ __forceinline__ void cluster_select(const float* sc,
+                                               uint32_t* hist, uint4* dec,
+                                               uint32_t* upc,
+                                               uint32_t* inbox, int rank,
+                                               int qv) {
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const unsigned full = 0xffffffffu;
+  int QS = 1;
+  while (QS < qv) QS <<= 1;
+  const int hq = tid % QS, hg = tid / QS;
+  int abv[SPLIT];                       // the owner's: keys above, by CTA
+#pragma unroll
+  for (int m = 0; m < SPLIT; ++m) abv[m] = 0;
+  for (;;) {
+    if (tid < NTC && hq < qv && !(dec[hq].y & DONE)) {
+      const uint4 d = dec[hq];
+      const uint32_t lo = d.x, wb = d.y >> 24;
+      const int shift = max((int)wb - 8, 0);
+      const bool guessed = d.y & GUESS;
+      const float* row = sc + hq * LDS + hg * QS;
+      uint32_t* h = hist + hq * HW;
+      int up = 0;
+      auto count = [&](float x) {
+        const uint32_t k = score_key(x), o = k - lo;
+        if (wb == 32 || o < 1u << wb) {
+          const uint32_t dg = o >> shift;
+          atomicAdd(&h[dg >> 1], 1u << ((dg & 1u) << 4));
+        } else {
+          up += k > lo;
+        }
+      };
+      if (QS >= 4) {
+#pragma unroll 2
+        for (int i = 0; i < QS; i += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(row + i);
+          count(x.x);
+          count(x.y);
+          count(x.z);
+          count(x.w);
+        }
+      } else {
+        for (int i = 0; i < QS; ++i) count(row[i]);
+      }
+      if (guessed && up) atomicAdd(&upc[hq], (uint32_t)up);
+    }
+    __syncthreads();
+    for (int e = tid; e < qv * (IW / 4); e += NT) {
+      const int q = e / (IW / 4), w4 = e % (IW / 4) * 4;
+      uint4 v;
+      if (w4 < BINS / 2) {
+        uint32_t* h = hist + q * HW + w4;   // read, cleared for the next
+        v = make_uint4(h[0], h[1], h[2], h[3]);
+        h[0] = h[1] = h[2] = h[3] = 0u;
+      } else {
+        v = make_uint4(upc[q], 0u, 0u, 0u);
+        upc[q] = 0u;
+      }
+      if (v.x | v.y | v.z | v.w) {
+        st_cluster_v4(cluster_addr(smem_u32(inbox + (rank * (WTQ / SPLIT) +
+                                                     q / SPLIT) * IW +
+                                            w4),
+                                   q % SPLIT),
+                      v);
+      }
+    }
+    cluster_sync();                     // every owner has its counts
+    const int q = rank + SPLIT * w;     // warp w decides query q
+    if (w < WTQ / SPLIT && q < qv && !(dec[q].y & DONE)) {
+      // lane l owns digits 255-8l down to 248-8l: bin_of(v, j) is digit
+      // 255-8l-j of the counts v
+      const uint4 d = dec[q];
+      uint4 v[SPLIT];
+      int up[SPLIT], upt = 0;
+#pragma unroll
+      for (int m = 0; m < SPLIT; ++m) {
+        uint32_t* row = inbox + (m * (WTQ / SPLIT) + w) * IW;
+        uint4* at = reinterpret_cast<uint4*>(row + BINS / 2 - 4 - 4 * lane);
+        v[m] = *at;
+        *at = make_uint4(0u, 0u, 0u, 0u);
+        up[m] = (int)row[BINS / 2];
+        upt += up[m];
+      }
+      __syncwarp();
+      if (lane < SPLIT) {
+        inbox[(lane * (WTQ / SPLIT) + w) * IW + BINS / 2] = 0u;
+      }
+      auto bin_of = [](const uint4& x, int j) {
+        const uint32_t wd = j < 2 ? x.w : j < 4 ? x.z : j < 6 ? x.y : x.x;
+        return (int)((j & 1) ? wd & 0xffffu : wd >> 16);
+      };
+      int own[8], sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        own[j] = 0;
+#pragma unroll
+        for (int m = 0; m < SPLIT; ++m) own[j] += bin_of(v[m], j);
+        sum += own[j];
+      }
+      int cum = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(full, cum, off);
+        if (lane >= off) cum += t;
+      }
+      const int total = __shfl_sync(full, cum, 31);   // in the window
+      const int shift = max((int)(d.y >> 24) - 8, 0);
+      int remaining = (int)(d.y & 0xffffu);
+      uint4 out;
+      const bool held = upt < remaining && remaining <= upt + total;
+#ifdef FUSED_GUESS_STATS
+      if ((d.y & GUESS) && lane == 0) {
+        atomicAdd(&g_guess[held ? 0 : 1], 1ull);
+      }
+#endif
+      if ((d.y & GUESS) && !held) {
+        // the kappa-th key is not in the guessed window: start over
+        out = make_uint4(0u, (uint32_t)remaining | 32u << 24, 0u, 0u);
+      } else {
+        if (d.y & GUESS) {
+          remaining -= upt;
+#pragma unroll
+          for (int m = 0; m < SPLIT; ++m) abv[m] += up[m];
+        }
+        const int L = __ffs(__ballot_sync(full, cum >= remaining)) - 1;
+        int digit = 0, above = 0, sel = 0;
+        if (lane == L) {
+          int at = cum - sum, j = 0;
+          for (; j < 7; ++j) {
+            if (at + own[j] >= remaining) break;
+            at += own[j];
+          }
+          digit = BINS - 1 - 8 * lane - j;
+          above = at;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            if (i == j) sel = own[i];
+          }
+        }
+        digit = __shfl_sync(full, digit, L);
+        above = __shfl_sync(full, above, L);
+        sel = __shfl_sync(full, sel, L);
+        remaining -= above;
+        // each CTA's keys above the digit and in its bin, this pass
+        int gl = 0, el = 0;
+#pragma unroll
+        for (int m = 0; m < SPLIT; ++m) {
+          int a = 0, eq = 0;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int bin = BINS - 1 - 8 * lane - j;
+            a += bin > digit ? bin_of(v[m], j) : 0;
+            eq += bin == digit ? bin_of(v[m], j) : 0;
+          }
+          abv[m] += __reduce_add_sync(full, a);
+          eq = __reduce_add_sync(full, eq);
+          if (m < lane) {
+            gl += abv[m];
+            el += eq;
+          }
+        }
+        out = make_uint4(d.x + ((uint32_t)digit << shift),
+                         (uint32_t)remaining | (uint32_t)shift << 24 |
+                             (sel == remaining || shift == 0 ? DONE : 0u),
+                         (uint32_t)gl, (uint32_t)el);
+      }
+      if (lane < SPLIT) {
+        st_cluster_v4(cluster_addr(smem_u32(dec + q), lane), out);
+      }
+    }
+    cluster_sync();                     // every CTA has every decision
+    // the same decisions in every CTA: the same pass ends the select
+    if (__syncthreads_and(tid >= qv || (dec[tid].y & DONE))) break;
+  }
+}
+
+// The pool of each query (row ``row0 + q`` of out_s/out_i, kappa wide):
+// keys above T, then the lowest-id rows equal to T.  Keys in T's window count as equal to T: this CTA's keys above T go
+// after those of the CTAs to its left; its keys equal to T, in row
+// order, after all kappa - R keys above T and the equal keys of the
+// CTAs to its left, up to R.
+template <int NT>
+__device__ __forceinline__ void write_pool(const float* sc, const uint4* dec,
+                                           int qv, int kappa, int col0,
+                                           size_t row0,
+                                           float* __restrict__ out_s,
+                                           int* __restrict__ out_i) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned full = 0xffffffffu, lt = (1u << lane) - 1u;
+  for (int q = w; q < qv; q += NT / 32) {
+    const uint4 d = dec[q];
+    const uint32_t lo = d.x, hi = lo + ((1u << (d.y >> 24)) - 1u);
+    const int R = (int)(d.y & 0xffffu), G = kappa - R;
+    int taken = (int)d.z, eq_seen = (int)d.w;
+    const float* row = sc + q * LDS;
+    const size_t ob = (row0 + q) * kappa;
+    float v[NTC / 32];
+    unsigned gb[NTC / 32], eb[NTC / 32];
+#pragma unroll
+    for (int t = 0; t < NTC / 32; ++t) {
+      v[t] = row[32 * t + lane];
+      const uint32_t k = score_key(v[t]);
+      gb[t] = __ballot_sync(full, k > hi);
+      eb[t] = __ballot_sync(full, k >= lo && k <= hi);
+    }
+#pragma unroll
+    for (int t = 0; t < NTC / 32; ++t) {
+      int pos = -1;
+      if ((gb[t] >> lane) & 1u) {
+        pos = taken + __popc(gb[t] & lt);
+      } else if ((eb[t] >> lane) & 1u) {
+        const int r = eq_seen + __popc(eb[t] & lt);
+        if (r < R) pos = G + r;
+      }
+      if (pos >= 0) {
+        out_s[ob + pos] = v[t];
+        out_i[ob + pos] = col0 + 32 * t + lane;
+      }
+      taken += __popc(gb[t]);
+      eq_seen += __popc(eb[t]);
+    }
+  }
+}
+
 // Kernel 1: a cluster of 8 CTAs (rank = the slab's 256-column block) walks
 // the items (slab, query tile), tiles of a slab in turn.
 __global__ void __launch_bounds__(W_THREADS, 1)
@@ -481,7 +655,7 @@ slab_topk_wgmma(const __grid_constant__ CUtensorMap tg,
   const int rank = blockIdx.x;            // the CTA's rank in its cluster
   const int ntiles = (B + WTQ - 1) / WTQ, items = NS * ntiles;
   const int nk = (twoD + KC - 1) / KC;    // chunks an item
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31;
   float* sc = reinterpret_cast<float*>(base + lay.epi);
   // [WTQ][HW] words of two 16-bit digit counts (a CTA has 256 columns)
   uint32_t* hist = reinterpret_cast<uint32_t*>(sc + WTQ * LDS);
@@ -503,7 +677,6 @@ slab_topk_wgmma(const __grid_constant__ CUtensorMap tg,
   cluster_sync();
 
   const float ninf = __int_as_float(0xff800000);
-  const unsigned full = 0xffffffffu, lt = (1u << lane) - 1u;
   float acc[64];
   uint32_t g = 0;                         // the ring's chunks so far
   int pre = 0;                            // chunks of this item loaded ahead
@@ -559,225 +732,9 @@ slab_topk_wgmma(const __grid_constant__ CUtensorMap tg,
     g += nk;
     __syncthreads();
 
-    // -- radix select over the cluster: passes of 8 bits ---------------------
-    // Each CTA counts its columns' digits per query (a thread a query and
-    // QS columns, read 4 at a time: 64 columns at 64 queries), pushes each
-    // query's counts to the CTA that owns it (query q: CTA q % SPLIT) by
-    // 16-byte stores into that CTA's inbox (those that are not zero: the
-    // owner clears what it has read; the histogram is cleared as it is
-    // pushed), and the owner sums them, picks the digit, keeps each CTA's
-    // count of keys above T and pushes the decision with each CTA's
-    // offsets to that CTA.  A pass splits the query's window of 2^wb keys
-    // into 256 bins (the last pass into 2^wb), and the query's select is
-    // done once its chosen bin is taken whole or holds one key.  A guessed
-    // first pass also counts the keys above its window; if the kappa-th
-    // key is not in it, the query starts over from the whole key range (5
-    // passes at most).
-    int QS = 1;
-    while (QS < qv) QS <<= 1;
-    const int hq = tid % QS, hg = tid / QS;
-    int abv[SPLIT];                       // the owner's: keys above, by CTA
-#pragma unroll
-    for (int m = 0; m < SPLIT; ++m) abv[m] = 0;
-    for (;;) {
-      if (tid < W_CONSUMERS && hq < qv && !(dec[hq].y & DONE)) {
-        const uint4 d = dec[hq];
-        const uint32_t lo = d.x, wb = d.y >> 24;
-        const int shift = max((int)wb - 8, 0);
-        const bool guessed = d.y & GUESS;
-        const float* row = sc + hq * LDS + hg * QS;
-        uint32_t* h = hist + hq * HW;
-        int up = 0;
-        auto count = [&](float x) {
-          const uint32_t k = score_key(x), o = k - lo;
-          if (wb == 32 || o < 1u << wb) {
-            const uint32_t dg = o >> shift;
-            atomicAdd(&h[dg >> 1], 1u << ((dg & 1u) << 4));
-          } else {
-            up += k > lo;
-          }
-        };
-        if (QS >= 4) {
-#pragma unroll 2
-          for (int i = 0; i < QS; i += 4) {
-            const float4 x = *reinterpret_cast<const float4*>(row + i);
-            count(x.x);
-            count(x.y);
-            count(x.z);
-            count(x.w);
-          }
-        } else {
-          for (int i = 0; i < QS; ++i) count(row[i]);
-        }
-        if (guessed && up) atomicAdd(&upc[hq], (uint32_t)up);
-      }
-      __syncthreads();
-      for (int e = tid; e < qv * (IW / 4); e += W_THREADS) {
-        const int q = e / (IW / 4), w4 = e % (IW / 4) * 4;
-        uint4 v;
-        if (w4 < BINS / 2) {
-          uint32_t* h = hist + q * HW + w4;   // read, cleared for the next
-          v = make_uint4(h[0], h[1], h[2], h[3]);
-          h[0] = h[1] = h[2] = h[3] = 0u;
-        } else {
-          v = make_uint4(upc[q], 0u, 0u, 0u);
-          upc[q] = 0u;
-        }
-        if (v.x | v.y | v.z | v.w) {
-          st_cluster_v4(cluster_addr(smem_u32(inbox + (rank * (WTQ / SPLIT) +
-                                                       q / SPLIT) * IW +
-                                              w4),
-                                     q % SPLIT),
-                        v);
-        }
-      }
-      cluster_sync();                     // every owner has its counts
-      const int q = rank + SPLIT * w;     // warp w decides query q
-      if (w < WTQ / SPLIT && q < qv && !(dec[q].y & DONE)) {
-        // lane l owns digits 255-8l down to 248-8l: bin_of(v, j) is digit
-        // 255-8l-j of the counts v
-        const uint4 d = dec[q];
-        uint4 v[SPLIT];
-        int up[SPLIT], upt = 0;
-#pragma unroll
-        for (int m = 0; m < SPLIT; ++m) {
-          uint32_t* row = inbox + (m * (WTQ / SPLIT) + w) * IW;
-          uint4* at = reinterpret_cast<uint4*>(row + BINS / 2 - 4 - 4 * lane);
-          v[m] = *at;
-          *at = make_uint4(0u, 0u, 0u, 0u);
-          up[m] = (int)row[BINS / 2];
-          upt += up[m];
-        }
-        __syncwarp();
-        if (lane < SPLIT) {
-          inbox[(lane * (WTQ / SPLIT) + w) * IW + BINS / 2] = 0u;
-        }
-        auto bin_of = [](const uint4& x, int j) {
-          const uint32_t wd = j < 2 ? x.w : j < 4 ? x.z : j < 6 ? x.y : x.x;
-          return (int)((j & 1) ? wd & 0xffffu : wd >> 16);
-        };
-        int own[8], sum = 0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          own[j] = 0;
-#pragma unroll
-          for (int m = 0; m < SPLIT; ++m) own[j] += bin_of(v[m], j);
-          sum += own[j];
-        }
-        int cum = sum;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int t = __shfl_up_sync(full, cum, off);
-          if (lane >= off) cum += t;
-        }
-        const int total = __shfl_sync(full, cum, 31);   // in the window
-        const int shift = max((int)(d.y >> 24) - 8, 0);
-        int remaining = (int)(d.y & 0xffffu);
-        uint4 out;
-        const bool held = upt < remaining && remaining <= upt + total;
-#ifdef FUSED_GUESS_STATS
-        if ((d.y & GUESS) && lane == 0) {
-          atomicAdd(&g_guess[held ? 0 : 1], 1ull);
-        }
-#endif
-        if ((d.y & GUESS) && !held) {
-          // the kappa-th key is not in the guessed window: start over
-          out = make_uint4(0u, (uint32_t)remaining | 32u << 24, 0u, 0u);
-        } else {
-          if (d.y & GUESS) {
-            remaining -= upt;
-#pragma unroll
-            for (int m = 0; m < SPLIT; ++m) abv[m] += up[m];
-          }
-          const int L = __ffs(__ballot_sync(full, cum >= remaining)) - 1;
-          int digit = 0, above = 0, sel = 0;
-          if (lane == L) {
-            int at = cum - sum, j = 0;
-            for (; j < 7; ++j) {
-              if (at + own[j] >= remaining) break;
-              at += own[j];
-            }
-            digit = BINS - 1 - 8 * lane - j;
-            above = at;
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              if (i == j) sel = own[i];
-            }
-          }
-          digit = __shfl_sync(full, digit, L);
-          above = __shfl_sync(full, above, L);
-          sel = __shfl_sync(full, sel, L);
-          remaining -= above;
-          // each CTA's keys above the digit and in its bin, this pass
-          int gl = 0, el = 0;
-#pragma unroll
-          for (int m = 0; m < SPLIT; ++m) {
-            int a = 0, eq = 0;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const int bin = BINS - 1 - 8 * lane - j;
-              a += bin > digit ? bin_of(v[m], j) : 0;
-              eq += bin == digit ? bin_of(v[m], j) : 0;
-            }
-            abv[m] += __reduce_add_sync(full, a);
-            eq = __reduce_add_sync(full, eq);
-            if (m < lane) {
-              gl += abv[m];
-              el += eq;
-            }
-          }
-          out = make_uint4(d.x + ((uint32_t)digit << shift),
-                           (uint32_t)remaining | (uint32_t)shift << 24 |
-                               (sel == remaining || shift == 0 ? DONE : 0u),
-                           (uint32_t)gl, (uint32_t)el);
-        }
-        if (lane < SPLIT) {
-          st_cluster_v4(cluster_addr(smem_u32(dec + q), lane), out);
-        }
-      }
-      cluster_sync();                     // every CTA has every decision
-      // the same decisions in every CTA: the same pass ends the select
-      if (__syncthreads_and(tid >= qv || (dec[tid].y & DONE))) break;
-    }
-
-    // -- the pool: keys above T, then the lowest-id rows equal to T ----------
-    // Keys in T's window count as equal to T: this CTA's keys above T go
-    // after those of the CTAs to its left; its keys equal to T, in row
-    // order, after all kappa - R keys above T and the equal keys of the
-    // CTAs to its left, up to R.
-    for (int q = w; q < qv; q += W_THREADS / 32) {
-      const uint4 d = dec[q];
-      const uint32_t lo = d.x, hi = lo + ((1u << (d.y >> 24)) - 1u);
-      const int R = (int)(d.y & 0xffffu), G = kappa - R;
-      int taken = (int)d.z, eq_seen = (int)d.w;
-      const float* row = sc + q * LDS;
-      const size_t ob = ((size_t)slab * B + q0 + q) * kappa;
-      float v[NTC / 32];
-      unsigned gb[NTC / 32], eb[NTC / 32];
-#pragma unroll
-      for (int t = 0; t < NTC / 32; ++t) {
-        v[t] = row[32 * t + lane];
-        const uint32_t k = score_key(v[t]);
-        gb[t] = __ballot_sync(full, k > hi);
-        eb[t] = __ballot_sync(full, k >= lo && k <= hi);
-      }
-#pragma unroll
-      for (int t = 0; t < NTC / 32; ++t) {
-        int pos = -1;
-        if ((gb[t] >> lane) & 1u) {
-          pos = taken + __popc(gb[t] & lt);
-        } else if ((eb[t] >> lane) & 1u) {
-          const int r = eq_seen + __popc(eb[t] & lt);
-          if (r < R) pos = G + r;
-        }
-        if (pos >= 0) {
-          out_s[ob + pos] = v[t];
-          out_i[ob + pos] = col0 + 32 * t + lane;
-        }
-        taken += __popc(gb[t]);
-        eq_seen += __popc(eb[t]);
-      }
-    }
+    cluster_select<W_THREADS>(sc, hist, dec, upc, inbox, rank, qv);
+    write_pool<W_THREADS>(sc, dec, qv, kappa, col0, (size_t)slab * B + q0,
+                          out_s, out_i);
     __syncthreads();                      // the tile is read: next scores
   }
 }
@@ -979,6 +936,481 @@ int launch_group(const void* qq, const void* gt, const void* c,
   return (int)cudaGetLastError();
 }
 
+
+// -- kernel 1's f32 entry: register-tiled products on the CUDA cores ---------
+//
+// A cluster of SPLIT = 8 CTAs owns a (slab, query tile of TQ = 1, 8, 16,
+// 32 or 64 queries), one 256-column block of the slab each, as in the bf16
+// kernel.  The depth streams in chunks of FDK through a ring of mbarrier
+// stages that one thread fills by TMA: the chunk's qq box (TQ x FDK,
+// 128-byte swizzle) and its GT box (FDK x 256 columns).  Each of the 256
+// threads keeps full-f32 sums (fmaf in ascending depth) of an RQ x 8 tile
+// of queries and columns over its depth group's steps; below TQ = 64 the
+// depth is split over DG = 64 / TQ groups (8 at TQ <= 8) so that the tile
+// stays 8 x 8, and the groups' sums are added in group order.  The score
+// tile (+ c, invalid rows -inf) then lies over the ring.  kappa <= ROUNDS:
+// each CTA takes its columns' top-kappa by max/argmax rounds on
+// order-preserving keys in registers (a redux for the max, one for its
+// lowest column), pushes them to the inbox of the CTA that merges the
+// query (q % 8), and after one cluster barrier that CTA runs kappa rounds
+// over the 8 CTAs' candidates (ties to the lower row).  Larger kappa: the
+// cluster radix select and tie offsets above, on the same tile.  The
+// launcher picks TQ by a model of waves of clusters (launch_topk_f32): 1 at
+// B = 1, 8 at B = 8, 16 at B = 32, 64 at B = 1000.
+
+constexpr int F_THREADS = 256;            // 8 warps
+constexpr int FDK = 32;                   // depth of a chunk: 128-byte rows
+constexpr int ROUNDS = 32;                // kappa up to this: rounds
+constexpr int F_MAX_STAGES = 6;
+constexpr int F_TILES = 5;                // query tiles 1, 8, 16, 32, 64
+constexpr int F_FIXED = 18;               // a CTA's fixed part, in queries
+constexpr int MAX_DEVICES = 16;
+
+constexpr int max3(int a, int b, int c) {
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
+
+// Shared memory at query tile TQ (1024-aligned): the ring's stages (the qq
+// box, then the GT box), a full mbarrier a stage, the inbox where the
+// cluster's CTAs push the candidates of the queries this CTA merges
+// ([SPLIT][QO][ROUNDS] (key, row)), then c and the validity of the CTA's
+// columns.  After the sweep the ring holds the score tile [TQ][LDS] and
+// this CTA's candidates [TQ][ROUNDS], or the radix select's tiles (EPI,
+// INBOX), and past them the depth groups' partial sums (DG > 2; two groups
+// add in place on the score tile).
+template <int TQ>
+struct F32Layout {
+  static constexpr int RQ = TQ < 8 ? TQ : 8;      // queries a thread
+  static constexpr int QG = TQ / RQ, DG = 8 / QG;  // query, depth groups
+  static constexpr int BOX = TQ * FDK * 4 + FDK * NTC * 4;  // a chunk's
+  static constexpr int QB = (TQ * FDK * 4 + 1023) / 1024 * 1024;
+  static constexpr int STAGE = QB + FDK * NTC * 4;
+  static constexpr int QO = (TQ + 7) / 8;         // queries a CTA merges
+  static constexpr int INB = SPLIT * QO * ROUNDS * 8;  // their candidates
+  static constexpr int FIT =
+      (SMEM_LIMIT - 1024 - 8 * F_MAX_STAGES - INB) / STAGE;
+  static constexpr int STAGES = FIT < F_MAX_STAGES ? FIT : F_MAX_STAGES;
+  static constexpr int PART = EPI + INBOX;        // the depth groups' sums
+  static constexpr int RING = max3(STAGES * STAGE,
+                                   TQ * LDS * 4 + TQ * ROUNDS * 8,
+                                   PART + (DG > 2 ? DG * TQ * NTC * 4 : 0));
+  static constexpr int INBOX_AT = RING + 8 * F_MAX_STAGES;
+  static constexpr int CV_AT = INBOX_AT + INB;    // c, validity: NTC each
+  static constexpr int SMEM = 1024 + CV_AT + NTC * 5;
+  static_assert(STAGES >= 3 && SMEM <= SMEM_LIMIT, "the ring fits");
+  static_assert(PART % 16 == 0 && QG * DG == 8 && (FDK / 4) % DG == 0,
+                "the thread groups");
+};
+
+// score_key's inverse (-0 comes back as +0)
+__device__ __forceinline__ float key_score(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? k & 0x7fffffffu : ~k);
+}
+
+template <int TQ>
+__global__ void __launch_bounds__(F_THREADS, 1)
+slab_topk_f32(const __grid_constant__ CUtensorMap tg,
+              const __grid_constant__ CUtensorMap tq,
+              const float* __restrict__ c,
+              const uint8_t* __restrict__ valid,
+              float* __restrict__ out_s, int* __restrict__ out_i, int B,
+              int twoD, int kappa) {
+  using L = F32Layout<TQ>;
+  constexpr int RQ = L::RQ, QG = L::QG, DG = L::DG, S = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = aligned_base(smem_raw);
+  const uint32_t ring = smem_u32(base), bars = ring + L::RING;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = blockIdx.x;            // the CTA's rank in its cluster
+  const int q0 = blockIdx.y * TQ, slab = blockIdx.z;
+  const int qv = min(TQ, B - q0);
+  const int col0 = slab * SLAB + rank * NTC;     // the CTA's first column
+  const int N = (twoD + FDK - 1) / FDK;          // depth chunks
+
+  // chunk i into stage i % S by TMA (thread 0); zero fill past 2D and B
+  auto issue = [&](int i) {
+    const uint32_t st = ring + i % S * L::STAGE, bar = bars + 8 * (i % S);
+    mbar_expect_tx(bar, L::BOX);
+    tma_2d(st, &tq, i * FDK, q0, bar);
+    tma_2d(st + L::QB, &tg, col0, i * FDK, bar);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int i = 0; i < S - 1 && i < N; ++i) issue(i);   // S - 1 ahead
+  }
+  cluster_arrive_relaxed();               // this CTA runs (waited below)
+  __syncthreads();
+
+  // c and the validity of this CTA's columns, loaded while the sweep runs
+  float* cs = reinterpret_cast<float*>(base + L::CV_AT);
+  uint8_t* vs = reinterpret_cast<uint8_t*>(cs + NTC);
+  cs[tid] = c[col0 + tid];
+  vs[tid] = valid[col0 + tid];
+
+  // Thread (gq, dg, gc): queries gq + QG r (r < RQ), the 4-depth steps dg
+  // + DG j of every chunk, columns 4 gc + e + 128 v (e < 4, v < 2): from
+  // TQ = 8 on an 8 x 8 tile, 16 loads of 16 bytes to 256 fmaf.  The 8
+  // lanes of a quarter warp share (gq, dg) and read one 16-byte qq word or
+  // 128 adjacent bytes of a GT row; at TQ = 64 the 4 quarter warps of a
+  // warp read the same GT bytes, which the shared memory serves at once
+  // (a warp of 32 column groups, 512 bytes a GT load, was slower).
+  constexpr int NV = 2;
+  const int qd = (lane >> 3) + 4 * (warp >> 2);  // (gq, dg)
+  const int gc = (lane & 7) + 8 * (warp & 3), gq = qd % QG, dg = qd / QG;
+  float acc[RQ][4 * NV];
+#pragma unroll
+  for (int r = 0; r < RQ; ++r) {
+#pragma unroll
+    for (int e = 0; e < 4 * NV; ++e) acc[r][e] = 0.f;
+  }
+  for (int i = 0; i < N; ++i) {
+    mbar_wait(bars + 8 * (i % S), (i / S) & 1);
+    __syncthreads();                      // every thread is done with i - 1
+    if (tid == 0 && i + S - 1 < N) {      // ... so its stage takes i + S - 1
+      fence_async_smem();
+      issue(i + S - 1);
+    }
+    const float* sq =
+        reinterpret_cast<const float*>(base + i % S * L::STAGE);
+    const float* sg = sq + L::QB / 4 + 4 * gc;
+#pragma unroll
+    for (int j = 0; j < FDK / 4 / DG; ++j) {
+      const int k = dg + DG * j;
+      float4 a[RQ];                       // 4 depths of each query
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) {
+        const int row = gq + QG * r;      // swizzled: chunk k ^ (row % 8)
+        a[r] = *reinterpret_cast<const float4*>(sq + row * FDK +
+                                                4 * (k ^ (row & 7)));
+      }
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        float4 b[NV];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          b[v] = *reinterpret_cast<const float4*>(sg + (4 * k + d) * NTC +
+                                                  128 * v);
+        }
+#pragma unroll
+        for (int r = 0; r < RQ; ++r) {
+          const float x = d == 0 ? a[r].x : d == 1 ? a[r].y
+                        : d == 2 ? a[r].z : a[r].w;
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            acc[r][4 * v] = fmaf(x, b[v].x, acc[r][4 * v]);
+            acc[r][4 * v + 1] = fmaf(x, b[v].y, acc[r][4 * v + 1]);
+            acc[r][4 * v + 2] = fmaf(x, b[v].z, acc[r][4 * v + 2]);
+            acc[r][4 * v + 3] = fmaf(x, b[v].w, acc[r][4 * v + 3]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();                        // the ring is free
+
+  // the score tile: the depth groups' sums in order, + c, invalid -inf
+  float* sc = reinterpret_cast<float*>(base);    // [TQ][LDS]
+  const float ninf = __int_as_float(0xff800000);
+  auto bias = [&](float4 x, int col) {
+    return make_float4(vs[col] ? x.x + cs[col] : ninf,
+                       vs[col + 1] ? x.y + cs[col + 1] : ninf,
+                       vs[col + 2] ? x.z + cs[col + 2] : ninf,
+                       vs[col + 3] ? x.w + cs[col + 3] : ninf);
+  };
+  if constexpr (DG <= 2) {
+    // group 0 writes its sums to the tile, then group 1 adds its own
+#pragma unroll
+    for (int g = 0; g < DG; ++g) {
+      if (dg == g) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const int col = 4 * gc + 128 * v;
+#pragma unroll
+          for (int r = 0; r < RQ; ++r) {
+            float4* p = reinterpret_cast<float4*>(sc + (gq + QG * r) * LDS +
+                                                  col);
+            float4 x = make_float4(acc[r][4 * v], acc[r][4 * v + 1],
+                                   acc[r][4 * v + 2], acc[r][4 * v + 3]);
+            if (g > 0) {
+              const float4 y = *p;
+              x = make_float4(y.x + x.x, y.y + x.y, y.z + x.z, y.w + x.w);
+            }
+            *p = g == DG - 1 ? bias(x, col) : x;
+          }
+        }
+      }
+      if (g + 1 < DG) __syncthreads();
+    }
+  } else {
+    float* part = reinterpret_cast<float*>(base + L::PART);  // [DG][TQ][NTC]
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) {
+        *reinterpret_cast<float4*>(part + (dg * TQ + gq + QG * r) * NTC +
+                                   4 * gc + 128 * v) =
+            make_float4(acc[r][4 * v], acc[r][4 * v + 1], acc[r][4 * v + 2],
+                        acc[r][4 * v + 3]);
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < TQ * NTC / 4; e += F_THREADS) {
+      const int q = e / (NTC / 4), col = 4 * (e % (NTC / 4));
+      float4 x = *reinterpret_cast<const float4*>(part + q * NTC + col);
+#pragma unroll
+      for (int p = 1; p < DG; ++p) {
+        const float4 y = *reinterpret_cast<const float4*>(
+            part + (p * TQ + q) * NTC + col);
+        x.x += y.x;
+        x.y += y.y;
+        x.z += y.z;
+        x.w += y.w;
+      }
+      *reinterpret_cast<float4*>(sc + q * LDS + col) = bias(x, col);
+    }
+  }
+  __syncthreads();
+
+  const unsigned full = 0xffffffffu;
+  cluster_wait();                         // every CTA of the cluster runs
+  if (kappa <= ROUNDS) {
+    // Each CTA's top-kappa of every query by rounds on keys (lane l holds
+    // columns l + 32 m), a warp on queries warp + 8 j at once: the max by
+    // redux, then its lowest column by redux; a taken key becomes 0, below
+    // every score's key.  Then the warp pushes each query's candidates
+    // (key, row) to the inbox of the CTA that merges it (q % 8).
+    uint2* cand = reinterpret_cast<uint2*>(sc + TQ * LDS);  // [TQ][ROUNDS]
+    uint2* inbox = reinterpret_cast<uint2*>(base + L::INBOX_AT);
+    constexpr int QO = L::QO;
+    uint32_t key[QO][NTC / 32];
+#pragma unroll
+    for (int j = 0; j < QO; ++j) {
+      const int q = warp + 8 * j;
+#pragma unroll
+      for (int m = 0; m < NTC / 32; ++m) {
+        key[j][m] = q < qv ? score_key(sc[q * LDS + 32 * m + lane]) : 0u;
+      }
+    }
+    for (int r = 0; r < kappa; ++r) {
+#pragma unroll
+      for (int j = 0; j < QO; ++j) {
+        uint32_t lm = key[j][0];
+#pragma unroll
+        for (int m = 1; m < NTC / 32; ++m) lm = max(lm, key[j][m]);
+        const uint32_t wm = __reduce_max_sync(full, lm);
+        int lc = 0x7fffffff;
+#pragma unroll
+        for (int m = NTC / 32 - 1; m >= 0; --m) {
+          if (key[j][m] == wm) lc = 32 * m + lane;
+        }
+        const int bc = __reduce_min_sync(full, lc);
+        if (lane == 0) {
+          cand[(warp + 8 * j) * ROUNDS + r] =
+              make_uint2(wm, (uint32_t)(col0 + bc));
+        }
+#pragma unroll
+        for (int m = 0; m < NTC / 32; ++m) {
+          if (bc == 32 * m + lane) key[j][m] = 0u;
+        }
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < QO; ++j) {
+      const int q = warp + 8 * j;
+      if (q < qv && lane < kappa) {
+        st_cluster_v2(cluster_addr(smem_u32(inbox + (rank * QO + q / 8) *
+                                                        ROUNDS + lane),
+                                   q % 8),
+                      cand[q * ROUNDS + lane]);
+      }
+    }
+    cluster_sync();                       // every CTA's candidates are in
+    // CTA rank merges query rank + 8 w: kappa rounds over the 8 kappa
+    // candidates (lane l holds l + 32 m), ties to the lower row
+    const int q = rank + SPLIT * warp;
+    if (q < qv) {
+      const int n = SPLIT * kappa;
+      uint32_t k2[NTC / 32];
+      int row[NTC / 32];
+#pragma unroll
+      for (int m = 0; m < NTC / 32; ++m) {
+        const int j = 32 * m + lane;
+        k2[m] = 0u;
+        row[m] = 0x7fffffff;
+        if (j < n) {
+          const uint2 v = inbox[((j / kappa) * QO + warp) * ROUNDS +
+                                j % kappa];
+          k2[m] = v.x;
+          row[m] = (int)v.y;
+        }
+      }
+      const size_t ob = ((size_t)slab * B + q0 + q) * kappa;
+      for (int r = 0; r < kappa; ++r) {
+        uint32_t lm = k2[0];
+#pragma unroll
+        for (int m = 1; m < NTC / 32; ++m) lm = max(lm, k2[m]);
+        const uint32_t wm = __reduce_max_sync(full, lm);
+        int lr = 0x7fffffff;
+#pragma unroll
+        for (int m = 0; m < NTC / 32; ++m) {
+          if (k2[m] == wm) lr = min(lr, row[m]);
+        }
+        const int br = __reduce_min_sync(full, lr);
+        if (lane == 0) {
+          out_s[ob + r] = key_score(wm);
+          out_i[ob + r] = br;
+        }
+#pragma unroll
+        for (int m = 0; m < NTC / 32; ++m) {
+          if (row[m] == br) k2[m] = 0u;
+        }
+      }
+    }
+    return;                               // no CTA reads another's memory
+  }
+
+  // kappa > ROUNDS: the radix select over the cluster, its tiles over the
+  // ring, empty at the start
+  uint32_t* hist = reinterpret_cast<uint32_t*>(sc + WTQ * LDS);
+  uint4* dec = reinterpret_cast<uint4*>(hist + WTQ * HW);
+  uint32_t* upc = reinterpret_cast<uint32_t*>(dec + WTQ);
+  uint32_t* inbox = reinterpret_cast<uint32_t*>(base + EPI);
+  for (int e = tid; e < INBOX / 16; e += F_THREADS) {
+    reinterpret_cast<uint4*>(inbox)[e] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int e = tid; e < WTQ * HW; e += F_THREADS) hist[e] = 0u;
+  if (tid < WTQ) {
+    upc[tid] = 0u;
+    dec[tid] = make_uint4(0u, (uint32_t)kappa | 32u << 24, 0u, 0u);
+  }
+  cluster_sync();                         // every CTA's tile, empty inbox
+  cluster_select<F_THREADS>(sc, hist, dec, upc, inbox, rank, qv);
+  write_pool<F_THREADS>(sc, dec, qv, kappa, col0, (size_t)slab * B + q0,
+                        out_s, out_i);
+}
+
+// The clusters of slab_topk_f32<TQ> resident at once (its shared memory
+// set first).
+template <int TQ>
+int f32_active(int* n) {
+  cudaError_t e = cudaFuncSetAttribute(
+      slab_topk_f32<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      F32Layout<TQ>::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = SPLIT;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(SPLIT);
+  cfg.blockDim = dim3(F_THREADS);
+  cfg.dynamicSmemBytes = F32Layout<TQ>::SMEM;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(n, slab_topk_f32<TQ>, &cfg);
+}
+
+template <int TQ>
+int launch_f32_tile(const CUtensorMap& tg, const void* qq, int twoD4,
+                    const void* c, const void* valid, void* out_s,
+                    void* out_i, int B, int twoD, int NS, int kappa,
+                    cudaStream_t stream) {
+  CUtensorMap tq;
+  const cuuint64_t dq[2] = {(cuuint64_t)twoD4, (cuuint64_t)B};
+  if (!tensor_map_f32(&tq, qq, 2, dq, FDK, TQ, true)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = SPLIT;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(SPLIT, (B + TQ - 1) / TQ, NS);
+  cfg.blockDim = dim3(F_THREADS);
+  cfg.dynamicSmemBytes = F32Layout<TQ>::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, slab_topk_f32<TQ>, tg, tq, reinterpret_cast<const float*>(c),
+      reinterpret_cast<const uint8_t*>(valid),
+      reinterpret_cast<float*>(out_s), reinterpret_cast<int*>(out_i), B,
+      twoD, kappa);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+int launch_topk_f32(const void* qq, const void* gt, const void* c,
+                    const void* valid, void* out_s, void* out_i, int B,
+                    int twoD, int Sp, int kappa, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(qq) | reinterpret_cast<uintptr_t>(gt)) &
+      15u) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // clusters of each query tile resident at once, by device (0: not asked)
+  static int active[MAX_DEVICES][F_TILES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  int* act = active[dev];
+  if (act[0] == 0) {
+    int rc = f32_active<1>(&act[0]);
+    if (rc == 0) rc = f32_active<8>(&act[1]);
+    if (rc == 0) rc = f32_active<16>(&act[2]);
+    if (rc == 0) rc = f32_active<32>(&act[3]);
+    if (rc == 0) rc = f32_active<64>(&act[4]);
+    if (rc != 0) return rc;
+    for (int t = 0; t < F_TILES; ++t) {
+      if (act[t] <= 0) return (int)cudaErrorInvalidConfiguration;
+    }
+  }
+  // The query tile whose waves of clusters cost least: a CTA's products
+  // take time in proportion to TQ from TQ = 8 on (a 1-query tile about half
+  // an 8-query one's), beside a fixed part (the stream's latency, the
+  // select) worth F_FIXED queries (tuned on the card against every tile at
+  // the served shapes).
+  const int NS = Sp / SLAB;
+  int tile = 0;
+  double best = 0.0;
+  for (int t = 0; t < F_TILES; ++t) {
+    const int TQ = t == 0 ? 1 : 4 << t;
+    const double clusters = (double)NS * ((B + TQ - 1) / TQ);
+    const double cost = std::ceil(clusters / act[t]) *
+                        ((TQ == 1 ? 4 : TQ) + F_FIXED);
+    if (t == 0 || cost < best) {
+      best = cost;
+      tile = t;
+    }
+  }
+  CUtensorMap tg;
+  const cuuint64_t dg[2] = {(cuuint64_t)Sp, (cuuint64_t)twoD};
+  if (!tensor_map_f32(&tg, gt, 2, dg, NTC, FDK, false)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int twoD4 = (twoD + 3) / 4 * 4;
+  switch (tile) {
+    case 0:
+      return launch_f32_tile<1>(tg, qq, twoD4, c, valid, out_s, out_i, B,
+                                twoD, NS, kappa, stream);
+    case 1:
+      return launch_f32_tile<8>(tg, qq, twoD4, c, valid, out_s, out_i, B,
+                                twoD, NS, kappa, stream);
+    case 2:
+      return launch_f32_tile<16>(tg, qq, twoD4, c, valid, out_s, out_i, B,
+                                 twoD, NS, kappa, stream);
+    case 3:
+      return launch_f32_tile<32>(tg, qq, twoD4, c, valid, out_s, out_i, B,
+                                 twoD, NS, kappa, stream);
+    default:
+      return launch_f32_tile<64>(tg, qq, twoD4, c, valid, out_s, out_i, B,
+                                 twoD, NS, kappa, stream);
+  }
+}
 }  // namespace
 
 // bf16: qq's rows are padded to a multiple of 8 elements (the query boxes
@@ -991,12 +1423,14 @@ extern "C" int fused_topk_bf16(const void* qq, const void* gt, const void* c,
                      reinterpret_cast<cudaStream_t>(stream));
 }
 
+// f32: qq's rows are padded to a multiple of 4 elements, 16-byte aligned
+// (the query boxes come by TMA), the pad zero; ops/fused_topk.py pads them.
 extern "C" int fused_topk_f32(const void* qq, const void* gt, const void* c,
                               const void* valid, void* out_s, void* out_i,
                               int B, int twoD, int Sp, int kappa,
                               void* stream) {
-  return launch_f32<false>(qq, gt, c, valid, out_s, out_i, B, twoD, Sp,
-                           kappa, stream);
+  return launch_topk_f32(qq, gt, c, valid, out_s, out_i, B, twoD, Sp, kappa,
+                         reinterpret_cast<cudaStream_t>(stream));
 }
 
 #ifdef FUSED_GUESS_STATS
@@ -1026,6 +1460,6 @@ extern "C" int fused_group_topk_f32(const void* qq, const void* gt,
                                     void* out_s, void* out_i, int B,
                                     int twoD, int Sp, int per_group,
                                     void* stream) {
-  return launch_f32<true>(qq, gt, c, valid, out_s, out_i, B, twoD, Sp,
-                          per_group, stream);
+  return launch_group_f32(qq, gt, c, valid, out_s, out_i, B, twoD, Sp,
+                          per_group, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -106,6 +106,16 @@ __device__ __forceinline__ void cluster_sync() {
                "barrier.cluster.wait.acquire;" ::: "memory");
 }
 
+// The two halves of cluster_sync: arrive early, wait where the other
+// CTAs' arrival must have happened.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
 __device__ __forceinline__ uint32_t cluster_addr(uint32_t addr,
                                                  uint32_t rank) {
   uint32_t r;
@@ -126,6 +136,11 @@ __device__ __forceinline__ int ld_cluster_u16(uint32_t addr) {
   asm volatile("ld.shared::cluster.u16 %0, [%1];" : "=h"(v) : "r"(addr)
                : "memory");
   return v;
+}
+
+__device__ __forceinline__ void st_cluster_v2(uint32_t addr, uint2 v) {
+  asm volatile("st.shared::cluster.v2.u32 [%0], {%1, %2};"
+               :: "r"(addr), "r"(v.x), "r"(v.y) : "memory");
 }
 
 __device__ __forceinline__ void st_cluster_v4(uint32_t addr, uint4 v) {
@@ -332,6 +347,25 @@ inline bool tensor_map(CUtensorMap* map, const void* ptr, int rank,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
             const_cast<void*>(ptr), dims, strides, box, one,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An f32 tensor of ``rank`` dims (innermost first) read in boxes of
+// ``cols`` x ``rows`` (x 1), rows of 128 bytes swizzled where ``swizzle``;
+// zero fill out of bounds.
+inline bool tensor_map_f32(CUtensorMap* map, const void* ptr, int rank,
+                           const cuuint64_t* dims, int cols, int rows,
+                           bool swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t strides[2] = {dims[0] * 4, dims[0] * dims[1] * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+            const_cast<void*>(ptr), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -118,6 +118,69 @@ def test_fused_topk_ties_straddle_the_cluster_blocks(card, dtype):
                                             dtype=torch.int32)).expand(B, -1))
 
 
+@pytest.mark.parametrize("B", [1, 8, 32, 1000])
+def test_fused_topk_f32_kernel_at_the_served_shape(card, B):
+    """Kernel 1's f32 entry at the single tree's f32 fused index shape
+    (2D=496, Sp=10240, 10000 valid rows) and kappa 10, as ``rerank=0``
+    serves it, on dyadic scores: the plain version's pools, ids and all,
+    through one launch of the f32 entry."""
+    from rag_cobweb_tpu_torch.ops import fused_topk
+    args = _dyadic_sweep(card, torch.float32, B, 496, 10240, 10000, B)
+    before = fused_topk.slab_topk.launches_f32
+    _same_pool(fused_topk, *args, 10)
+    assert fused_topk.slab_topk.launches_f32 == before + 1
+
+
+@pytest.mark.parametrize("kappa", [10, 1024])
+def test_fused_topk_f32_ties_straddle_every_block_border(card, kappa):
+    """Query b reads the 12 depths of class g = b % 8 (one per row: row i
+    scores from depth 12 g + i % 12, so tied scores come from different
+    depth chunks) and sees rows of three levels, laid out so that the
+    kappa-th score is tied across CTA blocks (256 rows each) and its cut
+    falls in every block over the 8 classes: at kappa 10 one level-1 row a
+    block (offset 100) and 2 + g level-2 rows at the slab's top ids; at
+    kappa 1024 level 1 from row 256 g + 37 on (the cut falls in block g +
+    4, or g - 4), level 0 below.  The plain version's pools, ids and all,
+    in both slabs (the second with 1500 valid rows)."""
+    from rag_cobweb_tpu_torch.ops import fused_topk
+    Sp, B, twoD = 4096, 16, 96
+    i = torch.arange(Sp, device=card) % 2048
+    GT = torch.zeros((twoD, Sp), device=card)
+    for g in range(8):
+        if kappa == 10:
+            lvl = ((i % 256 == 100).float()
+                   + 2.0 * (i >= 2048 - (2 + g)).float())
+        else:
+            lvl = (i >= 256 * g + 37).float()
+        GT[12 * g + i % 12, torch.arange(Sp, device=card)] = lvl
+    qq = torch.zeros((B, twoD), device=card)
+    for b in range(B):
+        qq[b, 12 * (b % 8):12 * (b % 8) + 12] = 1.0
+    c = torch.zeros(Sp, device=card)
+    valid = torch.arange(Sp, device=card) < 2048 + 1500
+    _same_pool(fused_topk, qq, GT, c, valid, kappa)
+
+
+@pytest.mark.parametrize("B,twoD,kappa", [(33, 30, 10), (33, 30, 1024),
+                                          (1, 496, 2048)])
+def test_fused_topk_f32_unaligned_ragged_queries_and_whole_slab(card, B,
+                                                               twoD,
+                                                               kappa):
+    """qq of 2D = 30 (rows not 16-byte multiples) in a view 4 bytes off a
+    16-byte boundary, which the wrapper copies to padded, aligned rows for
+    the TMA query boxes, and kappa = 2048 (the whole slab) at B = 1: the
+    plain version's pools, ids and all, on dyadic scores."""
+    from rag_cobweb_tpu_torch.ops import fused_topk
+    qq, GT, c, valid = _dyadic_sweep(card, torch.float32, B, twoD, 4096,
+                                     3500, B + twoD + kappa)
+    if twoD == 30:
+        buf = torch.zeros(qq.numel() + 1, device=card)
+        buf[1:] = qq.flatten()
+        qq = buf[1:].view(qq.shape)
+        assert qq.is_contiguous() and qq.data_ptr() % 16
+    _same_pool(fused_topk, qq, GT, c, valid, kappa)
+
+
 @pytest.mark.parametrize("B,D,S,C", [(1, 768, 3000, 300),
                                      (32, 50, 3000, 300),
                                      (1024, 768, 3000, 300),

@@ -146,6 +146,49 @@ def test_fused_query_topk_matches_pallas_interpret(forests):
         assert set(gi[b].tolist()) == set(np.asarray(wi)[b].tolist())
 
 
+def test_f32_slab_topk_matches_pallas_interpret_over_two_slabs():
+    """Kernel 1's f32 contract: the port's ``slab_topk`` (on the host, its
+    plain version) at kappa 10 over two slabs against the JAX
+    ``pallas_fused_topk`` in interpret mode on an f32 FusedIndex
+    (``Precision.HIGHEST``, block_k 10, all 20 candidates kept).  Scores
+    take few values, each exact in any summation order, so many tie at
+    each slab's 10th; invalid rows (the second slab's last 548) carry a
+    bias that would win were they not masked.  Per query and slab: ids
+    equal, in (score, id) order, scores within 1e-5."""
+    from rag_cobweb_tpu.ops.pallas_query import pallas_fused_topk
+    rng = np.random.default_rng(9)
+    B, D, Sp, kappa = 7, 4, 4096, 10
+    q = rng.integers(-2, 3, size=(B, D)).astype(np.float32) / 2
+    GT = rng.integers(-2, 3, size=(2 * D, Sp)).astype(np.float32) / 4
+    c = rng.integers(-1, 2, size=Sp).astype(np.float32)
+    valid = np.arange(Sp) < 2048 + 1500
+    c[~valid] = 1000.0
+    fj = jidx.FusedIndex(GT=jnp.asarray(GT), c=jnp.asarray(c),
+                         valid=jnp.asarray(valid))
+    ws, wi = pallas_fused_topk(fj, jnp.asarray(q), 2 * kappa,
+                               interpret=True, block_k=kappa)
+    ws, wi = np.asarray(ws), np.asarray(wi)
+    ps, pi = fused_topk.slab_topk(
+        fused_topk.query_terms(torch.as_tensor(q), torch.float32),
+        torch.as_tensor(GT), torch.as_tensor(c), torch.as_tensor(valid),
+        kappa)
+    full = np.where(valid, np.concatenate([q, q * q], 1) @ GT + c, -np.inf)
+    straddles = 0
+    for b in range(B):
+        for sl in range(2):
+            mine = wi[b] // 2048 == sl
+            order = sorted(zip(-ws[b][mine], wi[b][mine]))
+            np.testing.assert_array_equal(
+                pi[sl, b].numpy(), [i for _, i in order])
+            np.testing.assert_allclose(ps[sl, b].numpy(),
+                                       [-s for s, _ in order], rtol=0,
+                                       atol=1e-5)
+            seg = full[b, sl * 2048:(sl + 1) * 2048]
+            straddles += int((seg == ps[sl, b, -1].item()).sum()
+                             > (ps[sl, b] == ps[sl, b, -1]).sum().item())
+    assert straddles >= B        # ties cut at the 10th in most pools
+
+
 @pytest.mark.parametrize("kappa", [1, 5, 2048])
 def test_slab_topk_plain_is_exact_per_slab(kappa):
     """The kernel's plain version: per 2048-row slab, the top-kappa by
