@@ -59,8 +59,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    entry on the tree's f32 FusedIndex, which is then held against its
    plain version and timed at B = 1, 32 and 1024 (kappa 10), each line
    with its bound and library call (``matmul`` + ``topk``, TF32 off); the
-   f32 group pool over that index, held and timed at B = 1, 32 and 1024
-   with its bound and library call, and the blocked kernel's f32
+   f32 group pool over that index, held and timed at B = 1, 8, 32 and
+   1024 with its bound and library call, and the blocked kernel's f32
    entry (an f32 blocked index, ``rerank=0``), held and timed at B = 1,
    8, 32 and 1024 (its library call: 3 ``bmm`` + ``topk``, TF32 off),
    each in its own window;
@@ -70,8 +70,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    blocked kernel on the 100k served index at B=1024, replacing TPU
    kernels 3 and 4, whose bodies are one, with its record at B=4096 under
    ``B4096``; the group pool at the flagship shape; the f32 entries of
-   kernel 1 and of the group pool (B=1024, with ``B1``, ``B32``) and of
-   the blocked kernel (B=1024, with ``B1``, ``B8``, ``B32``) on the single
+   kernel 1 (B=1024, with ``B1``, ``B32``), of the group pool and of the
+   blocked kernel (B=1024, with ``B1``, ``B8``, ``B32``) on the single
    tree's f32 indexes), the nvidia-smi line,
    and the final
    ``{"ok": true, "device": {...}}`` line.
@@ -635,7 +635,7 @@ def single_tree_slice(headline, zero, read, windows, launches,
         single["group_f32"] = check_group(
             fused_topk, qq, f32.GT, f32.c, f32.valid, 2, reps=10,
             label=" f32 (single tree)", real=True)
-        for B in (1, 32):
+        for B in (1, 8, 32):
             single[f"group_f32 B={B}"] = check_group(
                 fused_topk, qq[:B], f32.GT, f32.c, f32.valid, 2, reps=50,
                 label=" f32 (single tree)", real=True)
@@ -1003,7 +1003,8 @@ def main() -> int:
              source=src + "fused_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:270",
              launches=launches["fused_group_topk_f32"], **single["group_f32"],
-             B1=single["group_f32 B=1"], B32=single["group_f32 B=32"]),
+             B1=single["group_f32 B=1"], B8=single["group_f32 B=8"],
+             B32=single["group_f32 B=32"]),
         dict(name="blocked_topk_f32", route="cuda",
              source=src + "blocked_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:40; "

@@ -3,7 +3,7 @@ checkout (``--parent``), in turns on one card.
 
     python -m rag_cobweb_tpu_torch.bench.kernel_ab \\
         --kernel {blocked_topk,blocked_topk_f32,fused_topk,fused_topk_f32,
-              fused_group_topk,rerank_l2} \\
+              fused_group_topk,fused_group_topk_f32,rerank_l2} \\
         --parent DIR
 
 The other checkout's kernel source (``csrc/<source>.cu``, with the headers
@@ -49,6 +49,16 @@ limit.  Shapes:
   bf16 inputs of the flagship shape at B=1024, per_group=2; scores in
   round order within 1e-3 + 1e-3 |score|, each id carrying its score
   within that, exhausted rounds (NEG) at the plain version's rows;
+* ``fused_group_topk_f32``: kernel 2's f32 entry on random dyadic f32
+  fused indexes, as ``fused_topk_f32``: the single tree's shape (2D=496,
+  Sp=10240, 10000 valid rows) at per_group 2 and B = 1, 8, 32 and 1000,
+  and at per_group 128 and B=32 with group 3 cut to 50 valid rows (its
+  last 78 rounds exhausted); the 100k shape (2D=256, Sp=100352, 100000
+  valid rows) at per_group 2 and B = 1 and 1024.  Both kernels give the
+  plain version's rounds exactly (scores and ids, in round order); each
+  line adds the bound (67 TFLOP/s f32, 3.35 TB/s) and the library call
+  (``matmul`` + ``topk`` over (B, NS 16, 128), TF32 off) timed in the
+  same turns;
 * ``rerank_l2``: the flagship's served pools (its 1000 queries' exact
   top-1024 from kernel 1, the raw 768-d store), then uniform random
   candidates (C=1024, D=768, some -inf) on 10240 rows at B = 1, 32 and
@@ -71,15 +81,18 @@ import torch
 from rag_cobweb_tpu_torch.ops import _build
 
 KERNELS = ("blocked_topk", "blocked_topk_f32", "fused_topk",
-           "fused_topk_f32", "fused_group_topk", "rerank_l2")
+           "fused_topk_f32", "fused_group_topk", "fused_group_topk_f32",
+           "rerank_l2")
 ENTRY = {"blocked_topk": "blocked_topk_bf16",
          "blocked_topk_f32": "blocked_topk_f32",
          "fused_topk": "fused_topk_bf16",
          "fused_topk_f32": "fused_topk_f32",
          "fused_group_topk": "fused_group_topk_bf16",
+         "fused_group_topk_f32": "fused_group_topk_f32",
          "rerank_l2": "rerank_l2"}
 SOURCE = {"blocked_topk_f32": "blocked_topk",   # else the kernel's own name
-          "fused_topk_f32": "fused_topk", "fused_group_topk": "fused_topk"}
+          "fused_topk_f32": "fused_topk", "fused_group_topk": "fused_topk",
+          "fused_group_topk_f32": "fused_topk"}
 
 
 def parent_entry(parent: Path, kernel: str):
@@ -329,6 +342,23 @@ def fused_cases(other):
         yield case("random", qq, GT, c, valid, kappa)
 
 
+def dyadic_fused_index(twoD, Sp, S, n_queries, seed):
+    """A random f32 fused index (GT, c, valid; ``S`` valid rows) and
+    ``n_queries`` queries whose scores are exact in f32 in any order
+    (small multiples of powers of two), so ties are exact and go to the
+    lower row in every version."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             device="cuda").float()
+
+    GT = (ints(-16, 17, (twoD, Sp)) / 16).contiguous()
+    c = ints(-64, 65, (Sp,)) / 4
+    valid = torch.arange(Sp, device="cuda") < S
+    return GT, c, valid, ints(-8, 9, (n_queries, twoD)) / 8
+
+
 def fused_f32_cases(other):
     """Kernel 1's f32 entry on dyadic f32 fused indexes: pools equal to
     the plain version's, with the library call beside."""
@@ -338,16 +368,8 @@ def fused_f32_cases(other):
                                         (496, 10240, 10000, 1024, (1000,)),
                                         (256, 100352, 100000, 10,
                                          (1, 1024))):
-        g = torch.Generator(device="cuda").manual_seed(twoD + Sp + kappa)
-
-        def ints(lo, hi, shape):
-            return torch.randint(lo, hi, shape, generator=g,
-                                 device="cuda").float()
-
-        GT = (ints(-16, 17, (twoD, Sp)) / 16).contiguous()
-        c = ints(-64, 65, (Sp,)) / 4
-        valid = torch.arange(Sp, device="cuda") < S
-        queries = ints(-8, 9, (max(batches), twoD)) / 8
+        GT, c, valid, queries = dyadic_fused_index(twoD, Sp, S, max(batches),
+                                                   seed=twoD + Sp + kappa)
         NS = Sp // ft.SLAB
         for B in batches:
             qq = queries[:B].contiguous()
@@ -456,6 +478,63 @@ def group_cases(other):
     yield case("random", qq, GT, c, torch.arange(Sp, device="cuda") < 10000)
 
 
+def group_f32_cases(other):
+    """Kernel 2's f32 entry on dyadic f32 fused indexes: rounds equal to
+    the plain version's, with the library call beside."""
+    from rag_cobweb_tpu_torch.ops import fused_topk as ft
+    for twoD, Sp, S, per_group, batches in ((496, 10240, 10000, 2,
+                                             (1, 8, 32, 1000)),
+                                            (496, 10240, 10000, 128, (32,)),
+                                            (256, 100352, 100000, 2,
+                                             (1, 1024))):
+        GT, c, valid, queries = dyadic_fused_index(twoD, Sp, S, max(batches),
+                                                   seed=twoD + Sp + per_group)
+        if per_group == ft.GROUP:
+            # group 3 keeps 50 valid rows: its last 78 rounds are exhausted
+            valid[3 * ft.GROUP + 50:4 * ft.GROUP] = False
+        NS, KO = Sp // ft.SLAB, per_group * ft.NG
+        for B in batches:
+            qq = queries[:B].contiguous()
+
+            def run_other(qq=qq, B=B):
+                # outputs allocated a call, as the wrapper does: both sides
+                # write to the caching allocator's blocks in turn
+                out_s = torch.empty((NS, B, KO), device="cuda")
+                out_i = torch.empty((NS, B, KO), dtype=torch.int32,
+                                    device="cuda")
+                _build.check(other(qq.data_ptr(), GT.data_ptr(),
+                                   c.data_ptr(), valid.data_ptr(),
+                                   out_s.data_ptr(), out_i.data_ptr(), B,
+                                   twoD, Sp, per_group,
+                                   torch.cuda.current_stream().cuda_stream),
+                             "other kernel")
+                return out_s, out_i
+
+            ps, pi = ft.slab_group_topk_plain(qq, GT, c, valid, per_group)
+
+            def check(out, ps=ps, pi=pi):
+                ks, ki = out
+                return (float((ks - ps).abs().max()),
+                        torch.equal(ks, ps) and torch.equal(ki, pi))
+
+            def library(qq=qq, B=B):
+                s = torch.matmul(qq, GT) + c
+                s.masked_fill_(~valid, ft.NEG)
+                return torch.topk(s.view(B, NS * ft.NG, ft.GROUP), per_group,
+                                  dim=2)
+
+            nbytes = (4 * (B * twoD + twoD * Sp + Sp) + Sp
+                      + NS * B * KO * 8)
+            yield ({"B": B, "2D": twoD, "Sp": Sp, "valid": int(valid.sum()),
+                    "per_group": per_group,
+                    "bound_ms": max(2.0 * B * twoD * Sp / 67e12,
+                                    nbytes / 3.35e12) * 1e3},
+                   lambda qq=qq: ft.slab_group_topk(qq, GT, c, valid,
+                                                    per_group),
+                   run_other, check, library)
+        del GT, c, valid, queries
+
+
 def rerank_cases(other):
     from rag_cobweb_tpu_torch.core.index import fused_query_topk
     from rag_cobweb_tpu_torch.ops import rerank
@@ -527,6 +606,7 @@ def main(argv=None) -> int:
              "blocked_topk_f32": blocked_f32_cases,
              "fused_topk": fused_cases, "fused_topk_f32": fused_f32_cases,
              "fused_group_topk": group_cases,
+             "fused_group_topk_f32": group_f32_cases,
              "rerank_l2": rerank_cases}[args.kernel](other)
     for shape, run_this, run_other, check, *library in cases:
         errs = {}

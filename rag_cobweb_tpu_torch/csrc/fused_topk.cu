@@ -80,19 +80,20 @@
 //     pass.
 // The f32 entries (an exact f32 index, the TPU kernels at
 // Precision.HIGHEST) keep full f32 FMAs on the CUDA cores, in ascending
-// depth, no TF32.  What bounds kernel 1's on the single tree's f32 index
-// (2D = 496, Sp = 10240, 20.3 MB): the bytes at B <= 32 (6.1 us at 3.35
-// TB/s), the operations at B = 1000 (10.2 GFLOP, 0.152 ms at 67 TFLOP/s).
-// Its design (slab_topk_f32, below): the bf16 kernel's 8-CTA clusters of
-// 256 columns a slab, a register-tiled SGEMM fed by TMA through an
-// mbarrier ring, the depth split over thread groups at small query tiles
-// so that few queries still keep 8 x 8 register tiles (a shared-memory
-// load must feed 16 FMAs to keep pace with the FMA pipes); kappa <= 32 by
-// rounds in registers and a merge across the cluster, larger kappa by the
-// cluster radix select.  Kernel 2's f32 entry is one block per (slab,
-// 16-query tile), 512 threads, each 16 queries x 4 adjacent columns, the
-// 16 x 2048 scores in 128 KB of shared memory, then one warp a query runs
-// the group rounds on 4 registers a lane (group_f32_kernel).
+// depth, no TF32.  What bounds them on the single tree's f32 index (2D =
+// 496, Sp = 10240, 20.3 MB): the bytes at B <= 32 (6.1 us at 3.35 TB/s),
+// the operations at B = 1000 (10.2 GFLOP, 0.152 ms at 67 TFLOP/s).  Both
+// run one sweep (f32_tile, below): a CTA a 256-column block of a slab and
+// a query tile, a register-tiled SGEMM fed by TMA through an mbarrier
+// ring, the depth split over thread groups at small query tiles so that
+// few queries still keep 8 x 8 register tiles (a shared-memory load must
+// feed 16 FMAs to keep pace with the FMA pipes), the scores left in a
+// tile of shared memory.  Kernel 1's (slab_topk_f32) CTAs form the bf16
+// kernel's 8-CTA clusters a slab: kappa <= 32 by rounds in registers and
+// a merge across the cluster, larger kappa by the cluster radix select.
+// Kernel 2's (group_topk_f32) CTAs form no cluster, since a 256-column
+// block is two whole groups: a warp takes a (query, group) pair and runs
+// its rounds on keys in registers, the taken row's key set to NEG's.
 
 #include <cmath>
 
@@ -106,170 +107,11 @@ constexpr int GROUP = 128;                   // rows per group (group pool)
 constexpr int NG = SLAB / GROUP;             // groups per slab
 constexpr float NEG = -3e38f;                // the TPU kernels' mask value
 
-// kernel 2's f32 entry (group_f32_kernel)
-constexpr int TQ = 16;                       // queries per block
-constexpr int THREADS = 512;                 // 16 warps, one query each
-constexpr int CPT = SLAB / THREADS;          // 4 adjacent columns a thread
-constexpr int DCH = 64;                      // qq depth chunk in shared
-constexpr size_t SMEM = (size_t)TQ * SLAB * sizeof(float)
-                      + (size_t)TQ * DCH * sizeof(float);
-
 // Order-preserving key: a larger score gives a larger key, and -0 == +0
 // (they compare equal as floats, so they must tie here too).
 __device__ __forceinline__ unsigned int score_key(float x) {
   const unsigned int u = __float_as_uint(x == 0.f ? 0.f : x);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// f32 GT: exact f32 FMAs on the CUDA cores (the path-score ORDER contract
-// of an f32 index).  Each thread accumulates 16 queries x 4 adjacent
-// columns and stages the raw sums in sc.
-__device__ __forceinline__ void sweep_fma(const float* __restrict__ qq,
-                                          const float* __restrict__ gt,
-                                          float* sc, float* qs, int B,
-                                          int twoD, int Sp, int q0,
-                                          size_t gcol, int col) {
-  const int tid = threadIdx.x;
-  float acc[TQ][CPT];
-#pragma unroll
-  for (int q = 0; q < TQ; ++q)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[q][j] = 0.f;
-
-  for (int d0 = 0; d0 < twoD; d0 += DCH) {
-    const int dn = min(DCH, twoD - d0);
-    __syncthreads();
-    for (int e = tid; e < TQ * DCH; e += THREADS) {
-      const int q = e / DCH, d = e % DCH;
-      float v = 0.f;
-      if (q0 + q < B && d < dn) {
-        v = qq[(size_t)(q0 + q) * twoD + d0 + d];
-      }
-      qs[e] = v;
-    }
-    __syncthreads();
-    const float* gp = gt + (size_t)d0 * Sp + gcol;
-#pragma unroll 2
-    for (int d = 0; d < dn; ++d) {
-      const float4 g4 = *reinterpret_cast<const float4*>(gp + (size_t)d * Sp);
-      const float g[CPT] = {g4.x, g4.y, g4.z, g4.w};
-#pragma unroll
-      for (int q = 0; q < TQ; ++q) {
-        const float a = qs[q * DCH + d];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[q][j] = fmaf(a, g[j], acc[q][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < TQ; ++q) {
-    *reinterpret_cast<float4*>(sc + q * SLAB + col) =
-        make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
-  }
-}
-
-// Group pool of one query (warp-uniform): per 128-row group, ``per_group``
-// rounds of max/argmax over the four rows each lane holds in registers.
-__device__ __forceinline__ void group_select(const float* rs, float* out_s,
-                                             int* out_i, size_t base,
-                                             int slab, int per_group) {
-  const int lane = threadIdx.x & 31;
-  const unsigned int full = 0xffffffffu;
-  for (int g = 0; g < NG; ++g) {
-    float v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = rs[g * GROUP + j * 32 + lane];
-    for (int i = 0; i < per_group; ++i) {
-      float best = v[0];
-      int bi = lane;
-#pragma unroll
-      for (int j = 1; j < 4; ++j) {         // rows ascend with j: first max
-        if (v[j] > best) { best = v[j]; bi = j * 32 + lane; }
-      }
-#pragma unroll
-      for (int off = 16; off; off >>= 1) {
-        const float ov = __shfl_xor_sync(full, best, off);
-        const int oi = __shfl_xor_sync(full, bi, off);
-        if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
-      }
-      if (lane == 0) {
-        out_s[base + (size_t)i * NG + g] = best;
-        out_i[base + (size_t)i * NG + g] = slab * SLAB + g * GROUP + bi;
-      }
-      if ((bi & 31) == lane) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (j == (bi >> 5)) v[j] = NEG;
-        }
-      }
-    }
-  }
-}
-
-// Kernel 2's f32 entry: one block per (slab, 16-query tile), the group
-// pool (invalid rows NEG) of ``per_group`` rounds.
-__global__ void __launch_bounds__(THREADS, 1)
-group_f32_kernel(const float* __restrict__ qq, const float* __restrict__ gt,
-                 const float* __restrict__ c,
-                 const uint8_t* __restrict__ valid,
-                 float* __restrict__ out_s, int* __restrict__ out_i,
-                 int B, int twoD, int Sp, int per_group) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sc = reinterpret_cast<float*>(smem);                    // [TQ][SLAB]
-  float* qs = sc + TQ * SLAB;                                    // [TQ][DCH]
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * TQ;
-  const int slab = blockIdx.y;
-  const int col = tid * CPT;                          // within the slab
-  const size_t gcol = (size_t)slab * SLAB + col;      // within GT
-
-  sweep_fma(qq, gt, sc, qs, B, twoD, Sp, q0, gcol, col);
-  __syncthreads();
-
-  // bias and validity mask on the staged scores
-  float cb[CPT];
-  bool ok[CPT];
-#pragma unroll
-  for (int j = 0; j < CPT; ++j) {
-    cb[j] = c[gcol + j];
-    ok[j] = valid[gcol + j] != 0;
-  }
-#pragma unroll
-  for (int q = 0; q < TQ; ++q) {
-    float4* p = reinterpret_cast<float4*>(sc + q * SLAB + col);
-    float4 v = *p;
-    v.x = ok[0] ? v.x + cb[0] : NEG;
-    v.y = ok[1] ? v.y + cb[1] : NEG;
-    v.z = ok[2] ? v.z + cb[2] : NEG;
-    v.w = ok[3] ? v.w + cb[3] : NEG;
-    *p = v;
-  }
-  __syncthreads();
-
-  // warp w handles query w (warp-uniform branch)
-  const int w = tid >> 5;
-  const int qg = q0 + w;
-  if (qg >= B) return;
-  group_select(sc + w * SLAB, out_s, out_i,
-               ((size_t)slab * B + qg) * per_group * NG, slab, per_group);
-}
-
-int launch_group_f32(const void* qq, const void* gt, const void* c,
-                     const void* valid, void* out_s, void* out_i, int B,
-                     int twoD, int Sp, int per_group, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      group_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((B + TQ - 1) / TQ, Sp / SLAB);
-  group_f32_kernel<<<grid, THREADS, SMEM, stream>>>(
-      reinterpret_cast<const float*>(qq), reinterpret_cast<const float*>(gt),
-      reinterpret_cast<const float*>(c),
-      reinterpret_cast<const uint8_t*>(valid),
-      reinterpret_cast<float*>(out_s), reinterpret_cast<int*>(out_i), B,
-      twoD, Sp, per_group);
-  return (int)cudaGetLastError();
 }
 
 // -- bf16: wgmma on a TMA ring, persistent CTAs -------------------------------
@@ -937,26 +779,35 @@ int launch_group(const void* qq, const void* gt, const void* c,
 }
 
 
-// -- kernel 1's f32 entry: register-tiled products on the CUDA cores ---------
+// -- the f32 entries: register-tiled products on the CUDA cores --------------
 //
-// A cluster of SPLIT = 8 CTAs owns a (slab, query tile of TQ = 1, 8, 16,
-// 32 or 64 queries), one 256-column block of the slab each, as in the bf16
-// kernel.  The depth streams in chunks of FDK through a ring of mbarrier
-// stages that one thread fills by TMA: the chunk's qq box (TQ x FDK,
-// 128-byte swizzle) and its GT box (FDK x 256 columns).  Each of the 256
-// threads keeps full-f32 sums (fmaf in ascending depth) of an RQ x 8 tile
-// of queries and columns over its depth group's steps; below TQ = 64 the
-// depth is split over DG = 64 / TQ groups (8 at TQ <= 8) so that the tile
-// stays 8 x 8, and the groups' sums are added in group order.  The score
-// tile (+ c, invalid rows -inf) then lies over the ring.  kappa <= ROUNDS:
-// each CTA takes its columns' top-kappa by max/argmax rounds on
-// order-preserving keys in registers (a redux for the max, one for its
-// lowest column), pushes them to the inbox of the CTA that merges the
-// query (q % 8), and after one cluster barrier that CTA runs kappa rounds
-// over the 8 CTAs' candidates (ties to the lower row).  Larger kappa: the
-// cluster radix select and tie offsets above, on the same tile.  The
-// launcher picks TQ by a model of waves of clusters (launch_topk_f32): 1 at
-// B = 1, 8 at B = 8, 16 at B = 32, 64 at B = 1000.
+// Both f32 entries share one sweep (f32_tile): a CTA owns a 256-column block
+// of a slab and a query tile of TQ = 1, 8, 16, 32 or 64 queries.  The depth
+// streams in chunks of FDK through a ring of mbarrier stages that one
+// thread fills by TMA: the chunk's qq box (TQ x FDK, 128-byte swizzle) and
+// its GT box (FDK x 256 columns).  Each of the 256 threads keeps full-f32
+// sums (fmaf in ascending depth) of an RQ x 8 tile of queries and columns
+// over its depth group's steps; below TQ = 64 the depth is split over DG =
+// 64 / TQ groups (8 at TQ <= 8) so that the tile stays 8 x 8, and the
+// groups' sums are added in group order.  The score tile (+ c, invalid rows
+// -inf for kernel 1, NEG for kernel 2) then lies over the ring.
+//
+// Kernel 1 (slab_topk_f32): the SPLIT = 8 CTAs of a (slab, query tile) form
+// a cluster, as in the bf16 kernel.  kappa <= ROUNDS: each CTA takes its
+// columns' top-kappa by max/argmax rounds on order-preserving keys in
+// registers (a redux for the max, one for its lowest column), pushes them
+// to the inbox of the CTA that merges the query (q % 8), and after one
+// cluster barrier that CTA runs kappa rounds over the 8 CTAs' candidates
+// (ties to the lower row).  Larger kappa: the cluster radix select and tie
+// offsets above, on the same tile.
+//
+// Kernel 2 (group_topk_f32): a CTA's 256 columns are two whole 128-row
+// groups, so the 8 CTAs of a (slab, query tile) need nothing from each
+// other and form no cluster; each runs the per_group rounds of its two
+// groups on keys in registers, a warp a (query, group) pair.
+//
+// launch_f32 picks TQ by a model of waves (of clusters for kernel 1, of
+// CTAs for kernel 2): 1 at B = 1, 8 at B = 8, 16 at B = 32, 64 at B = 1000.
 
 constexpr int F_THREADS = 256;            // 8 warps
 constexpr int FDK = 32;                   // depth of a chunk: 128-byte rows
@@ -977,7 +828,8 @@ constexpr int max3(int a, int b, int c) {
 // columns.  After the sweep the ring holds the score tile [TQ][LDS] and
 // this CTA's candidates [TQ][ROUNDS], or the radix select's tiles (EPI,
 // INBOX), and past them the depth groups' partial sums (DG > 2; two groups
-// add in place on the score tile).
+// add in place on the score tile).  Kernel 2 leaves the inbox unused (a CTA
+// a SM either way).
 template <int TQ>
 struct F32Layout {
   static constexpr int RQ = TQ < 8 ? TQ : 8;      // queries a thread
@@ -1007,39 +859,35 @@ __device__ __forceinline__ float key_score(uint32_t k) {
   return __uint_as_float((k & 0x80000000u) ? k & 0x7fffffffu : ~k);
 }
 
+// The f32 sweep of one CTA (both f32 entries): the score tile [TQ][LDS]
+// at ``base`` of queries q0 .. q0 + TQ - 1 and the 256 columns from col0,
+// + c, invalid rows ``fill``; every thread may read it on return.
 template <int TQ>
-__global__ void __launch_bounds__(F_THREADS, 1)
-slab_topk_f32(const __grid_constant__ CUtensorMap tg,
-              const __grid_constant__ CUtensorMap tq,
-              const float* __restrict__ c,
-              const uint8_t* __restrict__ valid,
-              float* __restrict__ out_s, int* __restrict__ out_i, int B,
-              int twoD, int kappa) {
+__device__ __forceinline__ void f32_tile(uint8_t* base,
+                                         const CUtensorMap* tg,
+                                         const CUtensorMap* tq,
+                                         const float* __restrict__ c,
+                                         const uint8_t* __restrict__ valid,
+                                         int q0, int col0, int twoD,
+                                         float fill) {
   using L = F32Layout<TQ>;
   constexpr int RQ = L::RQ, QG = L::QG, DG = L::DG, S = L::STAGES;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* base = aligned_base(smem_raw);
   const uint32_t ring = smem_u32(base), bars = ring + L::RING;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rank = blockIdx.x;            // the CTA's rank in its cluster
-  const int q0 = blockIdx.y * TQ, slab = blockIdx.z;
-  const int qv = min(TQ, B - q0);
-  const int col0 = slab * SLAB + rank * NTC;     // the CTA's first column
   const int N = (twoD + FDK - 1) / FDK;          // depth chunks
 
   // chunk i into stage i % S by TMA (thread 0); zero fill past 2D and B
   auto issue = [&](int i) {
     const uint32_t st = ring + i % S * L::STAGE, bar = bars + 8 * (i % S);
     mbar_expect_tx(bar, L::BOX);
-    tma_2d(st, &tq, i * FDK, q0, bar);
-    tma_2d(st + L::QB, &tg, col0, i * FDK, bar);
+    tma_2d(st, tq, i * FDK, q0, bar);
+    tma_2d(st + L::QB, tg, col0, i * FDK, bar);
   };
   if (tid == 0) {
     for (int s = 0; s < S; ++s) mbar_init(bars + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     for (int i = 0; i < S - 1 && i < N; ++i) issue(i);   // S - 1 ahead
   }
-  cluster_arrive_relaxed();               // this CTA runs (waited below)
   __syncthreads();
 
   // c and the validity of this CTA's columns, loaded while the sweep runs
@@ -1109,14 +957,13 @@ slab_topk_f32(const __grid_constant__ CUtensorMap tg,
   }
   __syncthreads();                        // the ring is free
 
-  // the score tile: the depth groups' sums in order, + c, invalid -inf
+  // the score tile: the depth groups' sums in order, + c, invalid: fill
   float* sc = reinterpret_cast<float*>(base);    // [TQ][LDS]
-  const float ninf = __int_as_float(0xff800000);
   auto bias = [&](float4 x, int col) {
-    return make_float4(vs[col] ? x.x + cs[col] : ninf,
-                       vs[col + 1] ? x.y + cs[col + 1] : ninf,
-                       vs[col + 2] ? x.z + cs[col + 2] : ninf,
-                       vs[col + 3] ? x.w + cs[col + 3] : ninf);
+    return make_float4(vs[col] ? x.x + cs[col] : fill,
+                       vs[col + 1] ? x.y + cs[col + 1] : fill,
+                       vs[col + 2] ? x.z + cs[col + 2] : fill,
+                       vs[col + 3] ? x.w + cs[col + 3] : fill);
   };
   if constexpr (DG <= 2) {
     // group 0 writes its sums to the tile, then group 1 adds its own
@@ -1171,6 +1018,28 @@ slab_topk_f32(const __grid_constant__ CUtensorMap tg,
     }
   }
   __syncthreads();
+}
+
+template <int TQ>
+__global__ void __launch_bounds__(F_THREADS, 1)
+slab_topk_f32(const __grid_constant__ CUtensorMap tg,
+              const __grid_constant__ CUtensorMap tq,
+              const float* __restrict__ c,
+              const uint8_t* __restrict__ valid,
+              float* __restrict__ out_s, int* __restrict__ out_i, int B,
+              int twoD, int kappa) {
+  using L = F32Layout<TQ>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = aligned_base(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = blockIdx.x;            // the CTA's rank in its cluster
+  const int q0 = blockIdx.y * TQ, slab = blockIdx.z;
+  const int qv = min(TQ, B - q0);
+  const int col0 = slab * SLAB + rank * NTC;     // the CTA's first column
+  cluster_arrive_relaxed();               // this CTA runs (waited below)
+  f32_tile<TQ>(base, &tg, &tq, c, valid, q0, col0, twoD,
+               __int_as_float(0xff800000));     // invalid rows -inf
+  float* sc = reinterpret_cast<float*>(base);    // [TQ][LDS]
 
   const unsigned full = 0xffffffffu;
   cluster_wait();                         // every CTA of the cluster runs
@@ -1291,14 +1160,112 @@ slab_topk_f32(const __grid_constant__ CUtensorMap tg,
                         out_s, out_i);
 }
 
-// The clusters of slab_topk_f32<TQ> resident at once (its shared memory
-// set first).
+// Kernel 2's f32 entry: CTA (rank, query tile, slab) holds groups 2 rank
+// and 2 rank + 1 of the slab whole, so it writes their rounds alone.
 template <int TQ>
-int f32_active(int* n) {
+__global__ void __launch_bounds__(F_THREADS, 1)
+group_topk_f32(const __grid_constant__ CUtensorMap tg,
+               const __grid_constant__ CUtensorMap tq,
+               const float* __restrict__ c,
+               const uint8_t* __restrict__ valid,
+               float* __restrict__ out_s, int* __restrict__ out_i, int B,
+               int twoD, int per_group) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = aligned_base(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rank = blockIdx.x, q0 = blockIdx.y * TQ, slab = blockIdx.z;
+  const int qv = min(TQ, B - q0);
+  const int col0 = slab * SLAB + rank * NTC;     // the CTA's first column
+  f32_tile<TQ>(base, &tg, &tq, c, valid, q0, col0, twoD, NEG);
+  const float* sc = reinterpret_cast<const float*>(base);
+
+  // Warp w takes the pairs p = w + 8 j, query p / 2 and the CTA's group
+  // p % 2, side by side; lane l holds rows l + 32 m of the group as keys
+  // (a pair past the batch: every key at NEG's, its rounds not written).
+  // A round: the max by redux, then its lowest row by redux; the taken
+  // row's key becomes NEG's, so once every row is at NEG a round returns
+  // NEG at the group's lowest row, as the plain version (argmax) does.
+  // The pairs' rounds are straight-line code, so their redux chains
+  // overlap; lane j keeps pair j's result and writes it, one store a round.
+  constexpr int NP = (2 * TQ + 7) / 8, M = GROUP / 32;
+  const unsigned full = 0xffffffffu;
+  const uint32_t taken = score_key(NEG);
+  const int KO = per_group * NG;
+  uint32_t key[NP][M];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const int p = warp + 8 * j, q = p >> 1;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      key[j][m] = q < qv ? score_key(sc[q * LDS + (p & 1) * GROUP + 32 * m +
+                                        lane])
+                         : taken;
+    }
+  }
+  const int pl = warp + 8 * lane, ql = pl >> 1;   // lane j's pair: j = lane
+  const bool writes = lane < NP && ql < qv;
+  const size_t ol = ((size_t)slab * B + q0 + ql) * KO + 2 * rank + (pl & 1);
+  const int rl = col0 + (pl & 1) * GROUP;         // its group's first row
+  for (int r = 0; r < per_group; ++r) {
+    uint32_t ws = 0u;
+    int wr = 0;
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      uint32_t lm = key[j][0];
+#pragma unroll
+      for (int m = 1; m < M; ++m) lm = max(lm, key[j][m]);
+      const uint32_t wm = __reduce_max_sync(full, lm);
+      int lr = 0x7fffffff;
+#pragma unroll
+      for (int m = M - 1; m >= 0; --m) {
+        lr = key[j][m] == wm ? 32 * m + lane : lr;
+      }
+      const int br = __reduce_min_sync(full, lr);
+      ws = lane == j ? wm : ws;
+      wr = lane == j ? br : wr;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        key[j][m] = br == 32 * m + lane ? taken : key[j][m];
+      }
+    }
+    if (writes) {
+      out_s[ol + (size_t)r * NG] = key_score(ws);
+      out_i[ol + (size_t)r * NG] = rl + wr;
+    }
+  }
+}
+
+// Both f32 entries take the same arguments: (tg, tq, c, valid, out_s,
+// out_i, B, twoD, kappa or per_group).
+using F32Kernel = void (*)(CUtensorMap, CUtensorMap, const float*,
+                           const uint8_t*, float*, int*, int, int, int);
+
+template <int TQ>
+F32Kernel f32_kernel(bool group) {
+  if (group) return group_topk_f32<TQ>;
+  return slab_topk_f32<TQ>;
+}
+
+// The units of an f32 entry at query tile TQ resident at once, its shared
+// memory set first: clusters of SPLIT CTAs (kernel 1), CTAs (kernel 2).
+template <int TQ>
+int f32_active(bool group, int* n) {
+  const F32Kernel kern = f32_kernel<TQ>(group);
   cudaError_t e = cudaFuncSetAttribute(
-      slab_topk_f32<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       F32Layout<TQ>::SMEM);
   if (e != cudaSuccess) return (int)e;
+  if (group) {
+    int per_sm = 0, dev = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, F_THREADS, F32Layout<TQ>::SMEM);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) {
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    *n = per_sm * sms;
+    return (int)e;
+  }
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1310,13 +1277,15 @@ int f32_active(int* n) {
   cfg.dynamicSmemBytes = F32Layout<TQ>::SMEM;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(n, slab_topk_f32<TQ>, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(n, kern, &cfg);
 }
 
+// One launch of an f32 entry: SPLIT CTAs (kernel 1: a cluster) a (query
+// tile, slab).
 template <int TQ>
-int launch_f32_tile(const CUtensorMap& tg, const void* qq, int twoD4,
-                    const void* c, const void* valid, void* out_s,
-                    void* out_i, int B, int twoD, int NS, int kappa,
+int launch_f32_tile(bool group, const CUtensorMap& tg, const void* qq,
+                    int twoD4, const void* c, const void* valid, void* out_s,
+                    void* out_i, int B, int twoD, int NS, int sel,
                     cudaStream_t stream) {
   CUtensorMap tq;
   const cuuint64_t dq[2] = {(cuuint64_t)twoD4, (cuuint64_t)B};
@@ -1334,53 +1303,62 @@ int launch_f32_tile(const CUtensorMap& tg, const void* qq, int twoD4,
   cfg.dynamicSmemBytes = F32Layout<TQ>::SMEM;
   cfg.stream = stream;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = group ? 0 : 1;
   cudaError_t e = cudaLaunchKernelEx(
-      &cfg, slab_topk_f32<TQ>, tg, tq, reinterpret_cast<const float*>(c),
+      &cfg, f32_kernel<TQ>(group), tg, tq, reinterpret_cast<const float*>(c),
       reinterpret_cast<const uint8_t*>(valid),
       reinterpret_cast<float*>(out_s), reinterpret_cast<int*>(out_i), B,
-      twoD, kappa);
+      twoD, sel);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-int launch_topk_f32(const void* qq, const void* gt, const void* c,
-                    const void* valid, void* out_s, void* out_i, int B,
-                    int twoD, int Sp, int kappa, cudaStream_t stream) {
+// Kernel 1's (group false: sel = kappa) or kernel 2's (group true: sel =
+// per_group) f32 entry.
+int launch_f32(bool group, const void* qq, const void* gt, const void* c,
+               const void* valid, void* out_s, void* out_i, int B, int twoD,
+               int Sp, int sel, cudaStream_t stream) {
   if ((reinterpret_cast<uintptr_t>(qq) | reinterpret_cast<uintptr_t>(gt)) &
       15u) {
     return (int)cudaErrorInvalidValue;
   }
-  // clusters of each query tile resident at once, by device (0: not asked)
-  static int active[MAX_DEVICES][F_TILES] = {};
+  // units of each query tile resident at once, by entry and device (0: not
+  // asked)
+  static int active[2][MAX_DEVICES][F_TILES] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  int* act = active[dev];
+  int* act = active[group][dev];
   if (act[0] == 0) {
-    int rc = f32_active<1>(&act[0]);
-    if (rc == 0) rc = f32_active<8>(&act[1]);
-    if (rc == 0) rc = f32_active<16>(&act[2]);
-    if (rc == 0) rc = f32_active<32>(&act[3]);
-    if (rc == 0) rc = f32_active<64>(&act[4]);
-    if (rc != 0) return rc;
+    int rc = f32_active<1>(group, &act[0]);
+    if (rc == 0) rc = f32_active<8>(group, &act[1]);
+    if (rc == 0) rc = f32_active<16>(group, &act[2]);
+    if (rc == 0) rc = f32_active<32>(group, &act[3]);
+    if (rc == 0) rc = f32_active<64>(group, &act[4]);
+    if (rc != 0) {
+      act[0] = 0;
+      return rc;
+    }
     for (int t = 0; t < F_TILES; ++t) {
-      if (act[t] <= 0) return (int)cudaErrorInvalidConfiguration;
+      if (act[t] <= 0) {
+        act[0] = 0;
+        return (int)cudaErrorInvalidConfiguration;
+      }
     }
   }
-  // The query tile whose waves of clusters cost least: a CTA's products
-  // take time in proportion to TQ from TQ = 8 on (a 1-query tile about half
-  // an 8-query one's), beside a fixed part (the stream's latency, the
-  // select) worth F_FIXED queries (tuned on the card against every tile at
-  // the served shapes).
-  const int NS = Sp / SLAB;
+  // The query tile whose waves of units cost least: a CTA's products take
+  // time in proportion to TQ from TQ = 8 on (a 1-query tile about half an
+  // 8-query one's), beside a fixed part (the stream's latency, the
+  // selection) worth F_FIXED queries (tuned on the card against every tile
+  // at the served shapes).
+  const int NS = Sp / SLAB, units = group ? SPLIT : 1;
   int tile = 0;
   double best = 0.0;
   for (int t = 0; t < F_TILES; ++t) {
     const int TQ = t == 0 ? 1 : 4 << t;
-    const double clusters = (double)NS * ((B + TQ - 1) / TQ);
-    const double cost = std::ceil(clusters / act[t]) *
+    const double need = (double)NS * ((B + TQ - 1) / TQ) * units;
+    const double cost = std::ceil(need / act[t]) *
                         ((TQ == 1 ? 4 : TQ) + F_FIXED);
     if (t == 0 || cost < best) {
       best = cost;
@@ -1395,20 +1373,20 @@ int launch_topk_f32(const void* qq, const void* gt, const void* c,
   const int twoD4 = (twoD + 3) / 4 * 4;
   switch (tile) {
     case 0:
-      return launch_f32_tile<1>(tg, qq, twoD4, c, valid, out_s, out_i, B,
-                                twoD, NS, kappa, stream);
+      return launch_f32_tile<1>(group, tg, qq, twoD4, c, valid, out_s,
+                                out_i, B, twoD, NS, sel, stream);
     case 1:
-      return launch_f32_tile<8>(tg, qq, twoD4, c, valid, out_s, out_i, B,
-                                twoD, NS, kappa, stream);
+      return launch_f32_tile<8>(group, tg, qq, twoD4, c, valid, out_s,
+                                out_i, B, twoD, NS, sel, stream);
     case 2:
-      return launch_f32_tile<16>(tg, qq, twoD4, c, valid, out_s, out_i, B,
-                                 twoD, NS, kappa, stream);
+      return launch_f32_tile<16>(group, tg, qq, twoD4, c, valid, out_s,
+                                 out_i, B, twoD, NS, sel, stream);
     case 3:
-      return launch_f32_tile<32>(tg, qq, twoD4, c, valid, out_s, out_i, B,
-                                 twoD, NS, kappa, stream);
+      return launch_f32_tile<32>(group, tg, qq, twoD4, c, valid, out_s,
+                                 out_i, B, twoD, NS, sel, stream);
     default:
-      return launch_f32_tile<64>(tg, qq, twoD4, c, valid, out_s, out_i, B,
-                                 twoD, NS, kappa, stream);
+      return launch_f32_tile<64>(group, tg, qq, twoD4, c, valid, out_s,
+                                 out_i, B, twoD, NS, sel, stream);
   }
 }
 }  // namespace
@@ -1429,8 +1407,8 @@ extern "C" int fused_topk_f32(const void* qq, const void* gt, const void* c,
                               const void* valid, void* out_s, void* out_i,
                               int B, int twoD, int Sp, int kappa,
                               void* stream) {
-  return launch_topk_f32(qq, gt, c, valid, out_s, out_i, B, twoD, Sp, kappa,
-                         reinterpret_cast<cudaStream_t>(stream));
+  return launch_f32(false, qq, gt, c, valid, out_s, out_i, B, twoD, Sp,
+                    kappa, reinterpret_cast<cudaStream_t>(stream));
 }
 
 #ifdef FUSED_GUESS_STATS
@@ -1445,7 +1423,7 @@ extern "C" int read_guess_stats(unsigned long long* out) {
 #endif
 
 // Group pool: out_s/out_i (NS, B, per_group * 16), 1 <= per_group <= 128;
-// a bf16 qq padded as for fused_topk_bf16.
+// qq padded as for fused_topk_bf16 or fused_topk_f32.
 extern "C" int fused_group_topk_bf16(const void* qq, const void* gt,
                                      const void* c, const void* valid,
                                      void* out_s, void* out_i, int B,
@@ -1460,6 +1438,6 @@ extern "C" int fused_group_topk_f32(const void* qq, const void* gt,
                                     void* out_s, void* out_i, int B,
                                     int twoD, int Sp, int per_group,
                                     void* stream) {
-  return launch_group_f32(qq, gt, c, valid, out_s, out_i, B, twoD, Sp,
-                          per_group, reinterpret_cast<cudaStream_t>(stream));
+  return launch_f32(true, qq, gt, c, valid, out_s, out_i, B, twoD, Sp,
+                    per_group, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -13,13 +13,13 @@ max/argmax (ties to the lower row, the taken row set to NEG); column
 entry of ``pallas_fused_group_topk`` over a serving ``FusedIndex``.
 
 Both kernels live in ``csrc/fused_topk.cu``, each with a bf16 entry (on
-wgmma) and an f32 entry (CUDA cores, full f32); a wrapper's ``launches``
-counts every launch and ``launches_f32`` those of the f32 entry.  Every
-entry but kernel 2's f32 one loads its query boxes by TMA, so ``_launch``
-hands it qq in zero-padded 16-byte rows where 2D or its alignment needs
-it.  Each
-``*_plain`` function is the same function in plain PyTorch.  A CPU tensor takes the plain version;
-a CUDA tensor launches the kernel or raises.
+wgmma) and an f32 entry (CUDA cores, full f32; the two f32 entries share
+one sweep); a wrapper's ``launches`` counts every launch and
+``launches_f32`` those of the f32 entry.  Every entry loads its query
+boxes by TMA, so ``_launch`` hands it qq in zero-padded 16-byte rows
+where 2D or its alignment needs it.  Each ``*_plain`` function is the
+same function in plain PyTorch.  A CPU tensor takes the plain version; a
+CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -101,8 +101,7 @@ def _launch(fn_name: str, qq, GT, c, valid, sel: int, width: int):
     B, twoD = qq.shape
     Sp = GT.shape[1]
     row = 16 // qq.element_size()
-    if (GT.dtype == torch.bfloat16 or fn_name == "fused_topk") and (
-            twoD % row or qq.data_ptr() % 16):
+    if twoD % row or qq.data_ptr() % 16:
         # the query boxes come by TMA: 16-byte rows, the pad zero
         qp = qq.new_zeros((B, twoD + -twoD % row))
         qp[:, :twoD] = qq

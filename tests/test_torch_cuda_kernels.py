@@ -504,44 +504,67 @@ def _group_holds(ft, qq, GT, c, valid, per_group, exact=False):
     assert torch.equal(ki[neg], pi[neg])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("per_group", [1, 2, 16, 128])
 @pytest.mark.parametrize("B", [1, 32, 1000])
 @pytest.mark.parametrize("twoD", [496, 256])
-def test_group_topk_kernel_at_the_served_widths(card, twoD, B, per_group):
-    """The served indexes' widths (flagship 2D=496, 100k 2D=256), the
-    batches the serving gives a kernel, and per_group from 1 to the whole
-    group (the last rounds of a group with invalid rows are exhausted)."""
+def test_group_topk_kernel_at_the_served_widths(card, twoD, B, per_group,
+                                                dtype):
+    """The served indexes' widths (flagship and single tree 2D=496, 100k
+    2D=256), the batches the serving gives a kernel, and per_group from 1
+    to the whole group (the last rounds of a group with invalid rows are
+    exhausted); both entries (f32: the single tree's exact index)."""
     from rag_cobweb_tpu_torch.ops import fused_topk as ft
     g = torch.Generator(device=card).manual_seed(B + twoD + per_group)
     Sp, S = 6144, 5000
     q = torch.randn((B, twoD // 2), generator=g, device=card)
-    qq = torch.cat([q, q * q], 1).to(torch.bfloat16)
+    qq = torch.cat([q, q * q], 1).to(dtype)
     GT = (0.05 * torch.randn((twoD, Sp), generator=g, device=card)) \
-        .to(torch.bfloat16)
+        .to(dtype)
     c = torch.randn((Sp,), generator=g, device=card)
     _group_holds(ft, qq, GT, c, torch.arange(Sp, device=card) < S,
                  per_group)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,twoD,per_group", [(1, 8, 3), (65, 99, 2),
                                               (130, 256, 7), (63, 520, 128)])
 def test_group_topk_kernel_ties_across_the_groups_of_a_block(card, B, twoD,
-                                                             per_group):
+                                                             per_group,
+                                                             dtype):
     """Dyadic scores (exact in any order) taking few values, so every group
     holds many rows tied with each other and with the rows of the group
     beside it in the same 256-column block: the same rounds, ids and all,
     as the plain version's; B ragged, 2D odd (qq's rows padded for TMA)
-    and above 512, the last slab partly invalid."""
+    and above 512, the last slab partly invalid; both entries."""
     from rag_cobweb_tpu_torch.ops import fused_topk as ft
     g = torch.Generator(device=card).manual_seed(B + twoD)
     Sp, S = 4096, 3000
     qq = (torch.randint(0, 2, (B, twoD), generator=g, device=card).float()
-          / 2).to(torch.bfloat16)
+          / 2).to(dtype)
     GT = (torch.randint(0, 2, (twoD, Sp), generator=g, device=card).float()
-          / 4).to(torch.bfloat16)
+          / 4).to(dtype)
     c = torch.randint(0, 3, (Sp,), generator=g, device=card).float()
     _group_holds(ft, qq, GT, c, torch.arange(Sp, device=card) < S,
                  per_group, exact=True)
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 17, 33, 65, 1000])
+def test_f32_entries_at_every_query_tile(card, B):
+    """The batches that take each query tile of the f32 launcher (1, 8,
+    16, 32, 64 queries) on five slabs, 2D odd and above 512 (qq's rows
+    padded for TMA), the last slab partly invalid and one group cut below
+    per_group: kernel 2's f32 rounds equal the plain version's, ids and
+    exhausted rounds too, and kernel 1's f32 pool on the same sweep."""
+    from rag_cobweb_tpu_torch.ops import fused_topk as ft
+    Sp = 5 * ft.SLAB
+    qq, GT, c, valid = _dyadic_sweep(card, torch.float32, B, 523, Sp, 9000,
+                                     B)
+    valid[3 * ft.GROUP + 2:4 * ft.GROUP] = False
+    before = ft.slab_group_topk.launches_f32
+    _group_holds(ft, qq, GT, c, valid, 5, exact=True)
+    assert ft.slab_group_topk.launches_f32 == before + 1
+    _same_pool(ft, qq, GT, c, valid, 10)
 
 
 @pytest.mark.parametrize("B", [1, 32, 1024])
@@ -589,14 +612,16 @@ def test_fused_topk_guessed_window_misses(card, B):
     _same_pool(fused_topk, qq, GT, c, valid, 300)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("twoD", [64, 98])
-def test_fused_kernels_take_an_unaligned_query_batch(card, twoD):
-    """qq contiguous but 2 bytes off a 16-byte boundary (a view into a
+def test_fused_kernels_take_an_unaligned_query_batch(card, twoD, dtype):
+    """qq contiguous but one element off a 16-byte boundary (a view into a
     flat buffer): the wrappers copy it to padded, aligned rows for TMA, so
-    both kernels give the plain version's pools, ids and all."""
+    both kernels give the plain version's pools, ids and all, from either
+    entry."""
     from rag_cobweb_tpu_torch.ops import fused_topk
-    qq, GT, c, valid = _dyadic_sweep(card, torch.bfloat16, 33, twoD, 4096,
-                                     3900, twoD)
+    qq, GT, c, valid = _dyadic_sweep(card, dtype, 33, twoD, 4096, 3900,
+                                     twoD)
     buf = torch.zeros(qq.numel() + 1, dtype=qq.dtype, device=card)
     buf[1:] = qq.flatten()
     qu = buf[1:].view(qq.shape)

@@ -175,3 +175,28 @@ def test_plain_pool_layout(wide):
     assert bool((out_s[0].view(3, 3, ft.NG)[:, :, empty] == ft.NEG).all())
     assert bool((out_i[0].view(3, 3, ft.NG)[:, :, empty]
                  == (g.view(3, ft.NG)[:, empty] * ft.GROUP)).all())
+
+
+@pytest.mark.parametrize("per_group", [1, 2, 7])
+def test_plain_pool_at_the_single_tree_width_against_pallas(per_group):
+    """The plain f32 pool, which the card tests hold the kernel to, against
+    the Pallas kernel in interpret mode at the single tree's served width
+    (2D=496): two slabs, the last partly invalid, group 3 cut to fewer
+    valid rows than per_group (its last rounds exhausted); dyadic f32
+    inputs, exact in any order, and the whole pool (k = NS * per_group *
+    16) compared."""
+    rng = np.random.default_rng(40 + per_group)
+    D, Sp, S = 248, 2 * ft.SLAB, 3000
+    GT = (rng.integers(-16, 17, size=(2 * D, Sp)) / 16).astype(np.float32)
+    c = (rng.integers(-64, 65, size=Sp) / 4).astype(np.float32)
+    valid = np.arange(Sp) < S
+    valid[3 * ft.GROUP + per_group - 1:4 * ft.GROUP] = False
+    q = (rng.integers(-8, 9, size=(4, D)) / 8).astype(np.float32)
+    k = Sp // ft.SLAB * per_group * ft.NG
+    fidx = jidx.FusedIndex(GT=jnp.asarray(GT), c=jnp.asarray(c),
+                           valid=jnp.asarray(valid))
+    want = pallas_fused_group_topk(fidx, jnp.asarray(q), k, interpret=True,
+                                   per_group=per_group)
+    got = ft.fused_group_topk(_port_index(fidx), torch.as_tensor(q), k,
+                              per_group=per_group)
+    _compare(*want, *got)

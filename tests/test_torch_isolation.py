@@ -107,7 +107,8 @@ def test_chip_smoke_refuses_without_a_card():
 
 @pytest.mark.parametrize("kernel", ["blocked_topk", "blocked_topk_f32",
                                     "fused_topk", "fused_topk_f32",
-                                    "fused_group_topk", "rerank_l2"])
+                                    "fused_group_topk",
+                                    "fused_group_topk_f32", "rerank_l2"])
 def test_kernel_ab_entries_are_bound(kernel):
     """Every kernel ``bench/kernel_ab.py`` times names a built source and
     a C entry with an argument list in ``_build._SIGNATURES``."""
