@@ -56,14 +56,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the port).  Then, outside that window: kernels 1 and 5 held and timed
    on the tree's served index and pools; ``rerank=0`` (the exact
    path-score order) served in its own window through kernel 1's f32
-   entry on the tree's f32 FusedIndex, which is then held against its
-   plain version and timed at B = 1, 32 and 1024 (kappa 10), each line
+   entry on the tree's f32 FusedIndex, its ids held against the plain
+   f32 path-score order on the card (the id at each place carries the
+   plain score of that place within 1e-3 + 1e-5 of its terms) and its
+   recall@10 within 0.005 of the plain order's; the entry then held
+   against its plain version and timed at B = 1, 32 and 1024 (kappa 10),
+   each line
    with its bound and library call (``matmul`` + ``topk``, TF32 off); the
    f32 group pool over that index, held and timed at B = 1, 8, 32 and
    1024 with its bound and library call, and the blocked kernel's f32
    entry (an f32 blocked index, ``rerank=0``), held and timed at B = 1,
    8, 32 and 1024 (its library call: 3 ``bmm`` + ``topk``, TF32 off),
    each in its own window;
+3d. the scale slice (``rag_cobweb_tpu_torch.bench.scale_slice``): the
+   100k cell's settings at 131072 indexed rows (data over 131072 + 9216
+   rows, 4096 queries), where the backstop pool turns on: served with
+   the backstop (kernel 1 twice a chunk, once counted by the backstop
+   pool, kernel 5 once, no f32 launch; recall@10 within 0.005 of the
+   exact scan; ids held against the same pipeline in plain PyTorch on the
+   card, ``bench/probes.py``) and without; the backstop's kernel 1 held
+   against its plain version on the served whitened store and timed at
+   B = 1, 32 and 1024 with its bound and library call; adds of 2048, 6144
+   and 1024 rows served from the pending and delta tiers on the index
+   built before them (kernel 5 once more a chunk, counted by the pending
+   tier; recall@10 within 0.005 of the exact scan over all rows; ids held
+   against the plain pipeline over the raw rows; every added row found
+   first as itself); kernel 5 held and timed at the pending tier's shape;
+   add-then-query timed with the stale index and with a rebuild;
 4. one JSON line of per-kernel numbers, a row per CUDA kernel entry
    (kernel 1 at the flagship shape, with its single-tree record under
    ``single_tree``; kernel 5 on the flagship's served pools, likewise; the
@@ -72,7 +91,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``B4096``; the group pool at the flagship shape; the f32 entries of
    kernel 1 (B=1024, with ``B1``, ``B32``), of the group pool and of the
    blocked kernel (B=1024, with ``B1``, ``B8``, ``B32``) on the single
-   tree's f32 indexes), the nvidia-smi line,
+   tree's f32 indexes; kernel 1's backstop record under ``backstop`` and
+   kernel 5's at the pending tier under ``pending``), the nvidia-smi line,
    and the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -478,102 +498,32 @@ def check_group(fused_topk, qq, GT, c, valid, per_group, reps, label="",
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
-def stage_split(db, data, pool: int, k: int = 10) -> dict:
-    """Stream ms of each stage of one served batch (all the cell's queries,
-    as the headline serves them; a stage whose launches the host issues
-    slower than the device runs them counts that gap too), by CUDA events
-    around the calls that
-    ``CobwebIndex.query_ids`` makes: upload, whitening, kernel 1 (with the
-    query terms), pool merge (``torch.topk``), kernel 5, final
-    ``torch.topk`` and gather, ids to the host.  The last of three runs,
-    beside the host's wall time of that run."""
-    from rag_cobweb_tpu_torch.ops import fused_topk, rerank
-    host = np.ascontiguousarray(data.query_embs, np.float32)
-    fidx, emb = db._fused_index(), db._emb_device()
-    kappa = min(pool, fused_topk.SLAB)
-    pv = float(db.cfg.prior_var)
-    names = ("upload", "whitening", "kernel 1", "pool merge", "kernel 5",
-             "final top-k", "to host")
-    for _ in range(3):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev[0].record()
-        qs = torch.as_tensor(host, device=db.device)
-        ev[1].record()
-        q = db.whitener.transform_torch(qs)
-        ev[2].record()
-        out = fused_topk.slab_topk(fused_topk.query_terms(q, fidx.GT.dtype),
-                                   fidx.GT, fidx.c, fidx.valid, kappa)
-        ev[3].record()
-        cs, cand = fused_topk.merge(*out, pool)
-        ev[4].record()
-        lp = rerank.rerank_lp(emb, qs.float().contiguous(),
-                              cand.to(torch.int32).contiguous(),
-                              cs.contiguous(), pv)
-        ev[5].record()
-        ids = cand.gather(1, torch.topk(lp, k, dim=1).indices)
-        ev[6].record()
-        ids.cpu()
-        ev[7].record()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    split = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
-    split["sum"] = sum(split.values())
-    split["wall"] = wall
-    split["B"] = len(host)
-    return split
-
-
-def plain_serving(db, data, k: int, pool: int, served: np.ndarray) -> dict:
-    """The served pipeline of ``db`` (whitening, the fused pool, the exact
-    re-rank) in plain PyTorch on the card, held against ``served`` (the
-    kernels' ids for the same queries): ids equal except where the test
-    shows the two as ties (kernel 5's keys within 1e-5 of their terms at
-    the k-th place, or path scores within 1e-3 + 1e-5 of their terms of
-    the pool's last).  Also the golds outside the pool (plain f32 path
-    scores).  Returns the record."""
-    from rag_cobweb_tpu_torch.ops import fused_topk, rerank
-    fidx, emb = db._fused_index(), db._emb_device()
-    pv, D = float(db.cfg.prior_var), emb.shape[1]
-    qs = torch.as_tensor(data.query_embs, device=emb.device)
-    qq = fused_topk.query_terms(db.whitener.transform_torch(qs),
-                                fidx.GT.dtype)
-    full = fused_topk.slab_scores_plain(qq, fidx.GT, fidx.c, fidx.valid,
+def plain_path_order(db, qw, served: np.ndarray, targets,
+                     k: int = 10) -> dict:
+    """``rerank=0``'s served ids (kernel 1's f32 entry over the f32
+    FusedIndex) against the plain f32 path-score order of the same index
+    on the card: the served id at each place must carry the plain score of
+    that place within 1e-3 + 1e-5 of its terms (so ids differ only among
+    ties).  Returns the record."""
+    from rag_cobweb_tpu_torch.ops import fused_topk
+    f32 = db._fused_index(exact=True)
+    qq = fused_topk.query_terms(qw, torch.float32)
+    full = fused_topk.slab_scores_plain(qq, f32.GT, f32.c, f32.valid,
                                         float("-inf")).reshape(len(qq), -1)
-    terms = torch.matmul(qq.float().abs(), fidx.GT.float().abs()) \
-        + fidx.c.abs()
-    cs, cand = torch.topk(full, pool, dim=1)
-    lp = rerank.rerank_lp_plain(emb, qs, cand.to(torch.int32), cs, pv)
-    plain = cand.gather(1, torch.topk(lp, k, dim=1).indices).cpu().numpy()
-    gold = torch.as_tensor(np.asarray(data.target_ids), device=emb.device)
-    g_score = full.gather(1, gold.view(-1, 1))
-    outside = int(((full > g_score).sum(1) >= pool).sum())
-    differ = np.nonzero((plain != served).any(axis=1))[0]
-    for qi in differ:
-        ids = torch.as_tensor(np.union1d(plain[qi], served[qi]),
-                              device=emb.device)
-        keys = rerank.rerank_lp_plain(
-            emb, qs[qi:qi + 1], ids.view(1, -1).to(torch.int32),
-            torch.zeros((1, len(ids)), device=emb.device), pv)[0]
-        kth = float(torch.topk(keys, k).values[-1])
-        last = float(cs[qi, -1])
-        for sid in set(plain[qi]) ^ set(served[qi]):
-            j = int((ids == int(sid)).nonzero()[0, 0])
-            key_tie = abs(float(keys[j]) - kth) <= 1e-5 * (
-                abs(kth) + 0.5 * D * abs(math.log(pv)))
-            pool_tie = abs(float(full[qi, int(sid)]) - last) <= \
-                1e-3 + 1e-5 * float(terms[qi, int(sid)])
-            if not (key_tie or pool_tie):
-                raise AssertionError(
-                    f"query {qi}: served id {sid} differs from the plain "
-                    f"pipeline's and is no tie (key {float(keys[j])} vs "
-                    f"{k}-th {kth}; path score {float(full[qi, int(sid)])}"
-                    f" vs the pool's last {last})")
+    terms = torch.matmul(qq.abs(), f32.GT.abs()) + f32.c.abs()
+    top, plain = torch.topk(full, k, dim=1)
+    got = torch.as_tensor(served, device=full.device).long()
+    at = full.gather(1, got)
+    tol = 1e-3 + 1e-5 * terms.gather(1, got)
+    if bool(((at - top).abs() > tol).any()):
+        raise AssertionError(
+            "rerank=0: a served id does not carry the plain path-score "
+            f"order's score at its place (max off {(at - top).abs().max()})")
+    plain = plain.cpu().numpy()
     return {"plain_recall@10": float(np.mean(
-        [t in row for t, row in zip(data.target_ids, plain)])),
-        "queries_differing_from_plain": int(len(differ)),
-        "golds_outside_pool": outside}
+        [t in row for t, row in zip(targets, plain)])),
+        "queries_differing_from_plain": int(
+            (plain != served).any(axis=1).sum())}
 
 
 def single_tree_slice(headline, zero, read, windows, launches,
@@ -584,6 +534,7 @@ def single_tree_slice(headline, zero, read, windows, launches,
     kernels held and timed on its indexes and the f32 entries, each in its
     own window.  Returns (the headline record, the kernel records)."""
     from rag_cobweb_tpu_torch.bench.metrics import to_host
+    from rag_cobweb_tpu_torch.bench.probes import plain_check, stage_split
     from rag_cobweb_tpu_torch.core.index import fused_query_topk
     from rag_cobweb_tpu_torch.ops import blocked_topk, fused_topk, rerank
     single = {}
@@ -594,10 +545,12 @@ def single_tree_slice(headline, zero, read, windows, launches,
             return
         windows["single"] = read()
         served = to_host(db.query_ids(data.query_embs, 10, rerank=1024))
-        single["plain"] = plain_serving(db, data, 10, 1024, served)
+        single["plain"] = plain_check(db, data.query_embs, served, 10,
+                                      1024, 0, 1024, data.corpus_embs,
+                                      data.target_ids)
         single["plain"]["served_recall@10"] = float(np.mean(
             [t in row for t, row in zip(data.target_ids, served)]))
-        single["split"] = stage_split(db, data, 1024)
+        single["split"] = stage_split(db, data.query_embs, 10, 1024)
         raw = torch.as_tensor(data.query_embs[:1024], device=device)
         qw = db.whitener.transform_torch(raw)
         # kernels 1 and 5 on the single tree's served index and pools
@@ -619,6 +572,8 @@ def single_tree_slice(headline, zero, read, windows, launches,
         windows["single_f32"] = read()
         single["recall_rerank0"] = float(np.mean(
             [t in row for t, row in zip(data.target_ids, ids0)]))
+        single["rerank0_plain"] = plain_path_order(db, qw, ids0,
+                                                   data.target_ids)
         f32 = db._fused_index(exact=True)
         if f32.GT.dtype != torch.float32:
             raise AssertionError(f"rerank=0 served a {f32.GT.dtype} index")
@@ -664,7 +619,13 @@ def single_tree_slice(headline, zero, read, windows, launches,
               "single_blocked_f32"):
         log(f"[single] {w} launches: {windows[w]}")
     log(f"[single] recall@10 at rerank=0 (path-score order): "
-        f"{single['recall_rerank0']}")
+        f"{single['recall_rerank0']}; the plain f32 order on the card: "
+        f"{single['rerank0_plain']}")
+    if abs(single["recall_rerank0"]
+           - single["rerank0_plain"]["plain_recall@10"]) > 0.005:
+        raise AssertionError(
+            f"single tree, rerank=0: recall@10 {single['recall_rerank0']} "
+            "is more than 0.005 from the plain path-score order's")
     log("[single] stage split, stream ms between CUDA events, one batch: "
         + json.dumps(single["split"]) + f" | headline batch ms "
         f"{rec1['value'] * single['split']['B']:.4f}")
@@ -718,7 +679,7 @@ def main() -> int:
         print("chip_smoke: rag_cobweb_tpu_torch was imported from outside "
               "this checkout", file=sys.stderr)
         return 2
-    from rag_cobweb_tpu_torch.bench import headline
+    from rag_cobweb_tpu_torch.bench import headline, probes, scale_slice
     from rag_cobweb_tpu_torch.device import full_f32_matmul
     from rag_cobweb_tpu_torch.ops import (_build, blocked_topk,
                                           fused_topk, rerank)
@@ -806,25 +767,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3. the flagship slice ------------------------------------------
-    counters = {"fused_topk": fused_topk.slab_topk,
-                "rerank_l2": rerank.rerank_lp,
-                "fused_group_topk": fused_topk.slab_group_topk,
-                "blocked_topk": blocked_topk.blocked_topk}
+    zero, read = probes.zero_counters, probes.read_counters
     launches, windows = {}, {}
-
-    def zero():
-        for fn in counters.values():
-            fn.launches = 0
-            if hasattr(fn, "launches_f32"):
-                fn.launches_f32 = 0
-
-    def read():
-        out = {k: fn.launches for k, fn in counters.items()}
-        for k, fn in counters.items():
-            if hasattr(fn, "launches_f32"):
-                out[k] -= fn.launches_f32
-                out[k + "_f32"] = fn.launches_f32
-        return out
 
     def whitened(db, data, n):
         qs = torch.as_tensor(data.query_embs[:n], device="cuda")
@@ -848,7 +792,7 @@ def main() -> int:
             cand.to(torch.int32).contiguous(), cs.contiguous(), reps=20,
             label=" (served pools)", pv=float(db.cfg.prior_var))
         del cs, cand
-        flag["split"] = stage_split(db, data, 1024)
+        flag["split"] = probes.stage_split(db, data.query_embs, 10, 1024)
         # the group pool over the serving FusedIndex, its own window
         qw = whitened(db, data, 1024)
         zero()
@@ -966,6 +910,49 @@ def main() -> int:
     rec1, single = single_tree_slice(headline, zero, read, windows, launches,
                                      name)
 
+    # -- 3d. the scale slice: 131072 indexed rows, backstop, adds ------
+    scale = {}
+
+    def scale_hook(step, db, data):
+        if step == "backstop":
+            # the backstop's kernel 1 on the served whitened store (kappa
+            # 512, the rows past the indexed count invalid)
+            GT, half = db._wemb_device()
+            qq = whitened(db, data, 1024).to(torch.bfloat16).contiguous()
+            valid = torch.arange(GT.shape[1], device="cuda") \
+                < db._indexed_count()
+            for B, reps in ((1, 50), (32, 50), (1024, 10)):
+                scale[B] = check_fused(
+                    fused_topk, qq[:B], GT, -half, valid, 512, reps,
+                    label=" backstop (served whitened store)", real=True)
+        elif step == "pending":
+            # kernel 5 at the pending tier's shape: the queries against
+            # every pending row of the raw store
+            sids = db._pending_rows()[1]
+            qs = torch.as_tensor(data.query_embs[:1024], device="cuda")
+            cand = sids.to(torch.int32).view(1, -1).expand(
+                len(qs), -1).contiguous()
+            scale["pending"] = check_rerank(
+                rerank, db._emb_device(), qs, cand,
+                torch.zeros(cand.shape, device="cuda"), reps=10,
+                label=" (pending tier)", pv=float(db.cfg.prior_var))
+
+    rec3 = scale_slice.run(device="cuda", log=lambda *a: log(*a),
+                           hook=scale_hook)
+    log(json.dumps(rec3))
+    log(f"[scale] recall@10 with the backstop / without / exact: "
+        f"{rec3['backstop_on']['recall@10']} / "
+        f"{rec3['backstop_off']['recall@10']} / {rec3['exact_recall@10']};"
+        f" after the adds {rec3['after_adds']['recall@10']} / exact "
+        f"{rec3['after_adds']['exact_recall@10']}")
+    log("[scale] backstop kernel 1 ms / bound ms / library ms by batch "
+        "size: " + json.dumps({B: [scale[B]["ms"], scale[B]["bound_ms"],
+                                   scale[B]["library_ms"]]
+                               for B in (1, 32, 1024)}))
+    # counted where the backstop pool and the pending tier launch them
+    launches["backstop"] = rec3["windows"]["backstop_on"]["backstop"]
+    launches["pending"] = rec3["windows"]["after_adds"]["pending"]
+
     # -- 4. result lines ----------------------------------------------------
     src = "rag_cobweb_tpu_torch/csrc/"
     kernels = [
@@ -973,12 +960,16 @@ def main() -> int:
              replaces="rag_cobweb_tpu/ops/pallas_query.py:243",
              launches=launches["fused_topk"], **main_f,
              single_tree=dict(launches=windows["single"]["fused_topk"],
-                              **single["fused"])),
+                              **single["fused"]),
+             backstop=dict(launches=launches["backstop"], **scale[1024],
+                           B1=scale[1], B32=scale[32])),
         dict(name="rerank_l2", route="cuda", source=src + "rerank_l2.cu",
              replaces="scripts/gather_probe.py:55",
              launches=launches["rerank_l2"], **flag["rerank"],
              single_tree=dict(launches=windows["single"]["rerank_l2"],
-                              **single["rerank"])),
+                              **single["rerank"]),
+             pending=dict(launches=launches["pending"],
+                          **scale["pending"])),
         # one CUDA kernel and counter for both TPU kernels (_kernel_v2's
         # body is _kernel): the served index at B=1024, and under "B4096"
         # at the batch of _kernel_v2's measurement

@@ -1,0 +1,241 @@
+"""Probes of a served index, shared by ``chip_smoke.py`` and the bench
+scripts: the kernels' launch counters, the plain serving pipeline the
+served ids are held against, and the stage split of one served batch.
+
+The counters are the kernels' wrappers' own (``launches``, and
+``launches_f32`` for the f32 entries, counted apart) and the core's
+``TIER_LAUNCHES``: kernel 1's launches made for the backstop pool and
+kernel 5's for the pending tier.  ``zero_counters`` sets them all to 0,
+``read_counters`` reads them.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from rag_cobweb_tpu_torch.bench.metrics import retrieval_metrics
+from rag_cobweb_tpu_torch.core import index as index_mod
+from rag_cobweb_tpu_torch.ops import blocked_topk, fused_topk, rerank
+
+COUNTERS = {"fused_topk": fused_topk.slab_topk,
+            "fused_group_topk": fused_topk.slab_group_topk,
+            "blocked_topk": blocked_topk.blocked_topk,
+            "rerank_l2": rerank.rerank_lp}
+
+
+def zero_counters():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_f32"):
+            fn.launches_f32 = 0
+    for k in index_mod.TIER_LAUNCHES:
+        index_mod.TIER_LAUNCHES[k] = 0
+
+
+def read_counters() -> dict:
+    """Each kernel's launches (its bf16 entry's, and ``<name>_f32`` its f32
+    entry's), and those made for the backstop pool and the pending tier."""
+    out = {}
+    for k, fn in COUNTERS.items():
+        out[k] = fn.launches - getattr(fn, "launches_f32", 0)
+        if hasattr(fn, "launches_f32"):
+            out[k + "_f32"] = fn.launches_f32
+    out.update(index_mod.TIER_LAUNCHES)
+    return out
+
+
+def _plain_keys(raw, qs, cand, live, pv):
+    """The re-rank's fresh-leaf key ``-0.5 (||q - x||^2 / pv + D log pv)``
+    of each candidate row of ``raw``, -inf where not ``live``."""
+    d2 = torch.sum(torch.square(qs.unsqueeze(1) - raw[cand]), dim=-1)
+    lp = -0.5 * (d2 / pv + qs.shape[1] * math.log(pv))
+    return torch.where(live, lp, torch.full_like(lp, float("-inf")))
+
+
+def plain_check(db, queries, served, k: int, pool: int, bs: int,
+                batch: int, corpus, targets=None) -> dict:
+    """``db``'s served pipeline in plain PyTorch, batch by batch, held
+    against its ``served`` ids.  Only the serving fused index is taken from
+    ``db``; the rest is built here from ``corpus``, the raw rows of its
+    sentences in order: the whitened queries' top-``pool`` by the fused
+    index's scores; with ``bs``, the top-``bs`` of the indexed rows by
+    ``q . w - 0.5 ||w||^2`` over the corpus whitened here and rounded to
+    bf16; the rows added since the index was built (each query's nearest
+    ones by ``torch.cdist``); their union by ``np.unique``; the re-rank key
+    on the raw rows; the top ``k``.  The served keys must not rise along
+    a row by more than 1e-5 of their terms, and each id that is served
+    but not plain, or plain but not served, must be a tie: its key within
+    1e-5 of its terms of the k-th, or a pool score within 1e-3 + 1e-5 of
+    its terms of that pool's last.  With ``targets``: the
+    plain pipeline's recall@k and the golds its sweep pool leaves out.
+    Returns the record."""
+    fidx = db._fused_index()
+    dev = fidx.GT.device
+    pv = float(db.cfg.prior_var)
+    nv, n = db._indexed_count(), len(db)
+    raw = torch.as_tensor(np.asarray(corpus[:n], np.float32), device=dev)
+    D = raw.shape[1]
+    if bs:
+        # the whole store in one transform, as one add of every indexed row
+        # makes it
+        W = db.whitener.transform_torch(raw[:nv]).to(torch.bfloat16).float()
+        half = 0.5 * torch.sum(torch.square(W), dim=1)
+    near = min(n - nv, max(64, 4 * k))    # added rows kept a query
+    plain, outside, ties = [], 0, 0
+    for s in range(0, len(queries), batch):
+        qs = torch.as_tensor(queries[s:s + batch], device=dev)
+        q = db.whitener.transform_torch(qs)
+        qq = fused_topk.query_terms(q, fidx.GT.dtype)
+        full = fused_topk.slab_scores_plain(
+            qq, fidx.GT, fidx.c, fidx.valid, float("-inf")).reshape(
+                len(qq), -1)
+        terms = torch.matmul(qq.float().abs(), fidx.GT.float().abs()) \
+            + fidx.c.abs()
+        cs, cand = torch.topk(full, pool, dim=1)
+        pools = [(full, terms, cs[:, -1:])]
+        lists = [(cand, cs)]
+        if targets is not None:
+            gold = torch.as_tensor(np.asarray(targets[s:s + batch]),
+                                   device=dev).view(-1, 1)
+            g = full.gather(1, gold.clamp(max=full.shape[1] - 1))
+            outside += int(((gold[:, 0] >= nv)   # not indexed
+                            | ((full > g).sum(1) >= pool)).sum())
+        if bs:
+            qb = q.to(torch.bfloat16).float()
+            bfull = torch.matmul(qb, W.T) - half
+            bterms = torch.matmul(qb.abs(), W.abs().T) + half
+            bcs, bcand = torch.topk(bfull, bs, dim=1)
+            pools.append((bfull, bterms, bcs[:, -1:]))
+            lists.append((bcand, bcs))
+        if near:
+            d = torch.cdist(qs, raw[nv:n],
+                            compute_mode="donot_use_mm_for_euclid_dist")
+            ncand = torch.topk(d, near, dim=1, largest=False).indices + nv
+            lists.append((ncand, torch.zeros(ncand.shape, device=dev)))
+        ids_h = np.concatenate([c.cpu().numpy() for c, _ in lists], axis=1)
+        live_h = np.concatenate(
+            [torch.isfinite(v).cpu().numpy() for _, v in lists], axis=1)
+        rows = [np.unique(i[m]) for i, m in zip(ids_h, live_h)]
+        width = max(len(r) for r in rows)
+        union = np.zeros((len(rows), width), np.int64)
+        live = np.zeros((len(rows), width), bool)
+        for i, r in enumerate(rows):
+            union[i, :len(r)], live[i, :len(r)] = r, True
+        union = torch.as_tensor(union, device=dev)
+        lp = _plain_keys(raw, qs, union, torch.as_tensor(live, device=dev),
+                         pv)
+        top = torch.topk(lp, k, dim=1)
+        ids = union.gather(1, top.indices)
+        got = torch.as_tensor(served[s:s + batch], device=dev)
+        plain.append(ids.cpu().numpy())
+        # the served order: keys non-increasing but for ties
+        gk = _plain_keys(raw, qs, got, torch.ones(
+            got.shape, dtype=torch.bool, device=dev), pv)
+        tol = 1e-5 * (top.values[:, -1:].abs()
+                      + 0.5 * D * abs(math.log(pv)))
+        bad = torch.nonzero((gk[:, 1:] > gk[:, :-1] + tol).any(dim=1))[:, 0]
+        if len(bad):
+            qi = int(bad[0])
+            raise AssertionError(
+                f"query {s + qi}: served ids out of key order: "
+                f"{got[qi].tolist()} with keys {gk[qi].tolist()}")
+        for qi in torch.nonzero((ids != got).any(dim=1))[:, 0].tolist():
+            both = torch.as_tensor(np.union1d(ids[qi].cpu(), got[qi].cpu()),
+                                   device=dev).view(1, -1)
+            keys = _plain_keys(raw, qs[qi:qi + 1], both,
+                               torch.ones(both.shape, dtype=torch.bool,
+                                          device=dev), pv)[0]
+            kth = float(torch.topk(keys, k).values[-1])
+            for sid in set(ids[qi].tolist()) ^ set(got[qi].tolist()):
+                key = float(keys[both[0] == sid][0])
+                tie = abs(key - kth) <= 1e-5 * (
+                    abs(kth) + 0.5 * D * abs(math.log(pv)))
+                for sc, tm, last in pools:
+                    tie = tie or (sid < nv and abs(float(
+                        sc[qi, sid] - last[qi, 0])) <= 1e-3 + 1e-5 * float(
+                            tm[qi, sid]))
+                if not tie:
+                    raise AssertionError(
+                        f"query {s + qi}: served id {sid} differs from the "
+                        f"plain pipeline's and is no tie (key {key} vs the "
+                        f"{k}-th {kth})")
+                ties += 1
+        del full, terms, pools
+    plain = np.concatenate(plain)
+    differ = (plain != served).any(axis=1)
+    out = {"queries_differing_from_plain": int(differ.sum()),
+           "queries_differing_in_order_only": int(sum(
+               set(a) == set(b) for a, b in zip(plain[differ],
+                                                 served[differ]))),
+           "tied_ids": ties}
+    if targets is not None:
+        out["plain_recall@10"] = retrieval_metrics(
+            plain, np.asarray(targets), k)["recall@10"]
+        out["golds_outside_pool"] = outside
+    return out
+
+
+def stage_split(db, queries, k: int, pool: int) -> dict:
+    """Stream ms of each stage of one served batch (``queries``, pool
+    ``pool``), by CUDA events around the calls ``query_ids`` makes:
+    upload, whitening, kernel 1 (with the query terms), pool merge
+    (``torch.topk``), the backstop pool (kernel 1 and its merge) and the
+    union when the backstop is on, kernel 5, final ``torch.topk`` and
+    gather, the pending and delta tiers and their merge when rows are
+    pending, ids to the host.  The last of three runs, beside the host's
+    wall time of that run (a stage whose launches the host issues slower
+    than the device runs them counts that gap too)."""
+    fidx, emb = db._fused_index(), db._emb_device()
+    nv = db._indexed_count()
+    pool = min(pool, nv)
+    bs = db._backstop_k(pool, nv)
+    pv = float(db.cfg.prior_var)
+    for _ in range(3):
+        ev = []
+
+        def mark(name):
+            ev.append((name, torch.cuda.Event(enable_timing=True)))
+            ev[-1][1].record()
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        qs = torch.as_tensor(queries, device=db.device)
+        mark("upload")
+        q = db.whitener.transform_torch(qs)
+        mark("whitening")
+        out = fused_topk.slab_topk(fused_topk.query_terms(q, fidx.GT.dtype),
+                                   fidx.GT, fidx.c, fidx.valid,
+                                   min(pool, fused_topk.SLAB))
+        mark("kernel 1")
+        cs, cand = fused_topk.merge(*out, pool)
+        mark("pool merge")
+        if bs:
+            bcs, bcand = index_mod.backstop_topk(*db._wemb_device(), q, bs,
+                                                 nv)
+            mark("backstop pool")
+            cand, cs = index_mod.union_candidates(cand, cs, bcand, bcs)
+            mark("union")
+        lp = rerank.rerank_lp(emb, qs.float().contiguous(),
+                              cand.to(torch.int32).contiguous(),
+                              cs.contiguous(), pv)
+        mark("kernel 5")
+        top, pos = torch.topk(lp, min(k, nv), dim=1)
+        ids = cand.gather(1, pos)
+        mark("final top-k")
+        if db._unindexed_count():
+            ids = db._merge_pending(qs, top, ids, k)
+            mark("tiers")
+        ids.cpu()
+        mark("to host")
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    split = {b[0]: a[1].elapsed_time(b[1]) for a, b in zip(ev, ev[1:])}
+    split["sum"] = sum(split.values())
+    split["wall"] = wall
+    split["B"] = len(queries)
+    return split

@@ -87,7 +87,9 @@ def serving_index(vf: VForest, whitener, corpus, device) -> CobwebIndex:
     db.forest = vf
     db.sentences = [None] * vf.n_sentences
     db.blocked_threshold = min(db.blocked_threshold, vf.n_sentences)
-    db._vec_chunks = [np.ascontiguousarray(corpus, np.float32)]
+    raw = torch.as_tensor(np.ascontiguousarray(corpus, np.float32),
+                          device=db.device)
+    db._store_rows(raw, whitener.transform_torch(raw))
     return db
 
 

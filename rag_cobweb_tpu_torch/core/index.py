@@ -37,6 +37,11 @@ with a per-slab top-kappa pool (``ops/fused_topk``), merged to the top-c
 by ``torch.topk``, then the exact stored-embedding re-rank
 (``ops/rerank``), whose top-k is ``torch.topk`` again.  With
 kappa = min(c, 2048) the merged pool is the EXACT top-c of the sweep.
+With a backstop (``backstop_topk``: kernel 1 again, over the whitened
+store) the two pools are united (``union_candidates``) before the
+re-rank.  Rows added since the index was built are scored apart, by the
+same fresh-leaf key: ``pending_leaf_lp`` (tier 0, kernel 5) and
+``delta_exact_topk`` (tier 1, one product).
 """
 
 from __future__ import annotations
@@ -570,10 +575,118 @@ def exact_rerank(emb: torch.Tensor, queries: torch.Tensor,
     return top, cand.gather(1, pos)
 
 
+# the kernels' launches made for the backstop pool (kernel 1) and for the
+# pending tier (kernel 5), read from the kernels' own counters around
+# each call
+TIER_LAUNCHES = {"backstop": 0, "pending": 0}
+
+
+def backstop_topk(wemb: torch.Tensor, half_norm2: torch.Tensor,
+                  queries: torch.Tensor, c: int, n_valid: int):
+    """The proximity backstop pool: the top-``c`` stored rows by
+    ``q . w - 0.5 ||w||^2`` (monotone in the L2 distance to ``q``), rows at
+    or past ``n_valid`` -inf -> (scores (B, c) f32, row ids (B, c)).
+
+    A bf16 ``wemb`` is the whitened store in kernel 1's GT layout, (Dw,
+    Sw) with Sw a multiple of 2048: kernel 1 runs with ``qq = q`` in bf16
+    and ``c = -half_norm2``, and its per-slab pools merge to the exact
+    top-c, so the (B, Sw) scores never reach memory; invalid entries come
+    out -inf.  An f32 ``wemb`` is the raw re-rank store, row-major (Sw, D),
+    which kernel 1 cannot take without a copy: a full-f32 product and
+    ``torch.topk`` (the JAX package computes this product in XLA).  The
+    pool is exact where the JAX package may take ``approx_max_k``."""
+    dev = wemb.device
+    if wemb.dtype == torch.bfloat16:
+        Sw = wemb.shape[1]
+        valid = torch.arange(Sw, device=dev) < n_valid
+        n0 = fused_topk.slab_topk.launches
+        pools = fused_topk.slab_topk(
+            queries.to(torch.bfloat16).contiguous(), wemb, -half_norm2,
+            valid, min(c, _FUSED_ROW_BUCKET))
+        TIER_LAUNCHES["backstop"] += fused_topk.slab_topk.launches - n0
+        top, ids = fused_topk.merge(*pools, c)
+        return torch.where(top > fused_topk.NEG / 2, top,
+                           torch.full_like(top, float("-inf"))), ids
+    s = torch.matmul(queries.float(), wemb.T) - half_norm2
+    col = torch.arange(s.shape[1], device=dev)
+    s = torch.where(col < n_valid, s, torch.full_like(s, float("-inf")))
+    return torch.topk(s, min(c, s.shape[1]), dim=1)
+
+
+_UNION_SENTINEL = 2**31 - 1
+
+
+def union_candidates(cand_a: torch.Tensor, cs_a: torch.Tensor,
+                     cand_b: torch.Tensor, cs_b: torch.Tensor):
+    """Two candidate pools as one (B, Ca + Cb) set sorted by id, duplicate
+    ids and dead entries (-inf) at -inf, so the union feeds the re-rank
+    (which drops non-finite entries) without ranking a row twice.  Dead
+    entries first take a sentinel id, so they never collide with a live
+    one; the sentinel becomes id 0 at the end -> (cand int32, scores)."""
+    cand = torch.cat([cand_a.to(torch.int32), cand_b.to(torch.int32)], 1)
+    cs = torch.cat([cs_a.float(), cs_b.float()], dim=1)
+    cand = cand.masked_fill(~torch.isfinite(cs), _UNION_SENTINEL)
+    cand, order = torch.sort(cand, dim=1, stable=True)
+    dead = cand == _UNION_SENTINEL
+    dead[:, 1:] |= cand[:, 1:] == cand[:, :-1]
+    cs = cs.gather(1, order).masked_fill(dead, float("-inf"))
+    return cand.masked_fill(cand == _UNION_SENTINEL, 0), cs
+
+
 def fused_query_rerank(fidx: FusedIndex, emb: torch.Tensor,
                        queries: torch.Tensor, queries_store: torch.Tensor,
-                       k: int, c: int, prior_var: float = 1.0):
-    """The serving path: fused sweep -> exact top-``c`` pool -> exact
+                       k: int, c: int, wemb: torch.Tensor = None,
+                       half_norm2: torch.Tensor = None, n_valid: int = 0,
+                       bs: int = 0, prior_var: float = 1.0):
+    """The serving path: fused sweep -> exact top-``c`` pool [-> the
+    top-``bs`` backstop pool over ``wemb`` -> union] -> exact
     stored-embedding re-rank -> (scores, ids) (B, k)."""
     cs, cand = fused_query_topk(fidx, queries, c)
+    if bs:
+        bcs, bcand = backstop_topk(wemb, half_norm2, queries, bs, n_valid)
+        cand, cs = union_candidates(cand, cs, bcand, bcs)
     return exact_rerank(emb, queries_store, cand, cs, k, prior_var)
+
+
+def pending_leaf_lp(queries: torch.Tensor, vecs: torch.Tensor,
+                    rows: torch.Tensor, prior_var: float = 1.0):
+    """Leaf log-probabilities of rows not in the serving index yet (tier
+    0): a row added since the last build sits in a fresh leaf (count 1,
+    mean the row, ML variance 0), so its key is exactly the re-rank's
+    fresh-leaf closed form ``-0.5 (||q - x||^2 / prior_var + D log
+    prior_var)``, in the diff form (the dot form's cancellation loses the
+    margins between near-duplicates).  Kernel 5 computes it for
+    ``vecs[rows]``, each query against every row, without the (B, Np, D)
+    broadcast -> (B, Np) f32."""
+    B = queries.shape[0]
+    cand = rows.to(torch.int32).view(1, -1).expand(B, -1).contiguous()
+    n0 = rerank.rerank_lp.launches
+    lp = rerank.rerank_lp(vecs, queries.float().contiguous(), cand,
+                          torch.zeros(cand.shape, dtype=torch.float32,
+                                      device=cand.device), prior_var)
+    TIER_LAUNCHES["pending"] += rerank.rerank_lp.launches - n0
+    return lp
+
+
+def delta_exact_topk(queries: torch.Tensor, vecs: torch.Tensor,
+                     n_valid: int, prior_var: float, k: int):
+    """Top-k of the fresh-leaf closed form over the consolidated delta
+    segment (tier 1), in the GEMM form ``||q||^2 - 2 q.v + ||v||^2`` (full
+    float32, TF32 off on the card), rows at or past ``n_valid`` -inf ->
+    (scores (B, k), row positions (B, k))."""
+    q = queries.float()
+    pv = torch.tensor(prior_var, dtype=torch.float32)   # host: no sync
+    d2 = (torch.sum(torch.square(q), dim=1, keepdim=True)
+          - 2.0 * torch.matmul(q, vecs.T)
+          + torch.sum(torch.square(vecs), dim=1))
+    lp = -0.5 * (d2 / float(pv) + float(q.shape[1] * torch.log(pv)))
+    valid = torch.arange(vecs.shape[0], device=q.device) < n_valid
+    lp = torch.where(valid, lp, torch.full_like(lp, float("-inf")))
+    return torch.topk(lp, k, dim=1)
+
+
+def _append_rows(buf: torch.Tensor, rows: torch.Tensor, start: int):
+    """Write ``rows`` into ``buf`` from row ``start`` on, in place (the
+    caller keeps the capacity); returns ``buf``."""
+    buf[start:start + rows.shape[0]] = rows
+    return buf

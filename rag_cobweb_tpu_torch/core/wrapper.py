@@ -23,12 +23,29 @@ JAX package does:
 A re-rank pool goes through ``_rerank_step``: the exact stored-row
 re-rank, or the leaf log-prob re-rank when no vector store is kept.  A
 single tree reaches the fused sweep through its prediction index
-(``index.build_fused_index``), a forest straight from its state.  Not
-carried yet (each raises ``NotImplementedError`` where it would run): the
+(``index.build_fused_index``), a forest straight from its state.  With
+the store kept, the fused engine unites its pool with a proximity
+backstop pool (``index.backstop_topk``) over the whitened rows (whitener
+mode, from ``backstop_threshold`` sentences on, or any explicit
+``backstop_pool > 0``).
+
+The vector stores live on the device and grow in place: the raw float32
+rows (the re-rank store) and, in whitener mode, the whitened rows in
+bf16 in kernel 1's GT layout with their half-norms (the backstop store).
+
+Adds on top of a serving index keep it (bounded staleness, as in the
+JAX package): the new rows wait in a tier-0 pending pool (scored by
+kernel 5, ``index.pending_leaf_lp``), which past ``stale_pending_limit``
+rows moves into a tier-1 delta segment on the device
+(``index.delta_exact_topk``); ``query_ids`` merges both with the stale
+engine's re-ranked pool by the shared fresh-leaf key.  The indexes are
+rebuilt once the unindexed rows pass max(``delta_rebuild_min``,
+``delta_rebuild_frac`` of the indexed ones), or when an exact-index
+consumer runs (``rerank=0``, ``rank_scores``).
+
+Not carried yet (raises ``NotImplementedError`` where it would run): the
 small-forest engine that serves a forest below ``blocked_threshold``
-sentences (and the forest's stacked index and rank scores), the
-pending/delta tier (here an add drops the serving indexes and the next
-query rebuilds them) and the whitened backstop pool.
+sentences (and the forest's stacked index and rank scores).
 """
 
 from __future__ import annotations
@@ -124,15 +141,24 @@ class CobwebIndex:
             self.add_sentences(corpus)
 
     def _init_serving(self):
-        """Vector store, serving caches and engine settings of a new or
+        """Vector stores, serving caches and engine settings of a new or
         loaded index."""
         self.store_embeddings = True
-        self._vec_chunks: list = []
-        self._emb_dev_cache = None
-        self._emb_dev_n = 0
-        self._emb_dev_cap = 0
-        self._invalidate_index()
+        self._store_n = 0         # rows in the device stores
+        self._emb_dev = None      # (cap, D) f32 raw rows, zero past _store_n
+        self._wemb_dev = None     # whitener: (Dw, capw) bf16 whitened rows
+        self._half_n2 = None      # backstop store's 0.5 ||row||^2, f32
+        self._init_pending()
         self.blocked_threshold = 8192
+
+    def _init_pending(self):
+        """The bounded-staleness settings of the JAX package, and empty
+        pending/delta tiers."""
+        self.stale_reads = True
+        self.stale_pending_limit = 4096
+        self.delta_rebuild_min = 65536
+        self.delta_rebuild_frac = 0.10
+        self._invalidate_index()
 
     def __len__(self):
         return len(self.sentences)
@@ -143,8 +169,11 @@ class CobwebIndex:
     def add_sentences(self, new_sentences, new_vectors=None,
                       batch_size: int = 2048):
         """Insert sentences/embeddings; returns each row's leaf slot (one
-        tree) or its global id (forest).  Any serving index is dropped and
-        rebuilt by the next query."""
+        tree) or its global id (forest).  A serving index is kept while
+        the unindexed rows stay under the rebuild point: the new rows join
+        the pending tier (past ``stale_pending_limit`` the delta
+        segment); otherwise the indexes are dropped and the next query
+        rebuilds them."""
         if new_vectors is None:
             new_vectors = self.encode_func(new_sentences)
         store_vecs = np.asarray(new_vectors, np.float32)
@@ -164,41 +193,205 @@ class CobwebIndex:
         else:
             out = self.tree.fit(tree_vecs, batch_size=batch_size)
             self.leaf_of_sentence.extend(int(v) for v in out)
+        n0 = len(self.sentences)
         self.sentences.extend(new_sentences)
-        if self.store_embeddings:
-            self._vec_chunks.append(store_vecs)
-            self._emb_dev_cache = None
-        self._invalidate_index()
+        if self.store_embeddings and self._store_n == n0:
+            # a store that misses rows (a loaded tree, or one kept with the
+            # store off) stays unused
+            self._store_rows(raw, tree_vecs)
+        # bounded staleness: keep serving the index that exists and score
+        # the new rows by their fresh-leaf closed form until the rebuild
+        # point
+        n_new = len(self.sentences) - n0
+        store = self._emb_device() is not None
+        if self.forest is not None:
+            # the stats-free fused index alone can serve stale when the
+            # exact re-rank store exists
+            has_stale = (self._flat_cache is not None
+                         or (self._fused is not None and store))
+        else:
+            has_stale = self._index is not None
+        if self.whitener is not None and not store:
+            # pending keys (store space) would not compare with the
+            # tree-space leaf-lp re-rank
+            has_stale = False
+        n_indexed = n0 - self._unindexed_count()
+        rebuild_at = max(self.delta_rebuild_min,
+                         int(self.delta_rebuild_frac * max(n_indexed, 1)))
+        if (self.stale_reads and has_stale
+                and self._unindexed_count() + n_new <= rebuild_at):
+            if not store and self._pending_vecs is None and \
+                    self._pending_sids:
+                # the store stopped covering the sentences: tier 0 keeps
+                # apart the rows it held
+                self._pending_vecs = self._emb_dev[self._pending_rows()[1]]
+            self._pending_sids.extend(range(n0, n0 + n_new))
+            self._pending_dev = None
+            if not store:
+                self._pending_vecs = (
+                    raw.clone() if self._pending_vecs is None
+                    else torch.cat([self._pending_vecs, raw]))
+            if len(self._pending_sids) > self.stale_pending_limit:
+                self._consolidate_pending()
+        else:
+            self._invalidate_index()
         return out
 
     def _invalidate_index(self):
+        """Drop every serving index and the pending/delta bookkeeping (a
+        rebuild covers those rows)."""
         self._index = None
         self._fused = None
         self._fused_f32 = None
         self._blocked = None
         self._blocked_f32 = None
+        self._flat_cache = None   # forest: the flat snapshot serving stale
+        self._pending_sids: list = []
+        self._pending_dev = None  # the pending sids on the device
+        self._pending_vecs = None  # their raw rows, when no store is kept
+        self._delta_vecs = None   # (cap, D) f32 delta segment
+        self._delta_sids = None   # (delta_n,) int64 sentence ids
+        self._delta_n = 0
+
+    def _unindexed_count(self) -> int:
+        return len(self._pending_sids) + self._delta_n
+
+    def _indexed_count(self) -> int:
+        """Sentences the serving index covers (the pending and delta rows
+        are merged apart)."""
+        return len(self.sentences) - self._unindexed_count()
+
+    def _flush_pending(self):
+        """Exact-index semantics: drop a stale index, if any."""
+        if self._unindexed_count():
+            self._invalidate_index()
+
+    def _pending_rows(self):
+        """(row store, row ids, sentence ids on the device) of the tier-0
+        pending rows: the raw store at their sentence ids, or the rows kept
+        apart when no store is kept."""
+        if self._pending_dev is None:
+            self._pending_dev = torch.as_tensor(
+                self._pending_sids, dtype=torch.int64, device=self.device)
+        if self._pending_vecs is not None:
+            return self._pending_vecs, torch.arange(
+                len(self._pending_sids), device=self.device), \
+                self._pending_dev
+        return self._emb_device(), self._pending_dev, self._pending_dev
+
+    def _consolidate_pending(self):
+        """Move the tier-0 rows into the device delta segment, its
+        capacity grown by powers of two as in the JAX package (from 8192
+        rows, a slab of at least 1024 rows ahead)."""
+        n_new = len(self._pending_sids)
+        if not n_new:
+            return
+        vecs, rows, sids = self._pending_rows()
+        new_rows = vecs[rows]
+        mb = max(1024, 1 << (n_new - 1).bit_length())
+        cap = 0 if self._delta_vecs is None else self._delta_vecs.shape[0]
+        if self._delta_n + mb > cap:
+            buf = torch.zeros(
+                (max(8192, 1 << (self._delta_n + mb - 1).bit_length()),
+                 new_rows.shape[1]), dtype=torch.float32, device=self.device)
+            if self._delta_vecs is not None:
+                index_mod._append_rows(buf, self._delta_vecs, 0)
+            self._delta_vecs = buf
+        index_mod._append_rows(self._delta_vecs, new_rows, self._delta_n)
+        self._delta_sids = (sids if self._delta_sids is None
+                            else torch.cat([self._delta_sids, sids]))
+        self._delta_n += n_new
+        self._pending_sids = []
+        self._pending_dev = None
+        self._pending_vecs = None
+
+    def _merge_pending(self, qs, top_s, top_ids, k: int) -> torch.Tensor:
+        """The stale engine's (B, k_old) keys and ids merged with the
+        pending pool (tier 0) and the delta segment (tier 1), all keyed by
+        the fresh-leaf closed form on the raw rows ``qs`` -> (B, k) ids.  A
+        stable descending sort keeps the JAX order among equal keys:
+        indexed, pending, delta."""
+        pv = float(self.cfg.prior_var)
+        all_s, all_ids = [top_s], [top_ids.long()]
+        if self._pending_sids:
+            vecs, rows, sids = self._pending_rows()
+            lp = index_mod.pending_leaf_lp(qs, vecs, rows, pv)
+            ps, ppos = torch.topk(lp, min(k, lp.shape[1]), dim=1)
+            all_s.append(ps)
+            all_ids.append(sids[ppos])
+        if self._delta_n:
+            ds, dpos = index_mod.delta_exact_topk(
+                qs, self._delta_vecs, self._delta_n, pv,
+                min(k, self._delta_n))
+            all_s.append(ds)
+            all_ids.append(self._delta_sids[dpos.clamp(max=self._delta_n
+                                                       - 1)])
+        order = torch.sort(torch.cat(all_s, dim=1), dim=1, descending=True,
+                           stable=True).indices[:, :k]
+        return torch.cat(all_ids, dim=1).gather(1, order)
+
+    def _store_rows(self, raw: torch.Tensor, tree_vecs: torch.Tensor):
+        """Append rows to the device stores in place, each grown 1.25x
+        geometrically when full (as the JAX package's bucketed stores):
+        the raw f32 rows, and in whitener mode the whitened rows in bf16,
+        (Dw, capw) with capw a multiple of 2048 (kernel 1's GT layout), and
+        beside the backstop's store its half-norms, in f32 from the stored
+        values, 0 on padding."""
+        n0 = self._store_n
+        n = n0 + raw.shape[0]
+        cap = 0 if self._emb_dev is None else self._emb_dev.shape[0]
+        if n > cap:
+            emb = torch.zeros(
+                (align_capacity(max(n, int(cap * 1.25), 4096)),
+                 raw.shape[1]), dtype=torch.float32, device=self.device)
+            if self._emb_dev is not None:
+                emb[:n0] = self._emb_dev[:n0]
+            self._emb_dev = emb
+        self._emb_dev[n0:n] = raw
+        if self.whitener is None:
+            rows, cap = raw, self._emb_dev.shape[0]
+        else:
+            rows = tree_vecs.to(torch.bfloat16)
+            capw = 0 if self._wemb_dev is None else self._wemb_dev.shape[1]
+            if n > capw:
+                slab = index_mod._FUSED_ROW_BUCKET
+                w = torch.zeros(
+                    (rows.shape[1],
+                     -(-max(n, int(capw * 1.25), 4096) // slab) * slab),
+                    dtype=torch.bfloat16, device=self.device)
+                if self._wemb_dev is not None:
+                    w[:, :n0] = self._wemb_dev[:, :n0]
+                self._wemb_dev = w
+            self._wemb_dev[:, n0:n] = rows.T
+            cap = self._wemb_dev.shape[1]
+        if self._half_n2 is None or self._half_n2.shape[0] != cap:
+            half = torch.zeros((cap,), dtype=torch.float32,
+                               device=self.device)
+            if self._half_n2 is not None:
+                half[:n0] = self._half_n2[:n0]
+            self._half_n2 = half
+        self._half_n2[n0:n] = 0.5 * torch.sum(torch.square(rows.float()),
+                                              dim=1)
+        self._store_n = n
 
     def _emb_device(self) -> Optional[torch.Tensor]:
-        """(cap, D) raw store on the device, zero rows past the live count;
-        the capacity grows 1.25x geometrically, as in the JAX package."""
-        if not self.store_embeddings or not self._vec_chunks:
+        """(cap, D) raw store on the device, zero rows past the live
+        count; None without a store (or one that misses rows)."""
+        if (not self.store_embeddings or self._emb_dev is None
+                or self._store_n != len(self.sentences)):
             return None
-        n = len(self.sentences)
-        if self._emb_dev_cache is None or self._emb_dev_n != n:
-            if len(self._vec_chunks) > 1:
-                self._vec_chunks = [np.concatenate(self._vec_chunks)]
-            host = self._vec_chunks[0]
-            if host.shape[0] != n:
-                return None
-            if self._emb_dev_cap < n:
-                self._emb_dev_cap = align_capacity(
-                    max(n, int(self._emb_dev_cap * 1.25), 4096))
-            emb = torch.zeros((self._emb_dev_cap, host.shape[1]),
-                              dtype=torch.float32, device=self.device)
-            emb[:n] = torch.as_tensor(host, device=self.device)
-            self._emb_dev_cache = emb
-            self._emb_dev_n = n
-        return self._emb_dev_cache
+        return self._emb_dev
+
+    def _wemb_device(self):
+        """The backstop's operands (store, half-norms), or None.  Whitener
+        mode: the (Dw, capw) bf16 whitened store; without a whitener the
+        tree space is the store space and the backstop keys on the raw
+        re-rank store itself (``_wemb_device()[0] is _emb_device()``)."""
+        emb = self._emb_device()
+        if emb is None:
+            return None
+        return (emb if self.whitener is None else self._wemb_dev,
+                self._half_n2)
 
     # ---------------------------------------------------------------- #
     # serving                                                          #
@@ -211,7 +404,10 @@ class CobwebIndex:
         dtype = (torch.float32 if attr == "_fused_f32"
                  else getattr(torch, self.fused_dtype))
         if getattr(self, attr) is None:
-            if self.forest is not None:
+            if self.forest is not None and self._flat_cache is None:
+                # stats-free build from the forest state: only a fresh
+                # snapshot (a stale one is pinned by the flat cache)
+                self._flush_pending()
                 fidx = self.forest.fused_index(dtype=dtype)
             else:
                 fidx = index_mod.build_fused_index(self._flat_pred_index(),
@@ -229,25 +425,35 @@ class CobwebIndex:
                 if len(self.sentences) >= self.rerank_threshold else 0)
 
     def _backstop_k(self, pool: int, n_indexed: int) -> int:
+        """The backstop pool's size for this query (0: off): ``"auto"``
+        turns it on from ``backstop_threshold`` sentences in whitener mode
+        with the store kept, at the re-rank pool's size; an int is the
+        size; never more than the indexed rows."""
         bs = self.backstop_pool
         if bs == "auto":
             if not (self.whitener is not None and self.store_embeddings
                     and len(self.sentences) >= self.backstop_threshold):
                 return 0
             bs = pool
-        if int(bs) > 0:
-            raise NotImplementedError(
-                "the whitened backstop pool (index.backstop_topk) is not "
-                f"ported yet; it is on at {self.backstop_threshold}+ "
-                "sentences in whitener mode (set backstop_pool=0)")
-        return 0
+        bs = int(bs)
+        if bs <= 0 or self._wemb_device() is None:
+            return 0
+        return min(bs, n_indexed)
 
     def _flat_pred_index(self) -> index_mod.PredictionIndex:
         """The flat PredictionIndex over global sentence ids: the whole
-        forest flattened (``VForest.flat_index``, cached until an add), or
-        a single tree's prediction index."""
+        forest flattened (``VForest.flat_index``; with rows pending, the
+        snapshot kept in ``_flat_cache``), or a single tree's prediction
+        index."""
         if self.forest is not None:
-            return self.forest.flat_index()
+            if self._unindexed_count():
+                if self._flat_cache is not None:
+                    return self._flat_cache
+                # no snapshot to serve (fused-only staleness): a rebuild
+                # covers the pending rows, so their bookkeeping goes
+                self._flush_pending()
+            self._flat_cache = self.forest.flat_index()
+            return self._flat_cache
         return self.build_prediction_index()
 
     def build_prediction_index(self) -> index_mod.PredictionIndex:
@@ -302,23 +508,37 @@ class CobwebIndex:
 
     def _product_chunked(self, q, kk: int, pool: int, n_indexed: int,
                          q_store=None):
-        """Sweep + exact pool + exact re-rank, the query batch chunked so
-        one chunk's working set stays under ``fused_score_budget``: the
-        kernel's (NS, Bc, kappa) pool, or on the host the plain versions'
-        (Bc, Sp) scores and (Bc, C, D) gather."""
+        """Sweep + exact pool [+ backstop pool, united] + exact re-rank,
+        the query batch chunked so one chunk's working set stays under
+        ``fused_score_budget``.  On the card: kernel 1's (NS, Bc, kappa)
+        pools, of the fused index and of the whitened store (the f32
+        store's backstop: its (Bc, Sw) scores); kernel 5 gathers row by
+        row.  On the host: the plain versions' (Bc, Sp) and (Bc, Sw)
+        scores, or the (Bc, pool + bs, D) re-rank gather if larger."""
         fidx = self._fused_index()
         emb = self._emb_device()
         qs = q if q_store is None else q_store
-        self._backstop_k(pool, n_indexed)
-        kappa = min(pool, index_mod._FUSED_ROW_BUCKET)
-        row = fidx.num_slots // index_mod._FUSED_ROW_BUCKET * kappa * 8
-        if q.device.type == "cpu":
-            row = max(row, fidx.num_slots * 12, pool * emb.shape[1] * 4)
+        bs = self._backstop_k(pool, n_indexed)
+        wemb = half = None
+        slab = index_mod._FUSED_ROW_BUCKET
+        card = q.device.type != "cpu"
+        row = (fidx.num_slots // slab * min(pool, slab) * 8 if card
+               else fidx.num_slots * 12)
+        if bs:
+            wemb, half = self._wemb_device()
+            kernel = wemb.dtype == torch.bfloat16   # GT layout (Dw, Sw)
+            Sw = wemb.shape[1] if kernel else wemb.shape[0]
+            row += (Sw // slab * min(bs, slab) * 8 if card and kernel
+                    else Sw * 12)
+        if not card:
+            row = max(row, (pool + bs) * emb.shape[1] * 4)
         bmax = self._chunk(q.shape[0], row)
         pv = float(self.cfg.prior_var)
-        outs = [index_mod.fused_query_rerank(fidx, emb, q[s:s + bmax],
-                                             qs[s:s + bmax], kk, pool, pv)
-                for s in range(0, q.shape[0], bmax)]
+        nv = min(n_indexed, len(self.sentences))
+        outs = [index_mod.fused_query_rerank(
+            fidx, emb, q[s:s + bmax], qs[s:s + bmax], kk, pool, wemb=wemb,
+            half_norm2=half, n_valid=nv, bs=bs, prior_var=pv)
+            for s in range(0, q.shape[0], bmax)]
         return (torch.cat([o[0] for o in outs]),
                 torch.cat([o[1] for o in outs]))
 
@@ -337,9 +557,10 @@ class CobwebIndex:
         here), else the blocked sweep kernel (opt-in, above
         ``pallas_threshold``), else the fused engine, else the blocked
         sweep in PyTorch; each with the optional re-rank.  ``rerank=0``:
-        the raw path-score order from an f32 index."""
-        n_indexed = len(self.sentences)
-        if n_indexed < self.blocked_threshold:
+        the raw path-score order from an f32 index.  Pools are cut to the
+        rows the serving index covers."""
+        n_indexed = self._indexed_count()
+        if len(self.sentences) < self.blocked_threshold:
             idx = self._flat_pred_index()
             if rerank:
                 c = min(max(rerank, kk), idx.num_sentences)
@@ -347,7 +568,8 @@ class CobwebIndex:
                 return self._rerank_step(idx, q, cand, cs, kk,
                                          q_store=q_store)
             return index_mod.query_topk(idx, q, kk)
-        if self.use_pallas and n_indexed >= self.pallas_threshold:
+        if (self.use_pallas
+                and len(self.sentences) >= self.pallas_threshold):
             return self._pallas_topk(self._blocked_index(), q, kk, rerank,
                                      q_store=q_store)
         if self.use_fused:
@@ -426,12 +648,16 @@ class CobwebIndex:
             raise NotImplementedError(
                 "a forest's rank scores (vforest_rank_scores) are not "
                 "ported yet")
+        self._flush_pending()   # (B, S) scores must cover every sentence
         q, single = self._as_query_batch(input, is_embedding)
         scores = index_mod.rank_scores(self.build_prediction_index(), q)
         return scores[0] if single else scores
 
     def query_ids(self, queries, k: int, rerank: Optional[int] = None):
-        """(B, D) raw embeddings -> (B, k) sentence ids, a device tensor."""
+        """(B, D) raw embeddings -> (B, k) sentence ids, a device tensor.
+        With rows pending, the stale engine's re-ranked pool is merged
+        with the pending and delta tiers (``rerank=0``, the path-score
+        order, rebuilds first)."""
         qs = torch.as_tensor(np.asarray(queries, np.float32),
                              device=self.device)
         if qs.dim() == 1:
@@ -445,9 +671,16 @@ class CobwebIndex:
                 f"{len(self.sentences)} sentences is below blocked_threshold"
                 f"={self.blocked_threshold}: the small-forest engine "
                 "(_small_forest_topk) that serves there is not ported yet")
+        if self._unindexed_count() and rerank == 0:
+            self._flush_pending()
         if rerank is None:
             rerank = self._auto_rerank()
-        return self._engine_topk(q, kk, rerank, q_store=qs)[1]
+        if not self._unindexed_count():
+            return self._engine_topk(q, kk, rerank, q_store=qs)[1]
+        rerank = rerank or self.rerank_candidates
+        top_s, top_ids = self._engine_topk(
+            q, min(kk, self._indexed_count()), rerank, q_store=qs)
+        return self._merge_pending(qs, top_s, top_ids, kk)
 
     # ---------------------------------------------------------------- #
     # persistence                                                      #

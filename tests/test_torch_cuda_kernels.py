@@ -849,3 +849,130 @@ def test_flagship_path_serves_the_hosts_ids_on_the_card(card):
                 f"query {qi}: id {sid} differs and is no tie (key "
                 f"{float(keys[j])} vs 10th {kth}; path score "
                 f"{float(full[int(sid)])} vs pool's last {last})")
+
+
+@pytest.mark.parametrize("B,c", [(1, 300), (33, 300), (64, 2048)])
+def test_backstop_pool_through_kernel_1_matches_plain(card, B, c):
+    """The whitener-mode backstop pool on the card (kernel 1 over a bf16
+    store in GT layout, one launch) against its plain version on the
+    host: the same finite count, rows at or past ``n_valid`` never
+    pooled and the rest -inf, scores within 1e-3 + 1e-3 |score|, ids
+    equal except among scores tied within that with the pool's last."""
+    from rag_cobweb_tpu_torch.core.index import backstop_topk
+    from rag_cobweb_tpu_torch.ops import fused_topk
+    g = torch.Generator(device=card).manual_seed(B + c)
+    Dw, Sw, n_valid = 128, 6144, 5000
+    GT = torch.randn((Dw, Sw), generator=g, device=card).to(torch.bfloat16)
+    GT[:, 5800:] = 0                       # the store's zero padding
+    half = 0.5 * torch.sum(torch.square(GT.float()), dim=0)
+    q = torch.randn((B, Dw), generator=g, device=card)
+    before = fused_topk.slab_topk.launches
+    ks, ki = backstop_topk(GT, half, q, c, n_valid)
+    assert fused_topk.slab_topk.launches == before + 1
+    ps, pi = backstop_topk(GT.cpu(), half.cpu(), q.cpu(), c, n_valid)
+    ks, ki = ks.cpu(), ki.cpu().long()
+    fin = torch.isfinite(ps)
+    assert torch.equal(fin, torch.isfinite(ks))
+    assert int(fin.sum(1).min()) == min(c, n_valid)
+    assert bool((ki[fin] < n_valid).all())
+    torch.testing.assert_close(ks, ps, rtol=1e-3, atol=1e-3)
+    last = ps[:, min(c, n_valid) - 1:min(c, n_valid)]
+    full = (q.cpu().to(torch.bfloat16).float() @ GT.cpu().float()
+            - half.cpu())
+    for b in range(B):
+        for sid in set(ki[b][fin[b]].tolist()) ^ set(pi[b][fin[b]].tolist()):
+            assert abs(float(full[b, sid] - last[b, 0])) <= \
+                1e-3 + 1e-3 * abs(float(last[b, 0]))
+
+
+def test_backstop_and_tiers_serve_the_hosts_recall_on_the_card(card):
+    """A whitener-mode forest with an explicit backstop pool, served on
+    the card and on the host through adds that fill the pending tier and
+    move it into the delta segment (limit lowered): the same recall at
+    every step, the serving index kept, every added row found first, and
+    on the card kernel 1 twice a chunk and kernel 5 twice (the union's
+    re-rank and the pending tier)."""
+    from rag_cobweb_tpu_torch.bench.datasets import synthetic_retrieval_hard
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    from rag_cobweb_tpu_torch.ops import fused_topk, rerank
+    from rag_cobweb_tpu_torch.whitening import PCAICAWhiteningModel
+    data = synthetic_retrieval_hard(900, 60, 48, seed=6)
+    w = PCAICAWhiteningModel.fit(data.corpus_embs[:600], pca_dim=0.9,
+                                 ica_max_iter=200, seed=0)
+    recalls = []
+    for dev in ("cpu", card):
+        db = CobwebIndex(config=TreeConfig(dim=w.dim_out), n_subtrees=4,
+                         whitener=w, device=dev)
+        db.blocked_threshold = 64
+        db.fused_dtype = "float32"
+        db.backstop_pool = 32
+        db.stale_pending_limit = 100
+        db.add_sentences([None] * 600, data.corpus_embs[:600])
+        got = []
+        n = 600
+        for size in (0, 80, 120, 100):
+            if size:
+                fused = db._fused
+                db.add_sentences([None] * size,
+                                 data.corpus_embs[n:n + size])
+                assert db._fused is fused
+                n += size
+            k1, k5 = fused_topk.slab_topk.launches, rerank.rerank_lp.launches
+            ids = db.query_ids(data.query_embs, 10, rerank=24).cpu().numpy()
+            if dev != "cpu":
+                tiers = 1 if db._pending_sids else 0
+                assert fused_topk.slab_topk.launches - k1 == 2
+                assert rerank.rerank_lp.launches - k5 == 1 + tiers
+            got.append(np.mean([t in row for t, row in
+                                zip(data.target_ids, ids)]))
+            if size:
+                self_ids = db.query_ids(data.corpus_embs[n - size:n], 1,
+                                        rerank=24).cpu().numpy()
+                np.testing.assert_array_equal(self_ids[:, 0],
+                                              np.arange(n - size, n))
+        assert (db._unindexed_count(), db._delta_n) == (300, 200)
+        recalls.append(got)
+    assert recalls[0] == recalls[1]
+
+
+@pytest.mark.parametrize("source", ["built", "loaded"])
+def test_single_tree_serves_adds_on_the_card(card, source):
+    """A single tree (built with its store, or loaded from JSON without
+    one) served on the card and on the host through adds that fill the
+    pending tier and move it into the delta segment (limit lowered), f32
+    fused index: the same ids at every step, the serving index kept, and
+    on the card the pending tier through kernel 5 (counted in
+    ``TIER_LAUNCHES``) while rows wait in it."""
+    from rag_cobweb_tpu_torch.core import index as index_mod
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    rng = np.random.default_rng(11)
+    centers = rng.normal(scale=3.0, size=(8, 16))
+    xs = (centers[rng.integers(0, 8, 400)]
+          + 0.5 * rng.normal(size=(400, 16))).astype(np.float32)
+    blob = CobwebIndex([f"s{i}" for i in range(300)], xs[:300],
+                       device="cpu").dump_json()
+    out = []
+    for dev in ("cpu", card):
+        db = (CobwebIndex(xs[:300].tolist(), xs[:300], device=dev)
+              if source == "built" else CobwebIndex.load_json(blob,
+                                                              device=dev))
+        db.blocked_threshold = 64
+        db.fused_dtype = "float32"
+        db.stale_pending_limit = 40
+        got = [db.query_ids(xs[::13], 5, rerank=16).cpu().numpy()]
+        n = 300
+        for size in (30, 30, 20):
+            index = db._index
+            db.add_sentences([None] * size, xs[n:n + size])
+            n += size
+            assert db._index is index
+            p0 = index_mod.TIER_LAUNCHES["pending"]
+            got.append(db.query_ids(xs[::13], 5, rerank=16).cpu().numpy())
+            if dev != "cpu":
+                assert index_mod.TIER_LAUNCHES["pending"] - p0 == (
+                    1 if db._pending_sids else 0)
+        assert (db._unindexed_count(), db._delta_n) == (80, 60)
+        out.append(got)
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(b, a)

@@ -100,31 +100,54 @@ def test_recall_equal_with_bf16_index(setup):
 
 
 def test_add_drops_the_serving_index(setup):
+    """An add on top of a serving index keeps it (an add dropped it once,
+    hence the name): the 40 new rows wait in the pending tier, the merged
+    serve finds each of them first, and its ids equal the JAX wrapper's
+    (f32 fused index, as above)."""
     data, jw, tw = setup
     n = len(data.corpus_embs) - 40
+    jdb = JIndex(config=JCfg(dim=jw.dim_out), n_subtrees=4, whitener=jw)
     tdb = CobwebIndex(config=TreeConfig(dim=tw.dim_out), n_subtrees=4,
                       whitener=tw, device="cpu")
-    tdb.blocked_threshold = 64
-    tdb.add_sentences([None] * n, data.corpus_embs[:n])
-    first = tdb.query_ids(data.query_embs[:5], 3)
-    assert tdb._fused is not None and first.shape == (5, 3)
-    tdb.add_sentences([None] * 40, data.corpus_embs[n:])
-    assert tdb._fused is None
+    for db in (jdb, tdb):
+        db.blocked_threshold = 64
+        db.fused_dtype = "float32"
+        db.add_sentences([None] * n, data.corpus_embs[:n])
+        db.query_ids(data.query_embs[:5], 3)
+    fused = tdb._fused
+    assert fused is not None
+    for db in (jdb, tdb):
+        db.add_sentences([None] * 40, data.corpus_embs[n:])
+    assert tdb._fused is fused
+    assert tdb._unindexed_count() == jdb._unindexed_count() == 40
     ids = tdb.query_ids(data.corpus_embs[n:n + 8], 1).numpy()
     np.testing.assert_array_equal(ids[:, 0], np.arange(n, n + 8))
+    want = np.asarray(jdb.query_ids(data.query_embs, 10))
+    np.testing.assert_array_equal(
+        tdb.query_ids(data.query_embs, 10).numpy(), want)
+    assert tdb._fused is fused
 
 
 def test_unported_engines_raise(setup):
+    """The small-forest engine still raises.  The backstop pool, which
+    raised here before, now serves the JAX wrapper's ids (an explicit
+    ``backstop_pool`` with a pool of 8, f32 fused index)."""
     data, jw, tw = setup
+    jdb = JIndex(config=JCfg(dim=jw.dim_out), n_subtrees=4, whitener=jw)
     tdb = CobwebIndex(config=TreeConfig(dim=tw.dim_out), n_subtrees=4,
                       whitener=tw, device="cpu")
-    tdb.add_sentences([None] * 100, data.corpus_embs[:100])
+    for db in (jdb, tdb):
+        db.add_sentences([None] * 100, data.corpus_embs[:100])
     with pytest.raises(NotImplementedError, match="small-forest"):
         tdb.query_ids(data.query_embs[:2], 3)
-    tdb.blocked_threshold = 64
-    tdb.backstop_pool = 16
-    with pytest.raises(NotImplementedError, match="backstop"):
-        tdb.query_ids(data.query_embs[:2], 3)
+    for db in (jdb, tdb):
+        db.blocked_threshold = 64
+        db.backstop_pool = 16
+        db.fused_dtype = "float32"
+    assert tdb._backstop_k(8, 100) == jdb._backstop_k(8, 100) == 16
+    want = np.asarray(jdb.query_ids(data.query_embs, 3, rerank=8))
+    np.testing.assert_array_equal(
+        tdb.query_ids(data.query_embs, 3, rerank=8).numpy(), want)
     # the single tree (n_subtrees=1, the default) is ported: it builds
     one = CobwebIndex(config=TreeConfig(dim=4), n_subtrees=1, device="cpu")
     assert one.forest is None and one.tree is not None
