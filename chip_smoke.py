@@ -83,6 +83,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    against the plain pipeline over the raw rows; every added row found
    first as itself); kernel 5 held and timed at the pending tier's shape;
    add-then-query timed with the stale index and with a rebuild;
+3e. the small-forest slice: ``configs/synthetic_scale_5k.json``'s corpus
+   (c=5000, 750 queries, 768-d), PCA+ICA at 0.96, a 32-lane forest below
+   ``blocked_threshold``, k=10, pool 1024, batch 1024, served by the
+   small-forest engine round-robin and content-routed (absorb_depth 24),
+   each in its own counter window: kernel 5 launched and no other kernel,
+   ids held against the engine's plain pipeline on the card
+   (``probes.small_forest_plain``: equal except at ties it shows),
+   recall@10 within 0.005 of that pipeline's; its build rate, ms/query at
+   B = 750, 1 and 32, the golds the pool leaves out, the stage split of
+   one served batch, kernel 5 held and timed on the served pools; then 64
+   rows added and each found first as itself, and (round-robin) a forest
+   of 8191 rows served once at the branch's edge;
 4. one JSON line of per-kernel numbers, a row per CUDA kernel entry
    (kernel 1 at the flagship shape, with its single-tree record under
    ``single_tree``; kernel 5 on the flagship's served pools, likewise; the
@@ -91,9 +103,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``B4096``; the group pool at the flagship shape; the f32 entries of
    kernel 1 (B=1024, with ``B1``, ``B32``), of the group pool and of the
    blocked kernel (B=1024, with ``B1``, ``B8``, ``B32``) on the single
-   tree's f32 indexes; kernel 1's backstop record under ``backstop`` and
-   kernel 5's at the pending tier under ``pending``), the nvidia-smi line,
-   and the final
+   tree's f32 indexes; kernel 1's backstop record under ``backstop``,
+   kernel 5's at the pending tier under ``pending`` and on the small
+   forest's served pools under ``small_forest``, its content-routed record
+   inside that), the nvidia-smi line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 Without a CUDA device, or without the package beside it, it exits
@@ -664,6 +677,135 @@ def single_tree_slice(headline, zero, read, windows, launches,
     return rec1, single
 
 
+SMALL_FOREST_WINDOW = ("fused_topk", "fused_group_topk", "blocked_topk",
+                       "fused_topk_f32", "fused_group_topk_f32",
+                       "blocked_topk_f32", "backstop", "pending")
+
+
+def small_forest_window(w: dict, what: str) -> None:
+    """A counter window of the small-forest engine: kernel 5 launched,
+    nothing else (no kernel 1, 2 or 3/4 entry, no tier)."""
+    if w["rerank_l2"] <= 0 or any(w[k] for k in SMALL_FOREST_WINDOW):
+        raise AssertionError(f"{what}: the small-forest engine did not "
+                             f"serve through kernel 5 alone: {w}")
+
+
+def small_forest_slice(headline, zero, read, device="cuda",
+                       corpus_size=5000, queries=750, dim=768,
+                       threshold=8192, card=True) -> dict:
+    """Phase 3e: ``configs/synthetic_scale_5k.json``'s corpus (c=5000,
+    750 queries, 768-d) whitened by PCA+ICA at 0.96 into a 32-lane forest,
+    below ``blocked_threshold``, so the small-forest engine serves it (k=10,
+    pool 1024, batch 1024): once round-robin, once content-routed
+    (absorb_depth 24), each in its own counter window and held against
+    its plain pipeline on the card (``probes.small_forest_plain``).  Then,
+    outside the windows: the stage split of one served batch, kernel 5
+    held and timed on the served pools; an add of 64 new rows and a query
+    that must find each first as itself; and (round-robin) a forest of
+    ``threshold - 1`` rows served once at the branch's edge.  ``card``
+    False leaves out what only the card has (the kernels' launch counts,
+    CUDA events, kernel 5 itself): a host rehearsal at small sizes.
+    Returns a record per routing."""
+    from rag_cobweb_tpu_torch.bench.datasets import synthetic_retrieval_hard
+    from rag_cobweb_tpu_torch.bench.metrics import to_host
+    from rag_cobweb_tpu_torch.bench.probes import (small_forest_plain,
+                                                   small_forest_split)
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    from rag_cobweb_tpu_torch.ops import rerank
+    from rag_cobweb_tpu_torch.parallel.vforest import _vforest_query
+    def window(w, what):
+        if card:
+            small_forest_window(w, what)
+
+    out = {}
+    for routing in ("round_robin", "content"):
+        sf = out[routing] = {}
+
+        def hook(event, engine, db, data, sf=sf, routing=routing):
+            if event == "start":
+                zero()
+                return
+            sf["window"] = read()
+            if len(db) >= db.blocked_threshold or engine != "small_forest":
+                raise AssertionError(f"{len(db)} rows served as {engine}")
+            served = to_host(db.query_ids(data.query_embs, 10, rerank=1024))
+            sf["plain"] = small_forest_plain(
+                db, data.query_embs, served, 10, 1024, 1024,
+                data.corpus_embs, data.target_ids)
+            sf["plain"]["served_recall@10"] = float(np.mean(
+                [t in row for t, row in zip(data.target_ids, served)]))
+            sf["max_depth"] = db.forest.max_depth()
+            sf["lane_rows"] = [min(map(len, db.forest._leaf_of_local)),
+                               max(map(len, db.forest._leaf_of_local))]
+            if card:
+                sf["split"] = small_forest_split(db, data.query_embs, 10,
+                                                 1024)
+                raw = torch.as_tensor(data.query_embs, device=device)
+                cs, cand = _vforest_query(db.forest.build_index(),
+                                          db.whitener.transform_torch(raw),
+                                          1024)
+                sf["rerank"] = check_rerank(
+                    rerank, db._emb_device(), raw,
+                    cand.to(torch.int32).contiguous(), cs.contiguous(),
+                    reps=10, label=f" (small forest, {routing}, served "
+                    "pools)", pv=float(db.cfg.prior_var))
+                del cs, cand
+            # 64 new rows added, then a query: each comes back first as
+            # itself (the add drops the stacked index; the query rebuilds)
+            new = synthetic_retrieval_hard(64, 1, dim, seed=7).corpus_embs
+            n0 = len(db)
+            db.add_sentences([None] * len(new), new)
+            zero()
+            got = to_host(db.query_ids(new, 1))
+            sf["add_window"] = read()
+            window(sf["add_window"], f"{routing} add")
+            if not np.array_equal(got[:, 0], np.arange(n0, n0 + len(new))):
+                raise AssertionError(f"{routing}: an added row did not come "
+                                     f"back first as itself: {got[:, 0]}")
+            if routing != "round_robin":
+                return
+            # the branch's edge: threshold - 1 rows, served once
+            d2 = synthetic_retrieval_hard(threshold - 1, queries, dim,
+                                          seed=1)
+            db2 = CobwebIndex(config=TreeConfig(dim=db.whitener.dim_out),
+                              capacity=4 * (threshold - 1) + 16,
+                              n_subtrees=32, whitener=db.whitener,
+                              device=device)
+            db2.blocked_threshold = threshold
+            db2.add_sentences([None] * (threshold - 1), d2.corpus_embs)
+            zero()
+            ids2 = to_host(db2.query_ids(d2.query_embs, 10, rerank=1024))
+            sf["edge_window"] = read()
+            window(sf["edge_window"], "the edge forest")
+            sf["edge"] = small_forest_plain(
+                db2, d2.query_embs, ids2, 10, 1024, 1024, d2.corpus_embs,
+                d2.target_ids)
+            sf["edge"]["rows"] = len(db2)
+            sf["edge"]["served_recall@10"] = float(np.mean(
+                [t in row for t, row in zip(d2.target_ids, ids2)]))
+            if abs(sf["edge"]["served_recall@10"]
+                   - sf["edge"]["plain_recall@10"]) > 0.005:
+                raise AssertionError(f"the edge forest: {sf['edge']}")
+
+        sf["rec"] = headline.run(
+            corpus_size=corpus_size, queries=queries, dim=dim, pca_dim=0.96,
+            k=10, batch=1024, dataset="hard", n_lanes=32, rerank=1024,
+            routing=routing, device=device, log=lambda *a: log(*a),
+            hook=hook)[0]
+        rec = sf["rec"]
+        log(json.dumps(rec))
+        window(sf["window"], f"{routing} serving")
+        if rec["routing"] != routing or rec["engine"] != "small_forest":
+            raise AssertionError(f"the small forest ran as {rec}")
+        if abs(rec["recall@10"] - sf["plain"]["plain_recall@10"]) > 0.005:
+            raise AssertionError(
+                f"small forest, {routing}: recall@10 {rec['recall@10']} is "
+                "more than 0.005 from its plain pipeline's "
+                f"{sf['plain']['plain_recall@10']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -953,6 +1095,27 @@ def main() -> int:
     launches["backstop"] = rec3["windows"]["backstop_on"]["backstop"]
     launches["pending"] = rec3["windows"]["after_adds"]["pending"]
 
+    # -- 3e. the small-forest slice: c=5000, both routings --------------
+    small = small_forest_slice(headline, zero, read)
+    for routing, sf in small.items():
+        rec = sf["rec"]
+        log(f"[small] {routing}: recall@10 {rec['recall@10']} (exact "
+            f"{rec['exact_recall@10']}; plain pipeline "
+            f"{sf['plain']['plain_recall@10']}, golds outside the 1024-row "
+            f"pool {sf['plain']['golds_outside_pool']}); build "
+            f"{rec['build_inserts_per_s']:.1f} inserts/s; ms/query B=750 "
+            f"{rec['value']:.6f}, B=1 {rec['b1_latency_ms']:.4f} ms, B=32 "
+            f"{rec['b32_latency_ms']:.6f} ms/query; lane rows "
+            f"{sf['lane_rows']}, deepest path {sf['max_depth']}")
+        log(f"[small] {routing} served vs plain: {sf['plain']}; serving "
+            f"launches {sf['window']}; add-64 launches {sf['add_window']}")
+        log(f"[small] {routing} stage split, stream ms between CUDA events, "
+            f"one batch: " + json.dumps(sf["split"]))
+    edge = small["round_robin"]
+    log(f"[small] edge forest ({edge['edge']['rows']} rows): {edge['edge']}"
+        f"; launches {edge['edge_window']}")
+    launches["small_forest"] = small["round_robin"]["window"]["rerank_l2"]
+
     # -- 4. result lines ----------------------------------------------------
     src = "rag_cobweb_tpu_torch/csrc/"
     kernels = [
@@ -969,7 +1132,12 @@ def main() -> int:
              single_tree=dict(launches=windows["single"]["rerank_l2"],
                               **single["rerank"]),
              pending=dict(launches=launches["pending"],
-                          **scale["pending"])),
+                          **scale["pending"]),
+             small_forest=dict(
+                 launches=launches["small_forest"],
+                 **small["round_robin"]["rerank"],
+                 content=dict(launches=small["content"]["window"][
+                     "rerank_l2"], **small["content"]["rerank"]))),
         # one CUDA kernel and counter for both TPU kernels (_kernel_v2's
         # body is _kernel): the served index at B=1024, and under "B4096"
         # at the batch of _kernel_v2's measurement

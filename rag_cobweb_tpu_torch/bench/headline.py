@@ -4,14 +4,16 @@ whitening at 0.96 variance, a 32-lane forest, k=10, pool 1024) built and
 served on one device.
 
     python -m rag_cobweb_tpu_torch.bench.headline [--device cuda]
-        [--vforest K] [--engine fused|blocked|blocked_kernel ...]
+        [--vforest K] [--routing round_robin|content]
+        [--engine fused|blocked|blocked_kernel ...]
 
 ``--vforest 1`` builds the single tree (``CobwebIndex``'s default) as
 ``bench.py`` does: a first index over 2048 rows (its time counts as the
-warm-up), then the rest added, whose rate is the build rate.  The tree or
-forest is built once; each ``--engine`` then serves the queries and
-prints ONE JSON line with the keys of ``bench.py`` plus ``device``,
-``engine``, ``corpus_size`` and ``n_subtrees``:
+warm-up), then the rest added, whose rate is the build rate.
+``--routing`` picks the forest's lanes (``CobwebIndex(routing=...)``).
+The tree or forest is built once; each ``--engine`` then serves the
+queries and prints ONE JSON line with the keys of ``bench.py`` plus
+``device``, ``engine``, ``corpus_size``, ``n_subtrees`` and ``routing``:
 
 * ``fused`` (default): the fused sweep kernel, exact pool, exact re-rank;
 * ``blocked``: ``use_fused=False``, the blocked sweep in PyTorch;
@@ -19,6 +21,10 @@ prints ONE JSON line with the keys of ``bench.py`` plus ``device``,
   ``pallas_threshold`` set to the corpus size, the blocked sweep kernel
   (the JAX default of 300 000 gates this opt-in engine on larger
   corpora).
+
+A forest below the wrapper's ``blocked_threshold`` (8192 sentences) is
+served by the small-forest engine whatever ``--engine`` says, and its
+record says ``"engine": "small_forest"``.
 
 There is no CPU build fallback and no warm-up thread: the build and the
 serving run on ``--device``, and the card's name is recorded beside the
@@ -67,7 +73,8 @@ def _set_engine(db: CobwebIndex, engine: str, n: int) -> None:
 def run(corpus_size: int = 10000, queries: int = 1000, dim: int = 768,
         pca_dim: float = 0.96, k: int = 10, batch: int = 1024,
         dataset: str = "hard", n_lanes: int = 32, rerank: int = 1024,
-        device="cuda", engines=("fused",), log=None, hook=None) -> list:
+        device="cuda", engines=("fused",), log=None, hook=None,
+        routing: str = "round_robin") -> list:
     """Build one configuration, serve it with each of ``engines`` in turn;
     returns one headline record per engine.  ``hook(event, engine, db,
     data)`` is called with ``"start"`` just before an engine serves its
@@ -92,7 +99,7 @@ def run(corpus_size: int = 10000, queries: int = 1000, dim: int = 768,
     warm_s = 0.0
     if n_lanes > 1:
         db = CobwebIndex(config=cfg, capacity=cap, n_subtrees=n_lanes,
-                         whitener=whitener, device=dev)
+                         routing=routing, whitener=whitener, device=dev)
         t0 = time.perf_counter()
         db.add_sentences([None] * len(corpus), corpus)
         _sync(dev)
@@ -130,8 +137,10 @@ def run(corpus_size: int = 10000, queries: int = 1000, dim: int = 768,
 
     rr = None if rerank == -1 else rerank
     records = []
+    small_forest = n_lanes > 1 and len(corpus) < db.blocked_threshold
     for engine in engines:
         _set_engine(db, engine, len(corpus))
+        engine = "small_forest" if small_forest else engine
         hook("start", engine, db, data)
         t0 = time.perf_counter()
         to_host(db.query_ids(data.query_embs[:8], k, rerank=rr))
@@ -188,6 +197,7 @@ def run(corpus_size: int = 10000, queries: int = 1000, dim: int = 768,
             "engine": engine,
             "corpus_size": corpus_size,
             "n_subtrees": n_lanes,
+            "routing": routing if n_lanes > 1 else None,
         })
     return records
 
@@ -202,6 +212,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--dataset", choices=["hard", "easy"], default="hard")
     ap.add_argument("--vforest", type=int, default=32, metavar="K")
+    ap.add_argument("--routing", choices=["round_robin", "content"],
+                    default="round_robin")
     ap.add_argument("--rerank", type=int, default=1024,
                     help="exact re-rank pool size; -1 = wrapper auto")
     ap.add_argument("--device", default="cuda")
@@ -211,7 +223,8 @@ def main(argv=None):
     recs = run(args.corpus_size, args.queries, args.dim, args.pca_dim,
                args.k, args.batch, args.dataset, args.vforest, args.rerank,
                args.device, engines=tuple(args.engine or ("fused",)),
-               log=lambda *a: print(*a, file=sys.stderr, flush=True))
+               log=lambda *a: print(*a, file=sys.stderr, flush=True),
+               routing=args.routing)
     for rec in recs:
         print(json.dumps(rec))
 

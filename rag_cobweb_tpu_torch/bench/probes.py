@@ -78,7 +78,6 @@ def plain_check(db, queries, served, k: int, pool: int, bs: int,
     pv = float(db.cfg.prior_var)
     nv, n = db._indexed_count(), len(db)
     raw = torch.as_tensor(np.asarray(corpus[:n], np.float32), device=dev)
-    D = raw.shape[1]
     if bs:
         # the whole store in one transform, as one add of every indexed row
         # makes it
@@ -132,40 +131,59 @@ def plain_check(db, queries, served, k: int, pool: int, bs: int,
         ids = union.gather(1, top.indices)
         got = torch.as_tensor(served[s:s + batch], device=dev)
         plain.append(ids.cpu().numpy())
-        # the served order: keys non-increasing but for ties
-        gk = _plain_keys(raw, qs, got, torch.ones(
-            got.shape, dtype=torch.bool, device=dev), pv)
-        tol = 1e-5 * (top.values[:, -1:].abs()
-                      + 0.5 * D * abs(math.log(pv)))
-        bad = torch.nonzero((gk[:, 1:] > gk[:, :-1] + tol).any(dim=1))[:, 0]
-        if len(bad):
-            qi = int(bad[0])
-            raise AssertionError(
-                f"query {s + qi}: served ids out of key order: "
-                f"{got[qi].tolist()} with keys {gk[qi].tolist()}")
-        for qi in torch.nonzero((ids != got).any(dim=1))[:, 0].tolist():
-            both = torch.as_tensor(np.union1d(ids[qi].cpu(), got[qi].cpu()),
-                                   device=dev).view(1, -1)
-            keys = _plain_keys(raw, qs[qi:qi + 1], both,
-                               torch.ones(both.shape, dtype=torch.bool,
-                                          device=dev), pv)[0]
-            kth = float(torch.topk(keys, k).values[-1])
-            for sid in set(ids[qi].tolist()) ^ set(got[qi].tolist()):
-                key = float(keys[both[0] == sid][0])
-                tie = abs(key - kth) <= 1e-5 * (
-                    abs(kth) + 0.5 * D * abs(math.log(pv)))
-                for sc, tm, last in pools:
-                    tie = tie or (sid < nv and abs(float(
-                        sc[qi, sid] - last[qi, 0])) <= 1e-3 + 1e-5 * float(
-                            tm[qi, sid]))
-                if not tie:
-                    raise AssertionError(
-                        f"query {s + qi}: served id {sid} differs from the "
-                        f"plain pipeline's and is no tie (key {key} vs the "
-                        f"{k}-th {kth})")
-                ties += 1
+
+        def pool_tie(qi, sid):
+            return any(sid < nv and abs(float(sc[qi, sid] - last[qi, 0]))
+                       <= 1e-3 + 1e-5 * float(tm[qi, sid])
+                       for sc, tm, last in pools)
+
+        ties += _hold_served(raw, qs, got, ids, top.values, k, pv, s,
+                             pool_tie)
         del full, terms, pools
-    plain = np.concatenate(plain)
+    return _plain_record(np.concatenate(plain), served, ties, targets, k,
+                         outside)
+
+
+def _hold_served(raw, qs, got, ids, top, k: int, pv: float, s: int,
+                 pool_tie) -> int:
+    """The served ids ``got`` of one batch against the plain pipeline's
+    ``ids`` (keys ``top``): the served keys must not rise along a row by
+    more than 1e-5 of their terms, and each id served but not plain, or
+    plain but not served, must be a tie: its key within 1e-5 of its terms
+    of the k-th, or ``pool_tie(query, id)``.  Returns the tied ids."""
+    dev, D = raw.device, raw.shape[1]
+    gk = _plain_keys(raw, qs, got, torch.ones(
+        got.shape, dtype=torch.bool, device=dev), pv)
+    tol = 1e-5 * (top[:, -1:].abs() + 0.5 * D * abs(math.log(pv)))
+    bad = torch.nonzero((gk[:, 1:] > gk[:, :-1] + tol).any(dim=1))[:, 0]
+    if len(bad):
+        qi = int(bad[0])
+        raise AssertionError(
+            f"query {s + qi}: served ids out of key order: "
+            f"{got[qi].tolist()} with keys {gk[qi].tolist()}")
+    ties = 0
+    for qi in torch.nonzero((ids != got).any(dim=1))[:, 0].tolist():
+        both = torch.as_tensor(np.union1d(ids[qi].cpu(), got[qi].cpu()),
+                               device=dev).view(1, -1)
+        keys = _plain_keys(raw, qs[qi:qi + 1], both,
+                           torch.ones(both.shape, dtype=torch.bool,
+                                      device=dev), pv)[0]
+        kth = float(torch.topk(keys, k).values[-1])
+        for sid in set(ids[qi].tolist()) ^ set(got[qi].tolist()):
+            key = float(keys[both[0] == sid][0])
+            tie = abs(key - kth) <= 1e-5 * (
+                abs(kth) + 0.5 * D * abs(math.log(pv)))
+            if not (tie or pool_tie(qi, sid)):
+                raise AssertionError(
+                    f"query {s + qi}: served id {sid} differs from the "
+                    f"plain pipeline's and is no tie (key {key} vs the "
+                    f"{k}-th {kth})")
+            ties += 1
+    return ties
+
+
+def _plain_record(plain, served, ties: int, targets, k: int,
+                  outside: int) -> dict:
     differ = (plain != served).any(axis=1)
     out = {"queries_differing_from_plain": int(differ.sum()),
            "queries_differing_in_order_only": int(sum(
@@ -177,6 +195,44 @@ def plain_check(db, queries, served, k: int, pool: int, bs: int,
             plain, np.asarray(targets), k)["recall@10"]
         out["golds_outside_pool"] = outside
     return out
+
+
+def small_forest_plain(db, queries, served, k: int, pool: int, batch: int,
+                       corpus, targets=None) -> dict:
+    """The small-forest engine's pipeline (a forest below
+    ``blocked_threshold``) in plain PyTorch, batch by batch, held against
+    its ``served`` ids as ``plain_check`` holds the fused engine's: the
+    whitened queries through the same per-lane merge over the forest's
+    stacked index (``parallel/vforest._vforest_query``, top ``pool``),
+    then ``rerank_lp_plain`` on the raw rows ``corpus`` in place of kernel
+    5, then the top ``k``.  The pools are the served ones, so a served id
+    may differ only at a tie of the re-rank key.  With ``targets``: the
+    plain pipeline's recall@k and the golds its pool leaves out.  Returns
+    the record."""
+    from rag_cobweb_tpu_torch.parallel.vforest import _vforest_query
+    idx = db.forest.build_index()
+    dev = idx.const.device
+    pv = float(db.cfg.prior_var)
+    n = len(db)
+    raw = torch.as_tensor(np.asarray(corpus[:n], np.float32), device=dev)
+    plain, outside, ties = [], 0, 0
+    for s in range(0, len(queries), batch):
+        qs = torch.as_tensor(queries[s:s + batch], device=dev)
+        cs, cand = _vforest_query(idx, db.whitener.transform_torch(qs),
+                                  min(max(pool, k), n))
+        lp = rerank.rerank_lp_plain(raw, qs, cand, cs, pv)
+        top = torch.topk(lp, min(k, n), dim=1)
+        ids = cand.gather(1, top.indices)
+        if targets is not None:
+            gold = torch.as_tensor(np.asarray(targets[s:s + batch]),
+                                   device=dev).view(-1, 1)
+            outside += int((~(cand == gold).any(dim=1)).sum())
+        got = torch.as_tensor(served[s:s + batch], device=dev)
+        plain.append(ids.cpu().numpy())
+        ties += _hold_served(raw, qs, got, ids, top.values, k, pv, s,
+                             lambda qi, sid: False)
+    return _plain_record(np.concatenate(plain), served, ties, targets, k,
+                         outside)
 
 
 def stage_split(db, queries, k: int, pool: int) -> dict:
@@ -194,16 +250,8 @@ def stage_split(db, queries, k: int, pool: int) -> dict:
     pool = min(pool, nv)
     bs = db._backstop_k(pool, nv)
     pv = float(db.cfg.prior_var)
-    for _ in range(3):
-        ev = []
 
-        def mark(name):
-            ev.append((name, torch.cuda.Event(enable_timing=True)))
-            ev[-1][1].record()
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mark("start")
+    def run(mark):
         qs = torch.as_tensor(queries, device=db.device)
         mark("upload")
         q = db.whitener.transform_torch(qs)
@@ -232,10 +280,62 @@ def stage_split(db, queries, k: int, pool: int) -> dict:
             mark("tiers")
         ids.cpu()
         mark("to host")
+
+    return _event_split(run, len(queries))
+
+
+def small_forest_split(db, queries, k: int, pool: int) -> dict:
+    """Stream ms of each stage of one batch served by the small-forest
+    engine, as ``stage_split``: upload, whitening, per-lane scoring (the
+    lane-batched products and the per-hop path gather), per-lane and merge
+    top-k, kernel 5, final top-k and gather, ids to the host."""
+    from rag_cobweb_tpu_torch.parallel.vforest import (_lane_merge,
+                                                       _lane_node_scores)
+    idx, emb = db.forest.build_index(), db._emb_device()
+    n = len(db)
+    pool = min(max(pool, k), n)
+    pv = float(db.cfg.prior_var)
+
+    def run(mark):
+        qs = torch.as_tensor(queries, device=db.device)
+        mark("upload")
+        q = db.whitener.transform_torch(qs)
+        mark("whitening")
+        nlp, scores = _lane_node_scores(idx, q)
+        mark("per-lane scoring")
+        cs, cand = _lane_merge(idx, nlp, scores, pool)
+        mark("per-lane and merge top-k")
+        lp = rerank.rerank_lp(emb, qs.float().contiguous(),
+                              cand.to(torch.int32).contiguous(),
+                              cs.contiguous(), pv)
+        mark("kernel 5")
+        ids = cand.gather(1, torch.topk(lp, min(k, n), dim=1).indices)
+        mark("final top-k")
+        ids.cpu()
+        mark("to host")
+
+    return _event_split(run, len(queries))
+
+
+def _event_split(run, B: int) -> dict:
+    """``run(mark)`` three times, ``mark(name)`` recording a CUDA event
+    after each stage; the stream ms between the last run's events, their
+    sum, the host's wall ms of that run and the batch size."""
+    for _ in range(3):
+        ev = []
+
+        def mark(name):
+            ev.append((name, torch.cuda.Event(enable_timing=True)))
+            ev[-1][1].record()
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        run(mark)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     split = {b[0]: a[1].elapsed_time(b[1]) for a, b in zip(ev, ev[1:])}
     split["sum"] = sum(split.values())
     split["wall"] = wall
-    split["B"] = len(queries)
+    split["B"] = B
     return split

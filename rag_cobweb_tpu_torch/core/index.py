@@ -83,10 +83,19 @@ class PredictionIndex(NamedTuple):
         return self.paths.shape[0]
 
 
+def host_structure(st):
+    """Host copies of the state's ``children`` (K, cap, F), ``parent`` (K,
+    cap) and ``root`` (K,): the input of the structure pass."""
+    cap = st.capacity
+    return (st.children[:, :cap].cpu().numpy(),
+            st.parent[:, :cap].cpu().numpy(), st.root.cpu().numpy())
+
+
 def build_flat_forest_index(cfg, st, leaf_global: np.ndarray,
                             level_weights: Sequence[float]
                             = DEFAULT_LEVEL_WEIGHTS,
-                            pad_depth_to: int = 4) -> PredictionIndex:
+                            pad_depth_to: int = 4,
+                            host_struct=None) -> PredictionIndex:
     """ONE PredictionIndex over a stacked K-lane forest state.
 
     Lane l's node ids are offset by ``l * capacity`` (``leaf_global[s]``
@@ -96,11 +105,11 @@ def build_flat_forest_index(cfg, st, leaf_global: np.ndarray,
     order of the root->leaf paths, which keeps same-leaf runs and whole
     subtrees contiguous (it decides which sentences share a block of the
     blocked index, and so its M).  Structure and layout are host numpy and
-    equal the JAX package's; statistics are gathered on the device."""
+    equal the JAX package's; statistics are gathered on the device.
+    ``host_struct``: the state's ``host_structure``, when the caller holds
+    it already."""
     cap, K = st.capacity, st.lanes
-    children_h = st.children[:, :cap].cpu().numpy()
-    parent_h = st.parent[:, :cap].cpu().numpy()
-    root_h = st.root.cpu().numpy()
+    children_h, parent_h, root_h = host_struct or host_structure(st)
     offs = (np.arange(K, dtype=np.int64) * cap)[:, None, None]
     children = np.where(children_h >= 0, children_h + offs, -1) \
         .reshape(K * cap, -1)

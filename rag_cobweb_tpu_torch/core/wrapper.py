@@ -2,17 +2,21 @@
 
 Single-tree mode (``n_subtrees=1``, the default: one ``CobwebTree``, the
 reference's ``CobwebWrapper``) or forest mode (``n_subtrees >= 2``,
-round-robin lanes), optionally with a wrapper-owned whitener: embeddings
-arrive RAW, the tree and the candidate pool run in whitened space, and
-the raw float32 vector store feeds the exact re-rank, so the final
-ranking is exact raw-space search whenever the gold row is in the pool.
+round-robin or content-routed lanes), optionally with a wrapper-owned
+whitener: embeddings arrive RAW, the tree and the candidate pool run in
+whitened space, and the raw float32 vector store feeds the exact
+re-rank, so the final ranking is exact raw-space search whenever the
+gold row is in the pool.
 
 Serving: ``query_ids`` -> ``_engine_topk``, which picks the engine as the
 JAX package does:
 
-* below ``blocked_threshold`` sentences (a single tree only): the path
+* below ``blocked_threshold`` sentences: for a single tree the path
   scores of the prediction index in PyTorch (``index.query_topk``), then
-  the re-rank;
+  the re-rank; for a forest the small-forest engine
+  (``_small_forest_topk``: each lane's path-ranked rows merged by leaf
+  log-prob over the stacked index, ``parallel/vforest._vforest_query``,
+  then the exact re-rank, kernel 5);
 * ``use_pallas`` and at least ``pallas_threshold`` sentences: the blocked
   sweep kernel (``_pallas_topk`` -> ``ops/blocked_topk.blocked_topk``);
 * ``use_fused`` (the default): ``_product_chunked`` ->
@@ -41,11 +45,8 @@ rows moves into a tier-1 delta segment on the device
 engine's re-ranked pool by the shared fresh-leaf key.  The indexes are
 rebuilt once the unindexed rows pass max(``delta_rebuild_min``,
 ``delta_rebuild_frac`` of the indexed ones), or when an exact-index
-consumer runs (``rerank=0``, ``rank_scores``).
-
-Not carried yet (raises ``NotImplementedError`` where it would run): the
-small-forest engine that serves a forest below ``blocked_threshold``
-sentences (and the forest's stacked index and rank scores).
+consumer runs (``rerank=0``, ``rank_scores``, and a forest below
+``blocked_threshold``, whose small-forest engine serves no stale tier).
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ from rag_cobweb_tpu_torch.core.config import TreeConfig
 from rag_cobweb_tpu_torch.core.tree import CobwebTree, align_capacity
 from rag_cobweb_tpu_torch.device import full_f32_matmul, resolve_device
 from rag_cobweb_tpu_torch.ops import blocked_topk
-from rag_cobweb_tpu_torch.parallel.vforest import VForest
+from rag_cobweb_tpu_torch.parallel.vforest import VForest, _vforest_query
 
 
 def _identity_encode(x):
@@ -456,13 +457,12 @@ class CobwebIndex:
             return self._flat_cache
         return self.build_prediction_index()
 
-    def build_prediction_index(self) -> index_mod.PredictionIndex:
-        """The single tree's PredictionIndex (``index.build_index``),
-        cached until the next add."""
+    def build_prediction_index(self):
+        """The single tree's PredictionIndex (``index.build_index``), or a
+        forest's stacked per-lane index (``VForest.build_index``), cached
+        until the next add."""
         if self.forest is not None:
-            raise NotImplementedError(
-                "a forest's prediction index is the small-forest engine's "
-                "stacked index, which is not ported yet")
+            return self.forest.build_index()
         if self._index is None:
             self._index = index_mod.build_index(
                 self.tree, np.asarray(self.leaf_of_sentence, np.int64))
@@ -605,6 +605,29 @@ class CobwebIndex:
             idx = self._flat_pred_index()
         return index_mod._leaf_lp_rerank(idx, q, cand, cand_scores, kk)
 
+    def _small_forest_topk(self, q, kk: int, rerank: Optional[int],
+                           q_store=None):
+        """A forest below ``blocked_threshold``: each lane's rows ranked by
+        path score, the lanes merged by leaf log-prob
+        (``parallel/vforest._vforest_query`` over the stacked index), then
+        the exact stored-row re-rank (kernel 5).  Rows of one leaf share
+        its log-prob, and content routing packs whole near-duplicate
+        groups into one leaf, so the pool must cover the largest such tie
+        group: ``rerank=None`` takes min(max(4 k, ``rerank_candidates``),
+        n) rows when the store is kept, else 0; 0 serves the raw leaf-lp
+        order."""
+        idx = self.forest.build_index()
+        store = self._emb_device() is not None
+        n = len(self.sentences)
+        pool = rerank
+        if pool is None:
+            pool = min(max(4 * kk, self.rerank_candidates), n) if store \
+                else 0
+        if pool and store:
+            cs, cand = _vforest_query(idx, q, min(max(pool, kk), n))
+            return self._rerank_step(None, q, cand, cs, kk, q_store=q_store)
+        return _vforest_query(idx, q, kk)
+
     def _pallas_topk(self, bidx, q, kk: int, rerank: int, q_store=None):
         """Serve through the blocked sweep kernel (the counterpart of the
         JAX package's Pallas engine).  Its merged pool holds NB *
@@ -642,15 +665,15 @@ class CobwebIndex:
         return q, single
 
     def rank_scores(self, input, is_embedding: bool = False):
-        """Per-sentence path scores of the single tree (reference
-        ``cobweb_rank_scores``): (B, D) -> (B, S), one query -> (S,)."""
-        if self.forest is not None:
-            raise NotImplementedError(
-                "a forest's rank scores (vforest_rank_scores) are not "
-                "ported yet")
+        """Per-sentence path scores (reference ``cobweb_rank_scores``): (B,
+        D) -> (B, S), one query -> (S,); a forest's each from its lane
+        (``VForest.rank_scores``).  Differentiable in the queries."""
         self._flush_pending()   # (B, S) scores must cover every sentence
         q, single = self._as_query_batch(input, is_embedding)
-        scores = index_mod.rank_scores(self.build_prediction_index(), q)
+        if self.forest is not None:
+            scores = self.forest.rank_scores(q)
+        else:
+            scores = index_mod.rank_scores(self.build_prediction_index(), q)
         return scores[0] if single else scores
 
     def query_ids(self, queries, k: int, rerank: Optional[int] = None):
@@ -667,10 +690,8 @@ class CobwebIndex:
         kk = min(k, len(self.sentences))
         if (self.forest is not None
                 and len(self.sentences) < self.blocked_threshold):
-            raise NotImplementedError(
-                f"{len(self.sentences)} sentences is below blocked_threshold"
-                f"={self.blocked_threshold}: the small-forest engine "
-                "(_small_forest_topk) that serves there is not ported yet")
+            self._flush_pending()   # no stale tier serves here
+            return self._small_forest_topk(q, kk, rerank, q_store=qs)[1]
         if self._unindexed_count() and rerank == 0:
             self._flush_pending()
         if rerank is None:

@@ -29,41 +29,16 @@ def forest_from_numpy(arrays: dict, meta: dict, device="cuda") -> VForest:
     children, n_children, root, n_alloc, free_stack, free_top, each with a
     leading lane axis) and ``meta``: ``cfg`` (a TreeConfig or its JSON
     dict), ``shard_of``, ``local_sid`` and ``leaf_of_local`` (the JAX
-    forest's ``_leaf_of_local``, one list per lane)."""
-    cfg = meta["cfg"]
-    if not isinstance(cfg, TreeConfig):
-        cfg = TreeConfig.from_json_dict(cfg)
-    K, cap = np.asarray(arrays["counts"]).shape
-    vf = VForest(cfg, n_subtrees=K, capacity_per_tree=cap, device=device)
-    vf.state = tree_mod.state_from_numpy(arrays, vf.device)
-    vf.shard_of = [int(x) for x in meta["shard_of"]]
-    vf.local_sid = [int(x) for x in meta["local_sid"]]
-    vf._leaf_of_local = [[int(x) for x in lst]
-                         for lst in meta["leaf_of_local"]]
-    vf.n_sentences = len(vf.shard_of)
-    vf._alloc_hi = int(np.asarray(arrays["n_alloc"]).max())
-    return vf
+    forest's ``_leaf_of_local``, one list per lane); for a content-routed
+    forest also ``routing`` and its router state ``centroids``,
+    ``route_count`` and ``lane_total`` (``VForest.from_numpy``)."""
+    return VForest.from_numpy(arrays, meta, device=device)
 
 
 def load_jax_npz(path: str, device="cuda") -> VForest:
-    """A port VForest from a file written by the JAX ``VForest.save_npz``."""
-    with np.load(path, allow_pickle=False) as data:
-        routing = (str(data["__routing__"]) if "__routing__" in data.files
-                   else "round_robin")
-        if routing != "round_robin":
-            raise NotImplementedError(f"routing={routing!r} is not ported")
-        cfg = json.loads(bytes(data["__cfg__"]).decode())
-        arrays = {k: data[f"st_{k}"] for k in tree_mod.FIELDS}
-        n_local = data["n_local"]
-        leaf_mat = data["leaf_of_local"]
-        meta = {
-            "cfg": cfg,
-            "shard_of": data["shard_of"],
-            "local_sid": data["local_sid"],
-            "leaf_of_local": [leaf_mat[s, :int(n_local[s])]
-                              for s in range(len(n_local))],
-        }
-        return forest_from_numpy(arrays, meta, device=device)
+    """A port VForest from a file written by the JAX ``VForest.save_npz``,
+    router state included (``VForest.load_npz``)."""
+    return VForest.load_npz(path, device=device)[0]
 
 
 _SCALARS = ("root", "n_alloc", "free_top")

@@ -1,9 +1,12 @@
-"""K-lane Cobweb forest on one device: the build subset of
+"""K-lane Cobweb forest on one device: a port of
 ``rag_cobweb_tpu/parallel/vforest.py``.
 
 K independent subtrees share one stacked state (``core/tree.TreeState``);
 one round inserts one instance per lane through a lockstep descent over
-the written-out lane axis.  Routing is round-robin (lane = global id % K).
+the written-out lane axis.  Routing is round-robin (lane = global id % K)
+or by content (``routing="content"``: the nearest lane centroid under a
+per-lane load cap, the JAX package's router in host numpy, its proximity
+product on the forest's device in full f32).
 
 The retry schedule is the JAX package's, because it decides which
 instance a lane inserts first and so shapes the trees: a descent longer
@@ -12,9 +15,21 @@ rounds, in waves of up to ``_RETRY_W`` instances per lane at
 ``_DEEP_STEPS``, and beyond that one at a time on the exact path at
 ``_EXACT_STEPS``.  The primary budget climbs 16 -> 24 -> 32 -> 48 while a
 0.7/0.3 moving average of the deep fraction stays above 8%.
+
+Below the wrapper's ``blocked_threshold`` a forest is served from its
+stacked per-lane index (``parallel/forest.build_stacked_index``):
+``_vforest_query`` ranks each lane's rows by path score and merges the
+lanes' candidates by leaf log-probability; ``vforest_rank_scores`` gives
+every global sentence its lane's path score.  The JAX ``vmap`` over lanes
+is a lane-batched product and a per-hop gather over ``(K, B, S)``.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -22,28 +37,145 @@ import torch
 from rag_cobweb_tpu_torch.core import index as index_mod
 from rag_cobweb_tpu_torch.core import tree as tree_mod
 from rag_cobweb_tpu_torch.core.config import TreeConfig
-from rag_cobweb_tpu_torch.device import resolve_device
+from rag_cobweb_tpu_torch.device import full_f32_matmul, resolve_device
+from rag_cobweb_tpu_torch.parallel.forest import (StackedIndex,
+                                                  build_stacked_index)
 
 _MAX_STEPS = 16     # primary descent budget
 _DEEP_STEPS = 48    # retry-wave budget
 _RETRY_W = 32       # retry-wave width (instances per lane per wave)
 _EXACT_STEPS = tree_mod.EXACT_STEPS
+# byte budget of one query chunk's (K, Bc, N) node log-probs and (K, Bc,
+# S) path-score temporaries in the small-forest query
+QUERY_BUDGET = 1 << 30
+
+
+def _centroid_scores(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(B, D) queries x (K, D) lane centroids -> (B, K) proximity scores
+    ``q . c - 0.5 ||c||^2`` (negative half squared L2 up to a per-query
+    constant), f32: the router's nearest-centroid rule and the lane
+    selection share it."""
+    return torch.matmul(q, c.T) - 0.5 * torch.sum(torch.square(c), dim=1)
+
+
+def _lane_node_scores(idx: StackedIndex, q: torch.Tensor):
+    """(B, D) queries -> every lane's node log-probs (K, B, N) and the
+    path scores of its rows (K, B, S), padding rows -inf: the JAX
+    per-lane ``batched_node_log_probs`` and ``path_scores_from_nlp``, as
+    one lane-batched product and one gather per hop."""
+    qb = q.float().unsqueeze(0)
+    nlp = (torch.matmul(qb, idx.mu_over_var_T)
+           - 0.5 * torch.matmul(torch.square(qb), idx.inv_var_T)
+           + idx.const.unsqueeze(1))                        # (K, B, N)
+    K, B = nlp.shape[0], nlp.shape[1]
+    S = idx.paths.shape[1]
+    safe = idx.paths.clamp(min=0)
+    acc = torch.zeros((K, B, S), dtype=torch.float32, device=q.device)
+    for p in range(idx.paths.shape[2]):
+        hop = torch.gather(nlp, 2, safe[:, :, p].unsqueeze(1).expand(K, B, S))
+        acc = acc + hop * idx.path_weights[:, :, p].unsqueeze(1)
+    scores = torch.where(idx.sentence_valid.unsqueeze(1), acc,
+                         torch.full_like(acc, float("-inf")))
+    return nlp, scores
+
+
+def _topk_stable(x: torch.Tensor, k: int):
+    """Top-``k`` along the last axis with the lower index first among
+    equal values (``jax.lax.top_k``'s order; ``torch.topk`` leaves ties
+    unordered): a stable descending sort, cut at ``k``."""
+    top, pos = torch.sort(x, dim=-1, descending=True, stable=True)
+    return top[..., :k], pos[..., :k]
+
+
+def _lane_merge(idx: StackedIndex, nlp: torch.Tensor, scores: torch.Tensor,
+                k: int):
+    """Each lane's top-``k`` rows by path score, merged across lanes by
+    their leaf log-prob (the key calibrated alike in every lane) ->
+    (leaf log-probs (B, k'), global ids (B, k')), k' = min(k, K * k_lane);
+    padding rows carry -inf and id -1."""
+    K, B, S = scores.shape
+    kk = min(k, S)
+    _, rows = _topk_stable(scores, kk)                      # (K, B, kk)
+    flat = rows.reshape(K, B * kk)
+    gids = idx.global_sid.gather(1, flat).view(K, B, kk)
+    leaf = idx.leaf_node.gather(1, flat).view(K, B, kk)
+    lp = torch.gather(nlp, 2, leaf)
+    lp = torch.where(gids >= 0, lp, torch.full_like(lp, float("-inf")))
+    merged = lp.permute(1, 0, 2).reshape(B, K * kk)
+    merged_ids = gids.permute(1, 0, 2).reshape(B, K * kk)
+    top, pos = _topk_stable(merged, min(k, K * kk))
+    return top, merged_ids.gather(1, pos)
+
+
+def _query_chunk(idx: StackedIndex, B: int) -> int:
+    """Queries a chunk so that the (K, Bc, N) node log-probs and ~4 (K,
+    Bc, S) path-score temporaries stay under ``QUERY_BUDGET`` bytes: all
+    of ``B``, or a power of two (at least 32)."""
+    K, S = idx.paths.shape[0], idx.paths.shape[1]
+    row = 4 * K * (idx.const.shape[1] + 4 * S)
+    bmax = max(32, QUERY_BUDGET // max(row, 1))
+    return B if bmax >= B else 1 << (bmax.bit_length() - 1)
+
+
+def _vforest_query(idx: StackedIndex, q: torch.Tensor, k: int):
+    """Per-lane path-ranked top-k merged across lanes by leaf log-prob ->
+    (leaf log-probs (B, k'), global ids (B, k')), the query batch chunked
+    by ``QUERY_BUDGET``."""
+    bmax = _query_chunk(idx, q.shape[0])
+    outs = [_lane_merge(idx, *_lane_node_scores(idx, q[s:s + bmax]), k)
+            for s in range(0, q.shape[0], bmax)]
+    return (torch.cat([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs]))
+
+
+def vforest_rank_scores(idx: StackedIndex, q: torch.Tensor,
+                        n_global: int) -> torch.Tensor:
+    """Per-global-sentence path scores over all lanes, (B, D) -> (B,
+    n_global): each lane's scores placed at its rows' global ids (each id
+    lives in exactly one lane; an id no lane holds scores -inf).  A
+    gather, so plain autograd differentiates it in the queries."""
+    _, scores = _lane_node_scores(idx, q)                   # (K, B, S)
+    K, B, S = scores.shape
+    flat = scores.permute(1, 0, 2).reshape(B, K * S)
+    gsid = idx.global_sid.reshape(-1)
+    src = torch.full((n_global,), -1, dtype=torch.int64, device=q.device)
+    live = torch.nonzero(gsid >= 0)[:, 0]
+    src[gsid[live]] = live
+    out = flat[:, src.clamp(min=0)]
+    return torch.where(src >= 0, out, torch.full_like(out, float("-inf")))
 
 
 class VForest:
     """K-subtree forest on one device."""
 
+    # per-lane load cap of content routing, as a multiple of the mean lane
+    # load (the JAX package's value: 2.0 keeps spills within each row's
+    # nearest few lanes)
+    route_cap_factor: float = 2.0
+
     def __init__(self, cfg: TreeConfig, n_subtrees: int = 16,
                  capacity_per_tree: int = 4096, seed: int = 0,
                  routing: str = "round_robin", device="cuda"):
-        if routing != "round_robin":
-            raise NotImplementedError(
-                f"routing={routing!r}: content routing is not ported yet; "
-                "only round_robin is")
+        """``routing``: ``"round_robin"`` (lane = global id % K) or
+        ``"content"`` (the nearest lane centroid, balanced by a load cap;
+        centroids start from a short k-means on the first batch and track
+        their lane's running mean).  Content routing packs near-duplicate
+        groups into one lane, so with ``absorb_depth == 0`` it sets
+        ``absorb_depth=24``, as the JAX package does."""
+        if routing not in ("round_robin", "content"):
+            raise ValueError(f"unknown routing {routing!r}")
         self.device = resolve_device(device)
+        full_f32_matmul()
+        if routing == "content" and cfg.absorb_depth == 0:
+            cfg = dataclasses.replace(cfg, absorb_depth=24)
         self.cfg = cfg
         self.K = n_subtrees
         self.routing = routing
+        self.seed = seed
+        self._centroids: Optional[np.ndarray] = None   # (K, D) host f32
+        self._route_count = np.zeros(n_subtrees, np.int64)
+        self._lane_total = np.zeros(n_subtrees, np.int64)
+        self._route_rng = np.random.default_rng(seed ^ 0x5EED)
         self.state = tree_mod.init_state(n_subtrees, capacity_per_tree,
                                          cfg.dim, cfg.max_fanout, self.device)
         self._gen = torch.Generator(device=self.device)
@@ -58,6 +190,7 @@ class VForest:
         self._alloc_hi = 1
         self._graph: "tree_mod.StepGraph | None" = None
         self._flat_index: "index_mod.PredictionIndex | None" = None
+        self._stacked_index: Optional[StackedIndex] = None
 
     def _ensure_capacity(self, rounds: int):
         """Grow every lane when the next ``rounds`` inserts could overflow
@@ -140,9 +273,147 @@ class VForest:
                         f"{_EXACT_STEPS} in lane {int(s)}")
                 leaves[s, sel[s, c]] = lf[s, 0]
 
+    # ---------------------------------------------------------------- #
+    # content routing (host numpy, as in the JAX package)              #
+    # ---------------------------------------------------------------- #
+    def _lane_scores(self, x: np.ndarray,
+                     centroids: Optional[np.ndarray] = None) -> np.ndarray:
+        """(B, K) centroid-proximity scores of host rows ``x``, computed on
+        the forest's device in f32; ``centroids`` overrides the router's
+        (the root-mean fallback)."""
+        c = self._centroids if centroids is None else centroids
+        s = _centroid_scores(
+            torch.as_tensor(np.asarray(x, np.float32), device=self.device),
+            torch.as_tensor(np.asarray(c, np.float32), device=self.device))
+        return s.cpu().numpy()
+
+    def _init_centroids(self, x: np.ndarray):
+        """Short k-means over the first routed batch: K rows drawn from
+        it (with replacement and 1e-3 noise when it has fewer than K),
+        then 3 Lloyd iterations."""
+        K, rng = self.K, self._route_rng
+        B = len(x)
+        if B >= K:
+            c = np.array(x[rng.choice(B, K, replace=False)], np.float32)
+        else:
+            c = np.array(x[rng.choice(B, K, replace=True)], np.float32)
+            c += 1e-3 * rng.standard_normal(c.shape).astype(np.float32)
+        self._centroids = c
+        for _ in range(3):
+            assign = np.argmax(self._lane_scores(x), axis=1)
+            sums = np.zeros_like(c)
+            cnt = np.zeros(K, np.int64)
+            np.add.at(sums, assign, x)
+            np.add.at(cnt, assign, 1)
+            upd = cnt > 0
+            c[upd] = sums[upd] / cnt[upd, None]
+
+    @staticmethod
+    def _cumcount(g: np.ndarray, K: int) -> np.ndarray:
+        """Rank of each element among the earlier elements of the same
+        value."""
+        o = np.argsort(g, kind="stable")
+        gs = g[o]
+        starts = np.searchsorted(gs, np.arange(K))
+        out = np.empty(len(g), np.int64)
+        out[o] = np.arange(len(g)) - starts[gs]
+        return out
+
+    def _route_lanes(self, x: np.ndarray) -> np.ndarray:
+        """Nearest-centroid lanes under a per-lane load cap
+        (``route_cap_factor`` x the mean load after this batch, + 16).
+        Rows claim their nearest lane in order of their 1st-vs-2nd
+        margin, largest first; spills try their 2nd-nearest lane, then
+        walk their own centroid ranking, and only when every lane is full
+        go to the least-loaded ones.  Centroids then move to the exact
+        running mean of the rows routed to them."""
+        K = self.K
+        B = len(x)
+        if self._centroids is None:
+            self._init_centroids(x)
+        s = self._lane_scores(x)
+        if K == 1:
+            return np.zeros(B, np.int32)
+        rows = np.arange(B)
+        top2 = np.argpartition(-s, 1, axis=1)[:, :2]
+        swap = s[rows, top2[:, 0]] < s[rows, top2[:, 1]]
+        top2[swap] = top2[swap][:, ::-1]
+        load = self._lane_total.copy()
+        cap = int(self.route_cap_factor * (int(load.sum()) + B) / K) + 16
+        room = np.maximum(cap - load, 0)
+
+        lane_of = np.full(B, -1, np.int32)
+        margin = s[rows, top2[:, 0]] - s[rows, top2[:, 1]]
+        ordr = np.argsort(-margin, kind="stable")
+        lane1 = top2[ordr, 0]
+        take1 = self._cumcount(lane1, K) < room[lane1]
+        lane_of[ordr[take1]] = lane1[take1]
+        room = room - np.bincount(lane1[take1], minlength=K)
+        rem = ordr[~take1]
+        if rem.size:
+            lane2 = top2[rem, 1]
+            take2 = self._cumcount(lane2, K) < room[lane2]
+            lane_of[rem[take2]] = lane2[take2]
+            room = room - np.bincount(lane2[take2], minlength=K)
+            rem = rem[~take2]
+        if rem.size:
+            ranks = np.argsort(-s[rem], axis=1)
+            left = np.arange(rem.size)
+            for r in range(2, K):
+                if left.size == 0:
+                    break
+                lane_r = ranks[left, r]
+                take = self._cumcount(lane_r, K) < room[lane_r]
+                lane_of[rem[left[take]]] = lane_r[take]
+                room = room - np.bincount(lane_r[take], minlength=K)
+                left = left[~take]
+            if left.size:
+                lane_order = np.argsort(-room)
+                slots = np.repeat(lane_order,
+                                  np.maximum(room, 0)[lane_order])
+                if slots.size < left.size:
+                    slots = np.concatenate([
+                        slots, np.tile(np.argsort(load),
+                                       -(-(left.size - slots.size) // K))])
+                lane_of[rem[left]] = slots[:left.size]
+        load += np.bincount(lane_of, minlength=K)
+        self._lane_total = load
+        sums = np.zeros_like(self._centroids)
+        cnt = np.zeros(K, np.int64)
+        np.add.at(sums, lane_of, x)
+        np.add.at(cnt, lane_of, 1)
+        tot = self._route_count + cnt
+        upd = cnt > 0
+        self._centroids[upd] += (
+            sums[upd] - cnt[upd, None] * self._centroids[upd]
+        ) / tot[upd, None]
+        self._route_count = tot
+        return lane_of
+
+    def select_lanes(self, queries, n_lanes: int) -> np.ndarray:
+        """Each query's ``n_lanes`` nearest lanes by centroid proximity,
+        (B, L).  Without router state (round-robin, or a file from before
+        routing) each lane's root mean stands for its centroid."""
+        L = min(n_lanes, self.K)
+        cent = None
+        if self._centroids is None:
+            st = self.state
+            cent = st.means[torch.arange(self.K, device=self.device),
+                            st.root].cpu().numpy()
+        s = self._lane_scores(np.atleast_2d(np.asarray(queries, np.float32)),
+                              centroids=cent)
+        if L >= self.K:
+            return np.broadcast_to(np.arange(self.K, dtype=np.int32),
+                                   (len(s), self.K)).copy()
+        return np.argpartition(-s, L - 1, axis=1)[:, :L].astype(np.int32)
+
+    # ---------------------------------------------------------------- #
+    # insertion                                                        #
+    # ---------------------------------------------------------------- #
     def add(self, embeddings) -> np.ndarray:
         """Insert a batch; one round inserts up to K instances, one per
-        lane.  Returns the global ids of the new rows."""
+        lane, each lane by ``routing``.  Returns the global ids of the new
+        rows."""
         xs = torch.as_tensor(embeddings, dtype=torch.float32,
                              device=self.device)
         if xs.dim() == 1:
@@ -152,7 +423,9 @@ class VForest:
         if B == 0:
             return gids
         self._flat_index = None
-        lane_of = gids % K
+        self._stacked_index = None
+        lane_of = (self._route_lanes(xs.cpu().numpy())
+                   if self.routing == "content" else gids % K)
         lens = np.bincount(lane_of, minlength=K)
         R_max = int(lens.max())
         self._ensure_capacity(R_max + 1)
@@ -223,3 +496,128 @@ class VForest:
         return tree_mod.structure_signature(
             a["counts"], a["means"], a["children"], a["n_children"],
             a["root"])
+
+    # ---------------------------------------------------------------- #
+    # the small-forest query                                           #
+    # ---------------------------------------------------------------- #
+    def build_index(self) -> StackedIndex:
+        """The stacked per-lane index (``parallel/forest``), cached until
+        the next ``add``."""
+        if self._stacked_index is None:
+            self._stacked_index = build_stacked_index(
+                self.cfg, self.state, self._leaf_of_local, self.shard_of,
+                self.local_sid, self.n_sentences)
+        return self._stacked_index
+
+    def _queries(self, queries) -> torch.Tensor:
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        return q.unsqueeze(0) if q.dim() == 1 else q
+
+    def query_topk(self, queries, k: int):
+        """(B, D) queries -> (leaf log-probs (B, k), global ids (B, k)):
+        each lane's path-ranked top-k merged by leaf log-prob."""
+        return _vforest_query(self.build_index(), self._queries(queries), k)
+
+    def rank_scores(self, queries) -> torch.Tensor:
+        """Differentiable (B, n_sentences) path scores over global ids."""
+        return vforest_rank_scores(self.build_index(),
+                                   self._queries(queries), self.n_sentences)
+
+    def max_depth(self) -> int:
+        """The longest root->leaf path of any sentence, in nodes."""
+        return int((self.build_index().paths >= 0).sum(-1).max())
+
+    # ---------------------------------------------------------------- #
+    # persistence: the JAX package's npz layout                        #
+    # ---------------------------------------------------------------- #
+    def save_npz(self, path: str, **extra_arrays):
+        """Write the forest in the JAX ``VForest.save_npz`` layout (state
+        fields ``st_*``, bookkeeping, router state), so either package
+        loads it.  ``__key__`` is ``jax.random.PRNGKey(seed)``'s raw
+        form, ``[0, seed]`` in uint32."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        n_local = np.asarray([len(lst) for lst in self._leaf_of_local])
+        leaf_mat = np.full((self.K, max(int(n_local.max(initial=0)), 1)),
+                           -1, np.int64)
+        for s, lst in enumerate(self._leaf_of_local):
+            leaf_mat[s, :len(lst)] = lst
+        routing = {"__routing__": np.asarray(self.routing)}
+        if self._centroids is not None:
+            routing.update(__centroids__=self._centroids,
+                           __route_count__=self._route_count,
+                           __lane_total__=self._lane_total)
+        np.savez_compressed(
+            path,
+            __forest__=np.asarray(self.K),
+            __cfg__=np.frombuffer(json.dumps(self.cfg.to_json_dict())
+                                  .encode(), dtype=np.uint8),
+            __key__=np.asarray([0, self.seed & 0xFFFFFFFF], np.uint32),
+            n_sentences=np.asarray(self.n_sentences),
+            shard_of=np.asarray(self.shard_of, np.int64),
+            local_sid=np.asarray(self.local_sid, np.int64),
+            leaf_of_local=leaf_mat, n_local=n_local, **routing,
+            **{f"st_{k}": v for k, v in
+               tree_mod.state_to_numpy(self.state).items()},
+            **extra_arrays)
+
+    _NPZ_KEYS = {"__forest__", "__cfg__", "__key__", "n_sentences",
+                 "shard_of", "local_sid", "leaf_of_local", "n_local",
+                 "__routing__", "__centroids__", "__route_count__",
+                 "__lane_total__"} | {f"st_{k}" for k in tree_mod.FIELDS}
+
+    @classmethod
+    def load_npz(cls, path: str, device="cuda"):
+        """A forest from a file of either package's ``save_npz``; returns
+        (forest, dict of the extra arrays saved beside it).  The descent's
+        generator is seeded from the last word of ``__key__``."""
+        with np.load(path, allow_pickle=False) as data:
+            n_local = data["n_local"]
+            leaf_mat = data["leaf_of_local"]
+            meta = {
+                "cfg": json.loads(bytes(data["__cfg__"]).decode()),
+                "shard_of": data["shard_of"],
+                "local_sid": data["local_sid"],
+                "leaf_of_local": [leaf_mat[s, :int(n_local[s])]
+                                  for s in range(len(n_local))],
+                "seed": int(np.asarray(data["__key__"]).ravel()[-1]),
+            }
+            if "__routing__" in data.files:
+                meta["routing"] = str(data["__routing__"])
+            if "__centroids__" in data.files:
+                meta.update(centroids=data["__centroids__"],
+                            route_count=data["__route_count__"],
+                            lane_total=data["__lane_total__"])
+            arrays = {k: data[f"st_{k}"] for k in tree_mod.FIELDS}
+            extras = {k: data[k] for k in data.files
+                      if k not in cls._NPZ_KEYS}
+        return cls.from_numpy(arrays, meta, device=device), extras
+
+    @classmethod
+    def from_numpy(cls, arrays: dict, meta: dict,
+                   device="cuda") -> "VForest":
+        """A forest from stacked state arrays in the JAX layout (counts,
+        means, m2s, parent, children, n_children, root, n_alloc,
+        free_stack, free_top, each with a leading lane axis) and ``meta``:
+        ``cfg`` (a TreeConfig or its JSON dict), ``shard_of``,
+        ``local_sid``, ``leaf_of_local`` (one list per lane), and
+        optionally ``seed``, ``routing`` and the router state
+        ``centroids``, ``route_count``, ``lane_total``."""
+        cfg = meta["cfg"]
+        if not isinstance(cfg, TreeConfig):
+            cfg = TreeConfig.from_json_dict(cfg)
+        K, cap = np.asarray(arrays["counts"]).shape
+        vf = cls(cfg, n_subtrees=K, capacity_per_tree=cap,
+                 seed=int(meta.get("seed", 0)),
+                 routing=meta.get("routing", "round_robin"), device=device)
+        vf.state = tree_mod.state_from_numpy(arrays, vf.device)
+        vf.shard_of = [int(x) for x in meta["shard_of"]]
+        vf.local_sid = [int(x) for x in meta["local_sid"]]
+        vf._leaf_of_local = [[int(x) for x in lst]
+                             for lst in meta["leaf_of_local"]]
+        vf.n_sentences = len(vf.shard_of)
+        vf._alloc_hi = int(np.asarray(arrays["n_alloc"]).max())
+        if meta.get("centroids") is not None:
+            vf._centroids = np.array(meta["centroids"], np.float32)
+            vf._route_count = np.array(meta["route_count"], np.int64)
+            vf._lane_total = np.array(meta["lane_total"], np.int64)
+        return vf

@@ -976,3 +976,42 @@ def test_single_tree_serves_adds_on_the_card(card, source):
         out.append(got)
     for a, b in zip(*out):
         np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize("routing", ["round_robin", "content"])
+def test_small_forest_serves_on_the_card(card, routing):
+    """A forest below ``blocked_threshold`` (400 rows, K=8) built and
+    served on the card and on the host from the same rows: the same lanes
+    and leaves, the same ids at the auto pool (kernel 5 on the card, one
+    launch a query batch) and the same id sets in the raw leaf-lp order,
+    rank scores within 1e-4; then an add, flushed and served alike."""
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    from rag_cobweb_tpu_torch.ops import rerank
+    rng = np.random.default_rng(12)
+    centers = rng.normal(scale=3.0, size=(8, 16))
+    xs = (centers[rng.integers(0, 8, 440)]
+          + 0.5 * rng.normal(size=(440, 16))).astype(np.float32)
+    q = xs[::11] + 0.05
+    out = []
+    for dev in ("cpu", card):
+        db = CobwebIndex(corpus_embeddings=xs[:400],
+                         config=TreeConfig(dim=16), n_subtrees=8,
+                         routing=routing, device=dev)
+        n0 = rerank.rerank_lp.launches
+        got = [db.query_ids(q, 10).cpu().numpy()]
+        if dev != "cpu":
+            assert rerank.rerank_lp.launches - n0 == 1
+        got.append(np.sort(db.query_ids(q, 10, rerank=0).cpu().numpy(), 1))
+        got.append(db.rank_scores(q, is_embedding=True).cpu().numpy())
+        db.add_sentences([None] * 40, xs[400:])
+        got.append(db.query_ids(xs[400:], 1).cpu().numpy())
+        out.append((db.forest.shard_of, db.forest._leaf_global(), got))
+    (lanes_h, leaves_h, host), (lanes_c, leaves_c, on_card) = out
+    assert lanes_c == lanes_h
+    np.testing.assert_array_equal(leaves_c, leaves_h)
+    np.testing.assert_array_equal(on_card[0], host[0])
+    np.testing.assert_array_equal(on_card[1], host[1])
+    np.testing.assert_allclose(on_card[2], host[2], rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(on_card[3][:, 0], np.arange(400, 440))
+    np.testing.assert_array_equal(host[3][:, 0], np.arange(400, 440))

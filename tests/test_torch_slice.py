@@ -129,17 +129,20 @@ def test_add_drops_the_serving_index(setup):
 
 
 def test_unported_engines_raise(setup):
-    """The small-forest engine still raises.  The backstop pool, which
-    raised here before, now serves the JAX wrapper's ids (an explicit
-    ``backstop_pool`` with a pool of 8, f32 fused index)."""
+    """The engines that raised here before are ported.  The small-forest
+    engine (a forest below ``blocked_threshold``) serves the JAX
+    wrapper's ids at 100 rows with its auto pool, and the backstop pool
+    serves them too (an explicit ``backstop_pool`` with a pool of 8, f32
+    fused index)."""
     data, jw, tw = setup
     jdb = JIndex(config=JCfg(dim=jw.dim_out), n_subtrees=4, whitener=jw)
     tdb = CobwebIndex(config=TreeConfig(dim=tw.dim_out), n_subtrees=4,
                       whitener=tw, device="cpu")
     for db in (jdb, tdb):
         db.add_sentences([None] * 100, data.corpus_embs[:100])
-    with pytest.raises(NotImplementedError, match="small-forest"):
-        tdb.query_ids(data.query_embs[:2], 3)
+    np.testing.assert_array_equal(
+        tdb.query_ids(data.query_embs, 3).numpy(),
+        np.asarray(jdb.query_ids(data.query_embs, 3)))
     for db in (jdb, tdb):
         db.blocked_threshold = 64
         db.backstop_pool = 16

@@ -78,6 +78,18 @@ def test_budget_ladder_reaches_the_wave_budget():
 
 
 def test_content_routing_is_not_ported():
-    with pytest.raises(NotImplementedError, match="content routing"):
-        VForest(TreeConfig(dim=4), n_subtrees=2, routing="content",
-                device="cpu")
+    """Content routing, which raised here until it was ported, now builds
+    the JAX VForest's lanes and trees from the same rows (the full
+    parity checks are in tests/test_torch_routing.py)."""
+    xs = clustered(120, 6, seed=4)
+    jf = JForest(JCfg(dim=6), n_subtrees=3, capacity_per_tree=64, seed=0,
+                 routing="content")
+    tf = VForest(TreeConfig(dim=6), n_subtrees=3, capacity_per_tree=64,
+                 routing="content", device="cpu")
+    for part in np.array_split(xs, 2):
+        np.testing.assert_array_equal(tf.add(part), jf.add(part))
+    assert tf.cfg.absorb_depth == jf.cfg.absorb_depth == 24
+    assert tf.shard_of == jf.shard_of
+    assert tf.local_sid == jf.local_sid
+    for lane in range(3):
+        assert tf.lane_signature(lane) == jax_lane_signature(jf, lane), lane
