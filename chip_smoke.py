@@ -95,6 +95,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
    one served batch, kernel 5 held and timed on the served pools; then 64
    rows added and each found first as itself, and (round-robin) a forest
    of 8191 rows served once at the branch's edge;
+3f. the query API (``query_api``), inside the hooks of phases 3, 3c and
+   3e on the indexes they build (the flagship forest, the single tree,
+   the content-routed small forest), no new build:
+   ``predict_fast(k=10, return_ids=True)`` on every query in its own
+   counter window (kernels 1 and 5 on the two fused-engine indexes,
+   kernel 5 alone on the small forest), its ids equal to ``query_ids``';
+   ``predict(k=10)`` (the packed beam, width 64; lane-fair over the 32
+   lanes, or each query's 8 nearest when content-routed) in its own
+   window, where no kernel may launch; both timed at the full batch, B=1
+   and B=32 and their recall@10 printed beside the exact scan's; the beam
+   engine alone timed beside its bound; ``save`` into ``build/query_api/``
+   and ``load(device="cuda")``, whose ``predict_fast`` and ``predict``
+   ids must equal the original's; ``load(device="cpu")``, whose
+   ``predict`` ids on the first 32 queries must equal the card's but at
+   ties it shows.  On the single tree also ``predict_fast(tie_noise=
+   True)``, held against the plain f32 path-score order (the order
+   ``rerank=0`` serves; noise of 1e-6 moves only ties), and
+   ``set_weight_schedule`` exponential (base 0.5) and linear (1.0 to
+   0.25), each served at pool 1024 with its recall@10 and the golds its
+   pool leaves out printed, then ``set_level_weights`` of the defaults,
+   whose ids must equal the first serving's;
 4. one JSON line of per-kernel numbers, a row per CUDA kernel entry
    (kernel 1 at the flagship shape, with its single-tree record under
    ``single_tree``; kernel 5 on the flagship's served pools, likewise; the
@@ -539,9 +560,178 @@ def plain_path_order(db, qw, served: np.ndarray, targets,
             (plain != served).any(axis=1).sum())}
 
 
+def median_ms(fn, reps: int = 7) -> float:
+    """Median host ms of ``fn()`` (which returns host data, so the device
+    is done) over ``reps`` calls, after one warm call."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ts))
+
+
+def recall10(ids, targets) -> float:
+    return float(np.mean([t in row[:10] for t, row in zip(targets, ids)]))
+
+
+def query_api(db, data, zero, read, what: str, out_dir: Path,
+              card: bool = True) -> dict:
+    """Phase 3f on a served index ``db`` (``data``: its raw corpus,
+    queries and golds): ``predict_fast(k=10)`` on every query in its own
+    counter window, its ids equal to ``query_ids``'; ``predict(k=10)``
+    (beam width 64) in its own window, where no kernel may launch; both
+    timed at the full batch (ms/query), at B=1 (ms) and B=32 (ms/query);
+    the beam engine alone timed against its bound; ``save`` into
+    ``out_dir`` and ``load`` on the same device, whose ``predict_fast``
+    and ``predict`` ids must equal the original's; ``load`` on the host,
+    whose ``predict`` ids on the first 32 queries must equal the card's
+    but at ties it shows (``probes.hold_beam``).  ``card`` False (a host
+    rehearsal) leaves out the counter checks.  Returns the record."""
+    from rag_cobweb_tpu_torch.bench.metrics import to_host
+    from rag_cobweb_tpu_torch.bench.probes import hold_beam
+    from rag_cobweb_tpu_torch.core import index as index_mod
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    q, targets = data.query_embs, data.target_ids
+    rec = {"B": len(q)}
+
+    def fast(x):
+        return db.predict_fast(x, k=10, return_ids=True, is_embedding=True)
+
+    def beam(x):
+        return db.predict(x, k=10, return_ids=True, is_embedding=True)
+
+    zero()
+    ids_fast = fast(q)
+    rec["fast_window"] = read()
+    if ids_fast != to_host(db.query_ids(q, 10)).tolist():
+        raise AssertionError(f"{what}: predict_fast and query_ids differ")
+    zero()
+    ids_beam = beam(q)
+    rec["predict_window"] = read()
+    if card and any(rec["predict_window"].values()):
+        raise AssertionError(f"{what}: predict launched a kernel: "
+                             f"{rec['predict_window']}")
+    for name, fn, ids in (("predict", beam, ids_beam),
+                          ("predict_fast", fast, ids_fast)):
+        rec[name] = {
+            "recall@10": recall10(ids, targets),
+            "ms/query": median_ms(lambda: fn(q), reps=3) / len(q),
+            "B1_ms": median_ms(lambda: fn(q[:1])),
+            "B32_ms/query": median_ms(lambda: fn(q[:32])) / 32}
+    rec["predict"]["overlap_with_predict_fast"] = float(np.mean(
+        [len(set(a) & set(b)) / max(len(b), 1)
+         for a, b in zip(ids_beam, ids_fast)]))
+    # the beam engine alone, on the whitened batch, against its bound: the
+    # pack, the queries and the ids moved once, and 2 x 2D flops for each
+    # scored candidate slot (queries x lanes x levels x budget)
+    qw = db._as_query_batch(q, True)[0]
+    bidx = db._beam_index()
+    W = 64
+    if db.forest is not None:
+        F = db.forest
+        depth = -(-max(F._beam_depth, 1) // 4) * 4
+        L = min(F.K, 8) if F.routing == "content" else F.K
+        C = min(16 * max(1, -(-4 * W // 16)), W * 16)
+
+        def engine():
+            return to_host(F.beam_topk(qw, 10, beam_width=W))
+    else:
+        depth = -(-max(db.max_depth, 1) // 4) * 4
+        L, C = 1, min(64 * max(1, -(-4 * W // 64)), W * 16)
+
+        def engine():
+            return to_host(index_mod.beam_query_ids(
+                bidx, qw, 10, beam_width=W, max_depth=depth))
+    twoD = bidx.pack.shape[1]
+    flops = 2.0 * twoD * len(q) * L * depth * C
+    nbytes = (bidx.pack.numel() * bidx.pack.element_size()
+              + 4 * bidx.num_nodes + 4 * qw.numel() + 8 * 10 * len(q))
+    b_ms, b_by = bound(nbytes, flops, PEAK_F32_FLOPS)
+    rec["beam"] = {"ms": median_ms(engine, reps=3), "bound_ms": b_ms,
+                   "bound_by": b_by, "gathered_GB": 1e-9 * 4 * twoD * len(q)
+                   * L * depth * C, "lanes": L, "levels": depth,
+                   "budget": C}
+    # save, then load on the card and on the host
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = str(out_dir / f"{what.replace(' ', '_')}.npz")
+    db.save(path)
+    loaded = CobwebIndex.load(path, device=db.device)
+    if loaded.predict_fast(q, k=10, return_ids=True,
+                           is_embedding=True) != ids_fast:
+        raise AssertionError(f"{what}: the loaded copy's predict_fast ids "
+                             "differ")
+    if loaded.predict(q, k=10, return_ids=True,
+                      is_embedding=True) != ids_beam:
+        raise AssertionError(f"{what}: the loaded copy's predict ids "
+                             "differ")
+    del loaded
+    host = CobwebIndex.load(path, device="cpu")
+    rec["host_hold"] = hold_beam(db, q[:32], ids_beam[:32], host.predict(
+        q[:32], k=10, return_ids=True, is_embedding=True))
+    return rec
+
+
+def log_query_api(what: str, rec: dict, exact_recall: float) -> None:
+    for name in ("predict", "predict_fast"):
+        r = rec[name]
+        log(f"[api] {what} {name}: recall@10 {r['recall@10']} (exact scan "
+            f"{exact_recall}); {r['ms/query']:.6f} ms/query at B={rec['B']}, "
+            f"B=1 {r['B1_ms']:.4f} ms, B=32 {r['B32_ms/query']:.6f} "
+            "ms/query" + (f"; overlap with predict_fast "
+                          f"{r['overlap_with_predict_fast']:.4f}"
+                          if name == "predict" else ""))
+    log(f"[api] {what} beam engine alone: {json.dumps(rec['beam'])}")
+    log(f"[api] {what} windows: predict_fast {rec['fast_window']}, predict "
+        f"{rec['predict_window']}; host copy vs card: "
+        f"{json.dumps(rec['host_hold'])}")
+
+
+def single_tree_api(db, data, qw, ids0, served, zero, read, out_dir: Path,
+                    pool: int = 1024, card: bool = True) -> dict:
+    """Phase 3f on the single tree ``db``: ``query_api``; then
+    ``predict_fast(tie_noise=True)`` held against the plain f32
+    path-score order of the f32 FusedIndex (``plain_path_order``; ``qw``
+    the whitened queries, ``ids0`` the ids ``rerank=0`` served); then each
+    level-weight schedule served at pool ``pool`` with its recall@10 and
+    the golds its pool leaves out (``probes.golds_outside_pool``; the
+    served ids are not held against the plain pipeline here: a schedule
+    that all but drops the deep levels ties whole subtrees at the pool's
+    edge, where kernel 1 and ``torch.topk`` may keep different members);
+    then the default weights restored, whose ids must equal ``served``,
+    the first serving's at that pool.  Returns the records."""
+    from rag_cobweb_tpu_torch.bench.metrics import to_host
+    from rag_cobweb_tpu_torch.bench.probes import golds_outside_pool
+    from rag_cobweb_tpu_torch.core.index import DEFAULT_LEVEL_WEIGHTS
+    q = data.query_embs
+    out = {"api": query_api(db, data, zero, read, "single tree", out_dir,
+                            card=card)}
+    noisy = np.asarray(db.predict_fast(q, k=10, return_ids=True,
+                                       is_embedding=True, tie_noise=True))
+    out["tie_noise"] = plain_path_order(db, qw, noisy, data.target_ids)
+    out["tie_noise"]["queries_differing_from_rerank0"] = int(
+        (noisy != ids0).any(axis=1).sum())
+    for kind, kw in (("exponential", dict(base=0.5)),
+                     ("linear", dict(start=1.0, end=0.25))):
+        db.set_weight_schedule(kind, **kw)
+        ids = to_host(db.query_ids(q, 10, rerank=pool))
+        out[f"schedule {kind}"] = {
+            "weights": db.get_level_weights(),
+            "recall@10": recall10(ids, data.target_ids),
+            "golds_outside_pool": golds_outside_pool(db, q, data.target_ids,
+                                                     pool)}
+    db.set_level_weights(DEFAULT_LEVEL_WEIGHTS)
+    if not np.array_equal(to_host(db.query_ids(q, 10, rerank=pool)),
+                          served):
+        raise AssertionError("the single tree's ids after the schedule was "
+                             "restored differ from its first serving's")
+    return out
+
+
 def single_tree_slice(headline, zero, read, windows, launches,
-                      name: str, corpus_size=10000, queries=1000, dim=768,
-                      device="cuda") -> tuple:
+                      name: str, out_dir: Path, corpus_size=10000,
+                      queries=1000, dim=768, device="cuda") -> tuple:
     """Phase 3c: the single tree at the flagship settings, built on the
     card and served through kernels 1 and 5 in a counter window; then the
     kernels held and timed on its indexes and the f32 entries, each in its
@@ -619,6 +809,9 @@ def single_tree_slice(headline, zero, read, windows, launches,
             single[f"blocked_f32 B={B}"] = check_blocked(
                 blocked_topk, qw[:B], bf32, 10, reps=reps, real=True)
         db.use_fused, db.use_pallas = True, False
+        # 3f: the query API on the tree, then tie noise and the schedules
+        single.update(single_tree_api(db, data, qw, ids0, served, zero, read,
+                                      out_dir))
 
     rec1 = headline.run(corpus_size=corpus_size, queries=queries, dim=dim,
                         pca_dim=0.96, k=10, batch=1024, dataset="hard",
@@ -674,7 +867,23 @@ def single_tree_slice(headline, zero, read, windows, launches,
             + json.dumps({k: [r["ms"], r["bound_ms"], r["library_ms"]]
                           for k, r in single.items()
                           if k.startswith(name + " ")}))
+    # 3f on the single tree
+    api = single["api"]
+    log_query_api("single tree", api, rec1["exact_recall@10"])
+    fast_window(api["fast_window"], "single tree")
+    log(f"[api] single tree predict_fast(tie_noise=True) against the plain "
+        f"f32 path-score order: {single['tie_noise']}")
+    for kind in ("exponential", "linear"):
+        log(f"[api] single tree schedule {kind}: "
+            + json.dumps(single[f"schedule {kind}"]))
     return rec1, single
+
+
+def fast_window(w: dict, what: str) -> None:
+    """``predict_fast`` on a fused-engine index: kernels 1 and 5."""
+    if not (w["fused_topk"] > 0 and w["rerank_l2"] > 0):
+        raise AssertionError(f"{what}: predict_fast did not serve through "
+                             f"kernels 1 and 5: {w}")
 
 
 SMALL_FOREST_WINDOW = ("fused_topk", "fused_group_topk", "blocked_topk",
@@ -690,7 +899,7 @@ def small_forest_window(w: dict, what: str) -> None:
                              f"serve through kernel 5 alone: {w}")
 
 
-def small_forest_slice(headline, zero, read, device="cuda",
+def small_forest_slice(headline, zero, read, out_dir: Path, device="cuda",
                        corpus_size=5000, queries=750, dim=768,
                        threshold=8192, card=True) -> dict:
     """Phase 3e: ``configs/synthetic_scale_5k.json``'s corpus (c=5000,
@@ -751,6 +960,13 @@ def small_forest_slice(headline, zero, read, device="cuda",
                     reps=10, label=f" (small forest, {routing}, served "
                     "pools)", pv=float(db.cfg.prior_var))
                 del cs, cand
+            if routing == "content":
+                # 3f: the query API, predict over each query's 8 nearest
+                # of the 32 lanes
+                sf["api"] = query_api(db, data, zero, read,
+                                      "small forest content", out_dir,
+                                      card=card)
+                window(sf["api"]["fast_window"], "content predict_fast")
             # 64 new rows added, then a query: each comes back first as
             # itself (the add drops the stacked index; the query rebuilds)
             new = synthetic_retrieval_hard(64, 1, dim, seed=7).corpus_embs
@@ -910,6 +1126,7 @@ def main() -> int:
 
     # -- 3. the flagship slice ------------------------------------------
     zero, read = probes.zero_counters, probes.read_counters
+    out_dir = here / "build" / "query_api"    # phase 3f's saved indexes
     launches, windows = {}, {}
 
     def whitened(db, data, n):
@@ -945,6 +1162,9 @@ def main() -> int:
         qq = torch.cat([q, q * q], 1).to(fidx.GT.dtype).contiguous()
         check_group(fused_topk, qq, fidx.GT, fidx.c, fidx.valid, 2, reps=0,
                     label=" (served index)")
+        # 3f: the query API on the flagship forest (lane-fair beam)
+        flag["api"] = query_api(db, data, zero, read, "flagship forest",
+                                out_dir)
 
     rec = headline.run(corpus_size=10000, queries=1000, dim=768,
                        pca_dim=0.96, k=10, batch=1024, dataset="hard",
@@ -971,6 +1191,8 @@ def main() -> int:
         raise AssertionError("fused_group_topk never launched")
     if windows["fused"]["fused_topk_f32"]:
         raise AssertionError("the flagship served an f32 index")
+    log_query_api("flagship forest", flag["api"], rec["exact_recall@10"])
+    fast_window(flag["api"]["fast_window"], "flagship forest")
     launches["fused_topk"] = windows["fused"]["fused_topk"]
     launches["rerank_l2"] = windows["fused"]["rerank_l2"]
     launches["fused_group_topk"] = windows["group"]["fused_group_topk"]
@@ -1050,7 +1272,7 @@ def main() -> int:
 
     # -- 3c. the single-tree slice --------------------------------------
     rec1, single = single_tree_slice(headline, zero, read, windows, launches,
-                                     name)
+                                     name, out_dir)
 
     # -- 3d. the scale slice: 131072 indexed rows, backstop, adds ------
     scale = {}
@@ -1096,7 +1318,7 @@ def main() -> int:
     launches["pending"] = rec3["windows"]["after_adds"]["pending"]
 
     # -- 3e. the small-forest slice: c=5000, both routings --------------
-    small = small_forest_slice(headline, zero, read)
+    small = small_forest_slice(headline, zero, read, out_dir)
     for routing, sf in small.items():
         rec = sf["rec"]
         log(f"[small] {routing}: recall@10 {rec['recall@10']} (exact "
@@ -1111,6 +1333,8 @@ def main() -> int:
             f"launches {sf['window']}; add-64 launches {sf['add_window']}")
         log(f"[small] {routing} stage split, stream ms between CUDA events, "
             f"one batch: " + json.dumps(sf["split"]))
+    log_query_api("small forest content", small["content"]["api"],
+                  small["content"]["rec"]["exact_recall@10"])
     edge = small["round_robin"]
     log(f"[small] edge forest ({edge['edge']['rows']} rows): {edge['edge']}"
         f"; launches {edge['edge_window']}")

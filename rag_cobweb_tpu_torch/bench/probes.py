@@ -98,11 +98,7 @@ def plain_check(db, queries, served, k: int, pool: int, bs: int,
         pools = [(full, terms, cs[:, -1:])]
         lists = [(cand, cs)]
         if targets is not None:
-            gold = torch.as_tensor(np.asarray(targets[s:s + batch]),
-                                   device=dev).view(-1, 1)
-            g = full.gather(1, gold.clamp(max=full.shape[1] - 1))
-            outside += int(((gold[:, 0] >= nv)   # not indexed
-                            | ((full > g).sum(1) >= pool)).sum())
+            outside += _pool_misses(full, targets[s:s + batch], nv, pool)
         if bs:
             qb = q.to(torch.bfloat16).float()
             bfull = torch.matmul(qb, W.T) - half
@@ -142,6 +138,32 @@ def plain_check(db, queries, served, k: int, pool: int, bs: int,
         del full, terms, pools
     return _plain_record(np.concatenate(plain), served, ties, targets, k,
                          outside)
+
+
+def _pool_misses(full, targets, nv: int, pool: int) -> int:
+    """The golds ``targets`` whose score in ``full`` (B, S) is not among
+    the top ``pool`` (more than ``pool - 1`` rows score above it), or
+    that are not indexed (at or past ``nv``)."""
+    gold = torch.as_tensor(np.asarray(targets), device=full.device).view(-1, 1)
+    g = full.gather(1, gold.clamp(max=full.shape[1] - 1))
+    return int(((gold[:, 0] >= nv) | ((full > g).sum(1) >= pool)).sum())
+
+
+def golds_outside_pool(db, queries, targets, pool: int,
+                       batch: int = 1024) -> int:
+    """The golds the serving FusedIndex's top-``pool`` path scores leave
+    out (plain f32 scores of its GT, batch by batch), as ``plain_check``
+    counts them, without holding served ids."""
+    fidx = db._fused_index()
+    nv = db._indexed_count()
+    outside = 0
+    for s in range(0, len(queries), batch):
+        q, _ = db._as_query_batch(queries[s:s + batch], True)
+        full = fused_topk.slab_scores_plain(
+            fused_topk.query_terms(q, fidx.GT.dtype), fidx.GT, fidx.c,
+            fidx.valid, float("-inf")).reshape(len(q), -1)
+        outside += _pool_misses(full, targets[s:s + batch], nv, pool)
+    return outside
 
 
 def _hold_served(raw, qs, got, ids, top, k: int, pv: float, s: int,
@@ -233,6 +255,69 @@ def small_forest_plain(db, queries, served, k: int, pool: int, batch: int,
                              lambda qi, sid: False)
     return _plain_record(np.concatenate(plain), served, ties, targets, k,
                          outside)
+
+
+def leaf_keys(db, queries, ids: np.ndarray):
+    """Each sentence id's leaf log-prob under its query, the key
+    ``predict`` ranks by, on ``db``'s flat index (-inf for an id of -1),
+    and the magnitude of its terms (|q| . |mu/var| + 0.5 q^2 . 1/var +
+    |const|, the scale of its float32 rounding) -> two (B, k) host
+    arrays."""
+    idx = (db.forest.flat_index() if db.forest is not None
+           else db.build_prediction_index())
+    q, _ = db._as_query_batch(queries, True)
+    ids_t = torch.as_tensor(np.asarray(ids), device=q.device)
+    leaf = index_mod._sentence_leaf_nodes(idx)[ids_t.clamp(min=0)]
+    x = q.float().unsqueeze(1)
+    movt, ivt = idx.mu_over_var_T.T[leaf], idx.inv_var_T.T[leaf]
+    c = idx.const[leaf]
+    lp = (torch.sum(x * movt, -1) - 0.5 * torch.sum(x * x * ivt, -1) + c)
+    terms = (torch.sum(x.abs() * movt.abs(), -1)
+             + 0.5 * torch.sum(x * x * ivt, -1) + c.abs())
+    lp = torch.where(ids_t >= 0, lp, torch.full_like(lp, float("-inf")))
+    return lp.cpu().numpy(), terms.cpu().numpy()
+
+
+def hold_beam(db, queries, want: list, got: list) -> dict:
+    """``predict``'s ids ``got`` (a list a query) against ``want`` from the
+    same index elsewhere (another device, a loaded copy): at each place
+    the two ids' leaf log-probs (``leaf_keys`` on ``db``) agree within
+    1e-5 of the row's largest term, and the ids are equal wherever that
+    key ties no other key of the row nor its last.  Raises otherwise;
+    returns the queries that differ, the tied places and the first few of
+    them with their keys."""
+    k = max(max(map(len, want)), max(map(len, got)), 1)
+    w = np.full((len(want), k), -1, np.int64)
+    g = np.full((len(got), k), -1, np.int64)
+    for i, (a, b) in enumerate(zip(want, got)):
+        w[i, :len(a)], g[i, :len(b)] = a, b
+    if not np.array_equal(w < 0, g < 0):
+        raise AssertionError("predict: the two serve ids at other places")
+    kw, tw = leaf_keys(db, queries, w)
+    kg, _ = leaf_keys(db, queries, g)
+    shown, tied = [], 0
+    for b in np.nonzero((w != g).any(axis=1))[0]:
+        m = w[b] >= 0
+        tol = 1e-5 * float(tw[b][m].max())
+        if np.abs(kw[b][m] - kg[b][m]).max() > tol:
+            raise AssertionError(
+                f"predict, query {b}: keys differ beyond {tol:.3g}: "
+                f"{w[b].tolist()} {kw[b].tolist()} vs {g[b].tolist()} "
+                f"{kg[b].tolist()}")
+        key = kw[b][m]
+        near = np.abs(key[:, None] - key[None, :]) <= tol
+        tie = (near.sum(1) > 1) | (np.abs(key - key[-1]) <= tol)
+        diff = w[b][m] != g[b][m]
+        if (diff & ~tie).any():
+            raise AssertionError(
+                f"predict, query {b}: ids differ at an untied place: "
+                f"{w[b].tolist()} vs {g[b].tolist()}, keys {key.tolist()}")
+        tied += int(diff.sum())
+        if len(shown) < 4:
+            shown.append({"query": int(b), "want": w[b].tolist(),
+                          "got": g[b].tolist(), "keys": key.tolist()})
+    return {"queries_differing": int((w != g).any(axis=1).sum()),
+            "tied_places": tied, "shown": shown}
 
 
 def stage_split(db, queries, k: int, pool: int) -> dict:

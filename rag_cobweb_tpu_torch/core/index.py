@@ -1,4 +1,4 @@
-"""Serving indexes: the prediction, fused and blocked subsets of
+"""Serving indexes: the prediction, fused, blocked and beam subsets of
 ``rag_cobweb_tpu/core/index.py``.
 
 **Flat prediction index** (``PredictionIndex``, ``build_index`` for one
@@ -42,6 +42,16 @@ store) the two pools are united (``union_candidates``) before the
 re-rank.  Rows added since the index was built are scored apart, by the
 same fresh-leaf key: ``pending_leaf_lp`` (tier 0, kernel 5) and
 ``delta_exact_topk`` (tier 1, one product).
+
+**Beam search** (``predict``): ``beam_search_topk`` is the oracle (every
+beam node's full child row a level); the packed beam
+(``build_beam_index``, ``beam_pack_topk``, ``beam_pack_topk_lanes``)
+scores one row ``[mu/var | -0.5/var]`` a node and packs each frontier's
+child runs (children are consecutive compact ids) into a fixed budget by
+a row-wise ``searchsorted``; ``leaf_runs_to_sids`` expands the ranked
+leaves into sentence ids.  The JAX package leaves these to XLA, so here
+they are plain PyTorch: gathers, ``bmm`` at full f32 and stable sorts
+(``topk_stable``), so ties keep the JAX order.
 """
 
 from __future__ import annotations
@@ -699,3 +709,307 @@ def _append_rows(buf: torch.Tensor, rows: torch.Tensor, start: int):
     caller keeps the capacity); returns ``buf``."""
     buf[start:start + rows.shape[0]] = rows
     return buf
+
+
+# --------------------------------------------------------------------------- #
+# beam search: the reference's tree search (``predict``), batched            #
+# --------------------------------------------------------------------------- #
+
+_NEG = -3e38    # the beam's dead-slot score, as in the JAX package
+
+
+def topk_stable(x: torch.Tensor, k: int):
+    """Top-``k`` along the last axis with the lower index first among
+    equal values (``jax.lax.top_k``'s order; ``torch.topk`` leaves ties
+    unordered): a stable descending sort, cut at ``k``."""
+    top, pos = torch.sort(x, dim=-1, descending=True, stable=True)
+    return top[..., :k], pos[..., :k]
+
+
+def _mask_leaves(leaf_count: torch.Tensor, nodes: torch.Tensor,
+                 scores: torch.Tensor):
+    """(nodes, scores) kept where the node is a leaf holding sentences;
+    elsewhere node -1 and score ``_NEG``."""
+    is_leaf = (nodes >= 0) & (leaf_count[nodes.clamp(min=0)] > 0)
+    return (torch.where(is_leaf, nodes, torch.full_like(nodes, -1)),
+            torch.where(is_leaf, scores, torch.full_like(scores, _NEG)))
+
+
+def _stack_levels(segs: list, rows: int, width: int, like: torch.Tensor):
+    """The per-level (rows, width) segments as (rows, levels, width)."""
+    if not segs:
+        return like.new_empty((rows, 0, width))
+    return torch.stack(segs, dim=1)
+
+
+def beam_search_topk(index: PredictionIndex, queries: torch.Tensor, k: int,
+                     beam_width: int = 64, max_depth: int = 16):
+    """Fixed-width beam search down the tree for a (B, D) query batch, the
+    budget-unlimited oracle: each level expands every beam node's full
+    fanout-padded child row, keeps the ``beam_width`` best children by
+    node log-prob and emits those that are leaves -> (leaf scores (B, M),
+    leaf nodes (B, M)), ranked, -1 past the live leaves.  The JAX
+    package's gathers and sums, in plain PyTorch."""
+    q = queries.float()
+    B = q.shape[0]
+    F = index.children.shape[1]
+    W = beam_width
+    movt, ivt = index.mu_over_var_T.T, index.inv_var_T.T
+    x = q.unsqueeze(1)
+
+    def node_lp(ids):
+        safe = ids.clamp(min=0)
+        return (torch.sum(x * movt[safe], -1)
+                - 0.5 * torch.sum(torch.square(x) * ivt[safe], -1)
+                + index.const[safe])
+
+    nodes = torch.full((B, W), -1, dtype=torch.int64, device=q.device)
+    nodes[:, 0] = 0                       # the compact root (BFS order)
+    scores = torch.where(nodes >= 0, node_lp(nodes),
+                         torch.full((B, W), _NEG, device=q.device))
+    root_leaf = _mask_leaves(index.leaf_sentence_count, nodes, scores)
+    seg_n, seg_s = [], []
+    for _ in range(max_depth):
+        kids = torch.where((nodes >= 0).unsqueeze(2),
+                           index.children[nodes.clamp(min=0)],
+                           torch.full((B, W, F), -1, dtype=torch.int64,
+                                      device=q.device)).reshape(B, W * F)
+        ks = torch.where(kids >= 0, node_lp(kids),
+                         torch.full(kids.shape, _NEG, device=q.device))
+        top, pos = topk_stable(ks, W)
+        nodes = torch.where(top > _NEG / 2, kids.gather(1, pos),
+                            torch.full_like(pos, -1))
+        n, s = _mask_leaves(index.leaf_sentence_count, nodes, top)
+        seg_n.append(n)
+        seg_s.append(s)
+    all_n = torch.cat([_stack_levels(seg_n, B, W, nodes).reshape(B, -1),
+                       root_leaf[0]], dim=1)
+    all_s = torch.cat([_stack_levels(seg_s, B, W, scores).reshape(B, -1),
+                       root_leaf[1]], dim=1)
+    cap = min(W * max_depth, W * max_depth // 2 + k)
+    lscores, pos = topk_stable(all_s, cap)
+    leaves = all_n.gather(1, pos)
+    return lscores, torch.where(lscores > _NEG / 2, leaves,
+                                torch.full_like(leaves, -1))
+
+
+def leaves_to_sentence_ids(index, leaf_nodes, k: int) -> np.ndarray:
+    """Ranked leaf nodes (B, L) -> the first ``k`` sentence ids a query,
+    each leaf's run in layout order (the reference shuffles within a leaf;
+    this keeps insertion order) -> (B, k) host int64, -1 padded.  Host
+    numpy, as in the JAX package; ``index`` is a PredictionIndex or a
+    BeamIndex."""
+    def host(t):
+        return t.cpu().numpy() if isinstance(t, torch.Tensor) \
+            else np.asarray(t)
+
+    starts, counts = host(index.leaf_sentence_start), \
+        host(index.leaf_sentence_count)
+    sorder = host(index.sentence_order)
+    leaf_nodes = host(leaf_nodes)
+    out = np.full((leaf_nodes.shape[0], k), -1, np.int64)
+    safe = np.maximum(leaf_nodes, 0)
+    c = np.where((leaf_nodes >= 0) & (starts[safe] >= 0), counts[safe], 0)
+    s = starts[safe]
+    off = np.cumsum(c, axis=1) - c
+    take = np.clip(k - off, 0, c)
+    for b, j in zip(*np.nonzero(take > 0)):
+        t, o = take[b, j], off[b, j]
+        out[b, o:o + t] = sorder[s[b, j]:s[b, j] + t]
+    return out
+
+
+class BeamIndex(NamedTuple):
+    """The packed beam's structures, derived from a PredictionIndex: one
+    stats row a node and each node's children as a run of compact ids."""
+
+    pack: torch.Tensor          # (N, 2D) [mu/var | -0.5/var], f32 or bf16
+    const: torch.Tensor         # (N,) f32
+    child_start: torch.Tensor   # (N,) first child's compact id, -1
+    child_count: torch.Tensor   # (N,)
+    leaf_sentence_start: torch.Tensor  # (N,)
+    leaf_sentence_count: torch.Tensor  # (N,)
+    sentence_order: torch.Tensor       # (S,)
+
+    @property
+    def num_nodes(self) -> int:
+        return self.const.shape[0]
+
+
+# from this many nodes the pack is stored in bf16 (it is N x 2D); the
+# products still accumulate in f32
+_BEAM_PACK_BF16_NODES = 1 << 19
+
+
+def build_beam_index(index: PredictionIndex, pack_dtype=None) -> BeamIndex:
+    """The packed beam structures of a flat index.  A node's children are
+    consecutive compact ids (each BFS level is the ravel of the previous
+    level's children rows), so a child run starts at the least valid
+    child.  ``pack_dtype`` None: f32 below 2^19 nodes, bf16 from there."""
+    children = index.children
+    valid = children >= 0
+    child_count = valid.sum(dim=1)
+    child_start = torch.where(valid, children,
+                              torch.full_like(children, 2 ** 30)).min(
+        dim=1).values
+    child_start = torch.where(child_count > 0, child_start,
+                              torch.full_like(child_start, -1))
+    if pack_dtype is None:
+        pack_dtype = (torch.bfloat16 if index.num_nodes
+                      >= _BEAM_PACK_BF16_NODES else torch.float32)
+    pack = torch.cat([index.mu_over_var_T.T, -0.5 * index.inv_var_T.T],
+                     dim=1).to(pack_dtype).contiguous()
+    return BeamIndex(pack=pack, const=index.const, child_start=child_start,
+                     child_count=child_count,
+                     leaf_sentence_start=index.leaf_sentence_start,
+                     leaf_sentence_count=index.leaf_sentence_count,
+                     sentence_order=index.sentence_order)
+
+
+def _runs_pack(starts: torch.Tensor, counts: torch.Tensor, budget: int):
+    """Per-row runs (start, count) (R, W) packed into ``budget``
+    consecutive slots -> (ids (R, budget), valid (R, budget)): a row-wise
+    ``searchsorted(side="right")`` over the inclusive cumsum finds each
+    slot's run; runs past the budget are cut (rows come in beam-score
+    order, so the worst parents' children go)."""
+    W = counts.shape[1]
+    cum = torch.cumsum(counts, dim=1).contiguous()
+    off = cum - counts
+    t = torch.arange(budget, dtype=cum.dtype, device=cum.device)
+    j = torch.searchsorted(cum, t.expand(cum.shape[0], budget).contiguous(),
+                           right=True)
+    jc = j.clamp(max=W - 1)
+    ids = starts.gather(1, jc) + (t - off.gather(1, jc))
+    valid = (j < W) & (t < cum[:, -1:])
+    return torch.where(valid, ids, torch.zeros_like(ids)), valid
+
+
+def _pack_scores(bidx: BeamIndex, qq: torch.Tensor, cand: torch.Tensor):
+    """(R, M) node log-probs ``[q, q^2] . pack[cand] + const[cand]`` for
+    the query terms ``qq`` (R, 2D) (rounded to the pack's dtype): the rows
+    gathered and upcast to f32, one batched product at full f32 (TF32 off
+    on the card; a bf16 pack's products are exact in f32)."""
+    rows = bidx.pack[cand].float()                       # (R, M, 2D)
+    s = torch.bmm(rows, qq.unsqueeze(2)).squeeze(2)
+    return s + bidx.const[cand]
+
+
+def _beam_levels(bidx: BeamIndex, qq: torch.Tensor, nodes: torch.Tensor,
+                 W: int, C: int, max_depth: int):
+    """``max_depth`` levels of the packed beam from the frontier ``nodes``
+    (R, W): each level packs the frontier's child runs into ``C`` slots,
+    scores them and keeps the stable top-``W`` -> the levels' leaves and
+    their scores, each (R, max_depth, W)."""
+    R = nodes.shape[0]
+    seg_n, seg_s = [], []
+    for _ in range(max_depth):
+        safe = nodes.clamp(min=0)
+        st = bidx.child_start[safe]
+        ct = torch.where((nodes >= 0) & (st >= 0), bidx.child_count[safe],
+                         torch.zeros_like(st))
+        cand, valid = _runs_pack(st, ct, C)
+        s = torch.where(valid, _pack_scores(bidx, qq, cand),
+                        torch.full(cand.shape, _NEG, device=cand.device))
+        top, pos = topk_stable(s, W)
+        nodes = torch.where(top > _NEG / 2, cand.gather(1, pos),
+                            torch.full_like(pos, -1))
+        n, sc = _mask_leaves(bidx.leaf_sentence_count, nodes, top)
+        seg_n.append(n)
+        seg_s.append(sc)
+    return (_stack_levels(seg_n, R, W, nodes),
+            _stack_levels(seg_s, R, W, qq))
+
+
+def beam_pack_topk(bidx: BeamIndex, queries: torch.Tensor, k: int,
+                   beam_width: int = 32, max_depth: int = 16,
+                   cand_budget: int = 0, n_roots: int = 1):
+    """The packed beam -> (leaf scores (B, M), leaf nodes (B, M)), leaf
+    log-probs ranked, -1 past the live leaves.  ``cand_budget`` 0: 4x the
+    width, a multiple of 64, at most 16x.  ``n_roots``: a flat forest's
+    lane roots are compact rows [0, n_roots), scored densely; one beam
+    then prunes across the lanes."""
+    qq = fused_topk.query_terms(queries, bidx.pack.dtype).float()
+    B = qq.shape[0]
+    W = max(beam_width, n_roots)
+    C = cand_budget or min(64 * max(1, -(-4 * W // 64)), W * 16)
+    dev = qq.device
+    nodes0 = torch.full((B, W), -1, dtype=torch.int64, device=dev)
+    nodes0[:, :n_roots] = torch.arange(n_roots, device=dev)
+    scores0 = torch.full((B, W), _NEG, device=dev)
+    scores0[:, :n_roots] = _pack_scores(bidx, qq, nodes0[:, :n_roots])
+    root_leaf = _mask_leaves(bidx.leaf_sentence_count, nodes0, scores0)
+    seg_n, seg_s = _beam_levels(bidx, qq, nodes0, W, C, max_depth)
+    all_n = torch.cat([seg_n.reshape(B, -1), root_leaf[0]], dim=1)
+    all_s = torch.cat([seg_s.reshape(B, -1), root_leaf[1]], dim=1)
+    lscores, pos = topk_stable(all_s, min(all_s.shape[1], max(2 * W, k)))
+    leaves = all_n.gather(1, pos)
+    return lscores, torch.where(lscores > _NEG / 2, leaves,
+                                torch.full_like(leaves, -1))
+
+
+def beam_pack_topk_lanes(bidx: BeamIndex, queries: torch.Tensor, k: int,
+                         lane_width: int = 16, max_depth: int = 16,
+                         cand_budget: int = 0, n_lanes: int = 1,
+                         roots: "torch.Tensor | None" = None):
+    """The lane-fair packed beam over a flat forest: every lane keeps its
+    own ``lane_width`` beam to the leaves and the lanes merge only at the
+    leaf log-prob.  The frontier is (B * n_lanes, W_l) rows, lane l of a
+    query starting at its root; each level is one gather and one product
+    over all of them.  ``roots`` (B, n_lanes): each query's lane roots
+    (compact rows, -1 an unused slot), the content-routed forest's lane
+    selection; None: rows [0, n_lanes).  ``cand_budget`` 0: 4x the lane
+    width, a multiple of 16, at most 16x.  Returns (leaf scores (B, M),
+    leaf nodes (B, M)) merged across the lanes, in the JAX package's
+    layout (lane, level, slot) so ties keep its order."""
+    qq = fused_topk.query_terms(queries, bidx.pack.dtype).float()
+    B, K, Wl = qq.shape[0], n_lanes, lane_width
+    C = cand_budget or min(16 * max(1, -(-4 * Wl // 16)), Wl * 16)
+    dev = qq.device
+    qq_f = qq.unsqueeze(1).expand(B, K, qq.shape[1]).reshape(B * K, -1)
+    if roots is None:
+        roots_f = torch.arange(K, device=dev).repeat(B)
+    else:
+        roots_f = roots.to(device=dev, dtype=torch.int64).reshape(B * K)
+    nodes0 = torch.full((B * K, Wl), -1, dtype=torch.int64, device=dev)
+    nodes0[:, 0] = roots_f
+    scores0 = torch.full((B * K, Wl), _NEG, device=dev)
+    first = nodes0[:, :1]
+    scores0[:, :1] = torch.where(first >= 0,
+                                 _pack_scores(bidx, qq_f, first.clamp(min=0)),
+                                 torch.full(first.shape, _NEG, device=dev))
+    root_leaf = _mask_leaves(bidx.leaf_sentence_count, nodes0, scores0)
+    seg_n, seg_s = _beam_levels(bidx, qq_f, nodes0, Wl, C, max_depth)
+    all_n = torch.cat([seg_n.reshape(B, -1), root_leaf[0].reshape(B, -1)],
+                      dim=1)
+    all_s = torch.cat([seg_s.reshape(B, -1), root_leaf[1].reshape(B, -1)],
+                      dim=1)
+    lscores, pos = topk_stable(all_s, min(all_s.shape[1], max(k + Wl, 64)))
+    leaves = all_n.gather(1, pos)
+    return lscores, torch.where(lscores > _NEG / 2, leaves,
+                                torch.full_like(leaves, -1))
+
+
+def leaf_runs_to_sids(start: torch.Tensor, count: torch.Tensor,
+                      order: torch.Tensor, leaves: torch.Tensor,
+                      scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Ranked leaves (B, M) -> the first ``k`` sentence ids a query, on the
+    device (``leaves_to_sentence_ids``'s expansion by ``_runs_pack``) ->
+    (B, k), -1 padded."""
+    safe = leaves.clamp(min=0)
+    ok = (leaves >= 0) & torch.isfinite(scores) & (scores > _NEG / 2)
+    s0 = torch.where(ok, start[safe], torch.full_like(safe, -1))
+    c = torch.where(ok & (s0 >= 0), count[safe], torch.zeros_like(safe))
+    ids, valid = _runs_pack(s0.clamp(min=0), c, k)
+    return torch.where(valid, order[ids], torch.full_like(ids, -1))
+
+
+def beam_query_ids(bidx: BeamIndex, queries: torch.Tensor, k: int,
+                   beam_width: int = 32, max_depth: int = 16,
+                   n_roots: int = 1, cand_budget: int = 0) -> torch.Tensor:
+    """The packed beam -> (B, k) sentence ids on the device, -1 padded."""
+    scores, leaves = beam_pack_topk(bidx, queries, k, beam_width=beam_width,
+                                    max_depth=max_depth,
+                                    cand_budget=cand_budget, n_roots=n_roots)
+    return leaf_runs_to_sids(bidx.leaf_sentence_start,
+                             bidx.leaf_sentence_count, bidx.sentence_order,
+                             leaves, scores, k)

@@ -8,7 +8,17 @@ whitened space, and the raw float32 vector store feeds the exact
 re-rank, so the final ranking is exact raw-space search whenever the
 gold row is in the pool.
 
-Serving: ``query_ids`` -> ``_engine_topk``, which picks the engine as the
+The reference's query API: ``predict_fast`` (its default query; text or
+embeddings in, lists of sentences or ids out) and ``query_ids`` (raw
+embeddings in, a device tensor of ids out) share one dispatch
+(``_serve``); ``predict`` is the tree search, the packed beam of
+``core/index.py`` (a forest's through ``VForest.beam_topk``); the
+level-weight schedules (``set_level_weights``, ``set_weight_schedule``)
+weight a single tree's path scores; ``save``/``load`` write and read the
+JAX package's npz files in either mode, the whitener included
+(``files.py``).
+
+Serving: ``_serve`` -> ``_engine_topk``, which picks the engine as the
 JAX package does:
 
 * below ``blocked_threshold`` sentences: for a single tree the path
@@ -57,6 +67,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from rag_cobweb_tpu_torch import files
 from rag_cobweb_tpu_torch.core import index as index_mod
 from rag_cobweb_tpu_torch.core.config import TreeConfig
 from rag_cobweb_tpu_torch.core.tree import CobwebTree, align_capacity
@@ -93,23 +104,14 @@ class CobwebIndex:
                  capacity: Optional[int] = None, seed: int = 0,
                  n_subtrees: int = 1, routing: str = "round_robin",
                  whitener=None, device="cuda"):
-        self.device = resolve_device(device)
-        # float32 products run in full float32 on the card (TF32 off): the
-        # counterpart of the JAX package's Precision.HIGHEST
-        full_f32_matmul()
-        self.encode_func = encode_func
-        self.whitener = whitener
-        self.sentences: list = []
-        self.leaf_of_sentence: list = []
-        self.n_subtrees = int(n_subtrees)
-
+        device = resolve_device(device)
         if corpus_embeddings is not None:
             corpus_embeddings = np.asarray(corpus_embeddings, np.float32)
             dim = corpus_embeddings.shape[1]
             if whitener is not None:
                 dim = whitener.dim_out
         elif corpus:
-            dim = np.asarray(self.encode_func([corpus[0]])).shape[-1]
+            dim = np.asarray(encode_func([corpus[0]])).shape[-1]
             if whitener is not None:
                 dim = whitener.dim_out
         elif config is not None:
@@ -117,22 +119,18 @@ class CobwebIndex:
         else:
             raise ValueError(
                 "need corpus, corpus_embeddings, or config to fix the dim")
-        self.cfg = config or TreeConfig(dim=dim)
+        cfg = config or TreeConfig(dim=dim)
         n0 = len(corpus_embeddings) if corpus_embeddings is not None else (
             len(corpus) if corpus else 0)
         cap = capacity or max(1024, 4 * n0 + 16)
-        if self.n_subtrees > 1:
-            self.tree = None
-            self.forest = VForest(
-                self.cfg, n_subtrees=self.n_subtrees,
-                capacity_per_tree=max(1024, cap // self.n_subtrees),
-                seed=seed, routing=routing, device=self.device)
-            self.cfg = self.forest.cfg
+        tree = forest = None
+        if n_subtrees > 1:
+            forest = VForest(cfg, n_subtrees=int(n_subtrees),
+                             capacity_per_tree=max(1024, cap // n_subtrees),
+                             seed=seed, routing=routing, device=device)
         else:
-            self.forest = None
-            self.tree = CobwebTree(self.cfg, capacity=cap, seed=seed,
-                                   device=self.device)
-        self._init_serving()
+            tree = CobwebTree(cfg, capacity=cap, seed=seed, device=device)
+        self._setup(tree, forest, [], [], encode_func, whitener)
 
         if corpus_embeddings is not None:
             if corpus is None:
@@ -141,9 +139,25 @@ class CobwebIndex:
         elif corpus:
             self.add_sentences(corpus)
 
-    def _init_serving(self):
-        """Vector stores, serving caches and engine settings of a new or
-        loaded index."""
+    def _setup(self, tree, forest, sentences: list, leaf_of_sentence: list,
+               encode_func: Callable, whitener):
+        """Every attribute of a new or loaded index (``__init__``,
+        ``load_json`` and ``load`` share it): the single ``tree`` or the
+        ``forest`` (the other None) and its device and config, the
+        sentences, empty device stores and serving caches, the engine and
+        staleness settings and no level-weight schedule."""
+        self.tree, self.forest = tree, forest
+        owner = forest if forest is not None else tree
+        self.device = owner.device
+        # float32 products run in full float32 on the card (TF32 off): the
+        # counterpart of the JAX package's Precision.HIGHEST
+        full_f32_matmul()
+        self.cfg = owner.cfg      # a content-routed forest sets absorb_depth
+        self.n_subtrees = forest.K if forest is not None else 1
+        self.encode_func = encode_func
+        self.whitener = whitener
+        self.sentences = list(sentences)
+        self.leaf_of_sentence = list(leaf_of_sentence)
         self.store_embeddings = True
         self._store_n = 0         # rows in the device stores
         self._emb_dev = None      # (cap, D) f32 raw rows, zero past _store_n
@@ -151,6 +165,13 @@ class CobwebIndex:
         self._half_n2 = None      # backstop store's 0.5 ||row||^2, f32
         self._init_pending()
         self.blocked_threshold = 8192
+        # level weights of the single tree's path scores (a forest ignores
+        # them, as in the JAX package); max_depth is set by each build of
+        # the prediction index
+        self._level_weights: Optional[list] = None
+        self._weight_schedule = None
+        self._schedule_params: dict = {}
+        self.max_depth = 0
 
     def _init_pending(self):
         """The bounded-staleness settings of the JAX package, and empty
@@ -247,6 +268,8 @@ class CobwebIndex:
         self._blocked = None
         self._blocked_f32 = None
         self._flat_cache = None   # forest: the flat snapshot serving stale
+        self._beam_cache = None   # single tree: the BeamIndex ...
+        self._beam_src = None     # ... and the prediction index it is of
         self._pending_sids: list = []
         self._pending_dev = None  # the pending sids on the device
         self._pending_vecs = None  # their raw rows, when no store is kept
@@ -465,7 +488,11 @@ class CobwebIndex:
             return self.forest.build_index()
         if self._index is None:
             self._index = index_mod.build_index(
-                self.tree, np.asarray(self.leaf_of_sentence, np.int64))
+                self.tree, np.asarray(self.leaf_of_sentence, np.int64),
+                level_weights=(self._level_weights
+                               or list(index_mod.DEFAULT_LEVEL_WEIGHTS)))
+            depths = (self._index.paths_h >= 0).sum(1)
+            self.max_depth = int(depths.max()) if len(depths) else 0
         return self._index
 
     def force_rebuild_index(self):
@@ -551,23 +578,30 @@ class CobwebIndex:
         return (torch.cat([o[0] for o in outs]),
                 torch.cat([o[1] for o in outs]))
 
-    def _engine_topk(self, q, kk: int, rerank: int, q_store=None):
+    def _engine_topk(self, q, kk: int, rerank: int, tie_noise: bool = False,
+                     q_store=None):
         """Dispatch to the engines: below ``blocked_threshold`` the path
         scores of the prediction index (a single tree; a forest never gets
         here), else the blocked sweep kernel (opt-in, above
         ``pallas_threshold``), else the fused engine, else the blocked
         sweep in PyTorch; each with the optional re-rank.  ``rerank=0``:
-        the raw path-score order from an f32 index.  Pools are cut to the
-        rows the serving index covers."""
+        the raw path-score order from an f32 index.  ``tie_noise``: the
+        flat index's path scores plus 1e-6 Gaussian noise seeded from the
+        sentence count, at any size and with no re-rank, as in the JAX
+        package.  Pools are cut to the rows the serving index covers."""
         n_indexed = self._indexed_count()
-        if len(self.sentences) < self.blocked_threshold:
+        if len(self.sentences) < self.blocked_threshold or tie_noise:
             idx = self._flat_pred_index()
-            if rerank:
+            if rerank and not tie_noise:
                 c = min(max(rerank, kk), idx.num_sentences)
                 cs, cand = index_mod.query_topk(idx, q, c)
                 return self._rerank_step(idx, q, cand, cs, kk,
                                          q_store=q_store)
-            return index_mod.query_topk(idx, q, kk)
+            gen = None
+            if tie_noise:
+                gen = torch.Generator(device=q.device)
+                gen.manual_seed(len(self.sentences))
+            return index_mod.query_topk(idx, q, kk, gen)
         if (self.use_pallas
                 and len(self.sentences) >= self.pallas_threshold):
             return self._pallas_topk(self._blocked_index(), q, kk, rerank,
@@ -649,20 +683,34 @@ class CobwebIndex:
             return self._rerank_step(None, q, cand, cs, kk, q_store=q_store)
         return blocked_topk.blocked_topk(bidx, q, kk)
 
-    def _as_query_batch(self, input, is_embedding: bool):
-        """A query input (embeddings, or text for ``encode_func``) as a
-        (B, D) tree-space device batch, and whether it was one query."""
+    def _as_query_batch(self, input, is_embedding: bool,
+                        with_store: bool = False):
+        """A query input (embeddings, an array or a tensor, or text for
+        ``encode_func``) as a (B, D) tree-space device batch, and whether
+        it was one query; ``with_store``: the raw (store-space) batch
+        beside it, from the same one upload."""
         if is_embedding:
-            arr = np.asarray(input, np.float32)
-            single = arr.ndim == 1
+            qs = torch.as_tensor(input, dtype=torch.float32,
+                                 device=self.device)
+            single = qs.dim() == 1
         else:
             single = isinstance(input, str)
-            arr = np.asarray(self.encode_func([input] if single
-                                              else list(input)), np.float32)
-        qs = torch.as_tensor(np.atleast_2d(arr), device=self.device)
+            qs = torch.as_tensor(np.asarray(self.encode_func(
+                [input] if single else list(input)), np.float32),
+                device=self.device)
+        if qs.dim() == 1:
+            qs = qs.unsqueeze(0)
         q = (self.whitener.transform_torch(qs)
              if self.whitener is not None else qs)
-        return q, single
+        return (q, qs, single) if with_store else (q, single)
+
+    def _as_results(self, ids: torch.Tensor, return_ids: bool,
+                    single: bool):
+        """(B, k) ids -> a list a query of ids or sentences (None for an
+        embedding-only row), -1 padding dropped; one query: its list."""
+        out = [[i if return_ids else self.sentences[i] for i in row
+                if i >= 0] for row in ids.cpu().tolist()]
+        return out[0] if single else out
 
     def rank_scores(self, input, is_embedding: bool = False):
         """Per-sentence path scores (reference ``cobweb_rank_scores``): (B,
@@ -676,32 +724,142 @@ class CobwebIndex:
             scores = index_mod.rank_scores(self.build_prediction_index(), q)
         return scores[0] if single else scores
 
-    def query_ids(self, queries, k: int, rerank: Optional[int] = None):
-        """(B, D) raw embeddings -> (B, k) sentence ids, a device tensor.
-        With rows pending, the stale engine's re-ranked pool is merged
-        with the pending and delta tiers (``rerank=0``, the path-score
-        order, rebuilds first)."""
-        qs = torch.as_tensor(np.asarray(queries, np.float32),
-                             device=self.device)
-        if qs.dim() == 1:
-            qs = qs.unsqueeze(0)
-        q = (self.whitener.transform_torch(qs)
-             if self.whitener is not None else qs)
+    cobweb_rank_scores = rank_scores
+
+    def _serve(self, q, qs, k: int, rerank: Optional[int],
+               tie_noise: bool = False) -> torch.Tensor:
+        """The one dispatch of ``query_ids`` and ``predict_fast``: whitened
+        queries ``q`` and raw ``qs`` -> (B, k) sentence ids on the device.
+        A forest below ``blocked_threshold`` goes to the small-forest engine
+        (pending rows flushed first).  Otherwise ``_engine_topk``, with the
+        rows pending merged from their tiers; ``rerank=0`` (the path-score
+        order) and ``tie_noise`` need the exact index and flush first."""
         kk = min(k, len(self.sentences))
         if (self.forest is not None
                 and len(self.sentences) < self.blocked_threshold):
             self._flush_pending()   # no stale tier serves here
             return self._small_forest_topk(q, kk, rerank, q_store=qs)[1]
-        if self._unindexed_count() and rerank == 0:
+        if self._unindexed_count() and (tie_noise or rerank == 0):
             self._flush_pending()
         if rerank is None:
             rerank = self._auto_rerank()
         if not self._unindexed_count():
-            return self._engine_topk(q, kk, rerank, q_store=qs)[1]
+            return self._engine_topk(q, kk, rerank, tie_noise,
+                                     q_store=qs)[1]
         rerank = rerank or self.rerank_candidates
         top_s, top_ids = self._engine_topk(
-            q, min(kk, self._indexed_count()), rerank, q_store=qs)
+            q, min(kk, self._indexed_count()), rerank, tie_noise, q_store=qs)
         return self._merge_pending(qs, top_s, top_ids, kk)
+
+    def query_ids(self, queries, k: int, rerank: Optional[int] = None):
+        """(B, D) raw embeddings -> (B, k) sentence ids, a device tensor
+        (``predict_fast``'s dispatch without the host lists).  With rows
+        pending, the stale engine's re-ranked pool is merged with the
+        pending and delta tiers (``rerank=0``, the path-score order,
+        rebuilds first)."""
+        q, qs, _ = self._as_query_batch(queries, True, with_store=True)
+        return self._serve(q, qs, k, rerank)
+
+    def predict_fast(self, input, k: int = 5, return_ids: bool = False,
+                     is_embedding: bool = False, tie_noise: bool = False,
+                     rerank: Optional[int] = None):
+        """Indexed prediction (reference ``cobweb_predict_fast``, its
+        default query): the engine dispatch of ``_serve``.  ``input``: one
+        query or a batch, embeddings (``is_embedding``) or text for
+        ``encode_func``.  ``rerank``: the candidate pool re-ranked before
+        the top-k (None: auto, 0: the path-score order).  ``tie_noise``:
+        path scores plus 1e-6 noise, no re-rank.  Returns a list a query
+        of sentences (None for an embedding-only row) or, with
+        ``return_ids``, of ids; one query: its list."""
+        q, qs, single = self._as_query_batch(input, is_embedding,
+                                             with_store=True)
+        return self._as_results(self._serve(q, qs, k, rerank, tie_noise),
+                                return_ids, single)
+
+    cobweb_predict_fast = predict_fast
+    cobweb_predict_indexed = predict_fast
+
+    def _beam_index(self) -> index_mod.BeamIndex:
+        """The packed BeamIndex over the flat index (a forest's,
+        ``VForest.beam_index``), cached until the index changes."""
+        if self.forest is not None:
+            return self.forest.beam_index()
+        idx = self._flat_pred_index()
+        if self._beam_cache is None or self._beam_src is not idx:
+            self._beam_cache = index_mod.build_beam_index(idx)
+            self._beam_src = idx
+        return self._beam_cache
+
+    def predict(self, input, k: int = 5, return_ids: bool = False,
+                is_embedding: bool = False, beam_width: int = 64,
+                beam_lanes: Optional[int] = None):
+        """Tree-search prediction (reference ``cobweb_predict``): the
+        packed beam search down the concept hierarchy, ranked by leaf
+        log-prob, on the exact index (pending rows flushed first).  A
+        single tree descends ``max_depth`` rounded up to a multiple of 4
+        levels; a forest runs ``VForest.beam_topk`` (lane-fair; a
+        content-routed forest descends ``beam_lanes`` nearest lanes a
+        query, None: auto).  Returns as ``predict_fast``."""
+        self._flush_pending()
+        q, single = self._as_query_batch(input, is_embedding)
+        if self.forest is not None:
+            sids = self.forest.beam_topk(q, k, beam_width=beam_width,
+                                         lanes_per_query=beam_lanes)
+        else:
+            # the index first: its build sets max_depth
+            bidx = self._beam_index()
+            sids = index_mod.beam_query_ids(
+                bidx, q, k, beam_width=beam_width,
+                max_depth=-(-max(self.max_depth, 1) // 4) * 4)
+        return self._as_results(sids, return_ids, single)
+
+    cobweb_predict = predict
+
+    def get_node_path_stats(self, sentence_id: int):
+        """Means and variances of the nodes on a sentence's root->leaf path
+        (reference ``get_node_path_stats``), recovered from the index's
+        GEMM terms; (None, None) for an id out of range."""
+        self._require_single_tree("get_node_path_stats")
+        self._flush_pending()
+        idx = self.build_prediction_index()
+        if not 0 <= sentence_id < len(self.sentences):
+            return None, None
+        path = idx.paths_h[sentence_id]
+        path = torch.as_tensor(path[path >= 0], device=idx.const.device)
+        var = 1.0 / idx.inv_var_T.T[path]
+        mean = idx.mu_over_var_T.T[path] * var
+        return mean.cpu().numpy(), var.cpu().numpy()
+
+    # ---------------------------------------------------------------- #
+    # level-weight schedules (reference :335-420)                      #
+    # ---------------------------------------------------------------- #
+    def set_level_weights(self, weights):
+        """Weights of the path levels (root first) for a single tree's
+        path scores; the indexes are rebuilt at the next query."""
+        self._level_weights = list(weights)
+        self._weight_schedule = None
+        self._invalidate_index()
+
+    def set_weight_schedule(self, schedule_type: str, max_depth: int = 10,
+                            **kwargs):
+        """Level weights from a schedule (``_generate_weight_schedule``)
+        over ``max_depth`` levels, or over the built index's depth when
+        one exists."""
+        if self._index is not None:
+            max_depth = max(self.max_depth, 1)
+        self._weight_schedule = schedule_type
+        self._schedule_params = kwargs
+        self._level_weights = _generate_weight_schedule(
+            schedule_type, max_depth, **kwargs)
+        self._invalidate_index()
+
+    def get_level_weights(self):
+        return self._level_weights or [1.0, 1.0, 1.0, 1.0]
+
+    def get_weight_schedule_info(self):
+        return {"schedule_type": self._weight_schedule,
+                "schedule_params": self._schedule_params,
+                "current_weights": self.get_level_weights()}
 
     # ---------------------------------------------------------------- #
     # persistence                                                      #
@@ -739,18 +897,96 @@ class CobwebIndex:
             else json_data
         tree, leaf_sids = CobwebTree.load_json(json.dumps(data["tree"]),
                                                device=device)
-        obj = CobwebIndex.__new__(CobwebIndex)
-        obj.device = tree.device
-        obj.encode_func = encode_func
-        obj.whitener = None
-        obj.sentences = data.get("sentences", [])
-        obj.cfg = tree.cfg
-        obj.tree = tree
-        obj.forest = None
-        obj.n_subtrees = 1
-        leaf_of = np.full((len(obj.sentences),), -1, np.int64)
+        sentences = data.get("sentences", [])
+        leaf_of = np.full((len(sentences),), -1, np.int64)
         for leaf, sids in leaf_sids.items():
             leaf_of[np.asarray(sids, np.int64)] = leaf
-        obj.leaf_of_sentence = [int(v) for v in leaf_of]
-        obj._init_serving()
+        obj = CobwebIndex.__new__(CobwebIndex)
+        obj._setup(tree, None, sentences, [int(v) for v in leaf_of],
+                   encode_func, None)
         return obj
+
+    def save(self, path: str):
+        """The npz checkpoint in the JAX package's layout, in either mode:
+        the tree's or forest's ``save_npz`` state, the ``sentences`` object
+        array ("" for an embedding-only row, flagged in
+        ``sentence_is_none``), the raw ``vectors`` when the store covers
+        every sentence, and ``whitener_pickle``, a stream the JAX package
+        unpickles into its own whitener class
+        (``files.whitener_pickle``).  Rows pending go in as the tree holds
+        them; a loaded index indexes them at its first query."""
+        extras = dict(
+            sentences=np.asarray([s if s is not None else ""
+                                  for s in self.sentences], dtype=object),
+            sentence_is_none=np.asarray([s is None for s in self.sentences],
+                                        bool))
+        emb = self._emb_device()
+        if emb is not None:
+            extras["vectors"] = emb[:len(self.sentences)].cpu().numpy()
+        if self.whitener is not None:
+            extras["whitener_pickle"] = np.frombuffer(
+                files.whitener_pickle(self.whitener), np.uint8)
+        if self.forest is not None:
+            self.forest.save_npz(path, **extras)
+        else:
+            self.tree.save_npz(path, leaf_of_sentence=np.asarray(
+                self.leaf_of_sentence, np.int64), **extras)
+
+    @staticmethod
+    def load(path: str, encode_func: Callable = _identity_encode,
+             device="cuda") -> "CobwebIndex":
+        """An index from a ``save`` file of either package, on ``device``:
+        the whitener through the restricted unpickler
+        (``files.whitener_from_pickle``: no JAX object is built), the
+        device stores rebuilt from ``vectors`` (the raw rows, and in
+        whitener mode the whitened bf16 store with its half-norms), so the
+        backstop and the tiers serve as they did for the saved index."""
+        with np.load(path, allow_pickle=False) as probe:
+            is_forest = "__forest__" in probe.files
+        tree = forest = None
+        if is_forest:
+            forest, extras = VForest.load_npz(path, device=device)
+            leaf_of = []
+        else:
+            tree, extras = CobwebTree.load_npz(path, device=device)
+            leaf_of = [int(v) for v in extras["leaf_of_sentence"]]
+        whitener = None
+        if "whitener_pickle" in extras:
+            whitener = files.whitener_from_pickle(
+                np.asarray(extras["whitener_pickle"], np.uint8).tobytes())
+        sentences = [None if none else str(s) for s, none in
+                     zip(extras["sentences"], extras["sentence_is_none"])]
+        obj = CobwebIndex.__new__(CobwebIndex)
+        obj._setup(tree, forest, sentences, leaf_of, encode_func, whitener)
+        if "vectors" in extras:
+            raw = torch.as_tensor(np.asarray(extras["vectors"], np.float32),
+                                  device=obj.device)
+            obj._store_rows(raw, whitener.transform_torch(raw)
+                            if whitener is not None else raw)
+        return obj
+
+
+def _generate_weight_schedule(schedule_type: str, max_depth: int,
+                              **kwargs) -> list:
+    """Level-weight schedules (reference ``_generate_weight_schedule``):
+    constant (``value``), linear (``start`` to ``end``; ``direction=
+    "decrease"`` swaps them), quadratic (1 / (``start_n`` + i)^2) or
+    exponential (``base``^i), over ``max_depth`` levels."""
+    if schedule_type == "constant":
+        return [kwargs.get("value", 1.0)] * max_depth
+    if schedule_type == "linear":
+        start = kwargs.get("start", 1.0)
+        end = kwargs.get("end", 1.0)
+        if kwargs.get("direction", "increase") == "decrease":
+            start, end = end, start
+        if max_depth == 1:
+            return [start]
+        step = (end - start) / (max_depth - 1)
+        return [start + i * step for i in range(max_depth)]
+    if schedule_type == "quadratic":
+        start_n = kwargs.get("start_n", 1)
+        return [1.0 / (max(start_n + i, 1) ** 2) for i in range(max_depth)]
+    if schedule_type == "exponential":
+        base = kwargs.get("base", 0.5)
+        return [base ** i for i in range(max_depth)]
+    raise ValueError(f"Unknown schedule type: {schedule_type}")

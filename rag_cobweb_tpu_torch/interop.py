@@ -19,6 +19,7 @@ from rag_cobweb_tpu_torch.core.index import (BlockedIndex, FusedIndex,
                                              PredictionIndex)
 from rag_cobweb_tpu_torch.core.tree import CobwebTree
 from rag_cobweb_tpu_torch.device import resolve_device
+from rag_cobweb_tpu_torch.files import read_npz
 from rag_cobweb_tpu_torch.parallel.vforest import VForest
 from rag_cobweb_tpu_torch.whitening.models import PCAICAWhiteningModel
 
@@ -79,15 +80,15 @@ def tree_from_numpy(arrays: dict, cfg, seed: int = 0, n_inserted=None,
 def load_jax_tree_npz(path: str, seed: int = 0, device="cuda"):
     """A port CobwebTree from a single-tree ``.npz`` of either package
     (the JAX ``CobwebTree.save_npz`` layout); returns (tree, dict of the
-    extra arrays saved beside the state)."""
-    with np.load(path, allow_pickle=False) as data:
-        cfg = json.loads(bytes(data["__cfg__"]).decode())
-        arrays = {k: data[k] for k in tree_mod.FIELDS}
-        extras = {k: data[k] for k in data.files
-                  if k not in set(tree_mod.FIELDS) | {"__cfg__",
-                                                      "n_inserted"}}
-        n_inserted = int(data["n_inserted"])
-    return tree_from_numpy(arrays, cfg, seed=seed, n_inserted=n_inserted,
+    extra arrays saved beside the state; object arrays through
+    ``files.read_npz``'s restricted unpickler)."""
+    data = read_npz(path)
+    cfg = json.loads(bytes(data["__cfg__"]).decode())
+    arrays = {k: data[k] for k in tree_mod.FIELDS}
+    extras = {k: v for k, v in data.items()
+              if k not in set(tree_mod.FIELDS) | {"__cfg__", "n_inserted"}}
+    return tree_from_numpy(arrays, cfg, seed=seed,
+                           n_inserted=int(data["n_inserted"]),
                            device=device), extras
 
 

@@ -22,6 +22,9 @@ stacked per-lane index (``parallel/forest.build_stacked_index``):
 lanes' candidates by leaf log-probability; ``vforest_rank_scores`` gives
 every global sentence its lane's path score.  The JAX ``vmap`` over lanes
 is a lane-batched product and a per-hop gather over ``(K, B, S)``.
+
+``beam_topk`` (the wrapper's ``predict``) runs the packed beam of
+``core/index.py`` over the flat forest index, lane-fair by default.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from rag_cobweb_tpu_torch.core import index as index_mod
 from rag_cobweb_tpu_torch.core import tree as tree_mod
 from rag_cobweb_tpu_torch.core.config import TreeConfig
 from rag_cobweb_tpu_torch.device import full_f32_matmul, resolve_device
+from rag_cobweb_tpu_torch.files import read_npz
 from rag_cobweb_tpu_torch.parallel.forest import (StackedIndex,
                                                   build_stacked_index)
 
@@ -79,14 +83,6 @@ def _lane_node_scores(idx: StackedIndex, q: torch.Tensor):
     return nlp, scores
 
 
-def _topk_stable(x: torch.Tensor, k: int):
-    """Top-``k`` along the last axis with the lower index first among
-    equal values (``jax.lax.top_k``'s order; ``torch.topk`` leaves ties
-    unordered): a stable descending sort, cut at ``k``."""
-    top, pos = torch.sort(x, dim=-1, descending=True, stable=True)
-    return top[..., :k], pos[..., :k]
-
-
 def _lane_merge(idx: StackedIndex, nlp: torch.Tensor, scores: torch.Tensor,
                 k: int):
     """Each lane's top-``k`` rows by path score, merged across lanes by
@@ -95,7 +91,7 @@ def _lane_merge(idx: StackedIndex, nlp: torch.Tensor, scores: torch.Tensor,
     padding rows carry -inf and id -1."""
     K, B, S = scores.shape
     kk = min(k, S)
-    _, rows = _topk_stable(scores, kk)                      # (K, B, kk)
+    _, rows = index_mod.topk_stable(scores, kk)            # (K, B, kk)
     flat = rows.reshape(K, B * kk)
     gids = idx.global_sid.gather(1, flat).view(K, B, kk)
     leaf = idx.leaf_node.gather(1, flat).view(K, B, kk)
@@ -103,7 +99,7 @@ def _lane_merge(idx: StackedIndex, nlp: torch.Tensor, scores: torch.Tensor,
     lp = torch.where(gids >= 0, lp, torch.full_like(lp, float("-inf")))
     merged = lp.permute(1, 0, 2).reshape(B, K * kk)
     merged_ids = gids.permute(1, 0, 2).reshape(B, K * kk)
-    top, pos = _topk_stable(merged, min(k, K * kk))
+    top, pos = index_mod.topk_stable(merged, min(k, K * kk))
     return top, merged_ids.gather(1, pos)
 
 
@@ -191,6 +187,9 @@ class VForest:
         self._graph: "tree_mod.StepGraph | None" = None
         self._flat_index: "index_mod.PredictionIndex | None" = None
         self._stacked_index: Optional[StackedIndex] = None
+        self._beam_idx: "index_mod.BeamIndex | None" = None
+        self._beam_src = None     # the flat index the beam index is of
+        self._beam_depth = 1
 
     def _ensure_capacity(self, rounds: int):
         """Grow every lane when the next ``rounds`` inserts could overflow
@@ -488,6 +487,64 @@ class VForest:
                 self.cfg, self.state, self._leaf_global())
         return self._flat_index
 
+    def beam_index(self) -> "index_mod.BeamIndex":
+        """The packed BeamIndex over the flat forest index, rebuilt when
+        the flat index is (after an add)."""
+        idx = self.flat_index()
+        if self._beam_idx is None or self._beam_src is not idx:
+            self._beam_idx = index_mod.build_beam_index(idx)
+            self._beam_src = idx
+            self._beam_depth = int((idx.paths_h >= 0).sum(-1).max(initial=1))
+        return self._beam_idx
+
+    def beam_topk(self, queries, k: int, beam_width: int = 16,
+                  max_depth: Optional[int] = None, lane_fair: bool = True,
+                  lanes_per_query: Optional[int] = None) -> torch.Tensor:
+        """Beam retrieval across the lanes -> (B, k) global sentence ids on
+        the device, -1 padded: one packed beam over the flat index, whose
+        lane roots are compact rows [0, K).  ``lane_fair`` keeps
+        ``beam_width`` paths alive in every lane and merges the lanes by
+        leaf log-prob (``index.beam_pack_topk_lanes``); False runs one
+        global beam (``index.beam_pack_topk``).  ``max_depth`` None: the
+        forest's depth rounded up to a multiple of 4; a number cuts it.
+        ``lanes_per_query`` None: 8 nearest lanes a query when content
+        routed (``select_lanes``), every lane otherwise.  Queries go in
+        chunks whose gathered candidate rows (f32, chunk x lanes x budget
+        x 2D) stay under 1 GiB."""
+        bidx = self.beam_index()
+        md = -(-max(self._beam_depth, 1) // 4) * 4
+        if max_depth is not None:
+            md = min(max_depth, md)
+        q = self._queries(queries)
+        B = q.shape[0]
+        if lanes_per_query is None:
+            lanes_per_query = (min(self.K, 8) if self.routing == "content"
+                               else self.K)
+        L = min(lanes_per_query, self.K)
+        sel = None
+        if lane_fair and L < self.K:
+            sel = torch.as_tensor(self.select_lanes(q.cpu().numpy(), L),
+                                  device=self.device)
+        Wl = beam_width
+        C = min(16 * max(1, -(-4 * Wl // 16)), Wl * 16)
+        row_bytes = (L * C if lane_fair else C) * bidx.pack.shape[1] * 4
+        chunk = max(1, (1 << 30) // row_bytes)
+        outs = []
+        for s0 in range(0, B, chunk):
+            qc = q[s0:s0 + chunk]
+            if lane_fair:
+                scores, leaves = index_mod.beam_pack_topk_lanes(
+                    bidx, qc, k, lane_width=Wl, max_depth=md, n_lanes=L,
+                    roots=None if sel is None else sel[s0:s0 + chunk])
+            else:
+                scores, leaves = index_mod.beam_pack_topk(
+                    bidx, qc, k, beam_width=Wl, max_depth=md,
+                    n_roots=self.K)
+            outs.append(index_mod.leaf_runs_to_sids(
+                bidx.leaf_sentence_start, bidx.leaf_sentence_count,
+                bidx.sentence_order, leaves, scores, k))
+        return torch.cat(outs)
+
     def lane_signature(self, lane: int):
         """Structure signature of one lane's tree (see
         ``core/tree.structure_signature``)."""
@@ -568,28 +625,28 @@ class VForest:
     @classmethod
     def load_npz(cls, path: str, device="cuda"):
         """A forest from a file of either package's ``save_npz``; returns
-        (forest, dict of the extra arrays saved beside it).  The descent's
+        (forest, dict of the extra arrays saved beside it; object arrays
+        through ``files.read_npz``'s restricted unpickler).  The descent's
         generator is seeded from the last word of ``__key__``."""
-        with np.load(path, allow_pickle=False) as data:
-            n_local = data["n_local"]
-            leaf_mat = data["leaf_of_local"]
-            meta = {
-                "cfg": json.loads(bytes(data["__cfg__"]).decode()),
-                "shard_of": data["shard_of"],
-                "local_sid": data["local_sid"],
-                "leaf_of_local": [leaf_mat[s, :int(n_local[s])]
-                                  for s in range(len(n_local))],
-                "seed": int(np.asarray(data["__key__"]).ravel()[-1]),
-            }
-            if "__routing__" in data.files:
-                meta["routing"] = str(data["__routing__"])
-            if "__centroids__" in data.files:
-                meta.update(centroids=data["__centroids__"],
-                            route_count=data["__route_count__"],
-                            lane_total=data["__lane_total__"])
-            arrays = {k: data[f"st_{k}"] for k in tree_mod.FIELDS}
-            extras = {k: data[k] for k in data.files
-                      if k not in cls._NPZ_KEYS}
+        data = read_npz(path)
+        n_local = data["n_local"]
+        leaf_mat = data["leaf_of_local"]
+        meta = {
+            "cfg": json.loads(bytes(data["__cfg__"]).decode()),
+            "shard_of": data["shard_of"],
+            "local_sid": data["local_sid"],
+            "leaf_of_local": [leaf_mat[s, :int(n_local[s])]
+                              for s in range(len(n_local))],
+            "seed": int(np.asarray(data["__key__"]).ravel()[-1]),
+        }
+        if "__routing__" in data:
+            meta["routing"] = str(data["__routing__"])
+        if "__centroids__" in data:
+            meta.update(centroids=data["__centroids__"],
+                        route_count=data["__route_count__"],
+                        lane_total=data["__lane_total__"])
+        arrays = {k: data[f"st_{k}"] for k in tree_mod.FIELDS}
+        extras = {k: v for k, v in data.items() if k not in cls._NPZ_KEYS}
         return cls.from_numpy(arrays, meta, device=device), extras
 
     @classmethod

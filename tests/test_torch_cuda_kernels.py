@@ -1015,3 +1015,37 @@ def test_small_forest_serves_on_the_card(card, routing):
     np.testing.assert_allclose(on_card[2], host[2], rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(on_card[3][:, 0], np.arange(400, 440))
     np.testing.assert_array_equal(host[3][:, 0], np.arange(400, 440))
+
+
+@pytest.mark.parametrize("lanes,routing", [(1, "round_robin"),
+                                           (8, "round_robin"),
+                                           (8, "content")])
+def test_predict_on_the_card_equals_the_host(card, lanes, routing):
+    """``predict`` (the packed beam: a single tree's, a forest's lane-fair
+    one, a content-routed forest's over its 2 nearest lanes) built and
+    served on the card and on the host from the same rows: the same ids
+    but at ties of the leaf log-prob (``probes.hold_beam``), and no kernel
+    launched on the card; ``predict_fast`` the same ids."""
+    from rag_cobweb_tpu_torch.bench import probes
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    rng = np.random.default_rng(13)
+    centers = rng.normal(scale=3.0, size=(8, 16))
+    xs = (centers[rng.integers(0, 8, 300)]
+          + 0.5 * rng.normal(size=(300, 16))).astype(np.float32)
+    q = xs[::7] + 0.05
+    out = {}
+    for dev in ("cpu", card):
+        db = CobwebIndex(corpus_embeddings=xs, config=TreeConfig(dim=16),
+                         n_subtrees=lanes, routing=routing, device=dev)
+        lpq = 2 if routing == "content" else None
+        probes.zero_counters()
+        beam = db.predict(q, k=10, return_ids=True, is_embedding=True,
+                          beam_width=16, beam_lanes=lpq)
+        if dev != "cpu":
+            assert not any(probes.read_counters().values())
+        out[str(dev)] = (db, beam, db.predict_fast(q, k=10, return_ids=True,
+                                                   is_embedding=True))
+    (_, hb, hf), (cdb, cb, cf) = out["cpu"], out[str(card)]
+    probes.hold_beam(cdb, q, hb, cb)
+    assert cf == hf

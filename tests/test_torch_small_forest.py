@@ -27,6 +27,8 @@ from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
 from rag_cobweb_tpu_torch.parallel import forest as tforest
 from rag_cobweb_tpu_torch.parallel import vforest as tvf
 
+from torch_parity import assert_equal_by_tie_group
+
 # tiny tensors: one thread each keeps parallel test workers off each
 # other's cores
 torch.set_num_threads(1)
@@ -39,24 +41,6 @@ def clustered(n, D, seed):
     centers = rng.normal(scale=2.0, size=(10, D))
     return (centers[rng.integers(0, 10, n)]
             + 0.5 * rng.normal(size=(n, D))).astype(np.float32)
-
-
-def assert_equal_by_tie_group(want_ids, got_ids, want_keys, got_keys,
-                              rtol=1e-5):
-    """Per row: the keys at each place agree within ``rtol`` of the row's
-    largest |key|, and the ids are equal at every place whose key is tied
-    (within that) with no other key of the row and not with its last."""
-    want_keys, got_keys = np.asarray(want_keys), np.asarray(got_keys)
-    for b in range(len(want_ids)):
-        tol = rtol * max(float(np.abs(want_keys[b]).max()), 1.0)
-        np.testing.assert_allclose(got_keys[b], want_keys[b], rtol=0,
-                                   atol=tol, err_msg=f"row {b}")
-        k = want_keys[b]
-        near = np.abs(k[:, None] - k[None, :]) <= tol
-        tied = (near.sum(1) > 1) | (np.abs(k - k[-1]) <= tol)
-        np.testing.assert_array_equal(
-            np.asarray(got_ids[b])[~tied], np.asarray(want_ids[b])[~tied],
-            err_msg=f"row {b}")
 
 
 def to_port_stacked(jidx) -> tforest.StackedIndex:
@@ -258,12 +242,14 @@ def test_small_forest_serves_each_row_first_as_itself():
         assert db.query_ids(xs[:8], 1, rerank=0).shape == (8, 1)
 
 
-def test_chip_smoke_small_forest_phase_on_the_host():
+def test_chip_smoke_small_forest_phase_on_the_host(tmp_path):
     """``chip_smoke.py``'s phase 3e rehearsed on the host at a small size
     (c=400, 60 queries, 32-d, the branch's edge at 500 rows): both
     routings serve as ``small_forest``, equal to the plain pipeline, the
     added rows come back first, the edge forest serves below the
-    threshold."""
+    threshold; phase 3f's query API on the content-routed forest (its
+    files in ``tmp_path``): a host copy's ``predict`` equal to the
+    original's, recall and times recorded."""
     import importlib.util
     from pathlib import Path
     from rag_cobweb_tpu_torch.bench import headline, probes
@@ -272,11 +258,18 @@ def test_chip_smoke_small_forest_phase_on_the_host():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     out = smoke.small_forest_slice(
-        headline, probes.zero_counters, probes.read_counters, device="cpu",
-        corpus_size=400, queries=60, dim=32, threshold=500, card=False)
+        headline, probes.zero_counters, probes.read_counters, tmp_path,
+        device="cpu", corpus_size=400, queries=60, dim=32, threshold=500,
+        card=False)
     for routing, sf in out.items():
         assert sf["rec"]["engine"] == "small_forest"
         assert sf["rec"]["routing"] == routing
         assert sf["plain"]["queries_differing_from_plain"] == 0
         assert sf["rec"]["recall@10"] == sf["plain"]["plain_recall@10"]
     assert out["round_robin"]["edge"]["rows"] == 499
+    api = out["content"]["api"]
+    assert api["host_hold"]["queries_differing"] == 0
+    assert api["beam"]["lanes"] == 8
+    for name in ("predict", "predict_fast"):
+        assert 0 < api[name]["recall@10"] <= 1
+        assert api[name]["ms/query"] > 0
