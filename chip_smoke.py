@@ -20,7 +20,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    cluster) and one of D=768 (query segments carried through the ring), a
    small f32 index, and the group pool at the flagship shape (per_group 1
    and 2); kernels 1, 2 and 5 also at B=1 and B=32, the batches of the
-   flagship's latency probes;
+   flagship's latency probes; kernel 5's bf16-row entry at 1M rows;
 3. the flagship slice: ``rag_cobweb_tpu_torch.bench.headline`` at the
    flagship settings (c=10000, 1000 queries, 768-d, PCA 0.96, 32 lanes,
    k=10, pool 1024, batch 1024) with the kernels' launch counters set to
@@ -83,6 +83,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
    against the plain pipeline over the raw rows; every added row found
    first as itself); kernel 5 held and timed at the pending tier's shape;
    add-then-query timed with the stale index and with a rebuild;
+3g. the memory tools (``memory_tools_slice``, the scale slice's last hook
+   step, on its build after the adds, every query served in a counter
+   window each step): (a) the bf16 re-rank store, served through kernel
+   5's bf16 entry (once a chunk, no f32 launch), recall@10 at least the
+   f32 store's - 0.02, the store's bytes halved, the entry held against
+   its plain version on the served pools and timed there beside the f32
+   entry on the same pools; (b)
+   ``compress_stats()``, recall@10 at least (a)'s - 0.01 and top-10
+   overlap at least 0.9; (c) ``offload_state()``: device memory falls by
+   the state's bytes, the ids equal (b)'s and the state stays on the
+   host; 1024 added rows each found first as itself; (d) a 32-lane
+   forest of phase 3e's first 4096 rows built on the host
+   (``build_device="cpu"``), promoted to the card and served by the fused
+   engine, its ids held against the plain pipeline, its structure
+   compared with a card build of the same rows (printed);
 3e. the small-forest slice: ``configs/synthetic_scale_5k.json``'s corpus
    (c=5000, 750 queries, 768-d), PCA+ICA at 0.96, a 32-lane forest below
    ``blocked_threshold``, k=10, pool 1024, batch 1024, served by the
@@ -125,9 +140,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    kernel 1 (B=1024, with ``B1``, ``B32``), of the group pool and of the
    blocked kernel (B=1024, with ``B1``, ``B8``, ``B32``) on the single
    tree's f32 indexes; kernel 1's backstop record under ``backstop``,
-   kernel 5's at the pending tier under ``pending`` and on the small
+   kernel 5's at the pending tier under ``pending``, on the small
    forest's served pools under ``small_forest``, its content-routed record
-   inside that), the nvidia-smi line, and the final
+   inside that, and its bf16-row entry under ``bf16``: phase 3g's served
+   pools, with 1M random rows under ``M1``), the nvidia-smi line, and the
+   final
    ``{"ok": true, "device": {...}}`` line.
 
 Without a CUDA device, or without the package beside it, it exits
@@ -287,11 +304,12 @@ def check_fused(fused_topk, qq, GT, c, valid, kappa, reps, label="",
             **rec_terms}
 
 
-def rerank_inputs(B, C, D, S, seed):
-    """Random store, queries and uniform candidates, the last 7 -inf."""
+def rerank_inputs(B, C, D, S, seed, dtype=torch.float32):
+    """Random store (in ``dtype``), queries and uniform candidates, the
+    last 7 -inf."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
-    emb = torch.randn((S, D), generator=g, device=dev)
+    emb = torch.randn((S, D), generator=g, device=dev).to(dtype)
     q = torch.randn((B, D), generator=g, device=dev)
     cand = torch.randint(0, S, (B, C), generator=g, device=dev,
                          dtype=torch.int32)
@@ -302,8 +320,9 @@ def rerank_inputs(B, C, D, S, seed):
 
 def check_rerank(rerank, emb, q, cand, cs, reps, label="",
                  pv=1.0 / (2.0 * math.e * math.pi)):
-    """Kernel 5 against its plain version.  Returns the record of this
-    shape."""
+    """Kernel 5 against its plain version (its f32 or bf16-row entry, by
+    the store's dtype; the library call gathers the rows upcast).
+    Returns the record of this shape."""
     (S, D), (B, C) = emb.shape, cand.shape
     lk = rerank.rerank_lp(emb, q, cand, cs, pv)
     lp = rerank.rerank_lp_plain(emb, q, cand, cs, pv)
@@ -330,13 +349,14 @@ def check_rerank(rerank, emb, q, cand, cs, reps, label="",
     plain_ms = cuda_ms(lambda: rerank.rerank_lp_plain(emb, q, cand, cs, pv),
                        reps)
     lib_ms = cuda_ms(lambda: torch.sum(
-        torch.square(q.unsqueeze(1) - emb[cand.long()]), dim=-1), reps)
+        torch.square(q.unsqueeze(1) - emb[cand.long()].float()), dim=-1),
+        reps)
     rows = int(torch.unique(cand[torch.isfinite(cs)]).numel())
-    nbytes = rows * D * 4 + B * D * 4 + 3 * B * C * 4
+    nbytes = rows * D * emb.element_size() + B * D * 4 + 3 * B * C * 4
     n_fin = int(fin.sum())
     b_ms, b_by = bound(nbytes, 3.0 * n_fin * D, PEAK_F32_FLOPS)
-    log(f"[kernel] rerank_l2{label} B={B} C={C} D={D} S={S} distinct_rows="
-        f"{rows}: max_abs_err={err:.3g} ms={ms:.4f} bound_ms={b_ms:.4f} "
+    log(f"[kernel] rerank_l2{label} B={B} C={C} D={D} S={S} {emb.dtype} "
+        f"distinct_rows={rows}: max_abs_err={err:.3g} ms={ms:.4f} bound_ms={b_ms:.4f} "
         f"({b_by}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
@@ -1022,6 +1042,210 @@ def small_forest_slice(headline, zero, read, out_dir: Path, device="cuda",
     return out
 
 
+def memory_tools_slice(db, data, zero, read, device="cuda", batch=1024,
+                       pool=512, small_corpus=5000, small_queries=750,
+                       cpu_rows=4096, dim=768, card=True) -> dict:
+    """Phase 3g: the memory tools of a large index on the scale slice's
+    whitener-mode forest ``db`` (its queries ``data``; backstop on), each
+    step served in its own counter window:
+
+    (a) ``emb_store_dtype = "bfloat16"``: every query served through
+        kernel 5's bf16 entry (once a chunk, no f32 launch), recall@10 at
+        least the f32 store's - 0.02, the store's bytes halved; the entry
+        held against its plain version and timed on one batch's served
+        pools (the sweep's and the backstop's, united), beside the f32
+        entry on the same pools;
+    (b) ``compress_stats()``: the index rebuilt from bf16 stats, recall@10
+        at least (a)'s - 0.01 and top-10 overlap with (a) at least 0.9;
+    (c) ``offload_state()``: device memory falls by the state's bytes,
+        the ids equal (b)'s exactly and the state stays on the host; then
+        1024 new rows added (the state back on the device first), each
+        found first as itself;
+    (d) a forest of the first ``cpu_rows`` rows of phase 3e's corpus built
+        with ``build_device="cpu"`` and ``promote_build_device()``, served
+        on ``device`` by the fused engine, its ids held against the plain
+        pipeline (``probes.plain_check``); whether its structure equals a
+        build on ``device`` from the same rows is recorded.
+
+    ``card`` False leaves out what only the card has (launch counts, the
+    kernel, device memory): a host rehearsal at small sizes.  Returns the
+    record."""
+    from rag_cobweb_tpu_torch.bench.datasets import synthetic_retrieval_hard
+    from rag_cobweb_tpu_torch.bench.metrics import to_host
+    from rag_cobweb_tpu_torch.bench.probes import plain_check
+    from rag_cobweb_tpu_torch.core import index as index_mod
+    from rag_cobweb_tpu_torch.core import tree as tree_mod
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    from rag_cobweb_tpu_torch.ops import rerank
+    from rag_cobweb_tpu_torch.whitening import PCAICAWhiteningModel
+
+    qall = data.query_embs
+    calls = -(-len(qall) // batch)
+    out = {}
+
+    def serve(rows, k=10):
+        return np.concatenate([to_host(db.query_ids(rows[s:s + batch], k))
+                               for s in range(0, len(rows), batch)])
+
+    def recall(ids):
+        return float(np.mean([t in r for t, r in zip(data.target_ids, ids)]))
+
+    def mem():
+        if not card:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    def fail(what, rec):
+        raise AssertionError(f"3g {what}: {rec}")
+
+    # (a) the bf16 re-rank store; on the card the served pools of one
+    # batch (the sweep's and the backstop's, united) first, for kernel 5's
+    # two entries on the same pools
+    ids32 = serve(qall)
+    store0 = db._emb_dev.nbytes
+    pv = float(db.cfg.prior_var)
+    if card:
+        qs = torch.as_tensor(qall[:batch], device=device)
+        qw = db.whitener.transform_torch(qs)
+        nv = db._indexed_count()
+        cs, cand = index_mod.fused_query_topk(db._fused_index(), qw,
+                                              min(pool, nv))
+        bs = db._backstop_k(pool, nv)
+        if bs:
+            bcs, bcand = index_mod.backstop_topk(*db._wemb_device(), qw, bs,
+                                                 nv, gt_layout=True)
+            cand, cs = index_mod.union_candidates(cand, cs, bcand, bcs)
+        cand, cs = cand.to(torch.int32).contiguous(), cs.contiguous()
+        rerank_f32 = check_rerank(
+            rerank, db._emb_device(), qs, cand, cs, reps=10,
+            label=" f32 store (3g served pools)", pv=pv)
+    db.emb_store_dtype = "bfloat16"
+    zero()
+    ids_a = serve(qall)
+    a = out["a"] = {"window": read(), "recall@10_f32_store": recall(ids32),
+                    "recall@10": recall(ids_a),
+                    "store_bytes": [store0, db._emb_dev.nbytes],
+                    "host_copy_bytes": db._emb_host.nbytes}
+    w = a["window"]
+    if card and not (w["rerank_l2_bf16"] == calls and w["rerank_l2"] == 0
+                     and w["fused_topk"] == 2 * calls):
+        fail("(a) the bf16 store did not serve through kernel 5's bf16 "
+             "entry once a chunk", a)
+    if (db._emb_dev.dtype != torch.bfloat16
+            or 2 * db._emb_dev.nbytes != store0
+            or a["recall@10"] < a["recall@10_f32_store"] - 0.02):
+        fail("(a)", a)
+    if card:
+        a["rerank"] = check_rerank(
+            rerank, db._emb_device(), qs, cand, cs, reps=10,
+            label=" bf16 store (3g served pools)", pv=pv)
+        a["rerank"]["f32_entry_same_pools"] = rerank_f32
+        del qs, qw, cs, cand
+    log(f"[tools] (a) bf16 store: {json.dumps(a)}")
+
+    # (b) compressed stats
+    st0 = tree_mod.state_bytes(db.forest.state)
+    db.compress_stats()
+    zero()
+    ids_b = serve(qall)
+    b = out["b"] = {"window": read(), "recall@10": recall(ids_b),
+                    "overlap_with_a": float(np.mean([
+                        len(set(x) & set(y)) / len(x)
+                        for x, y in zip(ids_a.tolist(), ids_b.tolist())])),
+                    "state_bytes": [st0,
+                                    tree_mod.state_bytes(db.forest.state)]}
+    w = b["window"]
+    if card and not (w["rerank_l2_bf16"] == calls
+                     and w["fused_topk"] == 2 * calls):
+        fail("(b) window", b)
+    if (db.forest.state.means.dtype != torch.bfloat16
+            or b["recall@10"] < a["recall@10"] - 0.01
+            or b["overlap_with_a"] < 0.9):
+        fail("(b)", b)
+    log(f"[tools] (b) compressed stats: {json.dumps(b)}")
+
+    # (c) the state offloaded, then an add
+    m0, sb = mem(), tree_mod.state_bytes(db.forest.state)
+    db.offload_state()
+    c = out["c"] = {"state_bytes": sb, "device_bytes_freed": m0 - mem()}
+    zero()
+    ids_c = serve(qall)
+    c["window"] = read()
+    c["ids_equal_b"] = bool(np.array_equal(ids_c, ids_b))
+    c["state_on_after_serving"] = db.forest.state.device.type
+    if (not c["ids_equal_b"] or (card and (c["device_bytes_freed"] < sb
+            or c["state_on_after_serving"] != "cpu"))):
+        fail("(c) offload", c)
+    new = synthetic_retrieval_hard(1024, 1, dim, seed=13).corpus_embs
+    n0 = len(db)
+    db.add_sentences([None] * len(new), new)
+    c["state_on_after_add"] = db.forest.state.device.type
+    zero()
+    got = serve(new, 1)[:, 0]
+    c["add_window"] = read()
+    c["added_rows_found_first"] = int(np.sum(got == np.arange(
+        n0, n0 + len(new))))
+    w = c["add_window"]
+    if (c["added_rows_found_first"] != len(new)
+            or c["state_on_after_add"] != db.forest.device.type
+            or (card and not (w["rerank_l2_bf16"] == w["pending"] ==
+                              w["rerank_l2"] == 1))):
+        fail("(c) add after the offload", c)
+    log(f"[tools] (c) offloaded state: {json.dumps(c)}")
+
+    # (d) a forest built on the host, promoted to the device
+    d3 = synthetic_retrieval_hard(small_corpus, small_queries, dim)
+    rows = d3.corpus_embs[:cpu_rows]
+    wh = PCAICAWhiteningModel.fit(rows, pca_dim=0.96, ica_max_iter=500,
+                                  seed=0, ica_sample_size=10000)
+
+    def build(bdev):
+        x = CobwebIndex(config=TreeConfig(dim=wh.dim_out),
+                        capacity=4 * cpu_rows + 16, n_subtrees=32,
+                        whitener=wh, device=device, build_device=bdev)
+        t0 = time.perf_counter()
+        x.add_sentences([None] * cpu_rows, rows)
+        if card:
+            torch.cuda.synchronize()
+        return x, time.perf_counter() - t0
+
+    hdb, host_s = build("cpu")
+    d = out["d"] = {"rows": cpu_rows, "cpu_build_s": host_s,
+                    "cpu_inserts_per_s": cpu_rows / host_s,
+                    "built_on": hdb.forest.state.device.type}
+    t0 = time.perf_counter()
+    hdb.promote_build_device()
+    d["promote_s"] = time.perf_counter() - t0
+    d["served_on"] = hdb.device.type
+    hdb.blocked_threshold = min(1024, cpu_rows // 2)   # the fused engine
+    pool_d = min(1024, cpu_rows)
+    mask = d3.target_ids < cpu_rows
+    q, gold = d3.query_embs[mask], d3.target_ids[mask]
+    zero()
+    served = to_host(hdb.query_ids(q, 10, rerank=pool_d))
+    d["window"] = read()
+    d["plain"] = plain_check(hdb, q, served, 10, pool_d, 0, batch, rows,
+                             gold)
+    d["recall@10"] = float(np.mean([t in r for t, r in zip(gold, served)]))
+    ddb, d["device_build_s"] = build(None)
+    d["leaves_equal_device_build"] = bool(np.array_equal(
+        hdb.forest._leaf_global(), ddb.forest._leaf_global()))
+    d["lanes_differing_from_device_build"] = [
+        i for i in range(32)
+        if hdb.forest.lane_signature(i) != ddb.forest.lane_signature(i)]
+    d["structure_equal_device_build"] = (
+        d["leaves_equal_device_build"]
+        and not d["lanes_differing_from_device_build"])
+    w = d["window"]
+    if (d["served_on"] != db.device.type or hdb.forest.device != db.device
+            or (card and not (w["fused_topk"] > 0 and w["rerank_l2"] > 0))):
+        fail("(d) promotion", d)
+    log(f"[tools] (d) host build promoted: {json.dumps(d)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1078,6 +1302,10 @@ def main() -> int:
                  reps=20)
     check_rerank(rerank, *rerank_inputs(1024, 1024, 768, 1 << 20, seed=4),
                  reps=5)
+    # kernel 5's bf16-row entry (the bf16 re-rank store) at 1M rows, where
+    # the gather comes from HBM: half the f32 entry's row bytes
+    bf16_1m = check_rerank(rerank, *rerank_inputs(
+        1024, 1024, 768, 1 << 20, seed=4, dtype=torch.bfloat16), reps=5)
     # the flagship serving's latency probes give kernels 1 and 5 batches of
     # 1 and 32 as well: each timed there beside its bound and library call
     small = {}
@@ -1300,6 +1528,9 @@ def main() -> int:
                 rerank, db._emb_device(), qs, cand,
                 torch.zeros(cand.shape, device="cuda"), reps=10,
                 label=" (pending tier)", pv=float(db.cfg.prior_var))
+        elif step == "tools":
+            # 3g: the memory tools on this build
+            scale["tools"] = memory_tools_slice(db, data, zero, read)
 
     rec3 = scale_slice.run(device="cuda", log=lambda *a: log(*a),
                            hook=scale_hook)
@@ -1316,6 +1547,19 @@ def main() -> int:
     # counted where the backstop pool and the pending tier launch them
     launches["backstop"] = rec3["windows"]["backstop_on"]["backstop"]
     launches["pending"] = rec3["windows"]["after_adds"]["pending"]
+    tools = scale["tools"]
+    launches["rerank_l2_bf16"] = tools["a"]["window"]["rerank_l2_bf16"]
+    log(f"[tools] recall@10 f32 store / bf16 store / compressed stats: "
+        f"{tools['a']['recall@10_f32_store']} / {tools['a']['recall@10']} "
+        f"/ {tools['b']['recall@10']}; store bytes "
+        f"{tools['a']['store_bytes']}, state bytes "
+        f"{tools['b']['state_bytes']}, freed by the offload "
+        f"{tools['c']['device_bytes_freed']}; host build "
+        f"{tools['d']['cpu_build_s']:.1f}s for {tools['d']['rows']} rows, "
+        f"structure equal to the card build: "
+        f"{tools['d']['structure_equal_device_build']} (leaves equal: "
+        f"{tools['d']['leaves_equal_device_build']}, lanes differing: "
+        f"{tools['d']['lanes_differing_from_device_build']})")
 
     # -- 3e. the small-forest slice: c=5000, both routings --------------
     small = small_forest_slice(headline, zero, read, out_dir)
@@ -1357,6 +1601,10 @@ def main() -> int:
                               **single["rerank"]),
              pending=dict(launches=launches["pending"],
                           **scale["pending"]),
+             # the bf16-row entry on phase 3g's served pools (bf16 store),
+             # and at 1M random rows under "M1"
+             bf16=dict(launches=launches["rerank_l2_bf16"],
+                       **tools["a"]["rerank"], M1=bf16_1m),
              small_forest=dict(
                  launches=launches["small_forest"],
                  **small["round_robin"]["rerank"],

@@ -3,7 +3,8 @@ scripts: the kernels' launch counters, the plain serving pipeline the
 served ids are held against, and the stage split of one served batch.
 
 The counters are the kernels' wrappers' own (``launches``, and
-``launches_f32`` for the f32 entries, counted apart) and the core's
+``launches_f32`` for the sweeps' f32 entries and ``launches_bf16`` for
+kernel 5's bf16-row entry, counted apart) and the core's
 ``TIER_LAUNCHES``: kernel 1's launches made for the backstop pool and
 kernel 5's for the pending tier.  ``zero_counters`` sets them all to 0,
 ``read_counters`` reads them.
@@ -27,23 +28,31 @@ COUNTERS = {"fused_topk": fused_topk.slab_topk,
             "rerank_l2": rerank.rerank_lp}
 
 
+_ENTRIES = ("f32", "bf16")     # entries counted apart from a kernel's main
+
+
 def zero_counters():
     for fn in COUNTERS.values():
         fn.launches = 0
-        if hasattr(fn, "launches_f32"):
-            fn.launches_f32 = 0
+        for e in _ENTRIES:
+            if hasattr(fn, f"launches_{e}"):
+                setattr(fn, f"launches_{e}", 0)
     for k in index_mod.TIER_LAUNCHES:
         index_mod.TIER_LAUNCHES[k] = 0
 
 
 def read_counters() -> dict:
-    """Each kernel's launches (its bf16 entry's, and ``<name>_f32`` its f32
-    entry's), and those made for the backstop pool and the pending tier."""
+    """Each kernel's launches of its main entry (the sweeps' bf16 one,
+    kernel 5's f32 one), ``<name>_f32`` / ``<name>_bf16`` those of the
+    other entry, and those made for the backstop pool and the pending
+    tier."""
     out = {}
     for k, fn in COUNTERS.items():
-        out[k] = fn.launches - getattr(fn, "launches_f32", 0)
-        if hasattr(fn, "launches_f32"):
-            out[k + "_f32"] = fn.launches_f32
+        out[k] = fn.launches
+        for e in _ENTRIES:
+            if hasattr(fn, f"launches_{e}"):
+                out[f"{k}_{e}"] = getattr(fn, f"launches_{e}")
+                out[k] -= out[f"{k}_{e}"]
     out.update(index_mod.TIER_LAUNCHES)
     return out
 
@@ -348,8 +357,9 @@ def stage_split(db, queries, k: int, pool: int) -> dict:
         cs, cand = fused_topk.merge(*out, pool)
         mark("pool merge")
         if bs:
-            bcs, bcand = index_mod.backstop_topk(*db._wemb_device(), q, bs,
-                                                 nv)
+            bcs, bcand = index_mod.backstop_topk(
+                *db._wemb_device(), q, bs, nv,
+                gt_layout=db.whitener is not None)
             mark("backstop pool")
             cand, cs = index_mod.union_candidates(cand, cs, bcand, bcs)
             mark("union")

@@ -28,7 +28,10 @@ launch counters (set to 0 just before, read just after):
    ``hook("pending", db, data)``;
 5. times add-then-query (1024 rows added, then one B=1 query answered)
    with the stale index, and again with ``stale_reads = False`` (each
-   add drops the index; the query rebuilds it).
+   add drops the index; the query rebuilds it);
+6. with ``stale_reads`` back on, ``hook("tools", db, data)``: the
+   caller's steps on the memory tools of a large index (``chip_smoke.py``
+   phase 3g), on this build and the rows step 5 added to it.
 
 On the card each served state (backstop on, off, after the adds) also
 gets a stage split of one batch of 1 and of 1024 queries
@@ -256,6 +259,10 @@ def run(corpus_size: int = 131072, queries: int = 4096, dim: int = 768,
     rec["add_then_query_ms"] = {"rows": m, "stale": stale, "rebuild": fresh}
     log(f"[scale] add {m} rows then one B=1 query, ms: {stale} with the "
         f"stale index, {fresh} rebuilding")
+
+    # 6: the memory tools, on this build
+    db.stale_reads = True
+    hook("tools", db, data)
     return rec
 
 

@@ -183,13 +183,14 @@ def build_flat_forest_index(cfg, st, leaf_global: np.ndarray,
     kids = children[order_arr]
     kids_compact = np.where(kids >= 0, compact_of[np.maximum(kids, 0)], -1)
 
-    # node statistics gathered on the device, in compact order
+    # node statistics gathered on the device, in compact order (compressed
+    # stats upcast to f32)
     dev = st.device
     order_t = torch.as_tensor(order_arr, device=dev)
     lane, loc = order_t // cap, order_t % cap
     cnt = st.counts[lane, loc]
-    mu = st.means[lane, loc]
-    m2 = st.m2s[lane, loc]
+    mu = st.means[lane, loc].float()
+    m2 = st.m2s[lane, loc].float()
     pos = (cnt > 0).unsqueeze(1)
     pv = float(cfg.prior_var)
     ml = m2 / torch.where(cnt > 0, cnt, torch.ones_like(cnt)).unsqueeze(1)
@@ -471,7 +472,8 @@ def _fused_block_from_state(st, leaf_block: torch.Tensor, lw: torch.Tensor,
                             P: int, prior_var: float, acuity: bool):
     """One sentence block: chase each leaf's parent chain in global slot
     space (lane * capacity + local), derive each node's GEMM terms from
-    the raw statistics and accumulate the fused coefficients.  Returns
+    the raw statistics (upcast to f32 when compressed) and accumulate the
+    fused coefficients.  Returns
     (G (Bs, 2D) f32, c (Bs,) f32, done) where ``done`` is False iff a
     chain did not reach a root within ``P`` hops."""
     cap = st.capacity
@@ -504,8 +506,8 @@ def _fused_block_from_state(st, leaf_block: torch.Tensor, lw: torch.Tensor,
         ok = ids >= 0
         lane, loc = lane_local(ids)
         cnt = st.counts[lane, loc]
-        mu = st.means[lane, loc]
-        m2 = st.m2s[lane, loc]
+        mu = st.means[lane, loc].float()
+        m2 = st.m2s[lane, loc].float()
         pos = (cnt > 0).unsqueeze(1)
         ml = m2 / torch.where(cnt > 0, cnt, torch.ones_like(cnt)).unsqueeze(1)
         v = torch.clamp(ml, min=prior_var) if acuity else ml + prior_var
@@ -585,8 +587,9 @@ def exact_rerank(emb: torch.Tensor, queries: torch.Tensor,
                  cand: torch.Tensor, cand_scores: torch.Tensor, k: int,
                  prior_var: float = 1.0):
     """Re-rank (B, C) candidates by the fresh-leaf closed form on their
-    stored rows (kernel 5), ``-0.5 (||q - x||^2 / prior_var + D log
-    prior_var)``, non-finite candidates dropped -> (scores, ids) (B, k)."""
+    stored rows (kernel 5; an f32 or a bf16 store, distances in f32),
+    ``-0.5 (||q - x||^2 / prior_var + D log prior_var)``, non-finite
+    candidates dropped -> (scores, ids) (B, k)."""
     lp = rerank.rerank_lp(emb, queries.float().contiguous(),
                           cand.to(torch.int32).contiguous(),
                           cand_scores.contiguous(), prior_var)
@@ -601,21 +604,24 @@ TIER_LAUNCHES = {"backstop": 0, "pending": 0}
 
 
 def backstop_topk(wemb: torch.Tensor, half_norm2: torch.Tensor,
-                  queries: torch.Tensor, c: int, n_valid: int):
+                  queries: torch.Tensor, c: int, n_valid: int,
+                  gt_layout: bool):
     """The proximity backstop pool: the top-``c`` stored rows by
     ``q . w - 0.5 ||w||^2`` (monotone in the L2 distance to ``q``), rows at
     or past ``n_valid`` -inf -> (scores (B, c) f32, row ids (B, c)).
 
-    A bf16 ``wemb`` is the whitened store in kernel 1's GT layout, (Dw,
-    Sw) with Sw a multiple of 2048: kernel 1 runs with ``qq = q`` in bf16
-    and ``c = -half_norm2``, and its per-slab pools merge to the exact
-    top-c, so the (B, Sw) scores never reach memory; invalid entries come
-    out -inf.  An f32 ``wemb`` is the raw re-rank store, row-major (Sw, D),
-    which kernel 1 cannot take without a copy: a full-f32 product and
-    ``torch.topk`` (the JAX package computes this product in XLA).  The
-    pool is exact where the JAX package may take ``approx_max_k``."""
+    The store's layout decides the route, not its dtype.  ``gt_layout``:
+    the whitened store in kernel 1's GT layout, bf16 (Dw, Sw) with Sw a
+    multiple of 2048: kernel 1 runs with ``qq = q`` in bf16 and ``c =
+    -half_norm2``, and its per-slab pools merge to the exact top-c, so the
+    (B, Sw) scores never reach memory; invalid entries come out -inf.
+    Otherwise the raw re-rank store, row-major (Sw, D), f32 or bf16, which
+    kernel 1 cannot take without a copy: the queries rounded to the
+    store's dtype, a full-f32 product (bf16 rows widened a slab at a time)
+    and ``torch.topk``, as the JAX package's product with f32 results.
+    The pool is exact where the JAX package may take ``approx_max_k``."""
     dev = wemb.device
-    if wemb.dtype == torch.bfloat16:
+    if gt_layout:
         Sw = wemb.shape[1]
         valid = torch.arange(Sw, device=dev) < n_valid
         n0 = fused_topk.slab_topk.launches
@@ -626,7 +632,14 @@ def backstop_topk(wemb: torch.Tensor, half_norm2: torch.Tensor,
         top, ids = fused_topk.merge(*pools, c)
         return torch.where(top > fused_topk.NEG / 2, top,
                            torch.full_like(top, float("-inf"))), ids
-    s = torch.matmul(queries.float(), wemb.T) - half_norm2
+    q = queries.to(wemb.dtype).float()
+    if wemb.dtype == torch.float32:
+        s = torch.matmul(q, wemb.T)
+    else:
+        step = 1 << 16
+        s = torch.cat([torch.matmul(q, wemb[r:r + step].float().T)
+                       for r in range(0, wemb.shape[0], step)], dim=1)
+    s = s - half_norm2
     col = torch.arange(s.shape[1], device=dev)
     s = torch.where(col < n_valid, s, torch.full_like(s, float("-inf")))
     return torch.topk(s, min(c, s.shape[1]), dim=1)
@@ -656,13 +669,16 @@ def fused_query_rerank(fidx: FusedIndex, emb: torch.Tensor,
                        queries: torch.Tensor, queries_store: torch.Tensor,
                        k: int, c: int, wemb: torch.Tensor = None,
                        half_norm2: torch.Tensor = None, n_valid: int = 0,
-                       bs: int = 0, prior_var: float = 1.0):
+                       bs: int = 0, prior_var: float = 1.0,
+                       gt_layout: bool = False):
     """The serving path: fused sweep -> exact top-``c`` pool [-> the
-    top-``bs`` backstop pool over ``wemb`` -> union] -> exact
-    stored-embedding re-rank -> (scores, ids) (B, k)."""
+    top-``bs`` backstop pool over ``wemb``, in GT layout (``gt_layout``)
+    or row-major (``backstop_topk``) -> union] -> exact stored-embedding
+    re-rank -> (scores, ids) (B, k)."""
     cs, cand = fused_query_topk(fidx, queries, c)
     if bs:
-        bcs, bcand = backstop_topk(wemb, half_norm2, queries, bs, n_valid)
+        bcs, bcand = backstop_topk(wemb, half_norm2, queries, bs, n_valid,
+                                   gt_layout)
         cand, cs = union_candidates(cand, cs, bcand, bcs)
     return exact_rerank(emb, queries_store, cand, cs, k, prior_var)
 

@@ -26,6 +26,11 @@ behaviours the JAX package fixes:
 Within one step no two writes of a lane hit the same row, so applying
 steps in order needs no "last writer wins" rule (``index_put_`` with
 duplicate indices has no defined order on CUDA).
+
+``means``/``m2s`` may be stored compressed (bf16 at rest, ``compress_stats``
+of the forest and the wrapper).  Every read upcasts them to f32 and
+``_apply`` rounds its f32 results into the stored dtype, so the descent
+math stays f32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -102,15 +107,16 @@ class TreeState:
 
 
 def init_state(lanes: int, capacity: int, dim: int, fanout: int,
-               device) -> TreeState:
-    """Empty trees: each root allocated with count 0."""
+               device, stats_dtype=torch.float32) -> TreeState:
+    """Empty trees: each root allocated with count 0; ``means``/``m2s``
+    stored in ``stats_dtype``."""
     n = align_capacity(capacity) + 1
     K, dev = lanes, device
     i64 = dict(dtype=torch.int64, device=dev)
     return TreeState(
         counts=torch.zeros((K, n), dtype=torch.float32, device=dev),
-        means=torch.zeros((K, n, dim), dtype=torch.float32, device=dev),
-        m2s=torch.zeros((K, n, dim), dtype=torch.float32, device=dev),
+        means=torch.zeros((K, n, dim), dtype=stats_dtype, device=dev),
+        m2s=torch.zeros((K, n, dim), dtype=stats_dtype, device=dev),
         parent=torch.full((K, n), NULL, **i64),
         children=torch.full((K, n, fanout), NULL, **i64),
         n_children=torch.zeros((K, n), **i64),
@@ -122,9 +128,11 @@ def init_state(lanes: int, capacity: int, dim: int, fanout: int,
 
 
 def grow_state(st: TreeState, new_capacity: int) -> TreeState:
-    """Copy ``st`` into arrays of ``new_capacity`` nodes per lane."""
+    """Copy ``st`` into arrays of ``new_capacity`` nodes per lane (the
+    stats keep their stored dtype)."""
     cap = st.capacity
-    out = init_state(st.lanes, new_capacity, st.dim, st.fanout, st.device)
+    out = init_state(st.lanes, new_capacity, st.dim, st.fanout, st.device,
+                     st.means.dtype)
     for name in ("counts", "means", "m2s", "parent", "children",
                  "n_children", "free_stack"):
         getattr(out, name)[:, :cap] = getattr(st, name)[:, :cap]
@@ -133,37 +141,103 @@ def grow_state(st: TreeState, new_capacity: int) -> TreeState:
     return out
 
 
-def state_to_numpy(st: TreeState) -> dict:
-    """Host arrays in the JAX package's layout and dtypes (no scratch row)."""
+def _is_bf16(a: np.ndarray) -> bool:
+    """A host array of bf16 values: ml_dtypes' bfloat16, or the raw
+    2-byte void records ``np.load`` returns for a file that held one."""
+    return a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                          and a.dtype.itemsize == 2)
+
+
+def state_to_numpy(st: TreeState, raw: bool = False) -> dict:
+    """Host arrays in the JAX package's layout and dtypes (no scratch row),
+    the stats upcast to f32.  ``raw``: bf16 stats as they are stored, as
+    the 2-byte records (``<V2``) that ``np.savez`` writes for the JAX
+    package's bf16 arrays, so a compressed forest's file holds what the
+    JAX package's holds."""
     cap = st.capacity
     out = {}
     for name in FIELDS:
         a = getattr(st, name)
         if a.dim() >= 2:
             a = a[:, :cap]
-        a = a.cpu().numpy()
+        if a.dtype == torch.bfloat16:
+            a = (a.view(torch.int16).cpu().numpy().view("<V2") if raw
+                 else a.float().cpu().numpy())
+        else:
+            a = a.cpu().numpy()
         out[name] = a.astype(np.int32) if name in _INT_FIELDS else a
     return out
 
 
+def _stats_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A host stats array as a tensor: bf16 arrays (``_is_bf16``) keep
+    their bits, anything else becomes f32."""
+    if _is_bf16(a):
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.as_tensor(bits, device=device).view(torch.bfloat16)
+    return torch.as_tensor(a.astype(np.float32), device=device)
+
+
 def state_from_numpy(arrays: dict, device) -> TreeState:
-    """Inverse of ``state_to_numpy``: (K, N, ...) arrays -> TreeState."""
+    """Inverse of ``state_to_numpy``: (K, N, ...) arrays -> TreeState.
+    Compressed (bf16) stats stay compressed."""
     K, cap = np.asarray(arrays["counts"]).shape
     D = np.asarray(arrays["means"]).shape[2]
     F = np.asarray(arrays["children"]).shape[2]
-    st = init_state(K, cap, D, F, device)
+    bf16 = _is_bf16(np.asarray(arrays["means"]))
+    st = init_state(K, cap, D, F, device,
+                    torch.bfloat16 if bf16 else torch.float32)
     if st.capacity != cap:
         raise ValueError(f"capacity {cap} is not aligned")
     for name in FIELDS:
         a = np.asarray(arrays[name])
-        dtype = torch.int64 if name in _INT_FIELDS else torch.float32
-        t = torch.as_tensor(a.astype(np.float32) if dtype == torch.float32
-                            else a.astype(np.int64), device=device)
+        if name in ("means", "m2s"):
+            t = _stats_tensor(a, device)
+        elif name in _INT_FIELDS:
+            t = torch.as_tensor(a.astype(np.int64), device=device)
+        else:
+            t = torch.as_tensor(a.astype(np.float32), device=device)
         if t.dim() >= 2:
             getattr(st, name)[:, :cap] = t
         else:
             setattr(st, name, t.clone())
     return st
+
+
+def compress_state(st: TreeState, dtype=None) -> TreeState:
+    """``st`` with ``means``/``m2s`` cast to ``dtype`` (None: bf16; a torch
+    dtype or its name) in new tensors, the f32 ones freed once the caller
+    drops them; ``st`` itself when they are stored so already."""
+    if dtype is None:
+        dtype = torch.bfloat16
+    elif isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    if st.means.dtype == dtype:
+        return st
+    return dataclasses.replace(st, means=st.means.to(dtype),
+                               m2s=st.m2s.to(dtype))
+
+
+def state_to(st: TreeState, device) -> TreeState:
+    """Every field of ``st`` on ``device``; moved to the host from the
+    card, into pinned memory, so the move back is one DMA a field."""
+    device = resolve_device(device)
+    if st.device == device:
+        return st
+    pin = device.type == "cpu" and st.device.type == "cuda"
+
+    def move(t):
+        if pin:
+            return torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=True).copy_(t)
+        return t.to(device)
+
+    return TreeState(**{n: move(getattr(st, n)) for n in FIELDS})
+
+
+def state_bytes(st: TreeState) -> int:
+    """Bytes of every field of ``st``."""
+    return sum(getattr(st, n).nbytes for n in FIELDS)
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +270,8 @@ class _View:
 
 def _node_view(st: TreeState, lanes, node, parent, prev_row, prev_n):
     return _View(cur=node, count=st.counts[lanes, node],
-                 mean=st.means[lanes, node], m2=st.m2s[lanes, node],
+                 mean=st.means[lanes, node].float(),
+                 m2=st.m2s[lanes, node].float(),
                  row=st.children[lanes, node], n=st.n_children[lanes, node],
                  parent=parent, prev_row=prev_row, prev_n=prev_n)
 
@@ -206,8 +281,8 @@ def _gather_stats(st: TreeState, lanes, idx) -> GaussStats:
     are masked by the caller."""
     safe = idx.clamp(min=0)
     li = lanes.unsqueeze(1)
-    return GaussStats(st.counts[li, safe], st.means[li, safe],
-                      st.m2s[li, safe])
+    return GaussStats(st.counts[li, safe], st.means[li, safe].float(),
+                      st.m2s[li, safe].float())
 
 
 def _compact(slots, keep):
@@ -432,9 +507,11 @@ def _advance(st: TreeState, lanes, c: _Carry, x, noise_two, noise_op, depth,
 
 
 def _state_key(st: TreeState):
-    return tuple(getattr(st, n).data_ptr() for n in
-                 ("counts", "means", "m2s", "children", "n_children",
-                  "free_stack"))
+    """The state arrays a captured step reads, by address and dtype: a
+    cast or a move makes new tensors, which may reuse freed addresses."""
+    return tuple((getattr(st, n).data_ptr(), getattr(st, n).dtype)
+                 for n in ("counts", "means", "m2s", "children",
+                           "n_children", "free_stack"))
 
 
 class StepGraph:
@@ -446,10 +523,14 @@ class StepGraph:
     by address (``_apply`` updates them in place), so it is valid while
     ``matches(st)``: capacity growth reallocates them and needs a new
     graph.  The same function runs eagerly on the host, so both paths
-    compute the same step."""
+    compute the same step.  Its carry is f32 whatever the stored stats
+    dtype, so the descent math is f32 on a compressed state too."""
 
     def __init__(self, st: TreeState, cfg: TreeConfig):
         K, F, D, dev = st.lanes, st.fanout, st.dim, st.device
+        if dev.type != "cuda":
+            raise ValueError(f"a StepGraph captures a state on the card, "
+                             f"not on {dev}")
         self.key = _state_key(st)
         # every tensor the graph reads stays referenced here: a replay
         # reads by address, so a freed input would be reused memory
@@ -559,8 +640,8 @@ def _apply(st: TreeState, lanes, record, ok, free_top, n_alloc):
 
         si = tgt(d.stat_idx)
         st.counts[li, si] = d.stat_count
-        st.means[li, si] = d.stat_mean
-        st.m2s[li, si] = d.stat_m2
+        st.means[li, si] = d.stat_mean.to(st.means.dtype)
+        st.m2s[li, si] = d.stat_m2.to(st.m2s.dtype)
         ci = tgt(d.crow_idx)
         st.children[li, ci] = d.crow_vals
         st.n_children[li, ci] = d.crow_n

@@ -43,9 +43,18 @@ backstop pool (``index.backstop_topk``) over the whitened rows (whitener
 mode, from ``backstop_threshold`` sentences on, or any explicit
 ``backstop_pool > 0``).
 
-The vector stores live on the device and grow in place: the raw float32
-rows (the re-rank store) and, in whitener mode, the whitened rows in
-bf16 in kernel 1's GT layout with their half-norms (the backstop store).
+The vector stores live on the device and grow in place: the raw rows
+(the re-rank store, float32, or bfloat16 with ``emb_store_dtype``, its
+exact rows then kept on the host) and, in whitener mode, the whitened
+rows in bf16 in kernel 1's GT layout with their half-norms (the backstop
+store).
+
+Memory tools of a large index, as in the JAX package: ``compress_stats``
+(bf16 node statistics at rest), ``offload_state`` (a forest's state to
+host memory once its serving index exists), ``emb_store_dtype`` (the bf16
+re-rank store, kernel 5's bf16-row entry), and ``build_device="cpu"`` with
+``promote_build_device`` (a forest built on the host, then moved with
+every store and index to the card).
 
 Adds on top of a serving index keep it (bounded staleness, as in the
 JAX package): the new rows wait in a tier-0 pending pool (scored by
@@ -69,6 +78,7 @@ import torch
 
 from rag_cobweb_tpu_torch import files
 from rag_cobweb_tpu_torch.core import index as index_mod
+from rag_cobweb_tpu_torch.core import tree as tree_mod
 from rag_cobweb_tpu_torch.core.config import TreeConfig
 from rag_cobweb_tpu_torch.core.tree import CobwebTree, align_capacity
 from rag_cobweb_tpu_torch.device import full_f32_matmul, resolve_device
@@ -103,7 +113,12 @@ class CobwebIndex:
                  config: Optional[TreeConfig] = None,
                  capacity: Optional[int] = None, seed: int = 0,
                  n_subtrees: int = 1, routing: str = "round_robin",
-                 whitener=None, device="cuda"):
+                 whitener=None, device="cuda", build_device=None):
+        """``device``: where the index serves.  ``build_device``: where a
+        forest's state lives and its inserts run until
+        ``promote_build_device()`` (``"cpu"``: a build on the host; the
+        stores and indexes live there too until then); a single tree
+        ignores it, as in the JAX package."""
         device = resolve_device(device)
         if corpus_embeddings is not None:
             corpus_embeddings = np.asarray(corpus_embeddings, np.float32)
@@ -127,7 +142,8 @@ class CobwebIndex:
         if n_subtrees > 1:
             forest = VForest(cfg, n_subtrees=int(n_subtrees),
                              capacity_per_tree=max(1024, cap // n_subtrees),
-                             seed=seed, routing=routing, device=device)
+                             seed=seed, routing=routing, device=device,
+                             build_device=build_device)
         else:
             tree = CobwebTree(cfg, capacity=cap, seed=seed, device=device)
         self._setup(tree, forest, [], [], encode_func, whitener)
@@ -145,7 +161,8 @@ class CobwebIndex:
         ``load_json`` and ``load`` share it): the single ``tree`` or the
         ``forest`` (the other None) and its device and config, the
         sentences, empty device stores and serving caches, the engine and
-        staleness settings and no level-weight schedule."""
+        staleness settings and no level-weight schedule.  The device is
+        the owner's: a forest's build device until it is promoted."""
         self.tree, self.forest = tree, forest
         owner = forest if forest is not None else tree
         self.device = owner.device
@@ -159,8 +176,14 @@ class CobwebIndex:
         self.sentences = list(sentences)
         self.leaf_of_sentence = list(leaf_of_sentence)
         self.store_embeddings = True
+        # the re-rank store's dtype on the device ("float32" or "bfloat16":
+        # half the bytes, the distances still f32); a change takes effect
+        # at the next _emb_device()
+        self.emb_store_dtype = "float32"
         self._store_n = 0         # rows in the device stores
-        self._emb_dev = None      # (cap, D) f32 raw rows, zero past _store_n
+        self._emb_dev = None      # (cap, D) raw rows, zero past _store_n
+        self._emb_host = None     # their exact f32 rows on the host, kept
+        #                           while the device store is not f32
         self._wemb_dev = None     # whitener: (Dw, capw) bf16 whitened rows
         self._half_n2 = None      # backstop store's 0.5 ||row||^2, f32
         self._init_pending()
@@ -226,6 +249,10 @@ class CobwebIndex:
         # point
         n_new = len(self.sentences) - n0
         store = self._emb_device() is not None
+        # tier 0 keeps its rows apart (exact f32, on the device) when the
+        # store misses rows or holds them rounded
+        apart = (not store or self._emb_dev.dtype != torch.float32
+                 or self._pending_vecs is not None)
         if self.forest is not None:
             # the stats-free fused index alone can serve stale when the
             # exact re-rank store exists
@@ -242,14 +269,13 @@ class CobwebIndex:
                          int(self.delta_rebuild_frac * max(n_indexed, 1)))
         if (self.stale_reads and has_stale
                 and self._unindexed_count() + n_new <= rebuild_at):
-            if not store and self._pending_vecs is None and \
-                    self._pending_sids:
+            if apart and self._pending_vecs is None and self._pending_sids:
                 # the store stopped covering the sentences: tier 0 keeps
                 # apart the rows it held
-                self._pending_vecs = self._emb_dev[self._pending_rows()[1]]
+                self._pending_vecs = self._exact_rows(self._pending_ids())
             self._pending_sids.extend(range(n0, n0 + n_new))
             self._pending_dev = None
-            if not store:
+            if apart:
                 self._pending_vecs = (
                     raw.clone() if self._pending_vecs is None
                     else torch.cat([self._pending_vecs, raw]))
@@ -272,7 +298,8 @@ class CobwebIndex:
         self._beam_src = None     # ... and the prediction index it is of
         self._pending_sids: list = []
         self._pending_dev = None  # the pending sids on the device
-        self._pending_vecs = None  # their raw rows, when no store is kept
+        self._pending_vecs = None  # their raw f32 rows, when the store
+        #                            misses them or holds them rounded
         self._delta_vecs = None   # (cap, D) f32 delta segment
         self._delta_sids = None   # (delta_n,) int64 sentence ids
         self._delta_n = 0
@@ -290,13 +317,18 @@ class CobwebIndex:
         if self._unindexed_count():
             self._invalidate_index()
 
-    def _pending_rows(self):
-        """(row store, row ids, sentence ids on the device) of the tier-0
-        pending rows: the raw store at their sentence ids, or the rows kept
-        apart when no store is kept."""
+    def _pending_ids(self) -> torch.Tensor:
+        """The tier-0 pending sentence ids on the device."""
         if self._pending_dev is None:
             self._pending_dev = torch.as_tensor(
                 self._pending_sids, dtype=torch.int64, device=self.device)
+        return self._pending_dev
+
+    def _pending_rows(self):
+        """(row store, row ids, sentence ids on the device) of the tier-0
+        pending rows: the raw store at their sentence ids, or the rows kept
+        apart when no store is kept or it holds them rounded."""
+        self._pending_ids()
         if self._pending_vecs is not None:
             return self._pending_vecs, torch.arange(
                 len(self._pending_sids), device=self.device), \
@@ -357,23 +389,32 @@ class CobwebIndex:
     def _store_rows(self, raw: torch.Tensor, tree_vecs: torch.Tensor):
         """Append rows to the device stores in place, each grown 1.25x
         geometrically when full (as the JAX package's bucketed stores):
-        the raw f32 rows, and in whitener mode the whitened rows in bf16,
-        (Dw, capw) with capw a multiple of 2048 (kernel 1's GT layout), and
-        beside the backstop's store its half-norms, in f32 from the stored
-        values, 0 on padding."""
+        the raw rows in the store's dtype (and their exact f32 copy on the
+        host while that is not f32), and in whitener mode the whitened
+        rows in bf16, (Dw, capw) with capw a multiple of 2048 (kernel 1's
+        GT layout), and beside the backstop's store its half-norms, in f32
+        from the stored values, 0 on padding."""
         n0 = self._store_n
         n = n0 + raw.shape[0]
         cap = 0 if self._emb_dev is None else self._emb_dev.shape[0]
         if n > cap:
-            emb = torch.zeros(
-                (align_capacity(max(n, int(cap * 1.25), 4096)),
-                 raw.shape[1]), dtype=torch.float32, device=self.device)
+            shape = (align_capacity(max(n, int(cap * 1.25), 4096)),
+                     raw.shape[1])
+            emb = torch.zeros(shape, dtype=torch.float32 if self._emb_dev
+                              is None else self._emb_dev.dtype,
+                              device=self.device)
             if self._emb_dev is not None:
                 emb[:n0] = self._emb_dev[:n0]
             self._emb_dev = emb
+            if self._emb_host is not None:
+                host = torch.zeros(shape, dtype=torch.float32)
+                host[:n0] = self._emb_host[:n0]
+                self._emb_host = host
         self._emb_dev[n0:n] = raw
+        if self._emb_host is not None:
+            self._emb_host[n0:n] = raw.cpu()
         if self.whitener is None:
-            rows, cap = raw, self._emb_dev.shape[0]
+            rows, cap = self._emb_dev[n0:n], self._emb_dev.shape[0]
         else:
             rows = tree_vecs.to(torch.bfloat16)
             capw = 0 if self._wemb_dev is None else self._wemb_dev.shape[1]
@@ -399,12 +440,46 @@ class CobwebIndex:
         self._store_n = n
 
     def _emb_device(self) -> Optional[torch.Tensor]:
-        """(cap, D) raw store on the device, zero rows past the live
-        count; None without a store (or one that misses rows)."""
+        """(cap, D) raw store on the device in ``emb_store_dtype`` (rebuilt
+        in it here when that changed), zero rows past the live count; None
+        without a store (or one that misses rows)."""
         if (not self.store_embeddings or self._emb_dev is None
                 or self._store_n != len(self.sentences)):
             return None
+        if self.emb_store_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"emb_store_dtype must be float32 or bfloat16, "
+                             f"not {self.emb_store_dtype!r}")
+        want = getattr(torch, self.emb_store_dtype)
+        if self._emb_dev.dtype != want:
+            self._set_store_dtype(want)
         return self._emb_dev
+
+    def _set_store_dtype(self, dtype):
+        """Rebuild the raw store in ``dtype``: to bf16, its exact rows go to
+        the host first (``save`` writes them, and tier 0 keeps its rows
+        apart from a rounded store); back to f32, they come back from
+        there.  Without a whitener the backstop keys on this store, so
+        its half-norms are taken anew from the stored values."""
+        if self._pending_sids and self._pending_vecs is None:
+            self._pending_vecs = self._exact_rows(self._pending_ids())
+        if dtype == torch.bfloat16:
+            self._emb_host = self._emb_dev.cpu()
+            self._emb_dev = self._emb_dev.to(dtype)
+        else:
+            self._emb_dev = self._emb_host.to(self.device)
+            self._emb_host = None
+        if self.whitener is None:
+            step = 1 << 16
+            for r in range(0, self._emb_dev.shape[0], step):
+                self._half_n2[r:r + step] = 0.5 * torch.sum(
+                    torch.square(self._emb_dev[r:r + step].float()), dim=1)
+
+    def _exact_rows(self, ids: torch.Tensor) -> torch.Tensor:
+        """The raw f32 rows of sentence ids ``ids`` on the device: from the
+        host copy while the device store is rounded."""
+        if self._emb_host is not None:
+            return self._emb_host[ids.cpu()].to(self.device)
+        return self._emb_dev[ids]
 
     def _wemb_device(self):
         """The backstop's operands (store, half-norms), or None.  Whitener
@@ -463,6 +538,59 @@ class CobwebIndex:
         if bs <= 0 or self._wemb_device() is None:
             return 0
         return min(bs, n_indexed)
+
+    # ---------------------------------------------------------------- #
+    # memory tools (reference wrapper: compress_stats, offload_state,  #
+    # promote_build_device)                                            #
+    # ---------------------------------------------------------------- #
+    def compress_stats(self, dtype=None):
+        """Stats compression (bf16 by default; ``VForest.compress_stats``)
+        of the forest or the single tree, then the serving indexes
+        dropped, so the next query builds them from the compressed
+        stats."""
+        if self.forest is not None:
+            self.forest.compress_stats(dtype)
+        else:
+            st = tree_mod.compress_state(self.tree.state, dtype)
+            if st is not self.tree.state:
+                self.tree.state = st
+                self.tree._graph = None
+        self._invalidate_index()
+
+    def offload_state(self):
+        """Serve-only mode: a forest's state to host memory
+        (``VForest.offload_state``) once its serving index is built; the
+        next add or index build moves it back.  A single tree keeps its
+        state, as in the JAX package."""
+        if self.forest is not None:
+            self.forest.offload_state()
+
+    def promote_build_device(self):
+        """Move a forest built on ``build_device`` to its serving device
+        (``VForest.to_device``), and with it this index's own device
+        state: the stores, the half-norms, the pending and delta tiers and
+        every cached index, so serving goes on from the card without a
+        rebuild.  No-op for a single tree or a forest already there."""
+        f = self.forest
+        if f is None or (f.device == f.serve_device
+                         and self.device == f.serve_device):
+            return
+        f.to_device()
+        dev = self.device = f.device
+
+        def move(x):
+            if isinstance(x, torch.Tensor):
+                return x.to(dev)
+            if isinstance(x, tuple) and hasattr(x, "_fields"):
+                return type(x)(*map(move, x))
+            return x
+
+        for name in ("_emb_dev", "_wemb_dev", "_half_n2", "_pending_vecs",
+                     "_pending_dev", "_delta_vecs", "_delta_sids",
+                     "_index", "_fused", "_fused_f32", "_blocked",
+                     "_blocked_f32", "_flat_cache", "_beam_cache"):
+            setattr(self, name, move(getattr(self, name)))
+        self._beam_src = None
 
     def _flat_pred_index(self) -> index_mod.PredictionIndex:
         """The flat PredictionIndex over global sentence ids: the whole
@@ -551,11 +679,11 @@ class CobwebIndex:
         card = q.device.type != "cpu"
         row = (fidx.num_slots // slab * min(pool, slab) * 8 if card
                else fidx.num_slots * 12)
+        gt = self.whitener is not None     # the backstop store's layout
         if bs:
             wemb, half = self._wemb_device()
-            kernel = wemb.dtype == torch.bfloat16   # GT layout (Dw, Sw)
-            Sw = wemb.shape[1] if kernel else wemb.shape[0]
-            row += (Sw // slab * min(bs, slab) * 8 if card and kernel
+            Sw = wemb.shape[1] if gt else wemb.shape[0]
+            row += (Sw // slab * min(bs, slab) * 8 if card and gt
                     else Sw * 12)
         if not card:
             row = max(row, (pool + bs) * emb.shape[1] * 4)
@@ -564,7 +692,7 @@ class CobwebIndex:
         nv = min(n_indexed, len(self.sentences))
         outs = [index_mod.fused_query_rerank(
             fidx, emb, q[s:s + bmax], qs[s:s + bmax], kk, pool, wemb=wemb,
-            half_norm2=half, n_valid=nv, bs=bs, prior_var=pv)
+            half_norm2=half, n_valid=nv, bs=bs, prior_var=pv, gt_layout=gt)
             for s in range(0, q.shape[0], bmax)]
         return (torch.cat([o[0] for o in outs]),
                 torch.cat([o[1] for o in outs]))
@@ -921,8 +1049,10 @@ class CobwebIndex:
             sentence_is_none=np.asarray([s is None for s in self.sentences],
                                         bool))
         emb = self._emb_device()
-        if emb is not None:
-            extras["vectors"] = emb[:len(self.sentences)].cpu().numpy()
+        if emb is not None:       # the exact rows, whatever the store holds
+            n = len(self.sentences)
+            extras["vectors"] = (self._emb_host if self._emb_host is not None
+                                 else emb)[:n].cpu().numpy()
         if self.whitener is not None:
             extras["whitener_pickle"] = np.frombuffer(
                 files.whitener_pickle(self.whitener), np.uint8)

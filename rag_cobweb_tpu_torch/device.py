@@ -12,6 +12,8 @@ import torch
 
 
 def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``, a card with its index (``"cuda"``
+    is the current card), so it compares equal to its tensors' device."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -19,6 +21,8 @@ def resolve_device(device="cuda") -> torch.device:
             "port on the host")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

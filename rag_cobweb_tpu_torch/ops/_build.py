@@ -37,6 +37,7 @@ _SIGNATURES = {
     },
     "rerank_l2": {
         "rerank_l2": [_P] * 5 + [_I] * 3 + [_F, _F, _P],
+        "rerank_l2_bf16": [_P] * 5 + [_I] * 3 + [_F, _F, _P],
     },
 }
 _libs: dict = {}

@@ -25,6 +25,13 @@ is a lane-batched product and a per-hop gather over ``(K, B, S)``.
 
 ``beam_topk`` (the wrapper's ``predict``) runs the packed beam of
 ``core/index.py`` over the flat forest index, lane-fair by default.
+
+Memory tools of a large index, as in the JAX package: ``compress_stats``
+stores ``means``/``m2s`` in bf16 after the build (every read upcasts);
+``offload_state`` moves the state to host memory once the serving index
+exists (the next add or index build moves it back first); a forest built
+on the host (``build_device="cpu"``) moves to its serving device with
+``to_device``.
 """
 
 from __future__ import annotations
@@ -151,16 +158,23 @@ class VForest:
 
     def __init__(self, cfg: TreeConfig, n_subtrees: int = 16,
                  capacity_per_tree: int = 4096, seed: int = 0,
-                 routing: str = "round_robin", device="cuda"):
+                 routing: str = "round_robin", device="cuda",
+                 build_device=None):
         """``routing``: ``"round_robin"`` (lane = global id % K) or
         ``"content"`` (the nearest lane centroid, balanced by a load cap;
         centroids start from a short k-means on the first batch and track
         their lane's running mean).  Content routing packs near-duplicate
         groups into one lane, so with ``absorb_depth == 0`` it sets
-        ``absorb_depth=24``, as the JAX package does."""
+        ``absorb_depth=24``, as the JAX package does.
+
+        ``device`` is the serving device; ``build_device`` (None: the
+        same) is where the state lives and the inserts run until
+        ``to_device()`` moves them to ``device``."""
         if routing not in ("round_robin", "content"):
             raise ValueError(f"unknown routing {routing!r}")
-        self.device = resolve_device(device)
+        self.serve_device = resolve_device(device)
+        self.device = (self.serve_device if build_device is None
+                       else resolve_device(build_device))
         full_f32_matmul()
         if routing == "content" and cfg.absorb_depth == 0:
             cfg = dataclasses.replace(cfg, absorb_depth=24)
@@ -191,10 +205,72 @@ class VForest:
         self._beam_src = None     # the flat index the beam index is of
         self._beam_depth = 1
 
+    # ---------------------------------------------------------------- #
+    # memory tools: compression, offload, the move between devices    #
+    # ---------------------------------------------------------------- #
+    def _drop_caches(self):
+        """Drop the step graph and the indexes built from the state."""
+        self._graph = None
+        self._flat_index = None
+        self._stacked_index = None
+        self._beam_idx = None
+        self._beam_src = None
+
+    def _resident(self) -> tree_mod.TreeState:
+        """The state, moved back to ``self.device`` first if
+        ``offload_state`` put it on the host: every reader of the state
+        but serving goes through here."""
+        if self.state.device != self.device:
+            self.state = tree_mod.state_to(self.state, self.device)
+        return self.state
+
+    def to_device(self, device=None):
+        """Move the forest to ``device`` (None: its serving device, the
+        card by default), the step after a build on the host: the state,
+        and the descent's generator, seeded from the old one's next draw
+        (a CPU and a CUDA generator draw different streams).  The indexes
+        built on the old device are dropped; the next query builds them
+        on the new one."""
+        target = (self.serve_device if device is None
+                  else resolve_device(device))
+        if target == self.device and self.state.device == target:
+            return
+        self.state = tree_mod.state_to(self.state, target)
+        if target != self.device:
+            seed = int(torch.randint(2 ** 62, (1,), generator=self._gen,
+                                     device=self.device))
+            self._gen = torch.Generator(device=target)
+            self._gen.manual_seed(seed)
+        self.device = target
+        self._drop_caches()
+
+    def compress_stats(self, dtype=None):
+        """At-rest stats compression, as in the JAX package: ``means`` and
+        ``m2s`` cast to ``dtype`` (None: bf16), once (a second call is a
+        no-op).  After the build by design: bf16 storage during Welford
+        accumulation freezes the statistics once the increments fall
+        under its rounding, while one rounding of the final values shifts
+        scores by ~2^-9 relative.  Adds still work on a compressed state
+        (the descent reads f32 and rounds its writes).  The step graph and
+        the indexes of the f32 stats are dropped."""
+        st = tree_mod.compress_state(self.state, dtype)
+        if st is not self.state:
+            self.state = st
+            self._drop_caches()
+
+    def offload_state(self):
+        """Serve-only mode: the whole state to host memory (pinned from
+        the card), the step graph dropped.  Serving an index that exists
+        never reads the state; the next add or index build moves it back
+        to ``self.device`` first."""
+        self._graph = None
+        self.state = tree_mod.state_to(self.state, "cpu")
+
     def _ensure_capacity(self, rounds: int):
         """Grow every lane when the next ``rounds`` inserts could overflow
         (at most 2 fresh nodes per insert), checking the host bound first
         and the lanes' real counts only when the bound says grow."""
+        self._resident()
         cap = self.state.capacity
         needed = self._alloc_hi + 2 * rounds + 8
         if needed <= cap:
@@ -226,7 +302,7 @@ class VForest:
         current state arrays (recaptured after they are reallocated)."""
         if self.device.type != "cuda":
             return None
-        if self._graph is None or not self._graph.matches(self.state):
+        if self._graph is None or not self._graph.matches(self._resident()):
             self._graph = tree_mod.StepGraph(self.state, self.cfg)
         return self._graph
 
@@ -395,10 +471,10 @@ class VForest:
         routing) each lane's root mean stands for its centroid."""
         L = min(n_lanes, self.K)
         cent = None
-        if self._centroids is None:
+        if self._centroids is None:     # read where the state is
             st = self.state
-            cent = st.means[torch.arange(self.K, device=self.device),
-                            st.root].cpu().numpy()
+            cent = st.means[torch.arange(self.K, device=st.device),
+                            st.root].float().cpu().numpy()
         s = self._lane_scores(np.atleast_2d(np.asarray(queries, np.float32)),
                               centroids=cent)
         if L >= self.K:
@@ -421,6 +497,7 @@ class VForest:
         gids = np.arange(self.n_sentences, self.n_sentences + B)
         if B == 0:
             return gids
+        self._resident()
         self._flat_index = None
         self._stacked_index = None
         lane_of = (self._route_lanes(xs.cpu().numpy())
@@ -475,7 +552,7 @@ class VForest:
         if self.cfg.absorb_depth:
             chase = max(chase, self.cfg.absorb_depth + 8)
         return index_mod.build_fused_from_state(
-            self.cfg, self.state, self._leaf_global(), dtype=dtype,
+            self.cfg, self._resident(), self._leaf_global(), dtype=dtype,
             chase_depth=chase)
 
     def flat_index(self) -> "index_mod.PredictionIndex":
@@ -484,7 +561,7 @@ class VForest:
         the blocked engines; cached until the next ``add``."""
         if self._flat_index is None:
             self._flat_index = index_mod.build_flat_forest_index(
-                self.cfg, self.state, self._leaf_global())
+                self.cfg, self._resident(), self._leaf_global())
         return self._flat_index
 
     def beam_index(self) -> "index_mod.BeamIndex":
@@ -562,7 +639,7 @@ class VForest:
         the next ``add``."""
         if self._stacked_index is None:
             self._stacked_index = build_stacked_index(
-                self.cfg, self.state, self._leaf_of_local, self.shard_of,
+                self.cfg, self._resident(), self._leaf_of_local, self.shard_of,
                 self.local_sid, self.n_sentences)
         return self._stacked_index
 
@@ -591,7 +668,9 @@ class VForest:
         """Write the forest in the JAX ``VForest.save_npz`` layout (state
         fields ``st_*``, bookkeeping, router state), so either package
         loads it.  ``__key__`` is ``jax.random.PRNGKey(seed)``'s raw
-        form, ``[0, seed]`` in uint32."""
+        form, ``[0, seed]`` in uint32.  Compressed stats are written as
+        the JAX package writes them, bf16 bits as 2-byte records (which
+        its own ``load_npz`` cannot read back; this package's can)."""
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         n_local = np.asarray([len(lst) for lst in self._leaf_of_local])
         leaf_mat = np.full((self.K, max(int(n_local.max(initial=0)), 1)),
@@ -614,7 +693,7 @@ class VForest:
             local_sid=np.asarray(self.local_sid, np.int64),
             leaf_of_local=leaf_mat, n_local=n_local, **routing,
             **{f"st_{k}": v for k, v in
-               tree_mod.state_to_numpy(self.state).items()},
+               tree_mod.state_to_numpy(self.state, raw=True).items()},
             **extra_arrays)
 
     _NPZ_KEYS = {"__forest__", "__cfg__", "__key__", "n_sentences",

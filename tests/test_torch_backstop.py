@@ -94,7 +94,8 @@ def test_backstop_topk_masks_and_ranks_by_l2():
     GT = _gt_store(W)
     half_p = torch.zeros(GT.shape[1])
     half_p[:64] = torch.as_tensor(half)
-    top, ids = tidx.backstop_topk(GT, half_p, torch.as_tensor(q), 5, 32)
+    top, ids = tidx.backstop_topk(GT, half_p, torch.as_tensor(q), 5, 32,
+                                  True)
     ids = ids.numpy()
     assert (ids < 32).all()          # masked rows never surface
     assert (ids[:, 0] == np.arange(4)).all()   # nearest row wins
@@ -125,7 +126,7 @@ def test_backstop_topk_equals_jax_on_the_same_store(dtype):
         else:
             store, half_p = torch.as_tensor(W), torch.as_tensor(half)
         ts, ti = tidx.backstop_topk(store, half_p, torch.as_tensor(q), c,
-                                    n_valid)
+                                    n_valid, dtype == "bfloat16")
         js, ji = jidx.backstop_topk(
             jnp.asarray(W, getattr(jnp, dtype)), jnp.asarray(half),
             jnp.asarray(q), c, jnp.asarray(n_valid, jnp.int32),
@@ -273,9 +274,9 @@ def test_whitener_forest_serves_jax_ids_with_the_backstop(forests, rerank,
     calls = []
     orig = tidx.backstop_topk
 
-    def spy(wemb, half, queries, c, n_valid):
+    def spy(wemb, half, queries, c, n_valid, *layout):
         calls.append((c, n_valid, wemb.dtype))
-        return orig(wemb, half, queries, c, n_valid)
+        return orig(wemb, half, queries, c, n_valid, *layout)
 
     monkeypatch.setattr(tidx, "backstop_topk", spy)
     want = np.asarray(jdb.query_ids(data.query_embs, 10, rerank=rerank))
@@ -295,9 +296,9 @@ def test_backstop_chunks_keep_the_served_ids(forests, monkeypatch):
     calls = []
     orig = tidx.backstop_topk
 
-    def spy(wemb, half, queries, c, n_valid):
+    def spy(wemb, half, queries, c, n_valid, *layout):
         calls.append(len(queries))
-        return orig(wemb, half, queries, c, n_valid)
+        return orig(wemb, half, queries, c, n_valid, *layout)
 
     monkeypatch.setattr(tidx, "backstop_topk", spy)
     fidx, (GT, _) = tdb._fused_index(), tdb._wemb_device()

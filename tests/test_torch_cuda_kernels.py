@@ -867,9 +867,10 @@ def test_backstop_pool_through_kernel_1_matches_plain(card, B, c):
     half = 0.5 * torch.sum(torch.square(GT.float()), dim=0)
     q = torch.randn((B, Dw), generator=g, device=card)
     before = fused_topk.slab_topk.launches
-    ks, ki = backstop_topk(GT, half, q, c, n_valid)
+    ks, ki = backstop_topk(GT, half, q, c, n_valid, True)
     assert fused_topk.slab_topk.launches == before + 1
-    ps, pi = backstop_topk(GT.cpu(), half.cpu(), q.cpu(), c, n_valid)
+    ps, pi = backstop_topk(GT.cpu(), half.cpu(), q.cpu(), c, n_valid,
+                           True)
     ks, ki = ks.cpu(), ki.cpu().long()
     fin = torch.isfinite(ps)
     assert torch.equal(fin, torch.isfinite(ks))
@@ -1049,3 +1050,136 @@ def test_predict_on_the_card_equals_the_host(card, lanes, routing):
     (_, hb, hf), (cdb, cb, cf) = out["cpu"], out[str(card)]
     probes.hold_beam(cdb, q, hb, cb)
     assert cf == hf
+
+
+@pytest.mark.parametrize("B,D,S,C", [(1, 768, 3000, 300),
+                                     (32, 50, 3000, 300),
+                                     (1024, 768, 3000, 300),
+                                     (1024, 766, 3000, 300),
+                                     (1024, 50, 500, 300),
+                                     (32, 768, 1 << 20, 1024),
+                                     (1024, 768, 1 << 20, 1024)])
+def test_rerank_bf16_entry_matches_plain(card, B, D, S, C):
+    """Kernel 5's bf16-row entry (the bf16 re-rank store) against its
+    plain version (the gathered rows upcast): B = 1, 32 and 1024, D = 50,
+    766 (scalar loads) and 768 (16-byte loads of 8 values), ids repeated
+    within a query's list, one query with every candidate -inf, and 1M
+    rows; keys within 1e-5 of the f32 entry's tolerance, one launch of
+    the bf16 entry each."""
+    from rag_cobweb_tpu_torch.ops import rerank
+    g = torch.Generator(device=card).manual_seed(B + D + C + 7)
+    emb = torch.randn((S, D), generator=g, device=card).to(torch.bfloat16)
+    q = torch.randn((B, D), generator=g, device=card)
+    cand = torch.randint(0, S, (B, C), generator=g, device=card,
+                         dtype=torch.int32)
+    cand[:, 1::3] = cand[:, ::3][:, :cand[:, 1::3].shape[1]]
+    cs = torch.randn((B, C), generator=g, device=card)
+    cs[:, ::7] = -math.inf
+    cs[B // 2] = -math.inf
+    pv = 1.0 / (2.0 * math.e * math.pi)
+    n0, b0 = rerank.rerank_lp.launches, rerank.rerank_lp.launches_bf16
+    lk = rerank.rerank_lp(emb, q, cand, cs, pv)
+    assert (rerank.rerank_lp.launches - n0,
+            rerank.rerank_lp.launches_bf16 - b0) == (1, 1)
+    lp = rerank.rerank_lp_plain(emb, q, cand, cs, pv)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(lp)
+    assert torch.equal(fin, torch.isfinite(lk))
+    assert not bool(fin[B // 2].any())
+    torch.testing.assert_close(lk[fin], lp[fin], rtol=1e-5, atol=0.0)
+    dup = cand[:, 1::3] == cand[:, ::3][:, :cand[:, 1::3].shape[1]]
+    both = fin[:, 1::3] & fin[:, ::3][:, :dup.shape[1]]
+    assert torch.equal(lk[:, 1::3][dup & both],
+                       lk[:, ::3][:, :dup.shape[1]][dup & both])
+
+
+def _tool_forest(card, dev, n=600, D=16, lanes=8, **kw):
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    rng = np.random.default_rng(17)
+    centers = rng.normal(scale=3.0, size=(8, D))
+    xs = (centers[rng.integers(0, 8, n + 64)]
+          + 0.5 * rng.normal(size=(n + 64, D))).astype(np.float32)
+    db = CobwebIndex(config=TreeConfig(dim=D), n_subtrees=lanes,
+                     device=dev, **kw)
+    db.add_sentences([None] * n, xs[:n])
+    db.blocked_threshold = 256        # the fused engine, kernels 1 and 5
+    db.fused_dtype = "float32"
+    return db, xs
+
+
+def test_compress_and_offload_on_the_card(card):
+    """A forest built on the card: ``compress_stats`` makes new state
+    tensors, so the next add recaptures the step graph (never replays the
+    f32 one); ``offload_state`` frees the state's device bytes into pinned
+    host memory, serving keeps its ids, and an add brings the state back
+    before the descent; each added row comes back first as itself."""
+    from rag_cobweb_tpu_torch.core import tree as tree_mod
+    db, xs = _tool_forest(card, card)
+    q = xs[:600:7] + 0.05
+    f = db.forest
+    graph = f._graph
+    db.compress_stats()
+    assert f.state.means.dtype == torch.bfloat16 and f._graph is None
+    ids0 = db.query_ids(q, 10, rerank=32).cpu().numpy()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(card)
+    nbytes = tree_mod.state_bytes(f.state)
+    db.offload_state()
+    torch.cuda.synchronize()
+    assert before - torch.cuda.memory_allocated(card) >= nbytes
+    assert f.state.device.type == "cpu" and f.state.means.is_pinned()
+    np.testing.assert_array_equal(
+        db.query_ids(q, 10, rerank=32).cpu().numpy(), ids0)
+    assert f.state.device.type == "cpu"
+    db.add_sentences([None] * 32, xs[600:632])
+    assert f.state.device.type == "cuda"
+    assert f._graph is not None and f._graph is not graph
+    assert f._graph.matches(f.state)
+    got = db.query_ids(xs[600:632], 1, rerank=32).cpu().numpy()[:, 0]
+    np.testing.assert_array_equal(got, np.arange(600, 632))
+
+
+def test_cpu_build_promoted_to_the_card(card):
+    """``build_device="cpu"``: the forest's state, the inserts and the
+    stores stay on the host; ``promote_build_device`` moves the forest and
+    every store and index to the card, which serves the host's ids, and
+    the build equals a card build of the same rows leaf for leaf."""
+    host_db, xs = _tool_forest(card, card, build_device="cpu")
+    card_db, _ = _tool_forest(card, card)
+    assert host_db.device.type == "cpu"
+    assert host_db.forest.state.device.type == "cpu"
+    assert host_db.forest.serve_device.type == "cuda"
+    np.testing.assert_array_equal(host_db.forest._leaf_global(),
+                                  card_db.forest._leaf_global())
+    q = xs[:600:7] + 0.05
+    want = host_db.query_ids(q, 10, rerank=32).numpy()
+    host_db.promote_build_device()
+    assert host_db.device.type == "cuda"
+    assert host_db.forest.state.device.type == "cuda"
+    assert host_db._emb_device().device.type == "cuda"
+    assert host_db._fused.GT.device.type == "cuda"
+    for x in (host_db, card_db):
+        np.testing.assert_array_equal(
+            x.query_ids(q, 10, rerank=32).cpu().numpy(), want)
+    host_db.add_sentences([None] * 32, xs[600:632])
+    got = host_db.query_ids(xs[600:632], 1, rerank=32).cpu().numpy()[:, 0]
+    np.testing.assert_array_equal(got, np.arange(600, 632))
+
+
+def test_bf16_store_serves_through_its_entry(card):
+    """``emb_store_dtype = "bfloat16"`` on the card: the store is rebuilt
+    in bf16, each served batch launches kernel 5's bf16 entry, and the ids
+    equal the host's over the same bf16 store (its plain version)."""
+    from rag_cobweb_tpu_torch.ops import rerank
+    out = []
+    for dev in ("cpu", card):
+        db, xs = _tool_forest(card, dev)
+        db.emb_store_dtype = "bfloat16"
+        q = xs[:600:7] + 0.05
+        b0 = rerank.rerank_lp.launches_bf16
+        out.append(db.query_ids(q, 10, rerank=32).cpu().numpy())
+        assert db._emb_device().dtype == torch.bfloat16
+        if dev != "cpu":
+            assert rerank.rerank_lp.launches_bf16 - b0 == 1
+    np.testing.assert_array_equal(out[1], out[0])
