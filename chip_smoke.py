@@ -131,6 +131,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    0.25), each served at pool 1024 with its recall@10 and the golds its
    pool leaves out printed, then ``set_level_weights`` of the defaults,
    whose ids must equal the first serving's;
+3h. the last single-chip modules (``whitener_forests``,
+   ``classifier_slice``, ``blocked_rerank_hold``, ``grouped_pool_probe``):
+   (a) the flagship settings on a ZCA whitener and on a PCA+ZCA whitener
+   (0.96), each fitted on the host (its time printed), built on the card
+   (inserts/s) with the tree as wide as the rows (768, so kernel 1
+   sweeps 2D = 1536), served by the fused engine in a counter window
+   (kernels 1 and 5 must launch, no f32 entry), its ids held against the
+   same pipeline in plain PyTorch (``probes.plain_check``) and its
+   recall@10 within 0.005 of that pipeline's; recall@10 beside the exact
+   scan's, ms/query at B = 1000, 1 and 32, the stage split of one batch,
+   kernel 1 held and timed on the served index and kernel 5 on the served
+   pools; each index saved (its whitener pickle under the JAX class name)
+   and loaded back on the card, serving the same ids; on the ZCA forest
+   ``vforest_beam_topk`` at B=32 held against a host copy; (b) the
+   labeled classifier (16 Gaussian classes at 768-d, 1024 rows fitted on
+   the card, 512 held out): inserts/s, ``predict_probs`` with and without
+   ``max_nodes`` within 1e-5 of its host copy, held-out accuracy at least
+   0.9; (c) ``blocked_query_topk_rerank`` on phase 3b's served blocked
+   index at B=1024 (run inside 3b's hook), timed and held against a host
+   copy on 64 queries, and ``grouped_pool_topk`` on random (256, 2^20)
+   scores: each score its id's, overlap with the exact top-512 above
+   0.995, timed beside ``torch.topk``;
 4. one JSON line of per-kernel numbers, a row per CUDA kernel entry
    (kernel 1 at the flagship shape, with its single-tree record under
    ``single_tree``; kernel 5 on the flagship's served pools, likewise; the
@@ -143,7 +165,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    kernel 5's at the pending tier under ``pending``, on the small
    forest's served pools under ``small_forest``, its content-routed record
    inside that, and its bf16-row entry under ``bf16``: phase 3g's served
-   pools, with 1M random rows under ``M1``), the nvidia-smi line, and the
+   pools, with 1M random rows under ``M1``; kernels 1 and 5 on phase 3h's
+   ZCA forest under ``zca``, its PCA+ZCA twin inside that), the
+   nvidia-smi line, and the
    final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -153,6 +177,7 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import subprocess
@@ -1246,6 +1271,278 @@ def memory_tools_slice(db, data, zero, read, device="cuda", batch=1024,
     return out
 
 
+WHITENER_KINDS = ("zca", "pcazca")
+# The JAX package's recall@10 at phase 3h's settings where it is below the
+# exact scan's (0.906): full-rank ZCA lifts the low-variance directions to
+# unit variance, and the 1024-row path-score pool of the ZCA forest leaves
+# out 83 golds in both packages, the same queries
+# (scripts/torch_whitener_recall.py --whitener zca, on the CPU: JAX 0.885,
+# port 0.885).  ZCA does not depend on the host's numpy (its matrix does
+# not depend on the eigenvectors' signs), so the card's build is the same.
+JAX_RECALL = {"zca": (0.885, "the JAX package's")}
+
+
+def whitener_forests(headline, zero, read, out_dir: Path, device="cuda",
+                     corpus_size=10000, queries=1000, dim=768, pool=1024,
+                     threshold=8192, card=True) -> dict:
+    """Phase 3h (a): the flagship settings (hard corpus, 32 lanes, k=10,
+    pool 1024, fused engine) on a ZCA whitener (full rank) and on a
+    PCA+ZCA whitener (``pca_dim=0.96``): the tree as wide as the raw rows,
+    so kernel 1 sweeps 2D = 2 ``dim``.  Each is fitted on the host, built
+    on ``device`` and served in a counter window (kernels 1 and 5 must
+    launch), its ids held against the same pipeline in plain PyTorch
+    (``probes.plain_check``: equal but at ties it shows); then, outside
+    the window, the stage split of one batch, kernel 1 held and timed on
+    the served index and kernel 5 on the served pools (``card``); the
+    index saved (its whitener pickle under the JAX class name) and loaded
+    back, whose ids must equal the original's; on the ZCA forest
+    ``vforest_beam_topk`` at B=32, held against a host copy of the stacked
+    index.  ``threshold`` is the forest's ``blocked_threshold`` (lowered
+    for a host rehearsal at a small size, so the fused engine serves);
+    ``card`` False leaves out the counters, CUDA events and kernels.
+    Returns a record per whitener."""
+    from rag_cobweb_tpu_torch.bench.metrics import to_host
+    from rag_cobweb_tpu_torch.bench.probes import plain_check, stage_split
+    from rag_cobweb_tpu_torch.core.index import fused_query_topk
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    from rag_cobweb_tpu_torch.files import JAX_WHITENER_MODULE
+    from rag_cobweb_tpu_torch.ops import fused_topk, rerank
+    out = {}
+    for kind in WHITENER_KINDS:
+        wf = out[kind] = {}
+
+        def hook(event, engine, db, data, wf=wf, kind=kind):
+            if event == "start":
+                db.blocked_threshold = threshold
+                zero()
+                return
+            wf["window"] = read()
+            q = data.query_embs
+            wf["B"] = len(q)
+            served = to_host(db.query_ids(q, 10, rerank=pool))
+            # the served ids' digest, as scripts/torch_whitener_recall.py
+            # prints the host builds'
+            wf["ids_sha256"] = hashlib.sha256(
+                np.ascontiguousarray(served, np.int64).tobytes()
+            ).hexdigest()[:16]
+            wf["plain"] = plain_check(db, q, served, 10, pool, 0, 1024,
+                                      data.corpus_embs, data.target_ids)
+            wf["plain"]["served_recall@10"] = recall10(served,
+                                                       data.target_ids)
+            wf["fused_shape"] = list(db._fused_index().GT.shape)
+            raw = torch.as_tensor(q, device=device)
+            qw = db.whitener.transform_torch(raw)
+            if card:
+                wf["split"] = stage_split(db, q, 10, pool)
+                fidx = db._fused_index()
+                wf["fused"] = check_fused(
+                    fused_topk, fused_topk.query_terms(qw, fidx.GT.dtype),
+                    fidx.GT, fidx.c, fidx.valid, pool, reps=10,
+                    label=f" ({kind} forest, served index)", real=True)
+                cs, cand = fused_query_topk(fidx, qw, pool)
+                wf["rerank"] = check_rerank(
+                    rerank, db._emb_device(), raw,
+                    cand.to(torch.int32).contiguous(), cs.contiguous(),
+                    reps=10, label=f" ({kind} forest, served pools)",
+                    pv=float(db.cfg.prior_var))
+                del cs, cand
+            # the file: the whitener pickle under the JAX class's name
+            out_dir.mkdir(parents=True, exist_ok=True)
+            path = out_dir / f"{kind}_forest.npz"
+            t0 = time.perf_counter()
+            db.save(str(path))
+            wf["save_s"] = time.perf_counter() - t0
+            with np.load(path) as f:
+                stream = bytes(f["whitener_pickle"])
+            name = type(db.whitener).__name__
+            if f"{JAX_WHITENER_MODULE}\n{name}\n".encode() not in stream:
+                raise AssertionError(f"{kind}: the saved whitener is not "
+                                     f"pickled as the JAX {name}")
+            loaded = CobwebIndex.load(str(path), device=db.device)
+            loaded.blocked_threshold = threshold
+            if type(loaded.whitener) is not type(db.whitener):
+                raise AssertionError(f"{kind}: loaded a "
+                                     f"{type(loaded.whitener).__name__}")
+            if not np.array_equal(to_host(loaded.query_ids(
+                    q, 10, rerank=pool)), served):
+                raise AssertionError(f"{kind}: the loaded copy serves "
+                                     "other ids")
+            del loaded
+            if kind == "zca":
+                wf["beam"] = vforest_beam_hold(db, qw[:32])
+
+        wf["rec"] = headline.run(
+            corpus_size=corpus_size, queries=queries, dim=dim, pca_dim=0.96,
+            k=10, batch=1024, dataset="hard", n_lanes=32, rerank=pool,
+            device=device, whitener=kind, log=lambda *a: log(*a),
+            hook=hook)[0]
+        rec = wf["rec"]
+        log(json.dumps(rec))
+        if card and not (wf["window"]["fused_topk"] > 0
+                         and wf["window"]["rerank_l2"] > 0
+                         and wf["window"]["fused_topk_f32"] == 0):
+            raise AssertionError(f"{kind}: the forest did not serve "
+                                 f"through kernels 1 and 5: {wf['window']}")
+        if rec["tree_dim"] != dim or rec["whitener"] != kind:
+            raise AssertionError(f"{kind}: the forest ran as {rec}")
+        if abs(rec["recall@10"] - wf["plain"]["plain_recall@10"]) > 0.005:
+            raise AssertionError(
+                f"{kind}: recall@10 {rec['recall@10']} is more than 0.005 "
+                f"from its plain pipeline's "
+                f"{wf['plain']['plain_recall@10']}")
+    return out
+
+
+def vforest_beam_hold(db, qw) -> dict:
+    """``vforest_beam_topk`` (the per-lane oracle beam, plain PyTorch) on
+    a served forest's stacked index and on a host copy of it: the same
+    ids, or the row's beam scores show a tie within 1e-5 of the largest
+    |score| (rows of one leaf tie, and the two devices sum in other
+    orders).  Returns the record, with the card's time."""
+    from rag_cobweb_tpu_torch.parallel.vforest import (_vforest_beam,
+                                                       vforest_beam_topk)
+    stacked = db.forest.build_index()
+    host = stacked._replace(**{f: getattr(stacked, f).cpu()
+                               for f in stacked._fields})
+    got = vforest_beam_topk(stacked, qw, 10)
+    want = vforest_beam_topk(host, qw.cpu(), 10)
+    differ = np.nonzero((want != got).any(axis=1))[0]
+    if len(differ):
+        scores = _vforest_beam(host, qw.cpu(), 10, 32, 16)[0]
+        for b in differ:
+            s = torch.sort(scores[:, b].reshape(-1), descending=True).values
+            s = s[s > -1e38]
+            if not bool(((s[:-1] - s[1:]) <= 1e-5 * s.abs().max()).any()):
+                raise AssertionError(f"vforest_beam_topk, query {b}: ids "
+                                     "differ from the host's at no tie")
+    return {"B": len(qw), "queries_differing_from_host": len(differ),
+            "ms": median_ms(lambda: vforest_beam_topk(stacked, qw, 10),
+                            reps=3)}
+
+
+def classifier_slice(device="cuda", n_classes=16, dim=768, n_fit=1024,
+                     n_test=512, max_nodes=64, card=True) -> dict:
+    """Phase 3h (b): the labeled classifier on the JAX test's recipe at
+    the encoder's width (``n_classes`` Gaussian clusters, centres at
+    scale 4, noise 0.4; ``n_fit`` rows fitted, ``n_test`` held out), a
+    single-tree build on ``device`` with its inserts/s, ``predict_probs``
+    with and without the ``max_nodes`` cut held within 1e-5 of the same
+    classifier's host copy (its state moved to the CPU, the plain path),
+    and held-out accuracy of at least 0.9.  Returns the record."""
+    from rag_cobweb_tpu_torch.core.classifier import CobwebClassifier
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.core.tree import CobwebTree, state_to
+    rng = np.random.default_rng(0)
+    centers = rng.normal(scale=4.0, size=(n_classes, dim))
+    per = -(-(n_fit + n_test) // n_classes)
+    X = np.concatenate([c + 0.4 * rng.normal(size=(per, dim))
+                        for c in centers]).astype(np.float32)
+    y = [f"class_{i // per}" for i in range(len(X))]
+    order = rng.permutation(len(X))[:n_fit + n_test]
+    X, y = X[order], [y[i] for i in order]
+    clf = CobwebClassifier(TreeConfig(dim=dim), capacity=4 * n_fit,
+                           seed=0, device=device)
+    if card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clf.fit(X[:n_fit], y[:n_fit])
+    if card:
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    host_tree = CobwebTree(clf.cfg, capacity=8, device="cpu")
+    host_tree.state = state_to(clf.tree.state, "cpu")
+    host = CobwebClassifier.__new__(CobwebClassifier)
+    host._setup(host_tree, clf.alpha, clf.reverse_labels,
+                clf.sentence_labels, clf.leaf_of_sentence)
+    Xt, yt = X[n_fit:], y[n_fit:]
+    rec = {"rows": n_fit, "dim": dim, "classes": n_classes,
+           "inserts_per_s": n_fit / fit_s, "fit_s": fit_s,
+           "nodes": int(clf.tree.state.n_alloc[0])}
+    for cut in (None, max_nodes):
+        got, want = clf.predict_probs(Xt, cut), host.predict_probs(Xt, cut)
+        err = float(np.abs(got - want).max())
+        if not err <= 1e-5:
+            raise AssertionError(f"classifier max_nodes={cut}: the card's "
+                                 f"probabilities differ from the host copy's "
+                                 f"by {err}")
+        rec[f"max_abs_err max_nodes={cut}"] = err
+        rec[f"accuracy max_nodes={cut}"] = float(np.mean(
+            [clf.reverse_labels[int(i)] == t
+             for i, t in zip(got.argmax(axis=1), yt)]))
+        rec[f"predict_probs_ms max_nodes={cut}"] = median_ms(
+            lambda: clf.predict_probs(Xt, cut), reps=3)
+    if not rec["accuracy max_nodes=None"] >= 0.9:
+        raise AssertionError(f"classifier: held-out accuracy "
+                             f"{rec['accuracy max_nodes=None']} < 0.9")
+    return rec
+
+
+def blocked_rerank_hold(db, qw, k=10, rerank=512, n_host=64,
+                        reps=3) -> dict:
+    """Phase 3h (c), on a served blocked index (phase 3b's):
+    ``blocked_query_topk_rerank`` (the blocked sweep in PyTorch, as XLA
+    computes it in the JAX package, then the leaf log-prob re-rank) timed
+    at the batch of ``qw``, and its ids on the first ``n_host`` queries
+    held against a host copy of the two indexes: equal, or the two ids'
+    leaf log-probs within 1e-5 of their terms of each other (ties of rows
+    of one leaf, or of a bf16 sweep summed in another order).  Returns the
+    record (``reps`` 0, a host rehearsal: untimed)."""
+    from rag_cobweb_tpu_torch.core.index import blocked_query_topk_rerank
+    bidx, idx = db._blocked_index(), db._flat_pred_index()
+
+    def run():
+        return blocked_query_topk_rerank(bidx, idx, qw, k, rerank)
+
+    gs, gi = (t[:n_host].cpu() for t in run())
+    hb = bidx._replace(**{f: getattr(bidx, f).cpu() for f in bidx._fields})
+    hi = idx._replace(**{f: getattr(idx, f).cpu() for f in idx._fields
+                         if isinstance(getattr(idx, f), torch.Tensor)})
+    q = qw[:n_host].cpu()
+    ws, wi = blocked_query_topk_rerank(hb, hi, q, k, rerank)
+    ids = torch.cat([wi, gi], dim=1)
+    leaf = (hi.paths.gather(1, ((hi.paths >= 0).sum(1) - 1).clamp(min=0)
+                            .unsqueeze(1))[:, 0])[ids.long()]
+    x = q.float().unsqueeze(1)
+    terms = (torch.sum(x.abs() * hi.mu_over_var_T.T[leaf].abs(), -1)
+             + 0.5 * torch.sum(x * x * hi.inv_var_T.T[leaf], -1)
+             + hi.const[leaf].abs()).amax(dim=1, keepdim=True)
+    differ = wi != gi
+    if bool(((ws - gs).abs() > 1e-5 * terms).any()):
+        raise AssertionError("blocked_query_topk_rerank: a key differs from "
+                             "the host copy's beyond 1e-5 of its terms")
+    return {"B": len(qw), "NB": bidx.ivt_b.shape[0],
+            "M": bidx.ivt_b.shape[1], "TS": bidx.W.shape[2],
+            "dtype": str(bidx.W.dtype), "rerank": rerank,
+            "host_queries": n_host,
+            "tied_ids_differing_from_host": int(differ.sum()),
+            "ms": cuda_ms(run, reps) if reps else None}
+
+
+def grouped_pool_probe(B=256, S=1 << 20, k=512, reps=5) -> dict:
+    """Phase 3h (c): ``grouped_pool_topk`` on random (B, S) f32 scores on
+    the card: every (score, id) pair consistent (the score is the id's,
+    bit for bit), overlap with the exact top-k above 0.995, timed beside
+    ``torch.topk``."""
+    from rag_cobweb_tpu_torch.core.index import grouped_pool_topk
+    g = torch.Generator(device="cuda").manual_seed(15)
+    sc = torch.randn((B, S), generator=g, device="cuda")
+    top, ids = grouped_pool_topk(sc, k)
+    if not torch.equal(top, sc.gather(1, ids)):
+        raise AssertionError("grouped_pool_topk: a score is not its id's")
+    exact = torch.topk(sc, k, dim=1).indices
+    row = torch.arange(B, device="cuda").view(-1, 1) * S
+    overlap = float(torch.isin(ids + row, exact + row).float().mean())
+    if not overlap > 0.995:
+        raise AssertionError(f"grouped_pool_topk: overlap {overlap} with "
+                             "the exact top-k")
+    rec = {"B": B, "S": S, "k": k, "overlap_with_exact": overlap,
+           "ms": cuda_ms(lambda: grouped_pool_topk(sc, k), reps),
+           "topk_ms": cuda_ms(lambda: torch.topk(sc, k, dim=1), reps)}
+    del sc
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1428,6 +1725,7 @@ def main() -> int:
 
     # -- 3b. the blocked slice: the 100k cell -----------------------------
     served, served_f, served_g = {}, {}, {}
+    last = {}       # phase 3h's records
 
     def blocked_hook(event, engine, db, data):
         if event == "start":
@@ -1447,6 +1745,12 @@ def main() -> int:
                 served_g[B] = check_group(
                     fused_topk, qq, fidx.GT, fidx.c, fidx.valid, 2, reps,
                     label=" (served 100k index)")
+            return
+        if engine == "blocked":
+            # 3h (c): blocked_query_topk_rerank on the served bf16 blocked
+            # index at B=1024, held against a host copy on 64 queries
+            last["blocked_rerank"] = blocked_rerank_hold(
+                db, whitened(db, data, 1024))
             return
         if engine != "blocked_kernel":
             return
@@ -1584,6 +1888,45 @@ def main() -> int:
         f"; launches {edge['edge_window']}")
     launches["small_forest"] = small["round_robin"]["window"]["rerank_l2"]
 
+    # -- 3h. the last single-chip modules ---------------------------------
+    t3h = time.perf_counter()
+    last["forests"] = whitener_forests(headline, zero, read, out_dir)
+    last["classifier"] = classifier_slice()
+    last["grouped"] = grouped_pool_probe()
+    for kind, wf in last["forests"].items():
+        rec = wf["rec"]
+        log(f"[3h] {kind}: fit {rec['whitener_fit_s']:.2f}s, tree dim "
+            f"{rec['tree_dim']}, fused index {wf['fused_shape']}; build "
+            f"{rec['build_inserts_per_s']:.1f} inserts/s; recall@10 "
+            f"{rec['recall@10']} (exact {rec['exact_recall@10']}; plain "
+            f"pipeline {wf['plain']['plain_recall@10']}, golds outside the "
+            f"1024-row pool {wf['plain']['golds_outside_pool']}); "
+            f"ms/query B={wf['B']} "
+            f"{rec['value']:.6f}, B=1 {rec['b1_latency_ms']:.4f} ms, B=32 "
+            f"{rec['b32_latency_ms']:.6f} ms/query; save {wf['save_s']:.1f}s")
+        log(f"[3h] {kind} served vs plain: {wf['plain']}; launches "
+            f"{wf['window']}; served ids sha256 {wf['ids_sha256']}")
+        log(f"[3h] {kind} stage split, stream ms between CUDA events, one "
+            "batch: " + json.dumps(wf["split"]))
+    for kind, wf in last["forests"].items():
+        rec = wf["rec"]
+        # within 0.005 of the exact scan's recall, or, where the JAX
+        # package's own pool leaves golds out at these settings, of the
+        # JAX package's recall
+        want, of = JAX_RECALL.get(kind, (rec["exact_recall@10"],
+                                         "the exact scan's"))
+        if not rec["recall@10"] >= want - 0.005:
+            raise AssertionError(f"{kind}: recall@10 {rec['recall@10']} is "
+                                 f"more than 0.005 below {of} {want}")
+    log(f"[3h] vforest_beam_topk on the zca forest: "
+        f"{last['forests']['zca']['beam']}")
+    log(f"[3h] classifier: {json.dumps(last['classifier'])}")
+    log(f"[3h] blocked_query_topk_rerank on the 100k blocked index: "
+        f"{json.dumps(last['blocked_rerank'])}")
+    log(f"[3h] grouped_pool_topk: {json.dumps(last['grouped'])}")
+    log(f"[3h] {time.perf_counter() - t3h:.1f}s")
+    zca, pcazca = last["forests"]["zca"], last["forests"]["pcazca"]
+
     # -- 4. result lines ----------------------------------------------------
     src = "rag_cobweb_tpu_torch/csrc/"
     kernels = [
@@ -1593,7 +1936,12 @@ def main() -> int:
              single_tree=dict(launches=windows["single"]["fused_topk"],
                               **single["fused"]),
              backstop=dict(launches=launches["backstop"], **scale[1024],
-                           B1=scale[1], B32=scale[32])),
+                           B1=scale[1], B32=scale[32]),
+             # 3h: the ZCA forest's served index (2D = 1536), its PCA+ZCA
+             # twin inside
+             zca=dict(launches=zca["window"]["fused_topk"], **zca["fused"],
+                      pcazca=dict(launches=pcazca["window"]["fused_topk"],
+                                  **pcazca["fused"]))),
         dict(name="rerank_l2", route="cuda", source=src + "rerank_l2.cu",
              replaces="scripts/gather_probe.py:55",
              launches=launches["rerank_l2"], **flag["rerank"],
@@ -1609,7 +1957,10 @@ def main() -> int:
                  launches=launches["small_forest"],
                  **small["round_robin"]["rerank"],
                  content=dict(launches=small["content"]["window"][
-                     "rerank_l2"], **small["content"]["rerank"]))),
+                     "rerank_l2"], **small["content"]["rerank"])),
+             zca=dict(launches=zca["window"]["rerank_l2"], **zca["rerank"],
+                      pcazca=dict(launches=pcazca["window"]["rerank_l2"],
+                                  **pcazca["rerank"]))),
         # one CUDA kernel and counter for both TPU kernels (_kernel_v2's
         # body is _kernel): the served index at B=1024, and under "B4096"
         # at the batch of _kernel_v2's measurement

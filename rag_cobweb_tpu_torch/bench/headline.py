@@ -11,6 +11,10 @@ served on one device.
 ``bench.py`` does: a first index over 2048 rows (its time counts as the
 warm-up), then the rest added, whose rate is the build rate.
 ``--routing`` picks the forest's lanes (``CobwebIndex(routing=...)``).
+``--whitener`` picks the whitening model: ``pcaica`` (the flagship's,
+``--pca-dim`` components or variance fraction), ``zca`` (full rank, the
+tree as wide as the rows) or ``pcazca`` (``--pca-dim``, rotated back to
+the rows' full width).
 The tree or forest is built once; each ``--engine`` then serves the
 queries and prints ONE JSON line with the keys of ``bench.py`` plus
 ``device``, ``engine``, ``corpus_size``, ``n_subtrees`` and ``routing``:
@@ -48,12 +52,17 @@ from rag_cobweb_tpu_torch.bench.metrics import evaluate_retrieval, to_host
 from rag_cobweb_tpu_torch.core.config import TreeConfig
 from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
 from rag_cobweb_tpu_torch.device import resolve_device
-from rag_cobweb_tpu_torch.whitening import PCAICAWhiteningModel
+from rag_cobweb_tpu_torch.whitening import (PCAICAWhiteningModel,
+                                            PCAZCAWhiteningModel,
+                                            ZCAWhiteningModel)
 
 REF_LATENCY_MS = 53.1     # BASELINE.md: reference Cobweb PCA+ICA Fast, CPU
 REF_RECALL = 0.906        # reference cobweb, QQP roberta c=10000
 REF_EXACT_RECALL = 0.913  # reference FAISS exact, same artifact
 ENGINES = ("fused", "blocked", "blocked_kernel")
+# whitener -> (its name in the record's metric, in its log lines)
+WHITENERS = {"pcaica": ("pca_ica", "PCA+ICA"), "zca": ("zca", "ZCA"),
+             "pcazca": ("pca_zca", "PCA+ZCA")}
 
 
 def _sync(device):
@@ -70,11 +79,27 @@ def _set_engine(db: CobwebIndex, engine: str, n: int) -> None:
         db.pallas_threshold = n
 
 
+def fit_whitener(kind: str, corpus: np.ndarray, pca_dim: float):
+    """The whitening model ``kind`` fitted on ``corpus`` (PCA+ICA as the
+    flagship fits it: 500 ICA iterations on at most 10000 rows)."""
+    pca = pca_dim if pca_dim < 1 else int(pca_dim)
+    if kind == "pcaica":
+        return PCAICAWhiteningModel.fit(corpus, pca_dim=pca,
+                                        ica_max_iter=500, seed=0,
+                                        ica_sample_size=10000)
+    if kind == "pcazca":
+        return PCAZCAWhiteningModel.fit(corpus, pca_dim=pca)
+    if kind == "zca":
+        return ZCAWhiteningModel.fit(corpus)
+    raise ValueError(f"whitener must be one of {tuple(WHITENERS)}, got "
+                     f"{kind!r}")
+
+
 def run(corpus_size: int = 10000, queries: int = 1000, dim: int = 768,
         pca_dim: float = 0.96, k: int = 10, batch: int = 1024,
         dataset: str = "hard", n_lanes: int = 32, rerank: int = 1024,
         device="cuda", engines=("fused",), log=None, hook=None,
-        routing: str = "round_robin") -> list:
+        routing: str = "round_robin", whitener: str = "pcaica") -> list:
     """Build one configuration, serve it with each of ``engines`` in turn;
     returns one headline record per engine.  ``hook(event, engine, db,
     data)`` is called with ``"start"`` just before an engine serves its
@@ -89,11 +114,11 @@ def run(corpus_size: int = 10000, queries: int = 1000, dim: int = 768,
         f"{data.query_embs.shape} ({data.name})")
 
     t0 = time.perf_counter()
-    whitener = PCAICAWhiteningModel.fit(
-        data.corpus_embs, pca_dim=(pca_dim if pca_dim < 1 else int(pca_dim)),
-        ica_max_iter=500, seed=0, ica_sample_size=10000)
-    log(f"[headline] PCA+ICA fit {time.perf_counter() - t0:.1f}s -> dim "
-        f"{whitener.dim_out}")
+    kind, whitener = whitener, fit_whitener(whitener, data.corpus_embs,
+                                            pca_dim)
+    fit_s = time.perf_counter() - t0
+    metric, label = WHITENERS[kind]
+    log(f"[headline] {label} fit {fit_s:.1f}s -> dim {whitener.dim_out}")
     corpus = data.corpus_embs
     cfg, cap = TreeConfig(dim=whitener.dim_out), 4 * len(corpus) + 16
     warm_s = 0.0
@@ -148,7 +173,7 @@ def run(corpus_size: int = 10000, queries: int = 1000, dim: int = 768,
         log(f"[headline] {engine}: index build + first query "
             f"{index_s:.2f}s")
         res = evaluate_retrieval(
-            f"Cobweb PCA+ICA Fast (torch, {engine})",
+            f"Cobweb {label} Fast (torch, {engine})",
             lambda q, kk: db.query_ids(q, kk, rerank=rr),
             data.query_embs, data.target_ids, k, batch_size=batch)
         small = {}
@@ -170,7 +195,7 @@ def run(corpus_size: int = 10000, queries: int = 1000, dim: int = 768,
         log(f"[headline] {engine}: recall@{k}={res.get(f'recall@{k}')} "
             f"{ours_ms:.4f} ms/query")
         records.append({
-            "metric": f"cobweb_pca_ica_fast_query_latency_c{corpus_size}",
+            "metric": f"cobweb_{metric}_fast_query_latency_c{corpus_size}",
             "value": ours_ms,
             "unit": "ms/query",
             "vs_baseline": REF_LATENCY_MS / ours_ms,
@@ -198,6 +223,9 @@ def run(corpus_size: int = 10000, queries: int = 1000, dim: int = 768,
             "corpus_size": corpus_size,
             "n_subtrees": n_lanes,
             "routing": routing if n_lanes > 1 else None,
+            "whitener": kind,
+            "whitener_fit_s": fit_s,
+            "tree_dim": whitener.dim_out,
         })
     return records
 
@@ -216,6 +244,8 @@ def main(argv=None):
                     default="round_robin")
     ap.add_argument("--rerank", type=int, default=1024,
                     help="exact re-rank pool size; -1 = wrapper auto")
+    ap.add_argument("--whitener", choices=tuple(WHITENERS),
+                    default="pcaica")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--engine", choices=ENGINES, action="append",
                     help="serving engine, repeatable (default: fused)")
@@ -224,7 +254,7 @@ def main(argv=None):
                args.k, args.batch, args.dataset, args.vforest, args.rerank,
                args.device, engines=tuple(args.engine or ("fused",)),
                log=lambda *a: print(*a, file=sys.stderr, flush=True),
-               routing=args.routing)
+               routing=args.routing, whitener=args.whitener)
     for rec in recs:
         print(json.dumps(rec))
 

@@ -18,7 +18,8 @@ the nodes its paths touch, so a query is three batched products:
     score[b, s, t] = sum_m nlp[b, s, m] * W[s, m, t]
 
 ``blocked_query_topk`` is that product in PyTorch (the JAX package leaves
-it to XLA); the hand kernel behind the blocked engine is
+it to XLA), and ``blocked_query_topk_rerank`` re-ranks its pool by leaf
+log-prob; the hand kernel behind the blocked engine is
 ``ops/blocked_topk``.
 
 **Fused index**: the path score of sentence t is linear in its path nodes' log-prob terms,
@@ -41,7 +42,10 @@ With a backstop (``backstop_topk``: kernel 1 again, over the whitened
 store) the two pools are united (``union_candidates``) before the
 re-rank.  Rows added since the index was built are scored apart, by the
 same fresh-leaf key: ``pending_leaf_lp`` (tier 0, kernel 5) and
-``delta_exact_topk`` (tier 1, one product).
+``delta_exact_topk`` (tier 1, one product).  ``grouped_pool_topk`` (a
+strided two-level pool of a score matrix) is the JAX package's
+alternative to an approximate pool; nothing calls it, since kernel 1's
+pools are exact.
 
 **Beam search** (``predict``): ``beam_search_topk`` is the oracle (every
 beam node's full child row a level); the packed beam
@@ -428,6 +432,21 @@ def blocked_query_topk(bidx: BlockedIndex, queries: torch.Tensor, k: int):
     return top, bidx.sid_of_slot.reshape(-1)[pos]
 
 
+def blocked_query_topk_rerank(bidx: BlockedIndex, index: PredictionIndex,
+                              queries: torch.Tensor, k: int,
+                              rerank: int = 128):
+    """The blocked sweep's top-``max(rerank, k)`` pool (``blocked_scores``
+    in PyTorch, as XLA computes it in the JAX package) re-ranked by leaf
+    log-prob on ``index``, then the final top-k -> (scores (B, k), ids
+    (B, k))."""
+    scores = blocked_scores(bidx, queries)
+    B, NB, TS = scores.shape
+    c = min(max(rerank, k), NB * TS)
+    cand_scores, pos = torch.topk(scores.reshape(B, NB * TS), c, dim=1)
+    cand = bidx.sid_of_slot.reshape(-1)[pos]
+    return _leaf_lp_rerank(index, queries, cand, cand_scores, min(k, c))
+
+
 class FusedIndex(NamedTuple):
     GT: torch.Tensor     # (2D, Sp) [A | -0.5 B]^T, serving dtype
     c: torch.Tensor      # (Sp,) f32 bias, 0 on padding rows
@@ -581,6 +600,40 @@ def fused_query_topk(fidx: FusedIndex, queries: torch.Tensor, k: int):
     qq = fused_topk.query_terms(queries, fidx.GT.dtype)
     return fused_topk.merge(*fused_topk.slab_topk(
         qq, fidx.GT, fidx.c, fidx.valid, min(k, _FUSED_ROW_BUCKET)), k)
+
+
+# The JAX package would switch its pool selection to the strided two-level
+# reduction below from this many columns, and no index reaches it; kernel 1
+# selects the port's pools exactly, so nothing calls ``grouped_pool_topk``.
+_GROUPED_POOL_MIN_COLS = 1 << 62
+_GROUP = 16
+
+
+def grouped_pool_topk(scores: torch.Tensor, k: int, group: int = _GROUP):
+    """A candidate POOL of ``k`` by a strided two-level reduction ->
+    (scores (B, k) f32, ids (B, k)).  Pass 1 views the (B, Sp) scores as
+    ``group`` interleaved column blocks (column i of the reduced matrix
+    covers ids i, i + Sp/g, i + 2 Sp/g, ...) and takes the max and its
+    member; pass 2 is the exact top-k of the reduced matrix, mapped back
+    through the member.  A true top-k id is dropped only when a higher
+    score shares its strided group (the stride keeps near-duplicates, which
+    sit on adjacent ids, in separate groups).
+
+    The member comes from ``torch.max``'s exact argmax (the first maximal
+    one), so each returned score is ``scores[b, id]`` bit for bit.  The JAX
+    package packs the member into the low mantissa bits of a uint32 key and
+    takes one max, which can pair a score with another member's id when
+    two members lie within 2^-19 of each other."""
+    B, Sp = scores.shape
+    g = group
+    while Sp % g:
+        g //= 2
+    if g <= 1 or k >= Sp // g:
+        return torch.topk(scores.float(), min(k, Sp), dim=1)
+    cols = Sp // g
+    gmax, member = torch.max(scores.float().view(B, g, cols), dim=1)
+    top, pos = torch.topk(gmax, k, dim=1)
+    return top, member.gather(1, pos) * cols + pos
 
 
 def exact_rerank(emb: torch.Tensor, queries: torch.Tensor,

@@ -21,7 +21,9 @@ from rag_cobweb_tpu_torch.core.tree import CobwebTree
 from rag_cobweb_tpu_torch.device import resolve_device
 from rag_cobweb_tpu_torch.files import read_npz
 from rag_cobweb_tpu_torch.parallel.vforest import VForest
-from rag_cobweb_tpu_torch.whitening.models import PCAICAWhiteningModel
+from rag_cobweb_tpu_torch.whitening.models import (PCAICAWhiteningModel,
+                                                   PCAZCAWhiteningModel,
+                                                   ZCAWhiteningModel)
 
 
 def forest_from_numpy(arrays: dict, meta: dict, device="cuda") -> VForest:
@@ -110,14 +112,17 @@ def fused_index_from_numpy(GT, c, valid, device="cuda") -> FusedIndex:
         valid=torch.as_tensor(np.array(valid, bool), device=dev))
 
 
-def whitener_from_numpy(arrays: dict) -> PCAICAWhiteningModel:
-    """A port whitener from the JAX ``PCAICAWhiteningModel``'s arrays (the
-    dict its ``save`` pickles: mean, pca_components, pca_explained_var,
-    ica_unmixing, eps)."""
-    return PCAICAWhiteningModel(arrays["mean"], arrays["pca_components"],
-                                arrays["ica_unmixing"],
-                                arrays["pca_explained_var"],
-                                arrays.get("eps", 1e-8))
+def whitener_from_numpy(arrays: dict):
+    """A port whitener from the arrays of a JAX whitening model (the dict
+    its ``save`` pickles), its class chosen by the keys: ``ica_unmixing``
+    for PCA+ICA, ``whitening_matrix`` for ZCA, else PCA+ZCA."""
+    if "ica_unmixing" in arrays:
+        cls = PCAICAWhiteningModel
+    elif "whitening_matrix" in arrays:
+        cls = ZCAWhiteningModel
+    else:
+        cls = PCAZCAWhiteningModel
+    return cls.from_dict(arrays)
 
 
 def prediction_index_from_numpy(arrays: dict,

@@ -98,6 +98,19 @@ def log_prob(x: torch.Tensor, mean: torch.Tensor,
         torch.log(var) + _LOG_2PI + torch.square(x - mean) / var, dim=-1)
 
 
+def node_log_prob_terms(mean: torch.Tensor, var: torch.Tensor):
+    """Per-node affine terms that make the batched log-prob two products:
+    -0.5 (sum log var + sum (x - mu)^2 / var) = x @ (mu/var)^T - 0.5 x^2 @
+    (1/var)^T - 0.5 (sum mu^2/var + sum log var), the prediction index's
+    score without the 2 pi constant.  (N, D) mean and var -> (inv_var_T
+    (D, N), mu_over_var_T (D, N), const (N,))."""
+    inv_var = 1.0 / var
+    mu_over_var = mean * inv_var
+    const = -0.5 * (torch.sum(torch.square(mean) * inv_var, dim=-1)
+                    + torch.sum(torch.log(var), dim=-1))
+    return inv_var.T, mu_over_var.T, const
+
+
 def batched_node_log_probs(x: torch.Tensor, inv_var_T: torch.Tensor,
                            mu_over_var_T: torch.Tensor,
                            const: torch.Tensor) -> torch.Tensor:

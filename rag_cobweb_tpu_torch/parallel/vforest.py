@@ -25,6 +25,9 @@ is a lane-batched product and a per-hop gather over ``(K, B, S)``.
 
 ``beam_topk`` (the wrapper's ``predict``) runs the packed beam of
 ``core/index.py`` over the flat forest index, lane-fair by default.
+``vforest_beam_topk`` is the JAX package's per-lane oracle beam
+(``beam_search_topk`` lane by lane over the stacked index) with its
+device-side run expansion; nothing serves through it.
 
 Memory tools of a large index, as in the JAX package: ``compress_stats``
 stores ``means``/``m2s`` in bf16 after the build (every read upcasts);
@@ -129,6 +132,80 @@ def _vforest_query(idx: StackedIndex, q: torch.Tensor, k: int):
             for s in range(0, q.shape[0], bmax)]
     return (torch.cat([o[0] for o in outs]),
             torch.cat([o[1] for o in outs]))
+
+
+def _vforest_beam(idx: StackedIndex, q: torch.Tensor, k: int,
+                  beam_width: int, max_depth: int):
+    """Each lane's beam (``core/index.beam_search_topk``) over its view of
+    the stacked index, lane by lane -> (leaf log-probs, leaf nodes), each
+    (K, B, Wk); the leaf log-probs are calibrated alike in every lane."""
+    outs = [index_mod.beam_search_topk(
+        index_mod.PredictionIndex(
+            inv_var_T=idx.inv_var_T[s], mu_over_var_T=idx.mu_over_var_T[s],
+            const=idx.const[s], paths=idx.paths[s],
+            path_weights=idx.path_weights[s], children=idx.children[s],
+            leaf_sentence_start=idx.leaf_sentence_start[s],
+            leaf_sentence_count=idx.leaf_sentence_count[s],
+            sentence_order=idx.sentence_order[s],
+            paths_h=None, weights_h=None, order_h=None),
+        q, k, beam_width=beam_width, max_depth=max_depth)
+        for s in range(idx.const.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+def _beam_expand_device(scores, leaves, lane_of, starts, counts, sorder,
+                        gsid, k: int) -> torch.Tensor:
+    """Ranked leaf-run expansion on the device: every lane's candidates
+    flattened (B, K * Wk) and sorted by score (stable, so ties keep lane
+    order), each leaf's run length, their running sum, and each output
+    slot's source candidate found by a row-wise ``searchsorted`` over it ->
+    (B, k) global sentence ids, -1 padded.  ``scores``/``leaves`` are
+    ``_vforest_beam``'s; ``lane_of`` the lane of each flattened
+    candidate."""
+    K, B, Wk = scores.shape
+    flat_s = scores.permute(1, 0, 2).reshape(B, K * Wk)
+    flat_l = leaves.permute(1, 0, 2).reshape(B, K * Wk)
+    order = torch.argsort(-flat_s, dim=1, stable=True)
+    s_sorted = flat_s.gather(1, order)
+    l_sorted = flat_l.gather(1, order)
+    lanes = lane_of[order]                                  # (B, C)
+    ok = (l_sorted >= 0) & torch.isfinite(s_sorted) & (s_sorted > -3e38 / 2)
+    safe_leaf = l_sorted.clamp(min=0)
+    s0 = starts[lanes, safe_leaf]
+    c = torch.where(ok & (s0 >= 0), counts[lanes, safe_leaf],
+                    torch.zeros_like(s0))
+    cum = torch.cumsum(c, dim=1)                            # inclusive
+    off = cum - c                                           # exclusive
+    t = torch.arange(k, device=scores.device).expand(B, k).contiguous()
+    j = torch.searchsorted(cum.contiguous(), t, right=True)     # (B, k)
+    C = c.shape[1]
+    valid = j < C
+    jc = j.clamp(max=C - 1)
+    pos = s0.gather(1, jc) + t - off.gather(1, jc)
+    lane_sel = lanes.gather(1, jc)
+    # slots past the runs index nothing: clamped in range, then masked
+    out = gsid[lane_sel, sorder[lane_sel,
+                                pos.clamp(0, sorder.shape[1] - 1)]]
+    valid = valid & (c.gather(1, jc) > 0)
+    return torch.where(valid, out, torch.full_like(out, -1))
+
+
+def vforest_beam_topk(idx: StackedIndex, q: torch.Tensor, k: int,
+                      beam_width: int = 32, max_depth: int = 16
+                      ) -> np.ndarray:
+    """Cross-lane beam retrieval: each lane's beam, the lanes merged by
+    leaf log-prob and the leaves' sentence runs expanded to the first
+    ``k`` global sentence ids a query, on the device -> (B, k) host ids,
+    -1 padded.  Nothing serves through it (the wrapper's ``predict`` runs
+    the packed beam); it is the library function of the JAX package."""
+    scores, leaves = _vforest_beam(idx, q, k, beam_width, max_depth)
+    K, _, Wk = scores.shape
+    lane_of = torch.arange(K, device=q.device).repeat_interleave(Wk)
+    return _beam_expand_device(
+        scores, leaves, lane_of, idx.leaf_sentence_start,
+        idx.leaf_sentence_count, idx.sentence_order, idx.global_sid,
+        k).cpu().numpy()
 
 
 def vforest_rank_scores(idx: StackedIndex, q: torch.Tensor,

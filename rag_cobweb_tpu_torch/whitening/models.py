@@ -1,20 +1,25 @@
-"""PCA+ICA whitening (port of ``PCAICAWhiteningModel`` from
-``rag_cobweb_tpu/whitening/models.py``).
+"""Whitening models (port of ``rag_cobweb_tpu/whitening/models.py``):
+PCA+ICA, PCA+ZCA and full-rank ZCA, and the ``encode_and_whiten_*``
+helpers.
 
-The fit is host numpy in float64, copied from the JAX package, so both
-packages fit the same model.  ``transform_torch`` is the device transform:
-center -> project -> scale -> unmix precomposed into one (d_in, d_out)
-matrix ``M`` and bias ``b``, applied as one product accumulated in float64
-and rounded once to float32, so the card and the host give the same rows
-(a float32 product rounds in each device's summation order, and the
-tree's near-tie decisions see a last-bit difference).
-``save``/``load`` use the JAX package's pickle layout (a dict of numpy
-arrays), so either package loads the other's file.
+The fits are host numpy in float64, copied from the JAX package, so both
+packages fit the same model.  Each model is an affine map of the raw rows,
+``x @ M + b``; ``affine`` precomposes it (for PCA+ICA center -> project ->
+scale -> unmix, for PCA+ZCA center -> project -> scale -> project back,
+for ZCA center -> ``W^T``) in float64.  ``transform_torch`` is the device
+transform: that one product accumulated in float64 and rounded once to
+float32, so the card and the host give the same rows (a float32 product
+rounds in each device's summation order, and the tree's near-tie
+decisions see a last-bit difference).  ``transform`` is the JAX package's
+host numpy transform.  ``save``/``load`` use the JAX package's pickle
+layout (a dict of numpy arrays, the model's ``FIELDS``), so either package
+loads the other's file.
 """
 
 from __future__ import annotations
 
 import pickle
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -46,8 +51,64 @@ def _pca_fit(X: np.ndarray, pca_dim):
     return mean, eigvecs[:, :k].T, eigvals[:k]
 
 
-class PCAICAWhiteningModel:
+def _maybe_single(x):
+    x = np.asarray(x)
+    single = x.ndim == 1
+    return (x[None, :] if single else x), single
+
+
+class _AffineWhitener:
+    """What the three models share: the device transform of their affine
+    map, the pickle ``save``/``load`` of their ``FIELDS`` and the
+    constructor from such a dict."""
+
+    FIELDS: tuple = ()
+
+    def _linear(self) -> np.ndarray:
+        """The (d_in, d_out) matrix ``M`` in float64."""
+        raise NotImplementedError
+
+    def affine(self, dtype=np.float32):
+        """The precomposed transform ``(M (d_in, d_out), b)`` in ``dtype``
+        (computed in float64), ``b = -mean @ M``."""
+        M = self._linear()
+        b = -(self.mean @ M)
+        return M.astype(dtype), b.astype(dtype)
+
+    def transform_torch(self, x: torch.Tensor) -> torch.Tensor:
+        """Device transform of a (B, d_in) tensor: ``x @ M + b`` with
+        ``M``, ``b`` and the sums in float64, the result rounded to
+        float32: the same rows on every device."""
+        key = str(x.device)
+        if key not in self._torch_cache:
+            M, b = self.affine(np.float64)
+            self._torch_cache[key] = (torch.as_tensor(M, device=x.device),
+                                      torch.as_tensor(b, device=x.device))
+        M, b = self._torch_cache[key]
+        return (torch.matmul(x.double(), M) + b).float()
+
+    @classmethod
+    def from_dict(cls, d: dict):
+        """The model from the dict its ``save`` pickles (``eps`` defaults
+        to 1e-8, as in the JAX package's classes)."""
+        return cls(**{f: d[f] for f in cls.FIELDS if f != "eps"},
+                   eps=d.get("eps", 1e-8))
+
+    def save(self, filepath: str):
+        with open(filepath, "wb") as f:
+            pickle.dump({k: getattr(self, k) for k in self.FIELDS}, f)
+
+    @classmethod
+    def load(cls, filepath: str):
+        with open(filepath, "rb") as f:
+            return cls.from_dict(pickle.load(f))
+
+
+class PCAICAWhiteningModel(_AffineWhitener):
     """PCA -> normalize by sqrt(eigenvalue) -> ICA rotation."""
+
+    FIELDS = ("mean", "pca_components", "pca_explained_var", "ica_unmixing",
+              "eps")
 
     def __init__(self, mean, pca_components, ica_unmixing,
                  pca_explained_var, eps: float = 1e-8):
@@ -64,35 +125,16 @@ class PCAICAWhiteningModel:
 
     def transform(self, x, is_ica: bool = True) -> np.ndarray:
         """Whiten one embedding or a batch on the host (numpy in and out)."""
-        x = np.asarray(x)
-        single = x.ndim == 1
-        if single:
-            x = x[None, :]
+        x, single = _maybe_single(x)
         x_pca = (x - self.mean) @ self.pca_components.T
         x_pca = x_pca / np.sqrt(self.pca_explained_var + self.eps)
         out = x_pca @ self.ica_unmixing.T if is_ica else x_pca
         out = out.astype(np.float32)
         return out[0] if single else out
 
-    def affine(self, dtype=np.float32):
-        """The precomposed transform ``(M (d_in, d_out), b)`` in ``dtype``
-        (computed in float64)."""
+    def _linear(self):
         scale = 1.0 / np.sqrt(self.pca_explained_var + self.eps)
-        M = (self.pca_components.T * scale[None, :]) @ self.ica_unmixing.T
-        b = -(self.mean @ M)
-        return M.astype(dtype), b.astype(dtype)
-
-    def transform_torch(self, x: torch.Tensor) -> torch.Tensor:
-        """Device transform of a (B, d_in) tensor: ``x @ M + b`` with
-        ``M``, ``b`` and the sums in float64, the result rounded to
-        float32: the same rows on every device."""
-        key = str(x.device)
-        if key not in self._torch_cache:
-            M, b = self.affine(np.float64)
-            self._torch_cache[key] = (torch.as_tensor(M, device=x.device),
-                                      torch.as_tensor(b, device=x.device))
-        M, b = self._torch_cache[key]
-        return (torch.matmul(x.double(), M) + b).float()
+        return (self.pca_components.T * scale[None, :]) @ self.ica_unmixing.T
 
     @classmethod
     def fit(cls, X, pca_dim=256, eps: float = 1e-8,
@@ -111,19 +153,98 @@ class PCAICAWhiteningModel:
                       max_iter=ica_max_iter, tol=ica_tol, seed=seed)
         return cls(mean, components, res.components, explained_var, eps)
 
-    def save(self, filepath: str):
-        with open(filepath, "wb") as f:
-            pickle.dump({
-                "mean": self.mean,
-                "pca_components": self.pca_components,
-                "pca_explained_var": self.pca_explained_var,
-                "ica_unmixing": self.ica_unmixing,
-                "eps": self.eps,
-            }, f)
+
+class PCAZCAWhiteningModel(_AffineWhitener):
+    """PCA-whiten, then rotate back to the original basis: d_in columns of
+    rank k (the tree spends its full width on them, as in the JAX
+    package)."""
+
+    FIELDS = ("mean", "pca_components", "pca_explained_var", "eps")
+
+    def __init__(self, mean, pca_components, pca_explained_var,
+                 eps: float = 1e-8):
+        self.mean = np.asarray(mean)
+        self.pca_components = np.asarray(pca_components)
+        self.pca_explained_var = np.asarray(pca_explained_var)
+        self.eps = eps
+        self._torch_cache: dict = {}
+
+    @property
+    def dim_out(self) -> int:
+        return self.pca_components.shape[1]
+
+    def _linear(self):
+        scale = 1.0 / np.sqrt(self.pca_explained_var + self.eps)
+        return (self.pca_components.T * scale[None, :]) @ self.pca_components
+
+    def transform(self, x) -> np.ndarray:
+        x, single = _maybe_single(x)
+        out = ((x - self.mean) @ self._linear()).astype(np.float32)
+        return out[0] if single else out
 
     @classmethod
-    def load(cls, filepath: str):
-        with open(filepath, "rb") as f:
-            d = pickle.load(f)
-        return cls(d["mean"], d["pca_components"], d["ica_unmixing"],
-                   d["pca_explained_var"], d["eps"])
+    def fit(cls, X, pca_dim=256, eps: float = 1e-8):
+        mean, components, explained_var = _pca_fit(X, pca_dim)
+        return cls(mean, components, explained_var, eps)
+
+
+class ZCAWhiteningModel(_AffineWhitener):
+    """Full-rank ZCA: W = E diag(1 / sqrt(lambda + eps)) E^T of the
+    covariance (independent of the eigenvectors' signs)."""
+
+    FIELDS = ("mean", "whitening_matrix", "eps")
+
+    def __init__(self, mean, whitening_matrix, eps: float = 1e-8):
+        self.mean = np.asarray(mean)
+        self.whitening_matrix = np.asarray(whitening_matrix)
+        self.eps = eps
+        self._torch_cache: dict = {}
+
+    @property
+    def dim_out(self) -> int:
+        return self.whitening_matrix.shape[0]
+
+    def _linear(self):
+        return self.whitening_matrix.T
+
+    def transform(self, x) -> np.ndarray:
+        x, single = _maybe_single(x)
+        out = ((x - self.mean) @ self.whitening_matrix.T).astype(np.float32)
+        return out[0] if single else out
+
+    @classmethod
+    def fit(cls, X, eps: float = 1e-8):
+        X = np.asarray(X, np.float64)
+        mean = X.mean(axis=0)
+        cov = np.cov(X - mean, rowvar=False)
+        eigvals, eigvecs = np.linalg.eigh(cov)
+        W = (eigvecs * (1.0 / np.sqrt(eigvals + eps))[None, :]) @ eigvecs.T
+        return cls(mean, W, eps)
+
+
+def _encode(sentences, encode_func: Optional[Callable]):
+    """Texts through ``encode_func``, or embeddings as they are."""
+    if isinstance(sentences[0], str):
+        if encode_func is None:
+            raise ValueError("text input needs an encode_func")
+        return np.asarray(encode_func(sentences))
+    return np.asarray(sentences)
+
+
+def encode_and_whiten_pcaica(sentences, encode_func, whitening_model,
+                             is_ica: bool = True) -> np.ndarray:
+    """Encode (or pass embeddings through), then whiten on the host."""
+    return whitening_model.transform(_encode(sentences, encode_func),
+                                     is_ica=is_ica)
+
+
+def encode_and_whiten_pcazca(sentences, encode_func,
+                             whitening_model) -> np.ndarray:
+    return whitening_model.transform(_encode(sentences, encode_func))
+
+
+def encode_and_whiten_zca(sentences, encode_func,
+                          whitening_model) -> np.ndarray:
+    """The JAX package's fixed helper: the encoder and the model are
+    arguments (the reference's read undefined module globals)."""
+    return whitening_model.transform(_encode(sentences, encode_func))

@@ -1183,3 +1183,135 @@ def test_bf16_store_serves_through_its_entry(card):
         if dev != "cpu":
             assert rerank.rerank_lp.launches_bf16 - b0 == 1
     np.testing.assert_array_equal(out[1], out[0])
+
+
+@pytest.mark.parametrize("kind", ["zca", "pcazca"])
+def test_zca_forests_serve_the_hosts_ids_on_the_card(card, kind, tmp_path):
+    """A whitener-mode forest on a ZCA or PCA+ZCA whitener (the tree as
+    wide as the raw rows), built on the card and served there (an f32
+    fused index, kernels 1 and 5), and its host copy (the saved file
+    loaded on the CPU): the same whitened rows on both devices and the
+    same served ids, except where the re-rank keys of the two ids tie
+    within 1e-5 of their terms."""
+    from rag_cobweb_tpu_torch.bench.datasets import synthetic_retrieval_hard
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    from rag_cobweb_tpu_torch.ops import fused_topk, rerank
+    from rag_cobweb_tpu_torch.whitening import (PCAZCAWhiteningModel,
+                                                ZCAWhiteningModel)
+    data = synthetic_retrieval_hard(2000, 200, 64, seed=12)
+    raw = data.corpus_embs
+    w = (ZCAWhiteningModel.fit(raw) if kind == "zca"
+         else PCAZCAWhiteningModel.fit(raw, pca_dim=0.96))
+    assert w.dim_out == raw.shape[1]
+    assert torch.equal(w.transform_torch(torch.as_tensor(raw, device=card))
+                       .cpu(), w.transform_torch(torch.as_tensor(raw)))
+    db = CobwebIndex(config=TreeConfig(dim=w.dim_out), n_subtrees=8,
+                     whitener=w, device=card)
+    db.add_sentences([None] * len(raw), raw)
+    path = str(tmp_path / "forest.npz")
+    db.save(path)
+    host = CobwebIndex.load(path, device="cpu")
+    out = []
+    for x in (host, db):
+        x.blocked_threshold = 64
+        x.fused_dtype = "float32"
+        l0, r0 = fused_topk.slab_topk.launches_f32, rerank.rerank_lp.launches
+        out.append(x.query_ids(data.query_embs, 10, rerank=128)
+                   .cpu().numpy())
+        if x.device.type == "cuda":
+            assert fused_topk.slab_topk.launches_f32 > l0
+            assert rerank.rerank_lp.launches > r0
+    pv, D = float(db.cfg.prior_var), raw.shape[1]
+    for qi in np.nonzero((out[0] != out[1]).any(axis=1))[0]:
+        qs = torch.as_tensor(data.query_embs[qi:qi + 1], device=card)
+        ids = torch.as_tensor(np.union1d(out[0][qi], out[1][qi]),
+                              device=card)
+        keys = rerank.rerank_lp_plain(
+            db._emb_device(), qs, ids.view(1, -1).to(torch.int32),
+            torch.zeros((1, len(ids)), device=card), pv)[0]
+        kth = float(torch.topk(keys, 10).values[-1])
+        tol = 1e-5 * (abs(kth) + 0.5 * D * abs(math.log(pv)))
+        for sid in set(out[0][qi]) ^ set(out[1][qi]):
+            j = int((ids == int(sid)).nonzero()[0, 0])
+            assert abs(float(keys[j]) - kth) <= tol, (qi, sid)
+
+
+def test_classifier_on_the_card_equals_the_host(card):
+    """The classifier fitted on the card and on the host from the same
+    rows: the same tree and labels, ``predict_probs`` within 1e-5 with and
+    without the ``max_nodes`` cut, and the same labels predicted."""
+    from rag_cobweb_tpu_torch.core.classifier import CobwebClassifier
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    rng = np.random.default_rng(0)
+    centers = rng.normal(scale=4.0, size=(6, 32))
+    X = np.concatenate([c + 0.4 * rng.normal(size=(50, 32))
+                        for c in centers]).astype(np.float32)
+    y = [f"c{i // 50}" for i in range(len(X))]
+    order = rng.permutation(len(X))
+    X, y = X[order], [y[i] for i in order]
+    clfs = [CobwebClassifier(TreeConfig(dim=32), capacity=1024, seed=0,
+                             device=dev).fit(X[:240], y[:240])
+            for dev in ("cpu", card)]
+    a, b = (c.tree.host_arrays() for c in clfs)
+    for f in ("parent", "children", "n_children", "counts"):
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+    assert clfs[0].leaf_of_sentence == clfs[1].leaf_of_sentence
+    for max_nodes in (None, 16):
+        want, got = (c.predict_probs(X[240:], max_nodes) for c in clfs)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        assert clfs[1].predict(X[240:], max_nodes) == \
+            clfs[0].predict(X[240:], max_nodes)
+    assert clfs[1].score(X[240:], y[240:]) >= 0.9
+
+
+def test_engines_on_the_card_equal_the_host(card):
+    """``blocked_query_topk_rerank`` on an f32 blocked index (ids equal by
+    tie group of the leaf log-prob, within 1e-4 of the row's largest),
+    ``vforest_beam_topk`` (ids equal, or the differing row's beam scores
+    tie within 1e-5 of the largest) and ``grouped_pool_topk`` on (8, 2^20)
+    random scores (the same pool scores, every score its id's) on the card
+    against the host."""
+    from rag_cobweb_tpu_torch.core import index as tindex
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.parallel import vforest as tvf
+    from torch_parity import assert_equal_by_tie_group
+    rng = np.random.default_rng(3)
+    centers = rng.normal(scale=2.0, size=(12, 24))
+    xs = (centers[rng.integers(0, 12, 900)]
+          + 0.5 * rng.normal(size=(900, 24))).astype(np.float32)
+    forest = tvf.VForest(TreeConfig(dim=24), n_subtrees=4,
+                         capacity_per_tree=512, device="cpu")
+    forest.add(xs)
+    q = xs[::9] + 0.05
+    flat = forest.flat_index()
+    res = []
+    for dev in ("cpu", card):
+        idx = flat if dev == "cpu" else flat._replace(**{
+            f: getattr(flat, f).to(card) for f in flat._fields
+            if isinstance(getattr(flat, f), torch.Tensor)})
+        bidx = tindex.build_blocked_index(idx, block_size=128)
+        res.append(tindex.blocked_query_topk_rerank(
+            bidx, idx, torch.as_tensor(q, device=dev), 10, rerank=64))
+    (ws, wi), (gs, gi) = [(s.cpu().numpy(), i.cpu().numpy())
+                          for s, i in res]
+    assert_equal_by_tie_group(wi, gi, ws, gs, rtol=1e-4)
+
+    stacked = forest.build_index()
+    on_card = stacked._replace(**{f: getattr(stacked, f).to(card)
+                                  for f in stacked._fields})
+    want = tvf.vforest_beam_topk(stacked, torch.as_tensor(q), 10)
+    got = tvf.vforest_beam_topk(on_card, torch.as_tensor(q, device=card), 10)
+    scores = tvf._vforest_beam(stacked, torch.as_tensor(q), 10, 32, 16)[0]
+    for b in np.nonzero((want != got).any(axis=1))[0]:
+        s = torch.sort(scores[:, b].reshape(-1), descending=True).values
+        s = s[s > -1e38]
+        assert bool(((s[:-1] - s[1:]) <= 1e-5 * s.abs().max()).any()), b
+
+    g = torch.Generator(device=card).manual_seed(0)
+    sc = torch.randn((8, 1 << 20), generator=g, device=card)
+    gt, gid = tindex.grouped_pool_topk(sc, 512)
+    ht, hid = tindex.grouped_pool_topk(sc.cpu(), 512)
+    assert torch.equal(gt, sc.gather(1, gid))
+    assert torch.equal(torch.sort(gt, dim=1).values.cpu(),
+                       torch.sort(ht, dim=1).values)
