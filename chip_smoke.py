@@ -97,7 +97,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    forest of phase 3e's first 4096 rows built on the host
    (``build_device="cpu"``), promoted to the card and served by the fused
    engine, its ids held against the plain pipeline, its structure
-   compared with a card build of the same rows (printed);
+   compared with a card build of the same rows; where a lane differs,
+   ``bench/build_divergence.py``'s case (a) prints each differing lane's
+   first parted decision, and fails unless each is a tie or a near tie
+   (within the float32 rounding of its terms) and its recorded card build
+   equals the CUDA-graph build;
 3e. the small-forest slice: ``configs/synthetic_scale_5k.json``'s corpus
    (c=5000, 750 queries, 768-d), PCA+ICA at 0.96, a 32-lane forest below
    ``blocked_threshold``, k=10, pool 1024, batch 1024, served by the
@@ -153,6 +157,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
    copy on 64 queries, and ``grouped_pool_topk`` on random (256, 2^20)
    scores: each score its id's, overlap with the exact top-512 above
    0.995, timed beside ``torch.topk``;
+3i. training on the card (``training_slice``, after phase 3c, on its
+   single tree and the flagship's 1000 raw queries, gold rows and 10 000
+   raw corpus rows): (a) ``CobwebQueryTrainer`` (768 -> the tree's width,
+   hidden 512, batch 16, lr 1e-3, 3 epochs), (b) ``EndToEndQueryTrainer``
+   at the JAX defaults (vocab 8192, d_model 128, 2 layers, max_len 32,
+   hidden 512, lr 1e-3, 3 epochs) on texts whose words name each gold row
+   and its tree cluster among filler words, every 10th empty, (c)
+   ``VICRegWhitener`` (768 -> 128, hidden 1024, lr 1e-3, batch 256, 2
+   epochs), (d) ``FactorVAE`` (z_dim 392, hidden 1024, gamma 10, lr 1e-4,
+   batch 256, 2 epochs).  Each: its first 5 steps on the card and on a
+   host copy in lockstep (the same parameters and optimizer state before
+   each step, the same batches and draws; the tree saved and loaded on
+   the host) held by ``bench/train_steps.hold`` (the CPU tests'
+   tolerances), ms a step and steps/s (CUDA events, after a warm-up step)
+   beside the nvidia-smi line, the first and last epoch's loss; it fails
+   unless (a) and (b)'s last epoch loss is below the first, (b)'s encoder
+   gradient norms are finite and positive, (a)'s recall@10 does not fall,
+   (c)'s covariance term and (d)'s recon_mse fall;
 4. one JSON line of per-kernel numbers, a row per CUDA kernel entry
    (kernel 1 at the flagship shape, with its single-tree record under
    ``single_tree``; kernel 5 on the flagship's served pools, likewise; the
@@ -792,6 +814,7 @@ def single_tree_slice(headline, zero, read, windows, launches,
             zero()
             return
         windows["single"] = read()
+        single["db"], single["data"] = db, data    # phase 3i trains on it
         served = to_host(db.query_ids(data.query_embs, 10, rerank=1024))
         single["plain"] = plain_check(db, data.query_embs, served, 10,
                                       1024, 0, 1024, data.corpus_embs,
@@ -922,6 +945,173 @@ def single_tree_slice(headline, zero, read, windows, launches,
         log(f"[api] single tree schedule {kind}: "
             + json.dumps(single[f"schedule {kind}"]))
     return rec1, single
+
+
+def step_ms(step, reps: int, card: bool) -> float:
+    """Mean ms of one training step over ``reps`` steps after one warm-up
+    step: between CUDA events on the card (the device waits on the host
+    between launches, so this is the step as the trainer runs it), the
+    host clock on the CPU."""
+    step()
+    if not card:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        return 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        step()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def query_texts(db, gold, seed: int = 0) -> list:
+    """A text per query whose words determine its gold row: the row's id
+    and its tree cluster (its leaf's parent node), among 2-6 filler words
+    in random order; every 10th text empty."""
+    rng = np.random.default_rng(seed)
+    parent = db.tree.host_arrays()["parent"]
+    filler = [f"w{i}" for i in range(48)]
+    out = []
+    for i, g in enumerate(gold):
+        if i % 10 == 9:
+            out.append("")
+            continue
+        leaf = db.leaf_of_sentence[int(g)]
+        words = [f"concept{int(parent[leaf])}", f"row{int(g)}"] + list(
+            rng.choice(filler, size=int(rng.integers(2, 7))))
+        rng.shuffle(words)
+        out.append(" ".join(words))
+    return out
+
+
+def training_slice(db, data, out_dir: Path, smi: str, device="cuda",
+                   epochs=3, whitener_epochs=2, reps=20, rows=None) -> dict:
+    """Phase 3i: single-device training on phase 3c's single tree ``db``
+    (its raw queries and gold rows in ``data``).  (a) ``CobwebQueryTrainer``
+    (768 -> the tree's width, hidden 512, batch 16, lr 1e-3), (b)
+    ``EndToEndQueryTrainer`` at the JAX defaults on texts made from the
+    gold rows (``query_texts``), (c) ``VICRegWhitener`` and (d)
+    ``FactorVAE`` at their defaults on the corpus rows.  Each: its first 5
+    steps on ``device`` against a host copy (``bench/train_steps.hold``;
+    the query trainers' index is ``db`` saved and loaded on the host), ms
+    a step after a warm-up step, then its ``fit`` from fresh parameters
+    and the checks of the module docstring; a line each (``smi``: the
+    card's nvidia-smi line).  ``rows``: the rows (c) and (d) train on
+    (None: ``data``'s corpus rows)."""
+    from rag_cobweb_tpu_torch.bench import train_steps
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    from rag_cobweb_tpu_torch.training import (CobwebQueryTrainer,
+                                               EndToEndQueryTrainer,
+                                               FactorVAE, VICRegWhitener)
+    card = torch.device(device).type == "cuda"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    db.save(str(out_dir / "single_tree.npz"))
+    host_db = CobwebIndex.load(str(out_dir / "single_tree.npz"),
+                               device="cpu")
+    out = {"host_copy_s": time.perf_counter() - t0}
+    q, gold = data.query_embs, data.target_ids
+    rows = data.corpus_embs if rows is None else rows
+    texts = query_texts(db, gold)
+    rng = np.random.default_rng(0)
+    views_b = (rows + 0.1 * rows.std(0) * rng.normal(size=rows.shape)
+               ).astype(np.float32)
+
+    def fail(what, rec):
+        raise AssertionError(f"3i {what}: {rec}")
+
+    def one(name, make, steps_of, fit):
+        t = time.perf_counter()
+        tr = make()
+        rec = {"hold": train_steps.hold(
+            tr, train_steps.host_copy(tr, host_db), steps_of(tr))}
+        if not rec["hold"]["ok"]:
+            fail(f"({name}) card against host", rec["hold"])
+        tr = make()
+        timed = steps_of(tr)
+        rec["ms_per_step"] = step_ms(
+            lambda: [s.run(tr) for s in timed[:1]], reps, card)
+        rec["steps_per_s"] = 1e3 / rec["ms_per_step"]
+        rec.update(fit(make()))
+        rec["s"] = time.perf_counter() - t
+        out[name] = rec
+        log_trainer(name, rec, smi)
+
+    def query_fit(tr):
+        before = tr.evaluate(q, gold)
+        losses = tr.fit(q, gold, epochs=epochs, batch_size=16)
+        after = tr.evaluate(q, gold)
+        if not (losses[-1] < losses[0]
+                and after["recall@10"] >= before["recall@10"]):
+            fail("(a) training", (losses, before, after))
+        return {"losses": losses, "before": before, "after": after}
+
+    one("query", lambda: CobwebQueryTrainer(db, in_dim=q.shape[1],
+                                            hidden_dim=512, lr=1e-3),
+        lambda tr: train_steps.query_steps(q, gold), query_fit)
+
+    def e2e_fit(tr):
+        losses, norms = tr.fit(texts, gold, epochs=epochs, batch_size=16)
+        if not (losses[-1] < losses[0] and all(
+                math.isfinite(n) and n > 0 for n in norms)):
+            fail("(b) training", (losses, norms))
+        return {"losses": losses, "encoder_grad_norms": norms,
+                "empty_texts": sum(not t for t in texts)}
+
+    one("e2e", lambda: EndToEndQueryTrainer(db),
+        lambda tr: train_steps.e2e_steps(texts, gold, tr.vocab_size,
+                                         tr.max_len), e2e_fit)
+
+    def vicreg_fit(tr):
+        hist = tr.fit(rows, epochs=whitener_epochs, batch_size=256)
+        if not hist[-1]["covariance"] < hist[0]["covariance"]:
+            fail("(c) training", hist)
+        return {"history": hist}
+
+    one("vicreg", lambda: VICRegWhitener(rows.shape[1], device=device),
+        lambda tr: train_steps.vicreg_steps(rows, views_b), vicreg_fit)
+
+    def vae_fit(tr):
+        hist = tr.fit(rows, epochs=whitener_epochs, batch_size=256)
+        if not hist[-1]["recon_mse"] < hist[0]["recon_mse"]:
+            fail("(d) training", hist)
+        return {"history": [{k: v for k, v in h.items() if k != "top_pairs"}
+                            for h in hist]}
+
+    one("factorvae", lambda: FactorVAE(rows.shape[1], device=device),
+        lambda tr: train_steps.factorvae_steps(tr, rows), vae_fit)
+    return out
+
+
+def log_trainer(name: str, r: dict, smi: str) -> None:
+    """Phase 3i's line of one trainer: its hold, ms a step, its losses."""
+    seq = ([h[{"vicreg": "loss", "factorvae": "vae"}[name]]
+            for h in r["history"]] if "history" in r else r["losses"])
+    h = r["hold"]
+    log(f"[train] {name}: {r['ms_per_step']:.4f} ms/step, "
+        f"{r['steps_per_s']:.1f} steps/s ({smi}); first / last epoch loss "
+        f"{seq[0]:.6f} / {seq[-1]:.6f}; card vs host over {h['steps']} "
+        f"lockstep steps: worst metric rel {h['worst_metric_rel']:.3g}, "
+        f"worst gradient rel {h['worst_grad_rel']:.3g}, worst parameter "
+        f"excess {h['worst_param_excess']:.3g}, unsettled / parted entries "
+        f"{h['unsettled']} / {h['parted']} of {h['entries']}; "
+        f"{r['s']:.1f}s")
+
+
+def log_training(rec: dict) -> None:
+    """Phase 3i's summary line."""
+    log(f"[train] query recall before / after: "
+        f"{json.dumps(rec['query']['before'])} / "
+        f"{json.dumps(rec['query']['after'])}; e2e encoder grad norms "
+        f"{rec['e2e']['encoder_grad_norms']}; vicreg covariance "
+        f"{[h['covariance'] for h in rec['vicreg']['history']]}; factorvae "
+        f"recon_mse {[h['recon_mse'] for h in rec['factorvae']['history']]}"
+        f"; host copy of the tree {rec['host_copy_s']:.1f}s")
 
 
 def fast_window(w: dict, what: str) -> None:
@@ -1263,6 +1453,19 @@ def memory_tools_slice(db, data, zero, read, device="cuda", batch=1024,
     d["structure_equal_device_build"] = (
         d["leaves_equal_device_build"]
         and not d["lanes_differing_from_device_build"])
+    if card and not d["structure_equal_device_build"]:
+        # where each differing lane's first decision parted, and whether
+        # within the float32 rounding of its terms (bench/build_divergence)
+        from rag_cobweb_tpu_torch.bench import build_divergence
+        probe = build_divergence.summary(build_divergence.run_case(
+            "a", rows=cpu_rows, device=device))
+        d["probe"] = probe
+        for f in probe["first_differences"]:
+            log(f"[tools] (d) lane {f['lane']}: {json.dumps(f)}")
+        if not (probe["recorded_equals_graph_build"]
+                and all(f["verdict"] in ("exact tie", "near tie")
+                        for f in probe["first_differences"])):
+            fail("(d) card build against host build", probe)
     w = d["window"]
     if (d["served_on"] != db.device.type or hdb.forest.device != db.device
             or (card and not (w["fused_topk"] > 0 and w["rerank_l2"] > 0))):
@@ -1805,6 +2008,15 @@ def main() -> int:
     # -- 3c. the single-tree slice --------------------------------------
     rec1, single = single_tree_slice(headline, zero, read, windows, launches,
                                      name, out_dir)
+
+    # -- 3i. training on the card, on 3c's single tree -----------------
+    t3i = time.perf_counter()
+    train = training_slice(single.pop("db"), single.pop("data"),
+                           here / "build" / "train", smi)
+    log_training(train)
+    log(f"[3i] {time.perf_counter() - t3i:.1f}s")
+    del train
+    torch.cuda.empty_cache()
 
     # -- 3d. the scale slice: 131072 indexed rows, backstop, adds ------
     scale = {}

@@ -54,8 +54,6 @@ from rag_cobweb_tpu_torch.core.tree import CobwebTree, state_to_numpy
 from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
 from rag_cobweb_tpu_torch.device import full_f32_matmul
 from rag_cobweb_tpu_torch.ops import fused_topk, opscore, rerank
-from rag_cobweb_tpu_torch.ops.gaussian import (insert_mean_var,
-                                               stats_mean_var)
 from rag_cobweb_tpu_torch.parallel.vforest import VForest
 from rag_cobweb_tpu_torch.whitening import PCAICAWhiteningModel
 
@@ -132,15 +130,7 @@ def trace_insert(tree: CobwebTree, x: torch.Tensor) -> dict:
     def two_best(x_, parent, children, mask, cfg, noise):
         out = tb0(x_, parent, children, mask, cfg, noise)
         if bool(mask.any()):
-            p_mean, p_var = insert_mean_var(parent, x_, cfg)
-            ci_mean, ci_var = insert_mean_var(children, x_.unsqueeze(-2), cfg)
-            c_mean, c_var = stats_mean_var(children, cfg)
-            denom = (parent.count + 1.0).unsqueeze(-1)
-            gain = ((children.count + 1.0) / denom) * \
-                opscore._scores_vs_parent(ci_mean, ci_var, p_mean, p_var,
-                                          cfg) \
-                - (children.count / denom) * opscore._scores_vs_parent(
-                    c_mean, c_var, p_mean, p_var, cfg)
+            gain = opscore.insert_gains(x_, parent, children, cfg)
             g = gain[0][mask[0]].double().numpy()
             srt = np.sort(g)[::-1]
             steps.append({"children": int(mask.sum()),
@@ -156,18 +146,10 @@ def trace_insert(tree: CobwebTree, x: torch.Tensor) -> dict:
         op, u = bo0(x_, parent, children, mask, tb, gc, gc_mask, cfg, noise,
                     full, fits)
         if bool(mask.any()):
-            util = torch.stack([
-                tb.best1_pu,
-                opscore.pu_for_new_child(x_, parent, children, mask, cfg),
-                opscore.pu_for_merge(x_, parent, children, mask, tb.best1,
-                                     tb.best2, cfg),
-                opscore.pu_for_split(parent, children, mask, tb.best1, gc,
-                                     gc_mask, cfg)], dim=-1)[0].double()
-            nc = int(mask.sum())
-            valid = [True, not bool(full[0]),
-                     nc > 2 and int(tb.best2[0]) >= 0,
-                     bool(gc_mask[0].any()) and bool(fits[0])]
-            vals = [float(v) if ok else None for v, ok in zip(util, valid)]
+            util, valid = opscore.operation_utilities(
+                x_, parent, children, mask, tb, gc, gc_mask, cfg, full, fits)
+            vals = [float(v) if ok else None
+                    for v, ok in zip(util[0].double(), valid[0])]
             ok = sorted((v for v in vals if v is not None), reverse=True)
             steps[-1].update(op=["best", "new", "merge", "split"][int(op[0])],
                              utilities=vals,

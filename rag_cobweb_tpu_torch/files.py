@@ -74,6 +74,13 @@ def restricted_loads(data: bytes):
     return _Unpickler(io.BytesIO(data)).load()
 
 
+def read_pickle(path: str):
+    """A pickle file of either package (a trainer's parameters: nested
+    dicts and tuples of numpy arrays) through ``restricted_loads``."""
+    with open(path, "rb") as f:
+        return restricted_loads(f.read())
+
+
 def read_npz(path: str) -> dict:
     """Every array of an ``.npz`` file, object arrays (a wrapper file's
     sentences) read through ``restricted_loads``."""

@@ -1,9 +1,10 @@
 """State carry-over from the JAX package, as plain numpy arrays.
 
 These functions take what ``rag_cobweb_tpu`` objects hold (fetched with
-``jax.device_get`` by the caller, or read from its ``.npz`` files) and
-build the port's objects, so one state can run through both packages.
-Nothing here imports the JAX package.
+``jax.device_get`` by the caller, or read from its ``.npz`` files and
+pickles) and build the port's objects, so one state can run through both
+packages: trees, forests, indexes, whiteners, and the trainers' modules
+from their flax parameter trees.  Nothing here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +22,12 @@ from rag_cobweb_tpu_torch.core.tree import CobwebTree
 from rag_cobweb_tpu_torch.device import resolve_device
 from rag_cobweb_tpu_torch.files import read_npz
 from rag_cobweb_tpu_torch.parallel.vforest import VForest
+from rag_cobweb_tpu_torch.training.factorvae import (Discriminator,
+                                                     MLPDecoder, MLPEncoder)
+from rag_cobweb_tpu_torch.training.flax_layout import load_flax
+from rag_cobweb_tpu_torch.training.query_train import ProjectionHead
+from rag_cobweb_tpu_torch.training.text_encoder import TinyTextEncoder
+from rag_cobweb_tpu_torch.training.vicreg import Projector
 from rag_cobweb_tpu_torch.whitening.models import (PCAICAWhiteningModel,
                                                    PCAZCAWhiteningModel,
                                                    ZCAWhiteningModel)
@@ -167,3 +174,60 @@ def blocked_index_from_numpy(arrays: dict, device="cuda") -> BlockedIndex:
         valid=torch.as_tensor(np.array(arrays["valid"], bool), device=dev),
         sid_of_slot=torch.as_tensor(np.array(arrays["sid_of_slot"],
                                              np.int32), device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the trainers' modules from the JAX package's flax parameter trees
+# ---------------------------------------------------------------------------
+
+def _inner(params: dict) -> dict:
+    return params["params"] if set(params) == {"params"} else params
+
+
+def _kernel(params: dict, name: str) -> tuple:
+    return np.asarray(params[name]["kernel"]).shape
+
+
+def projection_head_from_flax(params: dict, device="cuda") -> ProjectionHead:
+    """``ProjectionHead`` from the JAX head's parameters (the trainer's
+    ``state.params``, or ``"params"`` of its pickle); the widths are read
+    from the kernels."""
+    p = _inner(params)
+    (n_in, hidden), (_, n_out) = _kernel(p, "Dense_0"), _kernel(p, "Dense_1")
+    return load_flax(ProjectionHead(n_in, n_out, hidden),
+                     p).to(resolve_device(device))
+
+
+def text_encoder_from_flax(params: dict, n_heads: int = 4,
+                           device="cuda") -> TinyTextEncoder:
+    """``TinyTextEncoder`` from the JAX encoder's parameters (the
+    attention's ``query``/``key``/``value`` kernels (d, heads, head_dim),
+    ``out`` (heads, head_dim, d); ``Embed_0``, ``pos``, ``LayerNorm``)."""
+    p = _inner(params)
+    vocab, d = np.asarray(p["Embed_0"]["embedding"]).shape
+    n_layers = sum(k.startswith("EncoderBlock_") for k in p)
+    enc = TinyTextEncoder(vocab, d, n_layers,
+                          np.asarray(p["pos"]).shape[0], n_heads)
+    return load_flax(enc, p).to(resolve_device(device))
+
+
+def projector_from_flax(params: dict, device="cuda") -> Projector:
+    """VICReg's ``Projector`` from the JAX projector's parameters."""
+    p = _inner(params)
+    (n_in, hidden), (_, n_out) = _kernel(p, "Dense_0"), _kernel(p, "Dense_2")
+    return load_flax(Projector(n_in, n_out, hidden),
+                     p).to(resolve_device(device))
+
+
+def factorvae_modules_from_flax(params: tuple, device="cuda") -> tuple:
+    """(``MLPEncoder``, ``MLPDecoder``, ``Discriminator``) from the JAX
+    FactorVAE's (encoder, decoder, discriminator) parameters, the tuple
+    its pickle holds."""
+    enc_p, dec_p, disc_p = (_inner(t) for t in params)
+    n_in, hidden = _kernel(enc_p, "Dense_0")
+    z_dim = _kernel(enc_p, "Dense_2")[1]
+    dev = resolve_device(device)
+    return (load_flax(MLPEncoder(n_in, z_dim, hidden), enc_p).to(dev),
+            load_flax(MLPDecoder(z_dim, n_in, hidden), dec_p).to(dev),
+            load_flax(Discriminator(z_dim, _kernel(disc_p, "Dense_0")[1]),
+                      disc_p).to(dev))

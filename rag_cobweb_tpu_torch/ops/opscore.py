@@ -73,20 +73,26 @@ def _pick(stats: GaussStats, idx: torch.Tensor) -> GaussStats:
             -1, 1, stats.m2.shape[-1])).squeeze(-2))
 
 
-def two_best_children(x, parent: GaussStats, children: GaussStats, mask,
-                      cfg: TreeConfig, noise) -> TwoBest:
-    """The two children with the highest relative insert utility:
-    ``(c+1)/(p+1) * score(ins(c) || ins(p)) - c/(p+1) * score(c || ins(p))``."""
+def insert_gains(x, parent: GaussStats, children: GaussStats,
+                 cfg: TreeConfig) -> torch.Tensor:
+    """(L, F) relative insert utility of each child:
+    ``(c+1)/(p+1) * score(ins(c) || ins(p)) - c/(p+1) * score(c || ins(p))``
+    (the primary key of ``two_best_children``)."""
     p_ins_mean, p_ins_var = insert_mean_var(parent, x, cfg)
     c_ins_mean, c_ins_var = insert_mean_var(children, x.unsqueeze(-2), cfg)
     c_mean, c_var = stats_mean_var(children, cfg)
 
     denom = (parent.count + 1.0).unsqueeze(-1)
-    gain = ((children.count + 1.0) / denom) * _scores_vs_parent(
+    return ((children.count + 1.0) / denom) * _scores_vs_parent(
         c_ins_mean, c_ins_var, p_ins_mean, p_ins_var, cfg
     ) - (children.count / denom) * _scores_vs_parent(
         c_mean, c_var, p_ins_mean, p_ins_var, cfg)
 
+
+def two_best_children(x, parent: GaussStats, children: GaussStats, mask,
+                      cfg: TreeConfig, noise) -> TwoBest:
+    """The two children with the highest ``insert_gains``."""
+    gain = insert_gains(x, parent, children, cfg)
     best1 = _lex_argmax(gain, children.count, noise, mask)
     lanes = torch.arange(mask.shape[-1], device=mask.device)
     mask2 = mask & (lanes != best1.unsqueeze(-1))
@@ -177,13 +183,12 @@ def pu_for_split(parent: GaussStats, children: GaussStats, mask, best1,
     return total / (mask.sum(dim=-1) - 1.0 + gc_mask.sum(dim=-1))
 
 
-def best_operation(x, parent: GaussStats, children: GaussStats, mask,
-                   two_best: TwoBest, grandchildren: GaussStats, gc_mask,
-                   cfg: TreeConfig, noise, fanout_full, split_fits):
-    """Best of {best, new, merge, split}; ``new`` is gated off when the
-    fanout block is full and ``split`` when promoting best1's children
-    would overflow it.  ``noise`` (L, 4) breaks exact utility ties.
-    Returns (op (L,), utility (L,))."""
+def operation_utilities(x, parent: GaussStats, children: GaussStats, mask,
+                        two_best: TwoBest, grandchildren: GaussStats,
+                        gc_mask, cfg: TreeConfig, fanout_full, split_fits):
+    """(L, 4) utilities of {best, new, merge, split} and which are valid:
+    ``new`` is gated off when the fanout block is full and ``split`` when
+    promoting best1's children would overflow it."""
     nc = mask.sum(dim=-1)
     utilities = torch.stack([
         two_best.best1_pu,
@@ -199,5 +204,16 @@ def best_operation(x, parent: GaussStats, children: GaussStats, mask,
         (nc > 2) & (two_best.best2 >= 0),
         gc_mask.any(dim=-1) & split_fits,
     ], dim=-1)
+    return utilities, valid
+
+
+def best_operation(x, parent: GaussStats, children: GaussStats, mask,
+                   two_best: TwoBest, grandchildren: GaussStats, gc_mask,
+                   cfg: TreeConfig, noise, fanout_full, split_fits):
+    """Best valid operation by ``operation_utilities``; ``noise`` (L, 4)
+    breaks exact utility ties.  Returns (op (L,), utility (L,))."""
+    utilities, valid = operation_utilities(
+        x, parent, children, mask, two_best, grandchildren, gc_mask, cfg,
+        fanout_full, split_fits)
     op = _lex_argmax(utilities, noise, noise, valid)
     return op, utilities.gather(-1, op.unsqueeze(-1)).squeeze(-1)

@@ -1185,15 +1185,32 @@ def test_bf16_store_serves_through_its_entry(card):
     np.testing.assert_array_equal(out[1], out[0])
 
 
+def _near_ties_only(rec: dict):
+    """The rule ``bench/build_divergence.py``'s verdict set for card and
+    host builds: every lane slot for slot equal, but a lane whose first
+    differing decision is a tie or a near tie (its two values within the
+    float32 rounding bound of their terms); never one beyond it."""
+    assert rec["lanes_differing"] == [d["lane"] for d in
+                                      rec["first_differences"]]
+    for d in rec["first_differences"]:
+        assert d["verdict"] in ("exact tie", "near tie"), d
+
+
 @pytest.mark.parametrize("kind", ["zca", "pcazca"])
 def test_zca_forests_serve_the_hosts_ids_on_the_card(card, kind, tmp_path):
     """A whitener-mode forest on a ZCA or PCA+ZCA whitener (the tree as
-    wide as the raw rows), built on the card and served there (an f32
-    fused index, kernels 1 and 5), and its host copy (the saved file
-    loaded on the CPU): the same whitened rows on both devices and the
-    same served ids, except where the re-rank keys of the two ids tie
-    within 1e-5 of their terms."""
+    wide as the raw rows), built on the card and on the host from the same
+    whitened rows (``bench/build_divergence.py``, every step recorded):
+    slot for slot equal but in lanes whose first difference is a tie or
+    a near tie (``_near_ties_only``), the recorded card build equal to the
+    one ``CobwebIndex`` makes (its steps replayed from a CUDA graph).
+    Served on the card (an f32 fused index, kernels 1 and 5) and on its
+    host copy (the saved file loaded on the CPU): the same ids, except
+    where the re-rank keys of the two ids tie within 1e-5 of their
+    terms."""
+    from rag_cobweb_tpu_torch.bench import build_divergence as bd
     from rag_cobweb_tpu_torch.bench.datasets import synthetic_retrieval_hard
+    from rag_cobweb_tpu_torch.core import tree as tree_mod
     from rag_cobweb_tpu_torch.core.config import TreeConfig
     from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
     from rag_cobweb_tpu_torch.ops import fused_topk, rerank
@@ -1204,11 +1221,17 @@ def test_zca_forests_serve_the_hosts_ids_on_the_card(card, kind, tmp_path):
     w = (ZCAWhiteningModel.fit(raw) if kind == "zca"
          else PCAZCAWhiteningModel.fit(raw, pca_dim=0.96))
     assert w.dim_out == raw.shape[1]
-    assert torch.equal(w.transform_torch(torch.as_tensor(raw, device=card))
-                       .cpu(), w.transform_torch(torch.as_tensor(raw)))
-    db = CobwebIndex(config=TreeConfig(dim=w.dim_out), n_subtrees=8,
-                     whitener=w, device=card)
+    x = w.transform_torch(torch.as_tensor(raw, device=card))
+    assert torch.equal(x.cpu(), w.transform_torch(torch.as_tensor(raw)))
+    cfg = TreeConfig(dim=w.dim_out)
+    host = bd.traced_build(x.cpu(), cfg, 8, "cpu")
+    on_card = bd.traced_build(x, cfg, 8, card)
+    _near_ties_only(bd.compare(host, on_card))
+    db = CobwebIndex(config=cfg, n_subtrees=8, whitener=w, device=card)
     db.add_sentences([None] * len(raw), raw)
+    arrays = tree_mod.state_to_numpy(db.forest.state)
+    for f, a in arrays.items():
+        np.testing.assert_array_equal(a, on_card.arrays[f], err_msg=f)
     path = str(tmp_path / "forest.npz")
     db.save(path)
     host = CobwebIndex.load(path, device="cpu")
@@ -1235,6 +1258,100 @@ def test_zca_forests_serve_the_hosts_ids_on_the_card(card, kind, tmp_path):
         for sid in set(out[0][qi]) ^ set(out[1][qi]):
             j = int((ids == int(sid)).nonzero()[0, 0])
             assert abs(float(keys[j]) - kth) <= tol, (qi, sid)
+
+
+def test_card_build_equals_the_host_build_but_at_near_ties(card):
+    """Phase 3g (d)'s forest (``bench/build_divergence.py`` case (a): the
+    first 4096 rows of phase 3e's corpus, PCA+ICA at 0.96, 32 lanes)
+    built on the card and on the host with every step recorded: each lane
+    slot for slot equal, or its first difference a tie or a near tie; the
+    recorded card build equal to the CUDA-graph build."""
+    from rag_cobweb_tpu_torch.bench import build_divergence as bd
+    rec = bd.run_case("a", device=card)
+    assert rec["recorded_equals_graph_build"]
+    _near_ties_only(rec)
+
+
+def _train_db(card, n=300, D=24, seed=0, texts=None):
+    """A single tree of ``n`` clustered rows on the card and its host copy
+    (saved and loaded with ``device="cpu"``), with the rows."""
+    import tempfile
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=3.0, size=(12, D))
+    xs = (centers[np.arange(n) % 12]
+          + 0.3 * rng.normal(size=(n, D))).astype(np.float32)
+    db = CobwebIndex(corpus=texts, corpus_embeddings=xs,
+                     config=TreeConfig(dim=D), device=card)
+    with tempfile.TemporaryDirectory() as tmp:
+        db.save(tmp + "/db.npz")
+        host = CobwebIndex.load(tmp + "/db.npz", device="cpu")
+    return db, host, xs
+
+
+def _hold(rec):
+    assert rec["ok"], rec["fails"]
+    assert rec["steps"] == 5
+
+
+def test_query_trainer_on_the_card_equals_the_host(card):
+    """Five ``CobwebQueryTrainer`` steps on the card and on a host copy
+    (the same parameters and batches): metrics and parameters by
+    ``bench/train_steps.hold``'s rule, the CPU tests' tolerances."""
+    from rag_cobweb_tpu_torch.bench import train_steps
+    from rag_cobweb_tpu_torch.training import CobwebQueryTrainer
+    db, host, xs = _train_db(card)
+    rng = np.random.default_rng(1)
+    gold = rng.choice(len(xs), 120, replace=False)
+    q = (xs[gold] @ np.linalg.qr(rng.normal(size=(24, 24)))[0]).astype(
+        np.float32)
+    tr = CobwebQueryTrainer(db, in_dim=24, hidden_dim=512, lr=1e-3)
+    assert tr.head.Dense_0.weight.device.type == card.type
+    _hold(train_steps.hold(tr, train_steps.host_copy(tr, host),
+                           train_steps.query_steps(q, gold)))
+
+
+def test_e2e_trainer_on_the_card_equals_the_host(card):
+    """Five ``EndToEndQueryTrainer`` steps at the JAX defaults (vocab 8192,
+    d_model 128, 2 layers, max_len 32), an empty text among the queries:
+    loss and the encoder's gradient norm per step, then the parameters."""
+    from rag_cobweb_tpu_torch.bench import train_steps
+    from rag_cobweb_tpu_torch.training import EndToEndQueryTrainer
+    texts = [f"cluster{r % 12} item{r}" for r in range(300)]
+    db, host, _ = _train_db(card, texts=texts)
+    q_texts = [f"find {t}" if r % 7 else "" for r, t in enumerate(texts)]
+    tr = EndToEndQueryTrainer(db)
+    _hold(train_steps.hold(tr, train_steps.host_copy(tr, host),
+                           train_steps.e2e_steps(q_texts, np.arange(300),
+                                                 8192, 32)))
+
+
+def test_vicreg_on_the_card_equals_the_host(card):
+    """Five ``VICRegWhitener`` steps at its defaults (768 -> 128, hidden
+    1024, batches of 256)."""
+    from rag_cobweb_tpu_torch.bench import train_steps
+    from rag_cobweb_tpu_torch.training import VICRegWhitener
+    rng = np.random.default_rng(2)
+    X = (rng.normal(size=(1280, 768)) @ rng.normal(size=(768, 768))
+         / 28.0).astype(np.float32)
+    Y = X + 0.1 * rng.normal(size=X.shape).astype(np.float32)
+    tr = VICRegWhitener(768, device=card)
+    _hold(train_steps.hold(tr, train_steps.host_copy(tr),
+                           train_steps.vicreg_steps(X, Y)))
+
+
+def test_factorvae_on_the_card_equals_the_host(card):
+    """Five ``FactorVAE`` steps at its defaults (z_dim 392, hidden 1024,
+    gamma 10, lr 1e-4, batches of 256), the card's draws given to both."""
+    from rag_cobweb_tpu_torch.bench import train_steps
+    from rag_cobweb_tpu_torch.training import FactorVAE
+    rng = np.random.default_rng(3)
+    X = (rng.normal(size=(1280, 32)) @ rng.normal(size=(32, 768))
+         / 5.0).astype(np.float32)
+    tr = FactorVAE(768, device=card)
+    _hold(train_steps.hold(tr, train_steps.host_copy(tr),
+                           train_steps.factorvae_steps(tr, X)))
 
 
 def test_classifier_on_the_card_equals_the_host(card):

@@ -81,6 +81,7 @@ def test_entry_points_refuse_the_host_by_default():
     from rag_cobweb_tpu_torch.core.tree import CobwebTree
     from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
     from rag_cobweb_tpu_torch.parallel.vforest import VForest
+    from rag_cobweb_tpu_torch.training import FactorVAE, VICRegWhitener
     cfg = TreeConfig(dim=4)
     tree = CobwebTree(cfg, device="cpu")
     for make in (lambda: CobwebTree(cfg), lambda: VForest(cfg),
@@ -90,7 +91,8 @@ def test_entry_points_refuse_the_host_by_default():
                      {"tree": json.loads(tree.dump_json())})),
                  lambda: CobwebTree.load_json(tree.dump_json()),
                  lambda: interop.tree_from_numpy(tree.host_arrays(), cfg),
-                 lambda: FlatIndex(torch.zeros((3, 4)).numpy())):
+                 lambda: FlatIndex(torch.zeros((3, 4)).numpy()),
+                 lambda: VICRegWhitener(4), lambda: FactorVAE(4)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
 
