@@ -175,6 +175,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
    unless (a) and (b)'s last epoch loss is below the first, (b)'s encoder
    gradient norms are finite and positive, (a)'s recall@10 does not fall,
    (c)'s covariance term and (d)'s recon_mse fall;
+3j. multi-device on ``torch.distributed`` (``multichip_phase``, last):
+   ``min(cards, 4)`` ranks, a card each over NCCL, or with one card 2
+   ranks on it over gloo (the card count, world size, backend, the rank
+   to card map printed), started by ``bench/multichip.spawn`` on inputs
+   phases 3 and 3c wrote
+   to ``build/multichip/``, each rank's checks in
+   ``bench/multichip_slice``: (a) ``TPFusedPredictionIndex`` over the
+   flagship's served bf16 index with its raw store, 1000 queries at pool
+   1024 in a counter window (kernels 1 and 5 must launch on every rank),
+   recall@10 within 0.005 of the exact scan's, ids equal to the same
+   pipeline in plain PyTorch on one card but at ties, the batch timed at
+   B = 1000, 1, 32 and split into sweep and pool, re-rank and merge;
+   kernels 1 and 5 held and timed at rank 0's slab and pools; (b)
+   ``TPPredictionIndex`` over phase 3c's tree with its raw store, ids
+   equal to the exact re-rank of the shards' pools but at ties, its
+   all-reduce timed; (c) a 32-lane ``MeshVForest`` over the flagship's
+   whitened rows, every lane slot for slot equal to one card's
+   ``VForest(n_subtrees=32)`` (a lane that differs must show a near tie
+   in a recorded build, ``bench/build_divergence``), ids equal but at
+   ties, inserts/s by rank; (d) 5 ``fit_dp`` steps of
+   ``CobwebQueryTrainer`` at the global batch 16 a rank held in lockstep
+   against single-process steps on a host copy, a step and its gradient
+   all-reduce timed, then an epoch of ``fit_dp``; (e) ``CobwebForest`` on
+   the first 2048 rows: every row finds itself, each shard's leaves equal
+   a single-process build of its rows; (f) 2 ``fit_dp`` steps of
+   ``EndToEndQueryTrainer`` held likewise;
 4. one JSON line of per-kernel numbers, a row per CUDA kernel entry
    (kernel 1 at the flagship shape, with its single-tree record under
    ``single_tree``; kernel 5 on the flagship's served pools, likewise; the
@@ -188,8 +214,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    forest's served pools under ``small_forest``, its content-routed record
    inside that, and its bf16-row entry under ``bf16``: phase 3g's served
    pools, with 1M random rows under ``M1``; kernels 1 and 5 on phase 3h's
-   ZCA forest under ``zca``, its PCA+ZCA twin inside that), the
-   nvidia-smi line, and the
+   ZCA forest under ``zca``, its PCA+ZCA twin inside that; kernels 1 and
+   5 of phase 3j's fused TP engine under ``tp``, their launches summed
+   over the ranks and by rank), the nvidia-smi line, and the
    final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -1745,6 +1772,249 @@ def grouped_pool_probe(B=256, S=1 << 20, k=512, reps=5) -> dict:
     torch.cuda.empty_cache()
     return rec
 
+MESH_STRUCT = ("counts", "parent", "children", "n_children", "root",
+               "n_alloc", "free_top")
+
+
+def write_multichip_flagship(db, data, out_dir: Path) -> None:
+    """Phase 3j's flagship inputs (from phase 3's served forest ``db``):
+    the served index, the raw store, the rows and queries whitened as
+    the forest took them."""
+    from rag_cobweb_tpu_torch.bench import multichip_slice
+    raw = torch.as_tensor(data.corpus_embs, device=db.device)
+    qs = torch.as_tensor(data.query_embs, device=db.device)
+    multichip_slice.write_flagship(
+        out_dir, db._fused_index(), data.corpus_embs,
+        db.whitener.transform_torch(raw).cpu().numpy(),
+        db.whitener.transform_torch(qs).cpu().numpy(), data.query_embs,
+        data.target_ids, db.cfg)
+
+
+def write_multichip_single(db, data, out_dir: Path) -> tuple:
+    """Phase 3j's single tree (phase 3c's ``db``) saved beside the
+    flagship's inputs; returns (its end-to-end texts, queries, gold
+    rows), the rest of ``multichip_phase``'s arguments."""
+    from rag_cobweb_tpu_torch.bench import multichip_slice
+    out_dir.mkdir(parents=True, exist_ok=True)
+    db.save(str(out_dir / multichip_slice.SINGLE))
+    return (query_texts(db, data.target_ids), data.query_embs,
+            data.target_ids)
+
+
+def multichip_phase(exact_recall: float, in_dir: Path, texts, queries,
+                    targets, device="cuda", lanes=32, k=10, pool=1024,
+                    forest_rows=2048, batch_per_rank=16, reps=20,
+                    capacity_per_lane=1024, timeout=600.0) -> dict:
+    """Phase 3j: the multi-device port (``bench/multichip_slice``) on
+    ``min(cards, 4)`` ranks, a card each over NCCL, or with one card 2
+    ranks on it over gloo.  ``in_dir`` holds the flagship's inputs and
+    the single tree (written in phases 3 and 3c); ``queries``/``targets``
+    are the single slice's raw queries and gold rows, ``texts`` its
+    end-to-end texts.  Before the ranks start, (c)'s reference: one
+    ``VForest(n_subtrees=lanes)`` on this device over the same rows and
+    its ids.  After: (a)'s recall within 0.005 of ``exact_recall``, and on
+    the card kernels 1 and 5 held and timed at rank 0's slab and pools;
+    (c) every lane slot for slot equal to the reference's (a lane that
+    differs must show a near tie in a recorded build of the reference,
+    ``bench/build_divergence``) and the ids equal but at ties; (e) every
+    row found as itself.  Returns the record."""
+    from rag_cobweb_tpu_torch.bench import build_divergence as bd
+    from rag_cobweb_tpu_torch.bench import multichip, multichip_slice, probes
+    from rag_cobweb_tpu_torch.core import tree as tree_mod
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.core.index import FusedIndex
+    from rag_cobweb_tpu_torch.files import read_npz
+    from rag_cobweb_tpu_torch.ops import fused_topk, rerank
+    from rag_cobweb_tpu_torch.parallel import tp
+    from rag_cobweb_tpu_torch.parallel.vforest import VForest
+    t_phase = time.perf_counter()
+    card = torch.device(device).type == "cuda"
+    cards = torch.cuda.device_count() if card else 0
+    n = min(cards, 4) if cards >= 2 else 2
+    backend, _ = multichip.rank_layout(n, device)
+    F = read_npz(str(in_dir / multichip_slice.FLAGSHIP))
+    cfg = TreeConfig.from_json_dict(json.loads(bytes(F["cfg"]).decode()))
+    rows_w, qw = F["rows_w"], F["queries_w"]
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    # (c)'s reference, before the ranks start
+    vf = VForest(cfg, n_subtrees=lanes, capacity_per_tree=capacity_per_lane,
+                 seed=0, device=device)
+    sync()
+    t0 = time.perf_counter()
+    vf.add(rows_w)
+    sync()
+    ref_s = time.perf_counter() - t0
+    ref_scores, ref_ids = (t.cpu().numpy() for t in vf.query_topk(qw, k))
+    ref = tree_mod.state_to_numpy(vf.state)
+    ref_leaves = [list(x) for x in vf._leaf_of_local]
+    del vf
+    if card:
+        torch.cuda.empty_cache()
+
+    spec = dict(dir=str(in_dir), k=k, pool=pool, lanes=lanes,
+                capacity_per_lane=capacity_per_lane,
+                batch_per_rank=batch_per_rank, forest_rows=forest_rows,
+                texts=list(texts), single_queries=np.asarray(queries),
+                single_targets=np.asarray(targets))
+    t0 = time.perf_counter()
+    recs = multichip_slice.run(spec, n, device, timeout=timeout)
+    out = {"cards": cards, "world": n, "backend": backend,
+           "ranks_s": time.perf_counter() - t0,
+           "rank_s": [r["s"] for r in recs],
+           "rank_devices": [f"rank {r['rank']} -> {r['device']} "
+                            f"({r['card']})" for r in recs]}
+
+    # (a)
+    a0 = recs[0]["a"]
+    if not a0["recall@10"] >= exact_recall - 0.005:
+        raise AssertionError(f"3j (a): recall@10 {a0['recall@10']} is more "
+                             f"than 0.005 below the exact scan's "
+                             f"{exact_recall}")
+    out["a"] = {"recall@10": a0["recall@10"], "exact": exact_recall,
+                "slab": a0["slab"], "plain": a0["plain"],
+                "windows": [r["a"]["window"] for r in recs],
+                "ms": [r["a"]["ms"] for r in recs],
+                "split": [r["a"].get("split") for r in recs]}
+    if card:
+        GT = torch.as_tensor(F["GT"])
+        if bool(F["GT_bf16"]):
+            GT = GT.to(torch.bfloat16)
+        fidx = FusedIndex(GT=GT, c=torch.as_tensor(F["c"]),
+                          valid=torch.as_tensor(F["valid"]))
+        slab = tp.rank_slab(tp.shard_fused_index(fidx, n, F["raw"]), 0,
+                            device)
+        qq = fused_topk.query_terms(torch.as_tensor(qw, device=device),
+                                    slab.GT.dtype)
+        kk = min(max(k, pool), slab.width)
+        kappa = min(kk, fused_topk.SLAB)
+        out["a"]["fused"] = check_fused(
+            fused_topk, qq, slab.GT, slab.c, slab.valid, kappa, reps,
+            label=" (TP rank 0 slab)", real=True)
+        top, rows = fused_topk.merge(*fused_topk.slab_topk(
+            qq, slab.GT, slab.c, slab.valid, kappa), kk)
+        live = top > fused_topk.NEG / 2
+        cand = torch.where(live, rows, torch.zeros_like(rows)).to(
+            torch.int32).contiguous()
+        cs = torch.where(live, top, torch.full_like(top, -math.inf))
+        out["a"]["rerank"] = check_rerank(
+            rerank, slab.emb, torch.as_tensor(F["queries"], device=device),
+            cand, cs.contiguous(), reps, label=" (TP rank 0 pools)", pv=1.0)
+        del slab, qq, top, rows, cand, cs
+        torch.cuda.empty_cache()
+
+    # (b)
+    b0 = recs[0]["b"]
+    out["b"] = {k2: b0[k2] for k2 in ("N", "S", "ms", "recall@10", "plain",
+                                       "all_reduce_bytes")}
+    out["b"]["all_reduce_ms"] = [r["b"]["all_reduce_ms"] for r in recs]
+
+    # (c): every lane slot for slot against the reference
+    differ, mesh_leaves = [], {}
+    for r in recs:
+        c = r["c"]
+        for i, leaves in enumerate(c["leaves"]):
+            lane = c["lane0"] + i
+            mesh_leaves[lane] = list(leaves)
+            if not (all(np.array_equal(c["arrays"][f][i], ref[f][lane])
+                        for f in MESH_STRUCT) and leaves == ref_leaves[lane]):
+                differ.append(lane)
+    near = {}
+    if differ:
+        trace = bd.traced_build(torch.as_tensor(rows_w), cfg, lanes, device)
+        for lane in differ:
+            want = trace.forest._leaf_of_local[lane]
+            got = mesh_leaves[lane]
+            first = next((i for i, (x, y) in enumerate(zip(want, got))
+                          if x != y), min(len(want), len(got)))
+            ties = bd.near_ties(trace, lane, first)
+            if not ties:
+                raise AssertionError(f"3j (c): lane {lane} differs from the "
+                                     f"single-card forest at insert {first} "
+                                     "with no near tie before it")
+            near[lane] = {"first": first, "near_ties": ties[:3]}
+    out["c"] = {"lanes": lanes, "lanes_differing": differ,
+                "near_ties": near, "ref_build_s": ref_s,
+                "ref_inserts_per_s": len(rows_w) / ref_s,
+                "inserts_per_s": [r["c"]["inserts_per_s"] for r in recs],
+                "rows": [r["c"]["rows"] for r in recs],
+                "total_inserts_per_s": len(rows_w) / max(
+                    r["c"]["build_s"] for r in recs),
+                "ids": probes.hold_ids_at_ties(
+                    ref_ids, recs[0]["c"]["ids"], ref_scores,
+                    recs[0]["c"]["scores"])}
+
+    # (d), (f): rank 0 held the steps; the all-reduce's share of a step
+    d0, f0 = recs[0]["d"], recs[0]["f"]
+    out["d"] = {"hold": {k2: v for k2, v in d0["hold"].items()
+                         if k2 not in ("metrics_card", "metrics_host")},
+                "global_batch": d0["global_batch"],
+                "ms_per_step": [r["d"]["ms_per_step"] for r in recs],
+                "grad_all_reduce_ms": [r["d"]["grad_all_reduce_ms"]
+                                       for r in recs],
+                "grad_all_reduce_share": [
+                    r["d"]["grad_all_reduce_ms"] / r["d"]["ms_per_step"]
+                    for r in recs],
+                "grad_all_reduce_bytes": d0["grad_all_reduce_bytes"],
+                "fit_dp_losses": d0["fit_dp_losses"]}
+    out["f"] = {"hold": {k2: v for k2, v in f0["hold"].items()
+                         if k2 not in ("metrics_card", "metrics_host")},
+                "global_batch": f0["global_batch"],
+                "ms_per_step": [r["f"]["ms_per_step"] for r in recs]}
+
+    # (e)
+    out["e"] = [r["e"] for r in recs]
+    for e in out["e"]:
+        if e["found_itself"] < 1.0:
+            raise AssertionError(f"3j (e): a row did not find itself: {e}")
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def log_multichip(rec: dict, smi: str) -> None:
+    """Phase 3j's lines."""
+    log(f"[3j] cards {rec['cards']}, world size {rec['world']}, backend "
+        f"{rec['backend']}; {'; '.join(rec['rank_devices'])} ({smi})")
+    a = rec["a"]
+    log(f"[3j] (a) fused TP over the flagship index: recall@10 "
+        f"{a['recall@10']} (exact {a['exact']}), rank slab {a['slab']}; "
+        f"vs plain on one device: {a['plain']}; launches by rank "
+        f"{[{k: w[k] for k in ('fused_topk', 'rerank_l2')} for w in a['windows']]}")
+    log(f"[3j] (a) batch ms by rank (CUDA events): {json.dumps(a['ms'])}")
+    log(f"[3j] (a) stage split by rank, stream ms: {json.dumps(a['split'])}")
+    b = rec["b"]
+    log(f"[3j] (b) TP over the single tree (N={b['N']}, S={b['S']}): "
+        f"recall@10 {b['recall@10']}, B=1000 {b['ms']:.3f} ms; vs exact "
+        f"re-rank of the shards' pools: {b['plain']}; all-reduce of "
+        f"{b['all_reduce_bytes']} bytes by rank {b['all_reduce_ms']} ms")
+    c = rec["c"]
+    log(f"[3j] (c) mesh forest, {c['lanes']} lanes: build inserts/s by rank "
+        f"{c['inserts_per_s']} (rows {c['rows']}), total "
+        f"{c['total_inserts_per_s']:.1f}; one-card reference "
+        f"{c['ref_inserts_per_s']:.1f}; lanes differing "
+        f"{c['lanes_differing']} {c['near_ties']}; ids vs the reference "
+        f"{c['ids']}")
+    for name in ("d", "f"):
+        t = rec[name]
+        h = t["hold"]
+        log(f"[3j] ({name}) fit_dp, global batch {t['global_batch']}: ms a "
+            f"step by rank {t['ms_per_step']}; vs single-process steps over "
+            f"{h['steps']}: ok {h['ok']}, worst metric rel "
+            f"{h['worst_metric_rel']:.3g}, worst parameter excess "
+            f"{h['worst_param_excess']:.3g}, unsettled / parted "
+            f"{h['unsettled']} / {h['parted']} of {h['entries']}")
+    d = rec["d"]
+    log(f"[3j] (d) gradient all-reduce ({d['grad_all_reduce_bytes']} bytes) "
+        f"ms by rank {d['grad_all_reduce_ms']}, share of a step "
+        f"{d['grad_all_reduce_share']}; one epoch of fit_dp: loss "
+        f"{d['fit_dp_losses']}")
+    log(f"[3j] (e) sharded forest: {rec['e']}")
+    log(f"[3j] {rec['s']:.1f}s (ranks {rec['ranks_s']:.1f}s, by rank "
+        f"{[round(x, 1) for x in rec['rank_s']]})")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1855,6 +2125,7 @@ def main() -> int:
     # -- 3. the flagship slice ------------------------------------------
     zero, read = probes.zero_counters, probes.read_counters
     out_dir = here / "build" / "query_api"    # phase 3f's saved indexes
+    mc_dir = here / "build" / "multichip"     # phase 3j's inputs
     launches, windows = {}, {}
 
     def whitened(db, data, n):
@@ -1893,12 +2164,14 @@ def main() -> int:
         # 3f: the query API on the flagship forest (lane-fair beam)
         flag["api"] = query_api(db, data, zero, read, "flagship forest",
                                 out_dir)
+        write_multichip_flagship(db, data, mc_dir)
 
     rec = headline.run(corpus_size=10000, queries=1000, dim=768,
                        pca_dim=0.96, k=10, batch=1024, dataset="hard",
                        n_lanes=32, rerank=1024, device="cuda",
                        log=lambda *a: log(*a), hook=flagship_hook)[0]
     log(json.dumps(rec))
+    flag_exact = rec["exact_recall@10"]      # phase 3j's recall gate
     log(f"[slice] kernel launches on the main path: {windows['fused']}")
     log("[slice] flagship stage split, stream ms between CUDA events, one "
         "batch: "
@@ -2008,6 +2281,9 @@ def main() -> int:
     # -- 3c. the single-tree slice --------------------------------------
     rec1, single = single_tree_slice(headline, zero, read, windows, launches,
                                      name, out_dir)
+
+    # 3j's inputs: the single tree, as phase 3i trains on it
+    mc_single = write_multichip_single(single["db"], single["data"], mc_dir)
 
     # -- 3i. training on the card, on 3c's single tree -----------------
     t3i = time.perf_counter()
@@ -2138,6 +2414,14 @@ def main() -> int:
     log(f"[3h] grouped_pool_topk: {json.dumps(last['grouped'])}")
     log(f"[3h] {time.perf_counter() - t3h:.1f}s")
     zca, pcazca = last["forests"]["zca"], last["forests"]["pcazca"]
+    del last
+    torch.cuda.empty_cache()
+
+    # -- 3j. multi-device: the port on torch.distributed ------------------
+    mc = multichip_phase(flag_exact, mc_dir, *mc_single)
+    log_multichip(mc, smi)
+    launches["tp"] = {kern: [w[kern] for w in mc["a"]["windows"]]
+                      for kern in ("fused_topk", "rerank_l2")}
 
     # -- 4. result lines ----------------------------------------------------
     src = "rag_cobweb_tpu_torch/csrc/"
@@ -2153,7 +2437,13 @@ def main() -> int:
              # twin inside
              zca=dict(launches=zca["window"]["fused_topk"], **zca["fused"],
                       pcazca=dict(launches=pcazca["window"]["fused_topk"],
-                                  **pcazca["fused"]))),
+                                  **pcazca["fused"])),
+             # 3j: each rank's sweep and pool in the fused TP engine (its
+             # launches summed over the ranks, then by rank), the record at
+             # rank 0's slab
+             tp=dict(launches=sum(launches["tp"]["fused_topk"]),
+                     by_rank=launches["tp"]["fused_topk"],
+                     ranks=mc["world"], **mc["a"]["fused"])),
         dict(name="rerank_l2", route="cuda", source=src + "rerank_l2.cu",
              replaces="scripts/gather_probe.py:55",
              launches=launches["rerank_l2"], **flag["rerank"],
@@ -2172,7 +2462,12 @@ def main() -> int:
                      "rerank_l2"], **small["content"]["rerank"])),
              zca=dict(launches=zca["window"]["rerank_l2"], **zca["rerank"],
                       pcazca=dict(launches=pcazca["window"]["rerank_l2"],
-                                  **pcazca["rerank"]))),
+                                  **pcazca["rerank"])),
+             # 3j: each rank's exact re-rank in the fused TP engine, the
+             # record on rank 0's pools
+             tp=dict(launches=sum(launches["tp"]["rerank_l2"]),
+                     by_rank=launches["tp"]["rerank_l2"],
+                     ranks=mc["world"], **mc["a"]["rerank"])),
         # one CUDA kernel and counter for both TPU kernels (_kernel_v2's
         # body is _kernel): the served index at B=1024, and under "B4096"
         # at the batch of _kernel_v2's measurement

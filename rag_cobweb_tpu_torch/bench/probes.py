@@ -434,3 +434,158 @@ def _event_split(run, B: int) -> dict:
     split["wall"] = wall
     split["B"] = B
     return split
+
+
+# ---------------------------------------------------------------------------
+# the multi-device engines (parallel/tp.py), held on one device
+# ---------------------------------------------------------------------------
+
+def _shard_pools(full, terms, n_shards: int, pool: int, tol):
+    """Each of ``n_shards`` equal column ranges' top-``pool`` of (B, S)
+    scores (the TP split: ``ceil(S / K)`` columns a shard, those past S
+    -inf) -> (candidates (B,
+    K * pool) global columns, their scores, and ``pool_tie(query, col)``:
+    whether the column's score is within ``tol(score, terms)`` of its
+    range's last pool score)."""
+    B, S = full.shape
+    w = -(-S // n_shards)
+    pad = w * n_shards - S
+    full = torch.nn.functional.pad(full, (0, pad), value=float("-inf"))
+    terms = torch.nn.functional.pad(terms, (0, pad))
+    cs, pos = torch.topk(full.view(B, n_shards, w), min(pool, w), dim=2)
+    cand = pos + (torch.arange(n_shards, device=full.device) * w).view(
+        1, -1, 1)
+    last = cs[:, :, -1]
+
+    def pool_tie(qi, col):
+        sc, last_s = float(full[qi, col]), float(last[qi, col // w])
+        return abs(sc - last_s) <= tol(abs(last_s), float(terms[qi, col]))
+
+    return cand.reshape(B, -1), cs.reshape(B, -1), pool_tie
+
+
+def _hold_shard_union(raw, qs, cand, cs, got, k: int, s: int, pool_tie):
+    """The union of the shards' pools re-ranked by ``-||q - x||^2`` on the
+    rows ``raw`` (the re-rank key at prior variance 1), held against the
+    served ids of one batch -> (plain ids (B, k), tied ids)."""
+    live = torch.isfinite(cs)
+    cand = torch.where(live, cand, torch.zeros_like(cand))
+    lp = _plain_keys(raw, qs, cand, live, 1.0)
+    top = torch.topk(lp, k, dim=1)
+    ids = cand.gather(1, top.indices)
+    return ids, _hold_served(raw, qs, got, ids, top.values, k, 1.0, s,
+                             pool_tie)
+
+
+def tp_fused_plain(fidx, raw, queries_w, queries, served, k: int, pool: int,
+                   n_shards: int, batch: int = 1024, targets=None) -> dict:
+    """The fused TP engine's pipeline (``TPFusedPredictionIndex`` at
+    ``rerank=pool`` on ``n_shards`` ranks) in plain PyTorch on one
+    device, batch by batch, held against its ``served`` ids as
+    ``plain_check`` holds the fused engine's: each shard's columns' top
+    ``pool`` by the f32 scores of ``fidx`` (the whitened ``queries_w``),
+    their union, the exact key on the raw rows ``raw`` (the raw
+    ``queries``), the top ``k``.  A served id that differs must be a tie
+    of the key or of its shard's pool's last score (within 1e-3 + 1e-5 of
+    its terms).  Returns the record."""
+    dev = fidx.GT.device
+    raw = torch.as_tensor(np.asarray(raw, np.float32), device=dev)
+    plain, ties = [], 0
+    for s in range(0, len(queries), batch):
+        qs = torch.as_tensor(queries[s:s + batch], device=dev)
+        qw = torch.as_tensor(queries_w[s:s + batch], device=dev)
+        qq = fused_topk.query_terms(qw, fidx.GT.dtype)
+        full = fused_topk.slab_scores_plain(
+            qq, fidx.GT, fidx.c, fidx.valid, float("-inf")).reshape(
+                len(qq), -1)
+        terms = (torch.matmul(qq.float().abs(), fidx.GT.float().abs())
+                 + fidx.c.abs())
+        cand, cs, pool_tie = _shard_pools(
+            full, terms, n_shards, pool, lambda last, t: 1e-3 + 1e-5 * t)
+        got = torch.as_tensor(served[s:s + batch], device=dev)
+        ids, t = _hold_shard_union(raw, qs, cand, cs, got, k, s, pool_tie)
+        plain.append(ids.cpu().numpy())
+        ties += t
+    return _plain_record(np.concatenate(plain), served, ties, targets, k, 0)
+
+
+def tp_path_plain(index, raw, queries_w, queries, served, k: int, pool: int,
+                  n_shards: int, batch: int = 1024) -> dict:
+    """``TPPredictionIndex`` at ``rerank=pool`` with stored rows, in plain
+    PyTorch on one device: each shard's sentences' (the S split) top
+    ``pool`` path scores (``rank_scores``), their union, ``exact_rerank``'s
+    order on ``raw`` (the key at prior variance 1), the top ``k``; held
+    against ``served``.  A pool tie is a path score within 1e-3 + 1e-4 of
+    the shard's last (the TP engine sums its node log-probs over the
+    ranks: ``tests/test_tp.py``'s tolerance).  Returns the record."""
+    dev = index.const.device
+    raw = torch.as_tensor(np.asarray(raw, np.float32), device=dev)
+    plain, ties = [], 0
+    for s in range(0, len(queries), batch):
+        qs = torch.as_tensor(queries[s:s + batch], device=dev)
+        qw = torch.as_tensor(queries_w[s:s + batch], device=dev)
+        full = index_mod.rank_scores(index, qw)
+        cand, cs, pool_tie = _shard_pools(
+            full, torch.zeros_like(full), n_shards, pool,
+            lambda last, t: 1e-3 + 1e-4 * last)
+        got = torch.as_tensor(served[s:s + batch], device=dev)
+        ids, t = _hold_shard_union(raw, qs, cand, cs, got, k, s, pool_tie)
+        plain.append(ids.cpu().numpy())
+        ties += t
+    return _plain_record(np.concatenate(plain), served, ties, None, k, 0)
+
+
+def hold_ids_at_ties(want_ids, got_ids, want_keys, got_keys,
+                     rtol: float = 1e-4) -> dict:
+    """Two rankings of the same queries by one key computed in two ways:
+    at each place the keys agree within ``rtol`` of the row's largest
+    |key| (and 1), and the ids are equal at every place whose key ties no
+    other key of the row nor its last within that.  Raises otherwise;
+    returns the rows and places that differ."""
+    want_keys, got_keys = np.asarray(want_keys), np.asarray(got_keys)
+    rows, places = 0, 0
+    for b in np.nonzero((np.asarray(want_ids) != np.asarray(got_ids))
+                        .any(axis=1))[0]:
+        key = want_keys[b]
+        tol = rtol * max(float(np.abs(key[np.isfinite(key)]).max()), 1.0)
+        fin = np.isfinite(key)
+        if (np.abs(got_keys[b][fin] - key[fin]) > tol).any() or not \
+                np.array_equal(np.isfinite(got_keys[b]), fin):
+            raise AssertionError(f"query {b}: keys differ beyond {tol:.3g}:"
+                                 f" {key.tolist()} vs {got_keys[b].tolist()}")
+        near = np.abs(key[:, None] - key[None, :]) <= tol
+        tied = (near.sum(1) > 1) | (np.abs(key - key[-1]) <= tol)
+        diff = np.asarray(want_ids[b]) != np.asarray(got_ids[b])
+        if (diff & ~tied).any():
+            raise AssertionError(
+                f"query {b}: ids differ at an untied place: "
+                f"{list(want_ids[b])} vs {list(got_ids[b])}, keys "
+                f"{key.tolist()}")
+        rows += 1
+        places += int(diff.sum())
+    return {"queries_differing": rows, "tied_places": places}
+
+
+def tp_split(tpf, queries_w, queries, k: int, pool: int) -> dict:
+    """Stream ms of each stage of one batch served by a
+    ``TPFusedPredictionIndex`` on this rank (``_event_split``): upload,
+    kernel 1 (query terms, the slab's pools and their merge), kernel 5 on
+    the rank's rows, the all-gather merge, ids to the host."""
+    from rag_cobweb_tpu_torch.parallel import collectives
+    kk = min(max(k, pool), tpf.slab.width)
+
+    def run(mark):
+        qw = torch.as_tensor(queries_w, device=tpf.device)
+        qs = torch.as_tensor(queries, device=tpf.device)
+        mark("upload")
+        top, rows = tpf.local_pool(qw, kk)
+        mark("kernel 1")
+        key = tpf.local_rerank(qs, top, rows)
+        mark("kernel 5")
+        _, ids = collectives.merge_topk(key, tpf.slab.sid[rows], k,
+                                        tpf.group)
+        mark("all-gather merge")
+        ids.cpu()
+        mark("to host")
+
+    return _event_split(run, len(queries))

@@ -7,7 +7,10 @@
 the card trainer's parameters and a fresh optimizer.  ``steps`` are
 ``Step`` objects, one a step (``query_steps``, ``e2e_steps``,
 ``vicreg_steps``, ``factorvae_steps`` make them from the same batches
-and, for FactorVAE, the same draws).
+and, for FactorVAE, the same draws).  ``dp_steps`` wraps query or
+end-to-end steps so that a data-parallel trainer takes each global batch
+through ``train_step_dp`` on every rank of its group, held against a
+single-process trainer taking it whole.
 
 The steps run in lockstep: before each, the host copy takes the card's
 parameters and optimizer state, so a difference shows in the step that
@@ -153,6 +156,31 @@ class FactorVAEStep(Step):
             z = fv.reparameterize(mu, logvar, eps)
             return float(tr.disc(z).abs().mean()
                          + tr.disc(fv.permute_dims(z, perm2)).abs().mean())
+
+
+class DPStep(Step):
+    """A query or end-to-end step whose data-parallel trainer ``dp`` takes
+    the global batch through ``train_step_dp`` over ``group`` (every rank
+    runs it); any other trainer takes it whole."""
+
+    def __init__(self, step, dp, group):
+        self.step, self.dp, self.group = step, dp, group
+
+    def run(self, tr):
+        if tr is not self.dp:
+            return self.step.run(tr)
+        st = self.step
+        if isinstance(st, QueryStep):
+            return {"loss": tr.train_step_dp(st.queries, st.gold,
+                                             self.group)}
+        loss, gn = tr.train_step_dp(st.ids, st.mask, st.gold, self.group)
+        return {"loss": loss, "encoder_grad_norm": gn}
+
+
+def dp_steps(steps: list, dp, group) -> list:
+    """``steps`` (``query_steps`` or ``e2e_steps`` at the global batch)
+    run by the data-parallel trainer ``dp`` over ``group``."""
+    return [DPStep(s, dp, group) for s in steps]
 
 
 def _orders(n_items: int, n: int, batch: int, seed: int) -> list:

@@ -4,7 +4,9 @@ These functions take what ``rag_cobweb_tpu`` objects hold (fetched with
 ``jax.device_get`` by the caller, or read from its ``.npz`` files and
 pickles) and build the port's objects, so one state can run through both
 packages: trees, forests, indexes, whiteners, and the trainers' modules
-from their flax parameter trees.  Nothing here imports the JAX package.
+from their flax parameter trees.  A rank of a mesh takes its own shard of
+a JAX sharded forest or composed mesh forest (``forest_shard_from_numpy``,
+``mesh_vforest_from_numpy``).  Nothing here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ from rag_cobweb_tpu_torch.core.index import (BlockedIndex, FusedIndex,
 from rag_cobweb_tpu_torch.core.tree import CobwebTree
 from rag_cobweb_tpu_torch.device import resolve_device
 from rag_cobweb_tpu_torch.files import read_npz
+from rag_cobweb_tpu_torch.parallel.distributed import axis_group
+from rag_cobweb_tpu_torch.parallel.forest import CobwebForest, make_mesh
+from rag_cobweb_tpu_torch.parallel.mesh_vforest import MeshVForest
 from rag_cobweb_tpu_torch.parallel.vforest import VForest
 from rag_cobweb_tpu_torch.training.factorvae import (Discriminator,
                                                      MLPDecoder, MLPEncoder)
@@ -99,6 +104,41 @@ def load_jax_tree_npz(path: str, seed: int = 0, device="cuda"):
     return tree_from_numpy(arrays, cfg, seed=seed,
                            n_inserted=int(data["n_inserted"]),
                            device=device), extras
+
+
+def forest_shard_from_numpy(arrays: dict, meta: dict, mesh=None,
+                            axis_name: str = "shard",
+                            device="cuda") -> CobwebForest:
+    """This rank's shard of a JAX ``CobwebForest``, served by the port:
+    ``arrays`` its stacked state (``jax.device_get(forest.state)
+    ._asdict()``, leading axis = shard), ``meta`` its ``cfg`` (a
+    TreeConfig or its JSON dict), ``shard_of``, ``local_sid`` and
+    ``leaf_of_local`` (its ``_leaf_of_local``).  Rank r of ``mesh``'s
+    axis takes shard r."""
+    mesh = mesh if mesh is not None else make_mesh(axis_name=axis_name)
+    _, shard, _ = axis_group(mesh, axis_name)
+    tree = tree_from_numpy({k: np.asarray(v)[shard]
+                            for k, v in arrays.items()}, meta["cfg"],
+                           device=device)
+    return CobwebForest.from_shard_state(tree, meta, mesh, axis_name)
+
+
+def mesh_vforest_from_numpy(arrays: dict, meta: dict, lanes_per_shard: int,
+                            mesh=None, axis_name: str = "shard",
+                            device="cuda") -> MeshVForest:
+    """This rank's lanes of a JAX ``MeshVForest``, served by the port:
+    ``arrays`` its stacked state (leading axis = the L = N x
+    ``lanes_per_shard`` lanes), ``meta`` as ``forest_shard_from_numpy``'s
+    over all L lanes.  Rank r takes lanes ``[r K, (r + 1) K)``."""
+    mesh = mesh if mesh is not None else make_mesh(axis_name=axis_name)
+    _, shard, _ = axis_group(mesh, axis_name)
+    K = lanes_per_shard
+    lanes = slice(shard * K, (shard + 1) * K)
+    forest = VForest.from_numpy(
+        {k: np.asarray(v)[lanes] for k, v in arrays.items()},
+        {"cfg": meta["cfg"], "shard_of": [], "local_sid": [],
+         "leaf_of_local": [[] for _ in range(K)]}, device=device)
+    return MeshVForest.from_lane_state(forest, meta, mesh, axis_name)
 
 
 def _float_tensor(a, dev) -> torch.Tensor:

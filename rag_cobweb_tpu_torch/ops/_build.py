@@ -6,13 +6,16 @@ happen at first use, never at import, into ``build/torch_kernels/`` at the
 repository root; the library name carries a hash of its source and of
 the shared headers beside it (``csrc/*.cuh``), so an edited kernel is
 rebuilt and an unchanged one is reused.  All missing
-libraries build at once, one ``nvcc`` process per source.  A failed build
-raises: there is no fallback.
+libraries build at once, one ``nvcc`` process per source, under a file
+lock (``build.lock``), so ranks of a multi-device run that start cold
+build each library once and the rest load it.  A failed build raises:
+there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -72,10 +75,17 @@ def library_path(name: str) -> Path:
 
 
 def build_all() -> dict:
-    """Compile every source whose library is missing, all in parallel.
-    Returns {name: nvcc output (with ``-Xptxas -v`` register counts)} for
-    the sources built now."""
+    """Compile every source whose library is missing, all in parallel,
+    holding the build lock (another process building meanwhile: its
+    libraries exist once the lock is taken).  Returns {name: nvcc output
+    (with ``-Xptxas -v`` register counts)} for the sources built now."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_missing()
+
+
+def _build_missing() -> dict:
     procs = {}
     for name in SOURCES:
         so = library_path(name)

@@ -1,169 +1,131 @@
-"""The stacked per-lane index of a K-lane forest: the single-device subset
-of ``rag_cobweb_tpu/parallel/forest.py``.
+"""The sharded forest over a mesh (port of
+``rag_cobweb_tpu/parallel/forest.py``); the stacked per-lane index that
+the JAX module also holds is ``parallel/stacked.py``, re-exported here.
 
-``build_stacked_index`` builds each lane's prediction index on that lane
-alone (``core/index.build_flat_forest_index`` over a one-lane view of the
-state, so the lane's compact node ids, paths and layout are the JAX
-``build_index``'s), then pads and stacks them on a leading lane axis as
-the JAX package does: padding nodes carry ``inv_var = 1``, ``mu/var = 0``
-and ``const = 0``, padding rows carry paths -1, weight 0 and global id -1.
-The ``children``/``parent`` arrays come to the host once for all lanes;
-the statistics stay on the device.  ``merge_stacked_to_flat`` flattens a
-stacked index into one ``PredictionIndex`` over global sentence ids.
-
-The mesh forest (``CobwebForest``, ``make_mesh``, ``shard_map``) is not
-here: it is multi-device code.
+``CobwebForest`` is one Cobweb tree a rank of a mesh axis (``make_mesh``),
+SPMD over ``torch.distributed``: every rank calls ``add`` and
+``query_topk`` with the same rows.  A row goes to shard ``gid % K``; each
+rank inserts only its own rows into its one tree (``core/tree.CobwebTree``,
+the whole batch as one chunk, as the JAX package's one ``insert_batch``),
+and the leaves are all-gathered so that every rank keeps the JAX
+package's bookkeeping (``shard_of``, ``local_sid``, ``_leaf_of_local``).
+A query ranks the rank's rows by path score, re-keys its top-k by leaf
+log-probability (the key calibrated alike on every shard) and merges the
+ranks' candidates (``parallel/collectives.merge_topk``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
-from rag_cobweb_tpu_torch.core import index as index_mod
 from rag_cobweb_tpu_torch.core import tree as tree_mod
+from rag_cobweb_tpu_torch.core.config import TreeConfig
+from rag_cobweb_tpu_torch.device import full_f32_matmul, resolve_device
+from rag_cobweb_tpu_torch.parallel import collectives
+from rag_cobweb_tpu_torch.parallel.distributed import axis_group, make_mesh
+# the stacked index's builders are re-exported, as the JAX module has them
+from rag_cobweb_tpu_torch.parallel.stacked import (
+    StackedIndex, build_stacked_index, extend_bookkeeping, lane_slots,
+    merge_stacked_to_flat, rank_stacked_index)
+from rag_cobweb_tpu_torch.parallel.vforest import _vforest_query
 
 
-class StackedIndex(NamedTuple):
-    """Per-lane PredictionIndex tensors stacked on a leading lane axis and
-    padded to common sizes; ``sentence_valid`` masks the padding rows."""
+class CobwebForest:
+    """A forest of Cobweb trees sharded one a rank over a mesh axis."""
 
-    inv_var_T: torch.Tensor       # (K, D, N) f32
-    mu_over_var_T: torch.Tensor   # (K, D, N) f32
-    const: torch.Tensor           # (K, N) f32
-    paths: torch.Tensor           # (K, S, P) lane-compact node ids, -1 pad
-    path_weights: torch.Tensor    # (K, S, P) f32
-    sentence_valid: torch.Tensor  # (K, S) bool
-    leaf_node: torch.Tensor       # (K, S) compact id of the row's leaf
-    global_sid: torch.Tensor      # (K, S) lane row -> global id, -1 pad
-    children: torch.Tensor        # (K, N, F) compact child ids, -1 pad
-    leaf_sentence_start: torch.Tensor  # (K, N)
-    leaf_sentence_count: torch.Tensor  # (K, N)
-    sentence_order: torch.Tensor  # (K, S) lane rows grouped by leaf
+    def __init__(self, cfg: TreeConfig, mesh: "DeviceMesh | None" = None,
+                 capacity_per_shard: int = 4096, seed: int = 0,
+                 axis_name: str = "shard", device="cuda"):
+        """Every rank of the axis makes the forest with the same arguments;
+        rank ``r`` holds shard ``r`` on ``device`` (the rank's card by
+        default, or ``"cpu"``)."""
+        full_f32_matmul()
+        self.cfg = cfg
+        self.mesh = mesh if mesh is not None else make_mesh(
+            axis_name=axis_name)
+        self.axis = axis_name
+        self.group, self.shard, self.n_shards = axis_group(self.mesh,
+                                                           axis_name)
+        self.device = resolve_device(device)
+        self.capacity = capacity_per_shard
+        self.tree = tree_mod.CobwebTree(cfg, capacity_per_shard,
+                                        seed=seed + self.shard,
+                                        device=self.device)
+        self.n_sentences = 0
+        self.shard_of: list[int] = []
+        self.local_sid: list[int] = []
+        self._leaf_of_local: list[list[int]] = [
+            [] for _ in range(self.n_shards)]
+        self._stacked_index: "StackedIndex | None" = None
 
-    def lane(self, s: int) -> index_mod.PredictionIndex:
-        """The lane-local PredictionIndex view of lane ``s`` (padded to
-        the stacked sizes)."""
-        return index_mod.PredictionIndex(
-            inv_var_T=self.inv_var_T[s], mu_over_var_T=self.mu_over_var_T[s],
-            const=self.const[s], paths=self.paths[s],
-            path_weights=self.path_weights[s], children=self.children[s],
-            leaf_sentence_start=self.leaf_sentence_start[s],
-            leaf_sentence_count=self.leaf_sentence_count[s],
-            sentence_order=self.sentence_order[s],
-            paths_h=self.paths[s].cpu().numpy().astype(np.int32),
-            weights_h=self.path_weights[s].cpu().numpy(),
-            order_h=self.sentence_order[s].cpu().numpy().astype(np.int32))
+    @property
+    def state(self) -> tree_mod.TreeState:
+        """This rank's shard (a one-lane state)."""
+        return self.tree.state
 
+    @classmethod
+    def from_shard_state(cls, tree: tree_mod.CobwebTree, meta: dict,
+                         mesh: "DeviceMesh | None" = None,
+                         axis_name: str = "shard") -> "CobwebForest":
+        """The forest whose shard on this rank is ``tree`` (its state
+        carried from the JAX package's stacked state, ``interop``), with
+        the JAX bookkeeping in ``meta`` (``shard_of``, ``local_sid``,
+        ``leaf_of_local``)."""
+        f = cls(tree.cfg, mesh, tree.state.capacity, axis_name=axis_name,
+                device=tree.device)
+        f.tree = tree
+        f.shard_of = [int(x) for x in meta["shard_of"]]
+        f.local_sid = [int(x) for x in meta["local_sid"]]
+        f._leaf_of_local = [[int(x) for x in lst]
+                            for lst in meta["leaf_of_local"]]
+        f.n_sentences = len(f.shard_of)
+        return f
 
-def _lane_state(st: tree_mod.TreeState, s: int) -> tree_mod.TreeState:
-    """A one-lane view (no copy) of lane ``s`` of the stacked state."""
-    return tree_mod.TreeState(**{f: getattr(st, f)[s:s + 1]
-                                 for f in tree_mod.FIELDS})
+    def add(self, embeddings) -> np.ndarray:
+        """Insert a batch, routed round-robin by global id; returns the
+        global ids.  Each shard's rows go in as one batch (a descent past
+        48 steps retried on the exact path after it, where the JAX
+        package records leaf -1)."""
+        embeddings = np.asarray(embeddings, np.float32)
+        B, K = len(embeddings), self.n_shards
+        gids = np.arange(self.n_sentences, self.n_sentences + B)
+        shard_of = gids % K
+        mine = embeddings[shard_of == self.shard]
+        leaves = (self.tree.fit(mine, batch_size=len(mine)) if len(mine)
+                  else np.zeros((0,), np.int64))
+        width = max(int(np.bincount(shard_of, minlength=K).max()), 1)
+        buf = torch.full((width,), -1, dtype=torch.int64, device=self.device)
+        buf[:len(leaves)] = torch.as_tensor(leaves, device=self.device)
+        every = collectives.all_gather(buf, self.group).cpu().numpy()
+        extend_bookkeeping(self, shard_of, lane_slots(shard_of, K), every)
+        self._stacked_index = None
+        return gids
 
+    def build_index(self) -> StackedIndex:
+        """This rank's shard's prediction index (a one-lane stacked index
+        whose rows carry global ids), cached until the next ``add``."""
+        if self._stacked_index is None:
+            own = np.nonzero(np.asarray(self.shard_of) == self.shard)[0]
+            self._stacked_index = rank_stacked_index(
+                self.cfg, self.state, [self._leaf_of_local[self.shard]],
+                [own])
+        return self._stacked_index
 
-def _stack(tensors, shape, fill, dtype=None) -> torch.Tensor:
-    """The per-lane tensors written into one (K, *shape) tensor of
-    ``fill``, each at its leading corner."""
-    out = torch.full((len(tensors),) + tuple(shape), fill,
-                     dtype=dtype or tensors[0].dtype,
-                     device=tensors[0].device)
-    for s, t in enumerate(tensors):
-        out[(s,) + tuple(slice(0, d) for d in t.shape)] = t
-    return out
+    def _rows_common(self) -> int:
+        """The JAX package's common per-shard row count (the padded S)."""
+        return max(max(len(lst) for lst in self._leaf_of_local), 1)
 
-
-def build_stacked_index(cfg, st: tree_mod.TreeState, leaf_of_local: list,
-                        shard_of: list, local_sid: list,
-                        n_sentences: int) -> StackedIndex:
-    """Per-lane prediction indexes, padded to common shapes and stacked on
-    a leading lane axis (the JAX ``build_stacked_index``, array for
-    array)."""
-    K = st.lanes
-    children_h, parent_h, root_h = index_mod.host_structure(st)
-    per = [index_mod.build_flat_forest_index(
-        cfg, _lane_state(st, s), np.asarray(leaf_of_local[s], np.int64),
-        host_struct=(children_h[s:s + 1], parent_h[s:s + 1],
-                     root_h[s:s + 1]))
-        for s in range(K)]
-    D = cfg.dim
-    N = max(i.num_nodes for i in per)
-    S = max(max(i.num_sentences for i in per), 1)
-    Pd = max(i.paths.shape[1] for i in per)
-    F = max(i.children.shape[1] for i in per)
-    dev = st.device
-    gsid = np.full((K, S), -1, np.int64)
-    if n_sentences:
-        gsid[np.asarray(shard_of[:n_sentences]),
-             np.asarray(local_sid[:n_sentences])] = np.arange(n_sentences)
-    return StackedIndex(
-        inv_var_T=_stack([i.inv_var_T for i in per], (D, N), 1.0),
-        mu_over_var_T=_stack([i.mu_over_var_T for i in per], (D, N), 0.0),
-        const=_stack([i.const for i in per], (N,), 0.0),
-        paths=_stack([i.paths for i in per], (S, Pd), -1),
-        path_weights=_stack([i.path_weights for i in per], (S, Pd), 0.0),
-        sentence_valid=_stack(
-            [torch.ones((i.num_sentences,), dtype=torch.bool, device=dev)
-             for i in per], (S,), False),
-        leaf_node=_stack([index_mod._sentence_leaf_nodes(i) for i in per],
-                         (S,), 0),
-        global_sid=torch.as_tensor(gsid, device=dev),
-        children=_stack([i.children for i in per], (N, F), -1),
-        leaf_sentence_start=_stack([i.leaf_sentence_start for i in per],
-                                   (N,), -1),
-        leaf_sentence_count=_stack([i.leaf_sentence_count for i in per],
-                                   (N,), 0),
-        sentence_order=_stack([i.sentence_order for i in per], (S,), 0))
-
-
-def merge_stacked_to_flat(stacked: StackedIndex) -> index_mod.PredictionIndex:
-    """ONE PredictionIndex over global sentence ids from a K-lane stacked
-    index: lane l's compact node ids are offset by ``l * N``, the per-lane
-    terms and paths concatenate, and the leaf runs follow the JAX
-    package's global numbering (sentences sorted stably by leaf).  Not a
-    beam index: there is no single root."""
-    K, D, N = stacked.inv_var_T.shape
-    dev = stacked.const.device
-    Pd = stacked.paths.shape[2]
-    paths = stacked.paths.cpu().numpy()
-    pw = stacked.path_weights.cpu().numpy()
-    gsid = stacked.global_sid.cpu().numpy()
-    valid = gsid >= 0
-    n_sent = int(valid.sum())
-    offs = (np.arange(K) * N)[:, None, None]
-    paths_off = np.where(paths >= 0, paths + offs, -1)
-    flat_paths = np.full((n_sent, Pd), -1, np.int32)
-    flat_pw = np.zeros((n_sent, Pd), np.float32)
-    lanes, rows = np.nonzero(valid)
-    sids = gsid[lanes, rows]
-    flat_paths[sids] = paths_off[lanes, rows]
-    flat_pw[sids] = pw[lanes, rows]
-
-    plen = (flat_paths >= 0).sum(1)
-    leaf_of = flat_paths[np.arange(n_sent), np.maximum(plen - 1, 0)]
-    sent_order = np.argsort(leaf_of, kind="stable").astype(np.int32)
-    leaf_start = np.full((K * N,), -1, np.int64)
-    leaf_count = np.zeros((K * N,), np.int64)
-    uniq, starts, counts = np.unique(leaf_of[sent_order], return_index=True,
-                                     return_counts=True)
-    leaf_start[uniq] = starts
-    leaf_count[uniq] = counts
-    kids = stacked.children.cpu().numpy()
-    kids_flat = np.where(kids >= 0, kids + offs, -1).reshape(K * N, -1)
-
-    def up(a):
-        return torch.as_tensor(a, device=dev)
-
-    return index_mod.PredictionIndex(
-        inv_var_T=stacked.inv_var_T.permute(1, 0, 2).reshape(D, K * N)
-        .contiguous(),
-        mu_over_var_T=stacked.mu_over_var_T.permute(1, 0, 2)
-        .reshape(D, K * N).contiguous(),
-        const=stacked.const.reshape(K * N),
-        paths=up(flat_paths.astype(np.int64)), path_weights=up(flat_pw),
-        children=up(kids_flat.astype(np.int64)),
-        leaf_sentence_start=up(leaf_start), leaf_sentence_count=up(leaf_count),
-        sentence_order=up(sent_order.astype(np.int64)),
-        paths_h=flat_paths, weights_h=flat_pw, order_h=sent_order)
+    def query_topk(self, queries, k: int):
+        """(B, D) queries -> (leaf log-prob scores (B, k), global ids (B,
+        k)) as numpy, the same on every rank: this shard's top-k by path
+        score re-keyed by leaf log-prob, merged across the ranks."""
+        idx = self.build_index()
+        q = torch.as_tensor(np.atleast_2d(np.asarray(queries, np.float32)),
+                            device=self.device)
+        lp, gids = _vforest_query(idx, q, k)
+        lp, gids = collectives.pad_columns(lp, gids,
+                                           min(k, self._rows_common()))
+        s, ids = collectives.merge_topk(lp, gids, k, self.group)
+        return s.cpu().numpy(), ids.cpu().numpy()

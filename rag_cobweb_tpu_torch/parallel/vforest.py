@@ -17,7 +17,7 @@ rounds, in waves of up to ``_RETRY_W`` instances per lane at
 0.7/0.3 moving average of the deep fraction stays above 8%.
 
 Below the wrapper's ``blocked_threshold`` a forest is served from its
-stacked per-lane index (``parallel/forest.build_stacked_index``):
+stacked per-lane index (``parallel/stacked.build_stacked_index``):
 ``_vforest_query`` ranks each lane's rows by path score and merges the
 lanes' candidates by leaf log-probability; ``vforest_rank_scores`` gives
 every global sentence its lane's path score.  The JAX ``vmap`` over lanes
@@ -52,8 +52,10 @@ from rag_cobweb_tpu_torch.core import tree as tree_mod
 from rag_cobweb_tpu_torch.core.config import TreeConfig
 from rag_cobweb_tpu_torch.device import full_f32_matmul, resolve_device
 from rag_cobweb_tpu_torch.files import read_npz
-from rag_cobweb_tpu_torch.parallel.forest import (StackedIndex,
-                                                  build_stacked_index)
+from rag_cobweb_tpu_torch.parallel.stacked import (StackedIndex,
+                                                   build_stacked_index,
+                                                   extend_bookkeeping,
+                                                   lane_slots)
 
 _MAX_STEPS = 16     # primary descent budget
 _DEEP_STEPS = 48    # retry-wave budget
@@ -415,15 +417,22 @@ class VForest:
             leaf2 = self._rounds(xs2, mask2, wave_max, _DEEP_STEPS)
             rows, cols = np.nonzero(mask2 & (leaf2 >= 0))
             leaves[rows, sel[rows, cols]] = leaf2[rows, cols]
-            for s, c in np.argwhere(mask2 & (leaf2 < 0)):
-                one = np.zeros((K, 1), bool)
-                one[s, 0] = True
-                lf = self._rounds(xs2[:, c:c + 1], one, 1, _EXACT_STEPS)
-                if lf[s, 0] < 0:
-                    raise RuntimeError(
-                        f"insert descent exceeded _EXACT_STEPS="
-                        f"{_EXACT_STEPS} in lane {int(s)}")
-                leaves[s, sel[s, c]] = lf[s, 0]
+            self._insert_exact(xs2, mask2 & (leaf2 < 0), leaves, sel)
+
+    def _insert_exact(self, xs_t: torch.Tensor, need: np.ndarray,
+                      leaves: np.ndarray, slot_of=None):
+        """Insert each row ``xs_t[s, c]`` where ``need[s, c]`` alone on the
+        exact path, lane by lane in row order; its leaf goes to ``leaves[s,
+        slot_of[s, c]]`` (``slot_of`` defaults to ``c``)."""
+        for s, c in np.argwhere(need):
+            one = np.zeros((self.K, 1), bool)
+            one[s, 0] = True
+            lf = self._rounds(xs_t[:, c:c + 1], one, 1, _EXACT_STEPS)
+            if lf[s, 0] < 0:
+                raise RuntimeError(
+                    f"insert descent exceeded _EXACT_STEPS="
+                    f"{_EXACT_STEPS} in lane {int(s)}")
+            leaves[s, c if slot_of is None else slot_of[s, c]] = lf[s, 0]
 
     # ---------------------------------------------------------------- #
     # content routing (host numpy, as in the JAX package)              #
@@ -574,42 +583,42 @@ class VForest:
         gids = np.arange(self.n_sentences, self.n_sentences + B)
         if B == 0:
             return gids
+        lane_of = (self._route_lanes(xs.cpu().numpy())
+                   if self.routing == "content" else gids % K)
+        slot = lane_slots(lane_of, K)
+        leaves = self.insert_packed(xs, lane_of, slot, self._budget)
+        extend_bookkeeping(self, lane_of, slot, leaves)
+        return gids
+
+    def insert_packed(self, xs: torch.Tensor, lane_of: np.ndarray,
+                      slot: np.ndarray, steps: int,
+                      waves: bool = True) -> np.ndarray:
+        """Insert rows ``xs`` (B, D), row ``i`` the ``slot[i]``-th of lane
+        ``lane_of[i]``: the lanes packed into (K, R, D), R lockstep rounds
+        at ``steps``, then the descents that budget cut -- in retry waves
+        (``_retry``) when ``waves``, else each alone on the exact path,
+        lane by lane in row order (the JAX composed program).  Returns the
+        leaves (K, R), slot for slot."""
+        K = self.K
+        R = int(slot.max()) + 1 if len(slot) else 0
         self._resident()
         self._flat_index = None
         self._stacked_index = None
-        lane_of = (self._route_lanes(xs.cpu().numpy())
-                   if self.routing == "content" else gids % K)
-        lens = np.bincount(lane_of, minlength=K)
-        R_max = int(lens.max())
-        self._ensure_capacity(R_max + 1)
-        # pack the per-lane streams into (K, R_max, D) with one scatter
-        order = np.argsort(lane_of, kind="stable")
-        starts = np.concatenate(([0], np.cumsum(lens)[:-1]))
-        lanes_sorted = lane_of[order]
-        pos = np.arange(B) - starts[lanes_sorted]
-        xs_t = torch.zeros((K, R_max, xs.shape[1]), dtype=torch.float32,
+        self._ensure_capacity(R + 1)
+        lane_t = torch.as_tensor(lane_of, device=self.device)
+        slot_t = torch.as_tensor(slot, device=self.device)
+        xs_t = torch.zeros((K, R, xs.shape[1]), dtype=torch.float32,
                            device=self.device)
-        xs_t[torch.as_tensor(lanes_sorted, device=self.device),
-             torch.as_tensor(pos, device=self.device)] = \
-            xs[torch.as_tensor(order, device=self.device)]
-        mask_t = np.zeros((K, R_max), bool)
-        mask_t[lanes_sorted, pos] = True
-
-        leaves = self._rounds(xs_t, mask_t, R_max, self._budget)
-        self._alloc_hi += 2 * R_max
-        self._retry(leaves, xs_t, mask_t)
-
-        base = np.asarray([len(lst) for lst in self._leaf_of_local])
-        pos_of = np.empty(B, np.int64)
-        pos_of[order] = pos
-        self.shard_of.extend(int(s) for s in lane_of)
-        self.local_sid.extend((base[lane_of] + pos_of).tolist())
-        for s in range(K):
-            if lens[s]:
-                self._leaf_of_local[s].extend(
-                    int(v) for v in leaves[s, :lens[s]])
-        self.n_sentences += B
-        return gids
+        xs_t[lane_t, slot_t] = xs.to(self.device, torch.float32)
+        mask = np.zeros((K, R), bool)
+        mask[lane_of, slot] = True
+        leaves = self._rounds(xs_t, mask, R, steps)
+        self._alloc_hi += 2 * R
+        if waves:
+            self._retry(leaves, xs_t, mask)
+        else:
+            self._insert_exact(xs_t, mask & (leaves < 0), leaves)
+        return leaves
 
     def _leaf_global(self) -> np.ndarray:
         """(S,) global leaf slot per sentence: ``lane * capacity + leaf``."""
@@ -712,7 +721,7 @@ class VForest:
     # the small-forest query                                           #
     # ---------------------------------------------------------------- #
     def build_index(self) -> StackedIndex:
-        """The stacked per-lane index (``parallel/forest``), cached until
+        """The stacked per-lane index (``parallel/stacked``), cached until
         the next ``add``."""
         if self._stacked_index is None:
             self._stacked_index = build_stacked_index(

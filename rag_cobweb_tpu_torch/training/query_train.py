@@ -6,7 +6,17 @@ into the tree's (whitened) space and is trained with cross-entropy over
 the differentiable Cobweb rank scores of a single tree
 (``core/index.rank_scores``, divided by ``temperature``): the label is
 the gold passage's corpus row.  AdamW with weight decay 1e-4, as
-``optax.adamw``'s default.  ``fit_dp`` (data parallel) is not ported.
+``optax.adamw``'s default.
+
+``fit_dp`` is data parallel over a mesh axis: every rank of the axis
+holds the whole tree and the parameters, takes its even share of each
+global batch (the JAX package raises ``ValueError`` when the batch does
+not divide, and so does the port), and before the optimizer step the
+gradients are averaged over the ranks with one ``all_reduce``, the loss
+riding in the same buffer (``dp_reduce``).  So each step is ``fit``'s step
+on the whole global batch, and the reported loss is the global batch's
+mean on every rank (the JAX package's GSPMD inserts the same
+all-reduce).
 """
 
 from __future__ import annotations
@@ -17,12 +27,15 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from rag_cobweb_tpu_torch.core import index as index_mod
 from rag_cobweb_tpu_torch.device import full_f32_matmul
 from rag_cobweb_tpu_torch.files import read_pickle
+from rag_cobweb_tpu_torch.parallel.collectives import all_reduce_sum
+from rag_cobweb_tpu_torch.parallel.distributed import axis_group
 from rag_cobweb_tpu_torch.training.flax_layout import (dense, load_flax,
                                                        to_flax)
 
@@ -76,6 +89,40 @@ def epoch_order(rng: np.random.Generator, n_items: int,
     return np.resize(rng.permutation(n_items), n)
 
 
+def dp_group(mesh, axis_name: str, batch_size: Optional[int]):
+    """(process group, this rank's index, ranks, global batch size) of a
+    data-parallel fit over ``mesh``'s ``axis_name``; the batch defaults
+    to 4 a rank, as in the JAX package, and must divide over the
+    ranks."""
+    group, rank, n = axis_group(mesh, axis_name)
+    batch_size = batch_size or 4 * n
+    if batch_size % n:
+        raise ValueError(
+            f"batch_size {batch_size} must divide over {n} devices")
+    return group, rank, n, batch_size
+
+
+def dp_rows(batch, rank: int, n: int):
+    """This rank's even share of a global batch."""
+    b = len(batch) // n
+    return batch[rank * b:(rank + 1) * b]
+
+
+def dp_reduce(params, group, n: int, *scalars):
+    """The gradients of ``params`` and the device ``scalars`` averaged
+    over the ``n`` ranks of ``group`` in one ``all_reduce``; the gradients
+    are written back, the averaged scalars returned."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.flatten() for g in grads]
+                     + [v.detach().float().view(1) for v in scalars])
+    all_reduce_sum(flat, group).div_(n)
+    at = 0
+    for g in grads:
+        g.copy_(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    return tuple(flat[at:])
+
+
 def ranks_of(scores: np.ndarray, gold_rows, k: int) -> dict:
     """recall@k, MRR and mean gold rank of (B, S) host scores ranked by
     ``np.argsort(-scores)``, as the JAX package ranks them (sentences that
@@ -125,12 +172,23 @@ class CobwebQueryTrainer:
         self.step += 1
         return loss.detach()
 
-    def fit(self, query_embs, gold_rows, epochs: int = 3,
-            batch_size: int = 16, seed: int = 0,
-            save_dir: Optional[str] = None, log_every: int = 0) -> list:
-        """Per-epoch mean CE losses; the batches are the JAX package's
-        (``epoch_order``).  An empty query set raises ``ValueError`` (the
-        JAX package raises ``IndexError``)."""
+    def train_step_dp(self, queries, labels, group) -> torch.Tensor:
+        """One data-parallel step on a global batch: this rank's share,
+        the gradients and the loss averaged over ``group``, the AdamW
+        step; returns the global batch's mean loss (a device scalar)."""
+        rank, n = dist.get_rank(group), dist.get_world_size(group)
+        q = self._tensor(dp_rows(queries, rank, n))
+        y = self._tensor(dp_rows(labels, rank, n), torch.int64)
+        loss = rank_loss(self.index, self.head(q), y, self.temperature)
+        self.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        loss, = dp_reduce(self.head.parameters(), group, n, loss)
+        self.opt.step()
+        self.step += 1
+        return loss
+
+    def _fit(self, step, query_embs, gold_rows, epochs, batch_size, seed,
+             save_dir, log_every, tag) -> list:
         query_embs = np.asarray(query_embs, np.float32)
         gold_rows = np.asarray(gold_rows, np.int64)
         rng = np.random.default_rng(seed)
@@ -140,15 +198,37 @@ class CobwebQueryTrainer:
             total = 0.0
             for s in range(0, len(order), batch_size):
                 sel = order[s:s + batch_size]
-                total += float(self.train_step(query_embs[sel],
-                                               gold_rows[sel]))
+                total += float(step(query_embs[sel], gold_rows[sel]))
             losses.append(total / (len(order) // batch_size))
             if log_every:
-                print(f"[epoch {epoch}] avg CE loss {losses[-1]:.4f}")
+                print(f"[{tag}epoch {epoch}] avg CE loss {losses[-1]:.4f}")
             if save_dir:
                 self.save(os.path.join(
                     save_dir, f"cobweb_query_encoder_epoch{epoch}.pkl"))
         return losses
+
+    def fit(self, query_embs, gold_rows, epochs: int = 3,
+            batch_size: int = 16, seed: int = 0,
+            save_dir: Optional[str] = None, log_every: int = 0) -> list:
+        """Per-epoch mean CE losses; the batches are the JAX package's
+        (``epoch_order``).  An empty query set raises ``ValueError`` (the
+        JAX package raises ``IndexError``)."""
+        return self._fit(self.train_step, query_embs, gold_rows, epochs,
+                         batch_size, seed, save_dir, log_every, "")
+
+    def fit_dp(self, query_embs, gold_rows, mesh, axis_name: str = "shard",
+               epochs: int = 3, batch_size: Optional[int] = None,
+               seed: int = 0, log_every: int = 0) -> list:
+        """Data-parallel ``fit`` over ``mesh``'s ``axis_name``, called
+        on every rank with the same arguments: the same batches as
+        ``fit`` with ``batch_size`` (default 4 a rank) split evenly over
+        the ranks; per-epoch mean CE losses of the global batches.  A
+        batch that does not divide over the ranks, or an empty query set,
+        raises ``ValueError`` before any step."""
+        group, _, _, batch_size = dp_group(mesh, axis_name, batch_size)
+        return self._fit(lambda q, y: self.train_step_dp(q, y, group),
+                         query_embs, gold_rows, epochs, batch_size, seed,
+                         None, log_every, "dp ")
 
     def project(self, query_embs) -> np.ndarray:
         with torch.no_grad():

@@ -7,7 +7,9 @@ Cobweb rank scores of a single tree.
 The layers follow flax's, not torch's defaults: LayerNorm epsilon 1e-6,
 the tanh GELU, attention with masked keys at the dtype's most negative
 value (so a text with no words attends uniformly instead of giving NaN)
-and mean-pooling over ``max(words, 1)``.  ``fit_dp`` is not ported.
+and mean-pooling over ``max(words, 1)``.  ``fit_dp`` is data parallel
+as ``query_train``'s is; the encoder's gradient norm it reports is taken
+after the gradients are averaged over the ranks, the global batch's.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import pickle
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from rag_cobweb_tpu_torch.core import index as index_mod
@@ -29,7 +32,8 @@ from rag_cobweb_tpu_torch.training.flax_layout import (Attention, dense,
                                                        load_flax, to_flax)
 from rag_cobweb_tpu_torch.training.query_train import (ADAMW_WEIGHT_DECAY,
                                                        ProjectionHead,
-                                                       epoch_order,
+                                                       dp_group, dp_reduce,
+                                                       dp_rows, epoch_order,
                                                        rank_loss, ranks_of,
                                                        single_tree_index)
 
@@ -160,10 +164,29 @@ class EndToEndQueryTrainer:
         self.step += 1
         return loss.detach(), gn.detach()
 
-    def fit(self, query_texts, gold_rows, epochs: int = 3,
-            batch_size: int = 16, seed: int = 0, log_every: int = 0):
-        """Returns (per-epoch mean CE losses, per-epoch mean encoder
-        gradient norms); the batches are the JAX package's."""
+    def train_step_dp(self, ids, mask, labels, group):
+        """One data-parallel step on a global batch of tokens: this rank's
+        share, the gradients and the loss averaged over ``group``, the
+        step; returns (the global batch's mean loss, the encoder's
+        gradient norm after the average), device scalars."""
+        rank, n = dist.get_rank(group), dist.get_world_size(group)
+        ids, mask = self._tensors(dp_rows(ids, rank, n),
+                                  dp_rows(mask, rank, n))
+        y = torch.as_tensor(np.asarray(dp_rows(labels, rank, n)),
+                            dtype=torch.int64, device=self.device)
+        loss = rank_loss(self.index, self.head(self.encoder(ids, mask)), y,
+                         self.temperature)
+        self.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        loss, = dp_reduce(list(self.encoder.parameters())
+                          + list(self.head.parameters()), group, n, loss)
+        gn = global_norm(self.encoder.parameters())
+        self.opt.step()
+        self.step += 1
+        return loss, gn.detach()
+
+    def _fit(self, step, query_texts, gold_rows, epochs, batch_size, seed,
+             log_every, tag):
         ids, mask = hash_tokenize(query_texts, self.vocab_size, self.max_len)
         gold_rows = np.asarray(gold_rows, np.int64)
         rng = np.random.default_rng(seed)
@@ -173,17 +196,34 @@ class EndToEndQueryTrainer:
             tot, gtot = 0.0, 0.0
             for s in range(0, len(order), batch_size):
                 sel = order[s:s + batch_size]
-                loss, gn = self.train_step(ids[sel], mask[sel],
-                                           gold_rows[sel])
+                loss, gn = step(ids[sel], mask[sel], gold_rows[sel])
                 tot += float(loss)
                 gtot += float(gn)
             steps = len(order) // batch_size
             losses.append(tot / steps)
             grad_norms.append(gtot / steps)
             if log_every:
-                print(f"[epoch {epoch}] CE {losses[-1]:.4f} "
+                print(f"[{tag}epoch {epoch}] CE {losses[-1]:.4f} "
                       f"enc-grad-norm {grad_norms[-1]:.4f}")
         return losses, grad_norms
+
+    def fit(self, query_texts, gold_rows, epochs: int = 3,
+            batch_size: int = 16, seed: int = 0, log_every: int = 0):
+        """Returns (per-epoch mean CE losses, per-epoch mean encoder
+        gradient norms); the batches are the JAX package's."""
+        return self._fit(self.train_step, query_texts, gold_rows, epochs,
+                         batch_size, seed, log_every, "")
+
+    def fit_dp(self, query_texts, gold_rows, mesh, axis_name: str = "shard",
+               epochs: int = 3, batch_size=None, seed: int = 0,
+               log_every: int = 0):
+        """Data-parallel ``fit`` over ``mesh``'s ``axis_name``, called on
+        every rank with the same arguments (``query_train.fit_dp``'s
+        rules); returns ``fit``'s pair over the global batches."""
+        group, _, _, batch_size = dp_group(mesh, axis_name, batch_size)
+        return self._fit(
+            lambda i, m, y: self.train_step_dp(i, m, y, group), query_texts,
+            gold_rows, epochs, batch_size, seed, log_every, "dp ")
 
     def evaluate(self, query_texts, gold_rows, k: int = 10) -> dict:
         proj = torch.as_tensor(self.encode(query_texts), device=self.device)

@@ -1432,3 +1432,15 @@ def test_engines_on_the_card_equal_the_host(card):
     assert torch.equal(gt, sc.gather(1, gid))
     assert torch.equal(torch.sort(gt, dim=1).values.cpu(),
                        torch.sort(ht, dim=1).values)
+
+
+def test_dryrun_multichip_on_the_card(card):
+    """The multi-device dry run (``bench/multichip``) on 2 ranks on the
+    cards: a card a rank over NCCL, or both on one card over gloo; every
+    rank serves the same ids (the sharded forest, both TP engines through
+    kernels 1 and 5, the composed forest) and ``fit_dp``'s loss falls."""
+    from rag_cobweb_tpu_torch.bench import multichip
+    rec = multichip.dryrun_multichip(2, "cuda", timeout=300)
+    assert rec["backend"] == ("nccl" if torch.cuda.device_count() >= 2
+                              else "gloo")
+    assert rec["losses"][-1] < rec["losses"][0]

@@ -37,6 +37,26 @@ def test_port_file_imports_no_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_rank_entry_points_import_no_jax():
+    """What a spawned rank of a multi-device run loads (``bench/multichip``
+    with its launcher and dry run, ``bench/multichip_slice``, the tests'
+    rank programs in ``tests/torch_ranks.py``), imported in a fresh
+    interpreter, brings in nothing of JAX or of the JAX package."""
+    import sys
+    code = ("import sys; sys.path.insert(0, 'tests'); "
+            "import rag_cobweb_tpu_torch.bench.multichip, "
+            "rag_cobweb_tpu_torch.bench.multichip_slice, torch_ranks; "
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)}]; assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    tree = ast.parse((ROOT / "tests" / "torch_ranks.py").read_text())
+    assert not {a.name.split(".")[0] for node in ast.walk(tree)
+                if isinstance(node, ast.Import) for a in node.names} \
+        & FORBIDDEN
+
+
 def test_import_and_host_path_build_nothing(monkeypatch):
     """No nvcc at import or on the host path: kernels build at the first
     CUDA call only."""
