@@ -175,6 +175,38 @@ Phases, in order; any failure raises and the exit code is non-zero:
    unless (a) and (b)'s last epoch loss is below the first, (b)'s encoder
    gradient norms are finite and positive, (a)'s recall@10 does not fall,
    (c)'s covariance term and (d)'s recon_mse fall;
+3k. the reference's benchmark harness and the encoder (before 3j): (a)
+   ``bench/harness.BenchmarkRunner("synthetic")`` at the reference's
+   flagship QQP size (c=10000, 1000 queries, 768-d, top_k 10, seed 42; at
+   its default 7500 the single tree serves below ``blocked_threshold`` by
+   path scores, without kernel 1) through the "extra" matrix, in one
+   counter window: flat IP and L2 on the card, the native flat IP and
+   HNSW rows (raw and PCA+ICA), the beam and fast rows of one whitened
+   single tree; Annoy skips.  It fails unless every row but Annoy is
+   there, kernels 1 and 5 launched, the fast row's ids equal the same
+   pipeline in plain PyTorch (``probes.plain_check``) but at ties, the
+   card's flat IP ids equal the native library's but at ties (exact
+   scores within 1e-5), and the results file parses back
+   (``report.parse_results_file``) to each row's recall@10 (5e-5) and
+   latency (5e-4); (b) a BERT at bert-base-uncased's widths (768, 12
+   layers, 12 heads, 3072, vocab 30522, 512 positions; random weights
+   from seed 0, the hash tokenizer, max_length 128): 64 texts held
+   against a host copy (rtol 1e-4, atol 1e-5, TF32 off); 10000 texts
+   (the sample corpora's sentences shuffled, 1-3 words substituted)
+   encoded, texts/s and tokens/s by CUDA events; PCA+ICA (0.96) fitted
+   on them; ``encode_whiten_insert`` into a 32-lane forest, the
+   whitening on the card; 1000 queries (corpus texts less one word)
+   served by ``query_ids`` in a counter window (kernels 1 and 5 must
+   launch), recall@10 within 0.005 of the exact scan over the same
+   whitened rows; (c) (b)'s stages in a ``utils.profiling.PhaseTimer``,
+   one served batch traced by ``utils.profiling.trace`` into
+   ``build/trace/`` (the trace must hold its annotation; whether
+   ``key_averages()`` shows device time for kernels 1 and 5 is printed);
+   (d) ``bench/roofline.product_path_model`` of phase 3's served batch
+   against its measured time, and the card's row-gather rate
+   (``emb[idx]``, 1024 x 512 distinct rows of 1M, D = 128 and 768).
+   Kernels 1 and 5 are then held and timed at (a)'s and (b)'s served
+   shapes;
 3j. multi-device on ``torch.distributed`` (``multichip_phase``, last):
    ``min(cards, 4)`` ranks, a card each over NCCL, or with one card 2
    ranks on it over gloo (the card count, world size, backend, the rank
@@ -216,7 +248,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    pools, with 1M random rows under ``M1``; kernels 1 and 5 on phase 3h's
    ZCA forest under ``zca``, its PCA+ZCA twin inside that; kernels 1 and
    5 of phase 3j's fused TP engine under ``tp``, their launches summed
-   over the ranks and by rank), the nvidia-smi line, and the
+   over the ranks and by rank; kernels 1 and 5 on phase 3k's harness
+   tree under ``harness`` and its encoder forest under ``encoder``), the
+   nvidia-smi line, and the
    final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -229,6 +263,7 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -237,10 +272,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# the card's published peaks (H100 SXM data sheet, dense)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
+try:    # the card's published peaks, from their one source
+    from rag_cobweb_tpu_torch.bench.roofline import (
+        H100_HBM_BW as PEAK_BYTES_PER_S,
+        H100_PEAK_BF16 as PEAK_BF16_FLOPS,
+        H100_PEAK_F32 as PEAK_F32_FLOPS)
+except ImportError:     # the script alone: main() reports it and exits 2
+    PEAK_BYTES_PER_S = PEAK_BF16_FLOPS = PEAK_F32_FLOPS = None
 
 
 def log(*a):
@@ -2016,6 +2054,289 @@ def log_multichip(rec: dict, smi: str) -> None:
         f"{[round(x, 1) for x in rec['rank_s']]})")
 
 
+# -- phase 3k: the reference's benchmark harness and the encoder --------
+
+# the "extra" matrix's rows in order; Annoy is not installed and skips
+HARNESS_ROWS = ("Flat IP ({tag})", "Flat L2 ({tag})", "Flat IP (native C++)",
+                "HNSW (native C++)", "HNSW (native C++) PCA+ICA",
+                "Cobweb PCA+ICA (beam) ({tag})",
+                "Cobweb PCA+ICA Fast ({tag})")
+# bert-base-uncased's published widths (its config.json)
+BERT_BASE = dict(hidden_size=768, n_layers=12, n_heads=12,
+                 intermediate_size=3072, vocab_size=30522,
+                 max_position_embeddings=512)
+
+
+def flat_ids_hold(card_ids, native_ids, corpus, queries,
+                  tol=1e-5) -> dict:
+    """The card's flat IP top-k against the native library's: at every
+    place the two ids' exact (float64) scores agree within ``tol`` of the
+    row's largest |score|, so ids differ only at ties."""
+    c, q = corpus.astype(np.float64), queries.astype(np.float64)
+    sc = np.einsum("bd,bkd->bk", q, c[card_ids])
+    sn = np.einsum("bd,bkd->bk", q, c[native_ids])
+    scale = np.abs(sn).max(1, keepdims=True)
+    gap = np.abs(sc - sn) / scale
+    differ = card_ids != native_ids
+    if (gap > tol).any():
+        b = int(np.argwhere(gap > tol)[0][0])
+        raise AssertionError(
+            f"flat IP: query {b}'s card ids {card_ids[b].tolist()} and "
+            f"native ids {native_ids[b].tolist()} differ beyond ties")
+    return {"places_differing": int(differ.sum()),
+            "queries_differing": int(differ.any(1).sum()),
+            "max_gap_rel": float(gap.max())}
+
+
+def harness_phase(zero, read, root: Path, device="cuda", subset=10000,
+                  targets=1000, dim=768) -> dict:
+    """Phase 3k (a): the port's ``BenchmarkRunner`` on the synthetic
+    dataset through the "extra" matrix, its method rows in one counter
+    window, then its gates: every row but Annoy present, the fast row's
+    ids against the same pipeline in plain PyTorch (``probes.plain_check``)
+    but at ties, the card's flat IP ids against the native library's but
+    at ties, and the results file parsed back to the rows it printed."""
+    from rag_cobweb_tpu_torch.bench import harness, native, report
+    from rag_cobweb_tpu_torch.bench.baselines import FlatIndex
+    from rag_cobweb_tpu_torch.bench.metrics import to_host
+    from rag_cobweb_tpu_torch.bench.probes import plain_check
+    shutil.rmtree(root, ignore_errors=True)
+    runner = harness.BenchmarkRunner("synthetic", root=str(root))
+    zero()
+    rows = runner.run(model_name="synthetic", subset_size=subset,
+                      target_size=targets, top_k=10, method="extra",
+                      dim=dim, seed=42, device=device)
+    window = read()
+    tag = "CPU" if device == "cpu" else "CUDA"
+    want = [n.format(tag=tag) for n in HARNESS_ROWS]
+    if [r["method"] for r in rows] != want:
+        raise AssertionError(f"harness rows {[r['method'] for r in rows]}, "
+                             f"expected {want}")
+    e, db = runner.embeddings, runner.dbs["w"]
+    qw = e["queries_w"]
+    # the fast row's ids as it served them: batches of 256
+    served = np.concatenate([np.asarray(db.predict_fast(
+        qw[s:s + 256], k=10, is_embedding=True, return_ids=True), np.int64)
+        for s in range(0, len(qw), 256)])
+    plain = plain_check(db, qw, served, 10, db.rerank_candidates, 0, 1024,
+                        e["corpus_w"], e["target_ids"])
+    card = to_host(FlatIndex(e["corpus"], "ip", device=device)
+                   .search_device(e["queries"], 10))
+    nat, _ = native.flat_topk(e["corpus"], e["queries"], 10, "ip")
+    flat = flat_ids_hold(card, nat, e["corpus"], e["queries"])
+    parsed = report.parse_results_file(runner.results_path)
+    if [p["method"] for p in parsed] != want:
+        raise AssertionError(f"results file rows {parsed}")
+    for p, r in zip(parsed, rows):
+        if not (abs(p["recall@10"] - r["recall@10"]) <= 5e-5 and
+                abs(p["avg_latency_ms"] - r["avg_latency_ms"]) <= 5e-4):
+            raise AssertionError(f"results file row {p} does not read "
+                                 f"back as {r}")
+    return {"rows": rows, "window": window, "plain": plain, "flat": flat,
+            "build": runner.builds["w"], "db": db, "queries_w": qw,
+            "results_path": runner.results_path}
+
+
+def encoder_texts(n_corpus: int, n_queries: int, seed: int = 0):
+    """(corpus, queries, gold ids): texts made from the sample corpora's
+    sentences by a seeded word shuffle and 1-3 word substitutions from
+    their vocabulary; each query is a corpus text with one word dropped."""
+    from rag_cobweb_tpu_torch.bench.datasets import load_sample_corpuses
+    base = [s for v in load_sample_corpuses().values() for s in v]
+    vocab = sorted({w for s in base for w in s.split()})
+    rng = np.random.default_rng(seed)
+    corpus = []
+    for _ in range(n_corpus):
+        words = base[int(rng.integers(len(base)))].split()
+        words = [words[j] for j in rng.permutation(len(words))]
+        n_sub = min(len(words), int(rng.integers(1, 4)))
+        for j in rng.choice(len(words), size=n_sub, replace=False):
+            words[j] = vocab[int(rng.integers(len(vocab)))]
+        corpus.append(" ".join(words))
+    gold = rng.choice(n_corpus, size=n_queries, replace=False)
+    queries = []
+    for t in gold:
+        words = corpus[t].split()
+        del words[int(rng.integers(len(words)))]
+        queries.append(" ".join(words))
+    return corpus, queries, gold.astype(np.int64)
+
+
+def encoder_phase(zero, read, smi: str, trace_dir: Path, device="cuda",
+                  widths=None, n_corpus=10000, n_queries=1000,
+                  max_length=128, n_hold=64, n_lanes=32) -> dict:
+    """Phase 3k (b) and (c): a BERT at ``widths`` (random weights from
+    seed 0, the hash tokenizer) on the card held against a host copy on
+    ``n_hold`` texts; the corpus encoded (texts/s and tokens/s by CUDA
+    events); PCA+ICA (0.96) fitted on it; ``encode_whiten_insert`` into a
+    ``n_lanes``-lane forest (the whitening on the device); the queries
+    encoded and served by ``query_ids`` in a counter window, their
+    recall@10 beside the exact scan over the same whitened rows.  Each
+    stage in a ``PhaseTimer``; one served batch traced with
+    ``utils.profiling.trace``."""
+    from rag_cobweb_tpu_torch.bench.baselines import FlatIndex
+    from rag_cobweb_tpu_torch.bench.headline import fit_whitener
+    from rag_cobweb_tpu_torch.bench.metrics import to_host
+    from rag_cobweb_tpu_torch.bench.torch_encoder import (
+        TorchEncoder, encode_whiten_insert, make_random_encoder)
+    from rag_cobweb_tpu_torch.core.config import TreeConfig
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    from rag_cobweb_tpu_torch.utils import profiling
+    w = dict(BERT_BASE if widths is None else widths)
+    card = device != "cpu"
+    corpus, queries, gold = encoder_texts(n_corpus, n_queries)
+    timer = profiling.PhaseTimer(device=device)
+    kw = dict(max_length=max_length, batch_size=256, seed=0, **w)
+    enc = make_random_encoder(device=device, **kw)
+    out = {"widths": w}
+    with timer.phase("hold against the host"):
+        host = make_random_encoder(device="cpu", **kw)
+        got, want = enc(corpus[:n_hold]), host(corpus[:n_hold])
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5,
+                                   err_msg="encoder: card against host")
+        out["hold_max_abs_err"] = float(np.abs(got - want).max())
+        del host
+    ids, mask = enc.tokenize(corpus)
+    tokens = int(mask.sum())
+    enc(corpus[:256])                                  # warm-up
+    with timer.phase("encode corpus"):
+        t0 = time.perf_counter()
+        if card:
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+            ev0.record()
+        raw = enc.encode_device(corpus)
+        if card:
+            ev1.record()
+            torch.cuda.synchronize()
+            out["encode_ms"] = ev0.elapsed_time(ev1)
+        out["encode_wall_s"] = time.perf_counter() - t0
+    ms = out.get("encode_ms", 1e3 * out["encode_wall_s"])
+    out.update(texts=n_corpus, tokens=tokens,
+               texts_per_s=n_corpus / ms * 1e3,
+               tokens_per_s=tokens / ms * 1e3)
+    with timer.phase("fit PCA+ICA"):
+        wh = fit_whitener("pcaica", raw.cpu().numpy(), 0.96)
+    out["whitened_dim"] = wh.dim_out
+    wenc = TorchEncoder(enc.model, None, max_length=max_length,
+                        batch_size=256, vocab_size=w["vocab_size"],
+                        whitening=wh, device=device)
+    db = CobwebIndex(config=TreeConfig(dim=wh.dim_out), n_subtrees=n_lanes,
+                     device=device)
+    with timer.phase("encode_whiten_insert"):
+        t0 = time.perf_counter()
+        encode_whiten_insert(wenc, db, corpus)
+        out["ingest_texts_per_s"] = n_corpus / (time.perf_counter() - t0)
+    with timer.phase("encode queries"):
+        qw = wenc.encode_device(queries)
+    to_host(db.query_ids(qw[:8], 10))          # the index builds here
+    with timer.phase("serve"):
+        zero()
+        served = to_host(db.query_ids(qw, 10))
+        out["window"] = read()
+    store = db._emb_device()[:n_corpus]
+    exact = to_host(FlatIndex(store.cpu().numpy(), "l2", device=device)
+                    .search_device(qw.cpu().numpy(), 10))
+    out["recall@10"] = float(np.mean([t in r for t, r in zip(gold, served)]))
+    out["exact_recall@10"] = float(np.mean([t in r for t, r in
+                                            zip(gold, exact)]))
+    # (c) one served batch traced
+    with profiling.trace(str(trace_dir), device=device) as prof:
+        with profiling.annotate("rag_serve_batch"):
+            to_host(db.query_ids(qw[:1000], 10))
+    text = (trace_dir / profiling.TRACE_FILE).read_text()
+    if "rag_serve_batch" not in text:
+        raise AssertionError("the trace lacks its annotation")
+    dev_us = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0.0)
+        for kname, sym in (("fused_topk", "slab_topk"),
+                           ("rerank_l2", "rerank_l2_kernel")):
+            if sym in ev.key:
+                dev_us[kname] = dev_us.get(kname, 0.0) + float(t)
+    out["trace"] = {"file": str(trace_dir / profiling.TRACE_FILE),
+                    "bytes": len(text), "device_us": dev_us}
+    out["timer"] = timer.as_dict()
+    out["timer_summary"] = timer.summary()
+    out["db"], out["qw"] = db, qw
+    return out
+
+
+def gather_rate(rows=1 << 20, B=1024, C=512, dims=(128, 768),
+                reps=10) -> dict:
+    """Phase 3k (d): the card's row-gather rate, ``emb[idx]`` of B x C
+    distinct rows of a (rows, D) f32 table, beside its byte bound (each
+    row read once and written once)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for D in dims:
+        emb = torch.randn((rows, D), generator=g, device="cuda")
+        idx = torch.randperm(rows, generator=g, device="cuda")[:B * C] \
+            .view(B, C)
+        ms = cuda_ms(lambda: emb[idx], reps)
+        n = B * C
+        out[D] = {"ms": ms, "rows_per_s": n / ms * 1e3,
+                  "gb_per_s": 2.0 * n * D * 4 / ms / 1e6,
+                  "bound_ms": 2.0 * n * D * 4 / PEAK_BYTES_PER_S * 1e3}
+        del emb, idx
+        torch.cuda.empty_cache()
+    return out
+
+
+def log_benchmark_phase(h: dict, e: dict, smi: str) -> None:
+    for r in h["rows"]:
+        log(f"[3k] harness {r['method']}: recall@10 {r['recall@10']:.4f} "
+            f"mrr@10 {r['mrr@10']:.4f} {r['avg_latency_ms']:.6f} ms/query "
+            f"(batch {r['batch_latency_ms']:.4f} ms, control "
+            f"{r['control_ms']:.6f} ms/query) | {smi}")
+    b = h["build"]
+    log(f"[3k] harness tree: {b['rows']} rows in {b['insert_s']:.1f}s, "
+        f"{b['rows'] / b['insert_s']:.1f} inserts/s; index "
+        f"{b['index_s']:.2f}s | {smi}")
+    log(f"[3k] harness launches: {h['window']}; fast row vs the plain "
+        f"pipeline: {h['plain']}; card flat IP vs native: {h['flat']}; "
+        f"results file {h['results_path']}")
+    log(f"[3k] encoder {e['widths']}: card vs host max_abs_err "
+        f"{e['hold_max_abs_err']:.3g}; encode {e['texts']} texts "
+        f"({e['tokens']} tokens) {e.get('encode_ms', 0.0):.1f} ms "
+        f"(CUDA events): {e['texts_per_s']:.1f} texts/s, "
+        f"{e['tokens_per_s']:.1f} tokens/s | {smi}")
+    log(f"[3k] encoder forest: whitened dim {e['whitened_dim']}, ingest "
+        f"{e['ingest_texts_per_s']:.1f} texts/s (encode, whiten, insert); "
+        f"recall@10 {e['recall@10']} (exact scan {e['exact_recall@10']}); "
+        f"launches {e['window']} | {smi}")
+    log("[3k] PhaseTimer:\n" + e["timer_summary"])
+    log(f"[3k] trace {e['trace']['file']} ({e['trace']['bytes']} bytes); "
+        f"device us in key_averages: {e['trace']['device_us']}")
+
+
+def benchmark_kernels(bench: dict, encp: dict) -> dict:
+    """Kernels 1 and 5 held against their plain versions and timed at
+    phase 3k's served shapes: the harness tree's index (a batch of 256,
+    the harness's) and the encoder forest's (the 1000 queries), each on
+    its served pools (the re-rank pool, ``rerank_candidates``)."""
+    from rag_cobweb_tpu_torch.core.index import fused_query_topk
+    from rag_cobweb_tpu_torch.ops import fused_topk, rerank
+    out = {}
+    for name, db, q in (
+            ("harness", bench["db"], torch.as_tensor(
+                bench["queries_w"][:256], device="cuda")),
+            ("encoder", encp["db"], encp["qw"])):
+        fidx, pool = db._fused_index(), db.rerank_candidates
+        out[name] = {"fused": check_fused(
+            fused_topk, fused_topk.query_terms(q, fidx.GT.dtype), fidx.GT,
+            fidx.c, fidx.valid, pool, reps=10, label=f" ({name})",
+            real=True)}
+        cs, cand = fused_query_topk(fidx, q, pool)
+        out[name]["rerank"] = check_rerank(
+            rerank, db._emb_device(), q, cand.to(torch.int32).contiguous(),
+            cs.contiguous(), reps=10, label=f" ({name}, served pools)",
+            pv=float(db.cfg.prior_var))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2151,6 +2472,7 @@ def main() -> int:
             label=" (served pools)", pv=float(db.cfg.prior_var))
         del cs, cand
         flag["split"] = probes.stage_split(db, data.query_embs, 10, 1024)
+        flag["gt_shape"] = tuple(fidx.GT.shape)
         # the group pool over the serving FusedIndex, its own window
         qw = whitened(db, data, 1024)
         zero()
@@ -2172,6 +2494,7 @@ def main() -> int:
                        log=lambda *a: log(*a), hook=flagship_hook)[0]
     log(json.dumps(rec))
     flag_exact = rec["exact_recall@10"]      # phase 3j's recall gate
+    flag["batch_ms"] = rec["value"] * 1000   # one 1000-query batch (3k d)
     log(f"[slice] kernel launches on the main path: {windows['fused']}")
     log("[slice] flagship stage split, stream ms between CUDA events, one "
         "batch: "
@@ -2417,6 +2740,41 @@ def main() -> int:
     del last
     torch.cuda.empty_cache()
 
+    # -- 3k. the reference's benchmark harness and the encoder -----------
+    t3k = time.perf_counter()
+    bench = harness_phase(zero, read, here / "build" / "harness")
+    encp = encoder_phase(zero, read, smi, here / "build" / "trace")
+    log_benchmark_phase(bench, encp, smi)
+    for what, w in (("harness", bench["window"]),
+                    ("encoder forest", encp["window"])):
+        if not (w["fused_topk"] > 0 and w["rerank_l2"] > 0
+                and w["fused_topk_f32"] == 0):
+            raise AssertionError(f"the {what} did not serve through "
+                                 f"kernels 1 and 5: {w}")
+    if not encp["recall@10"] >= encp["exact_recall@10"] - 0.005:
+        raise AssertionError(
+            f"encoder forest: recall@10 {encp['recall@10']} is more than "
+            f"0.005 below the exact scan's {encp['exact_recall@10']}")
+    k3 = benchmark_kernels(bench, encp)
+    launches["3k"] = {name: w for name, w in (("harness", bench["window"]),
+                                               ("encoder", encp["window"]))}
+    # (d) the roofline of the flagship's served batch (phase 3), and the
+    # card's row-gather rate
+    from rag_cobweb_tpu_torch.bench import roofline
+    twoD, Sp = flag["gt_shape"]
+    roof = roofline.product_path_model(
+        1000, Sp, twoD // 2, 1024, 768, gt_dtype_bytes=2, d_raw=768
+    ).report(flag["batch_ms"] / 1e3, 1000)
+    log(f"[3k] roofline of the flagship's served batch (B=1000, Sp={Sp}, "
+        f"D_tree={twoD // 2}, C=1024, D_store=768): {json.dumps(roof)} | "
+        f"{smi}")
+    gather = gather_rate()
+    log(f"[3k] row gather emb[idx], B=1024 x C=512 distinct rows of 1M: "
+        + json.dumps(gather) + f" | {smi}")
+    del bench, encp
+    torch.cuda.empty_cache()
+    log(f"[3k] {time.perf_counter() - t3k:.1f}s")
+
     # -- 3j. multi-device: the port on torch.distributed ------------------
     mc = multichip_phase(flag_exact, mc_dir, *mc_single)
     log_multichip(mc, smi)
@@ -2443,7 +2801,13 @@ def main() -> int:
              # rank 0's slab
              tp=dict(launches=sum(launches["tp"]["fused_topk"]),
                      by_rank=launches["tp"]["fused_topk"],
-                     ranks=mc["world"], **mc["a"]["fused"])),
+                     ranks=mc["world"], **mc["a"]["fused"]),
+             # 3k: the harness tree's served index (B=256) and the encoder
+             # forest's (B=1000), each in its phase's window
+             harness=dict(launches=launches["3k"]["harness"]["fused_topk"],
+                          **k3["harness"]["fused"]),
+             encoder=dict(launches=launches["3k"]["encoder"]["fused_topk"],
+                          **k3["encoder"]["fused"])),
         dict(name="rerank_l2", route="cuda", source=src + "rerank_l2.cu",
              replaces="scripts/gather_probe.py:55",
              launches=launches["rerank_l2"], **flag["rerank"],
@@ -2467,7 +2831,11 @@ def main() -> int:
              # record on rank 0's pools
              tp=dict(launches=sum(launches["tp"]["rerank_l2"]),
                      by_rank=launches["tp"]["rerank_l2"],
-                     ranks=mc["world"], **mc["a"]["rerank"])),
+                     ranks=mc["world"], **mc["a"]["rerank"]),
+             harness=dict(launches=launches["3k"]["harness"]["rerank_l2"],
+                          **k3["harness"]["rerank"]),
+             encoder=dict(launches=launches["3k"]["encoder"]["rerank_l2"],
+                          **k3["encoder"]["rerank"])),
         # one CUDA kernel and counter for both TPU kernels (_kernel_v2's
         # body is _kernel): the served index at B=1024, and under "B4096"
         # at the batch of _kernel_v2's measurement

@@ -1,6 +1,12 @@
-"""Exact flat baseline (port of ``FlatIndex`` from
-``rag_cobweb_tpu/bench/baselines.py``): one float32 product (TF32 off)
-and ``torch.topk``."""
+"""Retrieval baselines (port of ``rag_cobweb_tpu/bench/baselines.py``).
+
+The reference benchmarks Cobweb against FAISS flat IP/L2, exact torch
+dot, HNSWlib and Annoy (benchmark_utils.py:529-614).  The exact baseline
+here is ``FlatIndex`` on the device: one float32 product (TF32 off) and
+``torch.topk``, FAISS's role.  The C++ ANN libraries stay optional CPU
+comparisons, each raising ``ImportError`` when its package is missing;
+``bench/native.py`` has the first-party flat and HNSW baselines.
+"""
 
 from __future__ import annotations
 
@@ -43,3 +49,84 @@ class FlatIndex:
         return self.search_device(queries, k).cpu().numpy()
 
     __call__ = search
+
+
+def make_flat_retriever(corpus_embs, metric: str = "ip", device="cuda"):
+    """``retrieve(queries, k)`` -> (B, k) ids as a device tensor (the
+    caller's ``to_host`` waits for it)."""
+    idx = FlatIndex(corpus_embs, metric, device=device)
+    return idx.search_device
+
+
+# -- optional C++ ANN baselines (CPU; parity with the reference harness) ----
+
+def faiss_available() -> bool:
+    try:
+        import faiss  # noqa: F401
+        return True
+    except ImportError:
+        return False
+
+
+def hnswlib_available() -> bool:
+    try:
+        import hnswlib  # noqa: F401
+        return True
+    except ImportError:
+        return False
+
+
+def make_faiss_retriever(corpus_embs, metric: str = "ip"):
+    """FAISS IndexFlatIP/L2 (reference setup_faiss :536-546)."""
+    import faiss
+
+    embs = np.ascontiguousarray(np.asarray(corpus_embs, np.float32))
+    d = embs.shape[1]
+    index = faiss.IndexFlatIP(d) if metric == "ip" else faiss.IndexFlatL2(d)
+    index.add(embs)
+
+    def retrieve(q, k):
+        q = np.ascontiguousarray(np.atleast_2d(np.asarray(q, np.float32)))
+        _, ids = index.search(q, k)
+        return ids
+
+    return retrieve
+
+
+def make_hnswlib_retriever(corpus_embs, M: int = 16,
+                           ef_construction: int = 100, ef: int = 50):
+    """hnswlib cosine graph (reference setup_hnswlib :559-566)."""
+    import hnswlib
+
+    embs = np.asarray(corpus_embs, np.float32)
+    n, d = embs.shape
+    index = hnswlib.Index(space="cosine", dim=d)
+    index.init_index(max_elements=n, M=M, ef_construction=ef_construction)
+    index.add_items(embs, np.arange(n))
+    index.set_ef(ef)
+
+    def retrieve(q, k):
+        q = np.atleast_2d(np.asarray(q, np.float32))
+        ids, _ = index.knn_query(q, k=k)
+        return ids
+
+    return retrieve
+
+
+def make_annoy_retriever(corpus_embs, n_trees: int = 10):
+    """Annoy angular trees (reference setup_annoy :549-556)."""
+    from annoy import AnnoyIndex
+
+    embs = np.asarray(corpus_embs, np.float32)
+    n, d = embs.shape
+    index = AnnoyIndex(d, "angular")
+    for i in range(n):
+        index.add_item(i, embs[i])
+    index.build(n_trees)
+
+    def retrieve(q, k):
+        q = np.atleast_2d(np.asarray(q, np.float32))
+        return np.asarray(
+            [index.get_nns_by_vector(row, k) for row in q], np.int64)
+
+    return retrieve

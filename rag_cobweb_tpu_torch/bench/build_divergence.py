@@ -417,7 +417,7 @@ def compare(host: Trace, card: Trace) -> dict:
 # the two recorded cases
 # ---------------------------------------------------------------------------
 
-def case_rows(case: str, rows=None, device="cpu"):
+def case_rows(case: str, rows=None, device="cuda"):
     """(whitened rows on ``device``, TreeConfig, lanes) of a case, cut to
     its first ``rows`` rows."""
     from rag_cobweb_tpu_torch.bench.datasets import synthetic_retrieval_hard

@@ -1,15 +1,126 @@
-"""Benchmark corpora: the synthetic generators of
-``rag_cobweb_tpu/bench/datasets.py``, copied byte for byte so both
-packages draw the same corpus from the same seed.
+"""Benchmark corpora (port of ``rag_cobweb_tpu/bench/datasets.py``,
+copied so both packages draw the same data from the same seed):
 
-The generators are host numpy; the engine moves the arrays to the device.
+  * hand-written sample corpora (topic paragraphs + user-profile
+    memories) for smoke tests and the visualization scripts;
+  * QQP duplicate-question pairs and MS-MARCO selected-passage pairs ->
+    (corpus, queries, targets), and STS-B sentence pairs; these read
+    HF ``datasets`` (a locally cached copy: nothing is downloaded here),
+    gated on the package;
+  * synthetic clustered-embedding corpora, so benchmarks run hermetically;
+  * the ``.npy`` embedding caches (the reference's own format,
+    benchmark_utils.py:143-168).
+
+All of it is host numpy / Python; the engine moves the arrays to the
+device.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import os
+from typing import NamedTuple, Optional
 
 import numpy as np
+
+
+def load_sample_corpuses() -> dict:
+    """Small hand-written corpora (reference datasets.py:10-82).
+
+    Original text, same roles: two mixed-topic corpora, an incremental-add
+    snippet, and two user-profile memory corpora (the RAG memory use case).
+    """
+    small_corpus1 = [
+        "The Voyager probes crossed into interstellar space decades after launch.",
+        "Their golden records carry sounds and images chosen to describe Earth.",
+        "Deep space missions rely on radioisotope generators for electricity.",
+        "A sourdough starter is a living culture of wild yeast and bacteria.",
+        "Regular feeding with flour and water keeps a starter active.",
+        "Long fermentation develops both flavor and an open crumb in bread.",
+        "The printing press spread literacy rapidly across early modern Europe.",
+        "Movable type made producing books dramatically cheaper than copying by hand.",
+        "Pamphlets and broadsheets became engines of political change.",
+        "Glaciers store most of the planet's fresh water as slowly moving ice.",
+        "As glaciers retreat, downstream communities lose seasonal water supplies.",
+        "Ice cores preserve air bubbles that record ancient atmospheres.",
+    ]
+
+    small_corpus2 = [
+        "Volcanoes form where magma from the mantle reaches the surface.",
+        "Eruptions can build islands and reshape entire coastlines.",
+        "Ash clouds from large eruptions can cool the global climate.",
+        "The stock market lets companies raise capital by selling shares.",
+        "Index funds track a basket of stocks rather than a single company.",
+        "Diversification reduces the risk of any single investment failing.",
+        "Honeybees communicate the location of food with a waggle dance.",
+        "A hive's workers, drones, and queen each have distinct roles.",
+        "Pollinators are essential to most flowering food crops.",
+        "The telegraph collapsed communication times from weeks to minutes.",
+        "Undersea cables linked continents in the nineteenth century.",
+        "Morse code encoded letters as short and long electrical pulses.",
+    ]
+
+    small_add_corpus2 = [
+        "Lava cools into new rock, slowly building volcanic mountains.",
+        "Exchange-traded funds trade like stocks but hold many assets.",
+        "Queen bees lay nearly all the eggs in a colony.",
+        "Telegraph operators became the first real-time news network.",
+    ]
+
+    user_corpus1 = [
+        "User prefers plant-based meals.",
+        "User goes trail running on Saturdays.",
+        "User works as a data analyst at a logistics firm.",
+        "User asks for Thai or Mexican restaurant suggestions.",
+        "User listens to ambient and classical music while working.",
+        "User reads mystery novels before bed.",
+        "User is allergic to peanuts.",
+        "User has two cats named Juniper and Clove.",
+        "User enjoys visiting botanical gardens.",
+        "User meditates for ten minutes every morning.",
+        "User uses a Linux laptop for personal projects.",
+        "User is training for a half marathon.",
+        "User is learning conversational Portuguese.",
+        "User takes the tram to work.",
+        "User watches nature documentaries on weekends.",
+        "User plays the piano at an intermediate level.",
+        "User volunteers at a community garden.",
+        "User prefers refillable and low-waste products.",
+        "User keeps a daily reading log.",
+        "User often asks about budgeting strategies.",
+    ]
+
+    user_corpus2 = [
+        "User's name is Priya Raman.",
+        "User is 34 years old.",
+        "User lives in Austin, Texas.",
+        "User works as a machine learning engineer.",
+        "User is employed at Brightlake Systems.",
+        "User enjoys rock climbing, baking, and chess.",
+        "User's favorite programming language is Rust.",
+        "User holds an M.S. degree in Statistics.",
+        "User graduated in 2015.",
+        "User is married with one daughter.",
+        "User speaks English, Tamil, and French.",
+        "User has a parrot named Mango.",
+        "User has lived in four different countries.",
+        "User uses PyTorch, JAX, Kubernetes, and Terraform.",
+        "User's GitHub username is priyar.",
+        "User is passionate about interpretable models.",
+        "User maintains two open-source libraries.",
+        "User mentors early-career engineers.",
+        "User's favorite food is dosa.",
+        "User is lactose intolerant.",
+        "User loves strong filter coffee.",
+        "User collects vintage fountain pens.",
+    ]
+
+    return {
+        "small_corpus1": small_corpus1,
+        "small_corpus2": small_corpus2,
+        "small_add_corpus2": small_add_corpus2,
+        "user_corpus1": user_corpus1,
+        "user_corpus2": user_corpus2,
+    }
 
 
 class RetrievalDataset(NamedTuple):
@@ -20,6 +131,78 @@ class RetrievalDataset(NamedTuple):
     queries: list
     targets: list
     name: str
+
+
+def hf_available() -> bool:
+    try:
+        import datasets  # noqa: F401
+        return True
+    except ImportError:
+        return False
+
+
+def load_qqp(corpus_size: int = 10000, target_size: int = 1000,
+             split: str = "train", seed: int = 42) -> RetrievalDataset:
+    """GLUE/QQP duplicate pairs (reference qqp_dataset.py:14-36): label==1
+    pairs give (query=question1, target=question2); the corpus is the
+    targets padded with non-duplicate question2s up to ``corpus_size``."""
+    from datasets import load_dataset
+
+    ds = load_dataset("glue", "qqp", split=split)
+    rng = np.random.default_rng(seed)
+    dup_q1, dup_q2, neg_q2 = [], [], []
+    for row in ds:
+        if row["label"] == 1:
+            dup_q1.append(row["question1"])
+            dup_q2.append(row["question2"])
+        else:
+            neg_q2.append(row["question2"])
+        if len(dup_q1) >= target_size and \
+                len(neg_q2) >= corpus_size - target_size:
+            break
+    n_t = min(target_size, len(dup_q1))
+    queries, targets = dup_q1[:n_t], dup_q2[:n_t]
+    corpus = targets + neg_q2[: corpus_size - n_t]
+    order = rng.permutation(len(corpus))
+    corpus = [corpus[i] for i in order]
+    return RetrievalDataset(corpus, queries, targets, f"qqp_c{len(corpus)}")
+
+
+def load_ms_marco(corpus_size: int = 10000, target_size: int = 1000,
+                  split: str = "train", seed: int = 42) -> RetrievalDataset:
+    """MS-MARCO v2.1 (reference ms_marco_dataset.py:14-46): queries whose
+    passage group contains an ``is_selected`` passage become (query,
+    selected passage) pairs; the corpus is those groups' passages plus
+    random fill."""
+    from datasets import load_dataset
+
+    ds = load_dataset("ms_marco", "v2.1", split=split)
+    rng = np.random.default_rng(seed)
+    queries, targets, corpus = [], [], []
+    for row in ds:
+        p = row["passages"]
+        sel = [t for t, s in zip(p["passage_text"], p["is_selected"]) if s]
+        if sel and len(queries) < target_size:
+            queries.append(row["query"])
+            targets.append(sel[0])
+            corpus.extend(p["passage_text"])
+        elif len(corpus) < corpus_size:
+            corpus.extend(p["passage_text"])
+        if len(queries) >= target_size and len(corpus) >= corpus_size:
+            break
+    # dedupe, keep targets present, trim
+    seen, dedup = set(), []
+    for t in targets:
+        seen.add(t)
+    for c in corpus:
+        if c not in seen:
+            dedup.append(c)
+            seen.add(c)
+    corpus = targets + dedup[: max(0, corpus_size - len(targets))]
+    order = rng.permutation(len(corpus))
+    corpus = [corpus[i] for i in order]
+    return RetrievalDataset(corpus, queries, targets,
+                            f"msmarco_c{len(corpus)}")
 
 
 class SyntheticEmbeddings(NamedTuple):
@@ -172,3 +355,54 @@ def synthetic_retrieval_hard(corpus_size: int = 10000,
         queries.astype(np.float32, copy=False),
         target_ids.astype(np.int64), f"synthhard_c{corpus_size}_d{dim}"
     )
+
+
+def load_sts(split: str = "train",
+             score_threshold: Optional[float] = None) -> tuple:
+    """STS-Benchmark sentence pairs with similarity scores (reference
+    utils/datasets.py:109-173 load_sts_embeddings/combiner role).  Returns
+    (sentence_pairs [(s1, s2), ...], scores (N,) in [0, 5])."""
+    from datasets import load_dataset
+
+    ds = load_dataset("glue", "stsb", split=split)
+    pairs, scores = [], []
+    for row in ds:
+        if score_threshold is not None and row["label"] < score_threshold:
+            continue
+        pairs.append((row["sentence1"], row["sentence2"]))
+        scores.append(float(row["label"]))
+    return pairs, np.asarray(scores, np.float32)
+
+
+def sts_embeddings(encode_func, split: str = "train",
+                   score_threshold: Optional[float] = None) -> tuple:
+    """Encode STS pairs -> (embs1 (N,D), embs2 (N,D), scores (N,))."""
+    pairs, scores = load_sts(split, score_threshold)
+    embs1 = np.asarray(encode_func([a for a, _ in pairs]), np.float32)
+    embs2 = np.asarray(encode_func([b for _, b in pairs]), np.float32)
+    return embs1, embs2, scores
+
+
+def combine_sts_splits(encode_func, splits=("train", "validation"),
+                       score_threshold: Optional[float] = None) -> tuple:
+    """Concatenate several STS splits (reference combiner :150-173)."""
+    e1s, e2s, ss = [], [], []
+    for split in splits:
+        e1, e2, s = sts_embeddings(encode_func, split, score_threshold)
+        e1s.append(e1)
+        e2s.append(e2)
+        ss.append(s)
+    return (np.concatenate(e1s), np.concatenate(e2s), np.concatenate(ss))
+
+
+def load_embeddings(filepath: str) -> Optional[np.ndarray]:
+    """Load a ``.npy`` embedding cache (reference datasets.py:101-109 and the
+    cache layout of benchmark_utils.py:143-168)."""
+    if not os.path.exists(filepath):
+        return None
+    return np.load(filepath)
+
+
+def save_embeddings(filepath: str, embs: np.ndarray):
+    os.makedirs(os.path.dirname(filepath) or ".", exist_ok=True)
+    np.save(filepath, np.asarray(embs))

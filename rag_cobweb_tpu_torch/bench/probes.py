@@ -70,7 +70,8 @@ def plain_check(db, queries, served, k: int, pool: int, bs: int,
     """``db``'s served pipeline in plain PyTorch, batch by batch, held
     against its ``served`` ids.  Only the serving fused index is taken from
     ``db``; the rest is built here from ``corpus``, the raw rows of its
-    sentences in order: the whitened queries' top-``pool`` by the fused
+    sentences in order (a ``db`` without a whitener indexes them as they
+    are): the whitened queries' top-``pool`` by the fused
     index's scores; with ``bs``, the top-``bs`` of the indexed rows by
     ``q . w - 0.5 ||w||^2`` over the corpus whitened here and rounded to
     bf16; the rows added since the index was built (each query's nearest
@@ -96,7 +97,7 @@ def plain_check(db, queries, served, k: int, pool: int, bs: int,
     plain, outside, ties = [], 0, 0
     for s in range(0, len(queries), batch):
         qs = torch.as_tensor(queries[s:s + batch], device=dev)
-        q = db.whitener.transform_torch(qs)
+        q = qs if db.whitener is None else db.whitener.transform_torch(qs)
         qq = fused_topk.query_terms(q, fidx.GT.dtype)
         full = fused_topk.slab_scores_plain(
             qq, fidx.GT, fidx.c, fidx.valid, float("-inf")).reshape(

@@ -49,7 +49,7 @@ from rag_cobweb_tpu_torch.core.config import TreeConfig
 from rag_cobweb_tpu_torch.device import resolve_device
 from rag_cobweb_tpu_torch.ops import opscore
 from rag_cobweb_tpu_torch.ops.gaussian import (GaussStats, chan_merge,
-                                               welford_insert)
+                                               compute_var, welford_insert)
 
 NULL = -1
 EXACT_STEPS = 256  # cap of the exact path for over-deep descents
@@ -806,6 +806,27 @@ class CobwebTree:
         """The tree's arrays on the host in the JAX single tree's layout:
         lane axis dropped, int32 structure, scalar root/n_alloc/free_top."""
         return {k: v[0] for k, v in state_to_numpy(self.state).items()}
+
+    def node_var(self, idx: int) -> np.ndarray:
+        """Variance of node ``idx`` under the tree's variance policy."""
+        st = self.state
+        return compute_var(st.m2s[0, idx].float(), st.counts[0, idx],
+                           self.cfg).cpu().numpy()
+
+    def num_nodes(self) -> int:
+        """Number of live nodes (reference ``num_concepts``)."""
+        return len(self.live_nodes())
+
+    def live_nodes(self) -> list:
+        """The live nodes, depth first from the root (last child first)."""
+        a = self.host_arrays()
+        out, stack = [], [int(a["root"])]
+        while stack:
+            n = stack.pop()
+            out.append(n)
+            stack.extend(int(a["children"][n, i])
+                         for i in range(int(a["n_children"][n])))
+        return out
 
     def analyze_structure(self) -> dict:
         a = self.host_arrays()

@@ -84,6 +84,7 @@ from rag_cobweb_tpu_torch.core.tree import CobwebTree, align_capacity
 from rag_cobweb_tpu_torch.device import full_f32_matmul, resolve_device
 from rag_cobweb_tpu_torch.ops import blocked_topk
 from rag_cobweb_tpu_torch.parallel.vforest import VForest, _vforest_query
+from rag_cobweb_tpu_torch.utils.viz import visualize_grandparent_subtrees
 
 
 def _identity_encode(x):
@@ -997,14 +998,48 @@ class CobwebIndex:
             raise ValueError(
                 f"{what} requires single-tree mode (n_subtrees=1)")
 
+    def _sids_by_leaf(self) -> dict:
+        sids_by_leaf: dict = {}
+        for sid, leaf in enumerate(self.leaf_of_sentence):
+            sids_by_leaf.setdefault(leaf, []).append(sid)
+        return sids_by_leaf
+
+    def print_tree(self):
+        """Print the tree, each node with its sentence ids and sentences
+        (reference ``print_tree``)."""
+        self._require_single_tree("print_tree")
+        a = self.tree.host_arrays()
+        sids_by_leaf = self._sids_by_leaf()
+
+        def rec(n, depth):
+            pad = "  " * depth
+            sids = sids_by_leaf.get(n, [])
+            print(f"{pad}- Node {n} sids={sids}")
+            for sid in sids:
+                s = self.sentences[sid]
+                print(f"{pad}    {s!r}" if s is not None
+                      else f"{pad}    [Embedding only]")
+            for i in range(int(a["n_children"][n])):
+                rec(int(a["children"][n, i]), depth + 1)
+
+        print("\nCobweb Sentence Clustering Tree:")
+        rec(int(a["root"]), 0)
+
+    def visualize_subtrees(self, directory: str, num_leaves: int = 6):
+        """Graphviz views of the grandparent subtrees (reference
+        ``_visualize_grandparent_tree``): PNG with the ``dot`` binary, else
+        the ``.dot`` sources; returns their paths."""
+        self._require_single_tree("visualize_subtrees")
+        return visualize_grandparent_subtrees(
+            self.tree, self.sentences, self._sids_by_leaf(), directory,
+            num_leaves=num_leaves)
+
     def dump_json(self, save_path: Optional[str] = None) -> str:
         """The reference-parity JSON: the tree in the nested schema with
         each leaf's sentence ids, the sentences and the tree width (no
         whitener, no vector store); loads in either package."""
         self._require_single_tree("dump_json")
-        sids_by_leaf: dict = {}
-        for sid, leaf in enumerate(self.leaf_of_sentence):
-            sids_by_leaf.setdefault(leaf, []).append(sid)
+        sids_by_leaf = self._sids_by_leaf()
         blob = json.dumps({
             "tree": json.loads(self.tree.dump_json(sids_by_leaf)),
             "sentences": self.sentences,

@@ -271,3 +271,36 @@ def factorvae_modules_from_flax(params: tuple, device="cuda") -> tuple:
             load_flax(MLPDecoder(z_dim, n_in, hidden), dec_p).to(dev),
             load_flax(Discriminator(z_dim, _kernel(disc_p, "Dense_0")[1]),
                       disc_p).to(dev))
+
+
+def bert_encoder_from_flax(params: dict, config, device="cuda"):
+    """``BertEncoderModel`` from a ``FlaxBertModel``'s parameter tree (as
+    numpy; ``model.params``) and its config (an HF ``BertConfig`` or any
+    object or dict with its names).  The flax modules carry the names of
+    the port's, so each maps by its path: a ``Dense`` kernel (in, out) is
+    the transposed Linear weight, ``embedding`` the Embedding weight,
+    LayerNorm ``scale``/``bias`` its weight and bias; the pooler is
+    dropped."""
+    from torch import nn
+
+    from rag_cobweb_tpu_torch.bench.torch_encoder import (BertConfig,
+                                                          BertEncoderModel)
+    model = BertEncoderModel(BertConfig.of(config))
+    p = _inner(params)
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if not isinstance(mod, (nn.Linear, nn.Embedding, nn.LayerNorm)):
+                continue
+            node = p
+            for part in name.split("."):
+                node = node[part]
+            if isinstance(mod, nn.Linear):
+                w, b = np.asarray(node["kernel"]).T, node["bias"]
+            elif isinstance(mod, nn.Embedding):
+                w, b = node["embedding"], None
+            else:
+                w, b = node["scale"], node["bias"]
+            mod.weight.copy_(torch.as_tensor(np.array(w, np.float32)))
+            if b is not None:
+                mod.bias.copy_(torch.as_tensor(np.array(b, np.float32)))
+    return model.to(resolve_device(device))
