@@ -176,8 +176,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    gradient norms are finite and positive, (a)'s recall@10 does not fall,
    (c)'s covariance term and (d)'s recon_mse fall;
 3k. the reference's benchmark harness and the encoder (before 3j): (a)
-   ``bench/harness.BenchmarkRunner("synthetic")`` at the reference's
-   flagship QQP size (c=10000, 1000 queries, 768-d, top_k 10, seed 42; at
+   ``bench/harness.BenchmarkRunner("synthetic")``, run by the twin of
+   ``scripts/synthetic_benchmark.py`` (``rag_cobweb_tpu_torch.scripts.
+   synthetic_benchmark.main`` with the JAX script's arguments, writing
+   under ``build/harness/``), at the reference's flagship QQP size (c=10000, 1000 queries, 768-d, top_k 10, seed 42; at
    its default 7500 the single tree serves below ``blocked_threshold`` by
    path scores, without kernel 1) through the "extra" matrix, in one
    counter window: flat IP and L2 on the card, the native flat IP and
@@ -207,6 +209,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (``emb[idx]``, 1024 x 512 distinct rows of 1M, D = 128 and 768).
    Kernels 1 and 5 are then held and timed at (a)'s and (b)'s served
    shapes;
+3l. the last modules (after 3k): (a) ``families_phase``: RoBERTa, GPT-2
+   and T5's encoder at the published base widths of roberta-base, gpt2
+   and t5-base (``torch_encoder.PUBLISHED``; random weights from seed 0,
+   the hash tokenizer at each vocabulary, max_length 128), each through
+   (b)'s steps: 64 texts held against a host copy (rtol 1e-4, atol
+   1e-5), 10000 texts encoded (texts/s, tokens/s), PCA+ICA (0.96) fused
+   on the card, ``encode_whiten_insert`` into a 32-lane forest, 1000
+   queries served in a counter window (kernels 1 and 5 must launch, no
+   f32 entry), recall@10 within 0.005 of the exact scan's, the ids held
+   by ``probes.plain_check``; kernels 1 and 5 then held and timed on each
+   forest's index and served pools; (b) ``twins_phase``: the twins of
+   ``train_query_encoder``, ``train_factorvae`` and
+   ``compare_whitening`` at small sizes on the card, each returned
+   trainer then held for 2 steps against a host copy
+   (``bench/train_steps.hold``, phase 3i's rule), and
+   ``case_study``, ``visualize_tree`` (DOT files under ``build/twins/``)
+   and ``run_experiments --dry-run`` (its commands name the twins) once
+   each;
 3j. multi-device on ``torch.distributed`` (``multichip_phase``, last):
    ``min(cards, 4)`` ranks, a card each over NCCL, or with one card 2
    ranks on it over gloo (the card count, world size, backend, the rank
@@ -249,8 +269,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ZCA forest under ``zca``, its PCA+ZCA twin inside that; kernels 1 and
    5 of phase 3j's fused TP engine under ``tp``, their launches summed
    over the ranks and by rank; kernels 1 and 5 on phase 3k's harness
-   tree under ``harness`` and its encoder forest under ``encoder``), the
-   nvidia-smi line, and the
+   tree under ``harness`` and its encoder forest under ``encoder``, and
+   on phase 3l's forests under ``families``, by name), the nvidia-smi
+   line, and the
    final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -263,6 +284,7 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -2091,22 +2113,31 @@ def flat_ids_hold(card_ids, native_ids, corpus, queries,
 def harness_phase(zero, read, root: Path, device="cuda", subset=10000,
                   targets=1000, dim=768) -> dict:
     """Phase 3k (a): the port's ``BenchmarkRunner`` on the synthetic
-    dataset through the "extra" matrix, its method rows in one counter
-    window, then its gates: every row but Annoy present, the fast row's
+    dataset through the "extra" matrix, run as a user runs it, by the
+    twin of ``scripts/synthetic_benchmark.py`` (its arguments, seed 42,
+    its output under ``root``), its method rows in one counter window,
+    then its gates: every row but Annoy present, the fast row's
     ids against the same pipeline in plain PyTorch (``probes.plain_check``)
     but at ties, the card's flat IP ids against the native library's but
     at ties, and the results file parsed back to the rows it printed."""
-    from rag_cobweb_tpu_torch.bench import harness, native, report
+    from rag_cobweb_tpu_torch.bench import native, report
     from rag_cobweb_tpu_torch.bench.baselines import FlatIndex
     from rag_cobweb_tpu_torch.bench.metrics import to_host
     from rag_cobweb_tpu_torch.bench.probes import plain_check
+    from rag_cobweb_tpu_torch.scripts import synthetic_benchmark
     shutil.rmtree(root, ignore_errors=True)
-    runner = harness.BenchmarkRunner("synthetic", root=str(root))
-    zero()
-    rows = runner.run(model_name="synthetic", subset_size=subset,
-                      target_size=targets, top_k=10, method="extra",
-                      dim=dim, seed=42, device=device)
-    window = read()
+    root.mkdir(parents=True)
+    cwd = os.getcwd()
+    os.chdir(root)                  # the twin writes under its cwd
+    try:
+        zero()
+        runner = synthetic_benchmark.main([
+            "--subset_size", str(subset), "--target_size", str(targets),
+            "--method", "extra", "--dim", str(dim), "--device", device])
+        window = read()
+    finally:
+        os.chdir(cwd)
+    rows = runner.results
     tag = "CPU" if device == "cpu" else "CUDA"
     want = [n.format(tag=tag) for n in HARNESS_ROWS]
     if [r["method"] for r in rows] != want:
@@ -2124,7 +2155,8 @@ def harness_phase(zero, read, root: Path, device="cuda", subset=10000,
                    .search_device(e["queries"], 10))
     nat, _ = native.flat_topk(e["corpus"], e["queries"], 10, "ip")
     flat = flat_ids_hold(card, nat, e["corpus"], e["queries"])
-    parsed = report.parse_results_file(runner.results_path)
+    results_path = str(root / runner.results_path)
+    parsed = report.parse_results_file(results_path)
     if [p["method"] for p in parsed] != want:
         raise AssertionError(f"results file rows {parsed}")
     for p, r in zip(parsed, rows):
@@ -2134,7 +2166,7 @@ def harness_phase(zero, read, root: Path, device="cuda", subset=10000,
                                  f"back as {r}")
     return {"rows": rows, "window": window, "plain": plain, "flat": flat,
             "build": runner.builds["w"], "db": db, "queries_w": qw,
-            "results_path": runner.results_path}
+            "results_path": results_path}
 
 
 def encoder_texts(n_corpus: int, n_queries: int, seed: int = 0):
@@ -2165,18 +2197,23 @@ def encoder_texts(n_corpus: int, n_queries: int, seed: int = 0):
 def encoder_phase(zero, read, smi: str, trace_dir: Path, device="cuda",
                   widths=None, n_corpus=10000, n_queries=1000,
                   max_length=128, n_hold=64, n_lanes=32) -> dict:
-    """Phase 3k (b) and (c): a BERT at ``widths`` (random weights from
-    seed 0, the hash tokenizer) on the card held against a host copy on
+    """Phase 3k (b) and (c), and phase 3l (a) for each family: a model at
+    ``widths`` (``make_random_encoder``'s arguments, ``arch`` among them:
+    BERT by default; random weights from seed 0, the hash tokenizer, the
+    architecture's pooling) on the card held against a host copy on
     ``n_hold`` texts; the corpus encoded (texts/s and tokens/s by CUDA
     events); PCA+ICA (0.96) fitted on it; ``encode_whiten_insert`` into a
     ``n_lanes``-lane forest (the whitening on the device); the queries
     encoded and served by ``query_ids`` in a counter window, their
-    recall@10 beside the exact scan over the same whitened rows.  Each
+    recall@10 beside the exact scan over the same whitened rows, their
+    ids held against the same pipeline in plain PyTorch
+    (``probes.plain_check``).  Each
     stage in a ``PhaseTimer``; one served batch traced with
     ``utils.profiling.trace``."""
     from rag_cobweb_tpu_torch.bench.baselines import FlatIndex
     from rag_cobweb_tpu_torch.bench.headline import fit_whitener
     from rag_cobweb_tpu_torch.bench.metrics import to_host
+    from rag_cobweb_tpu_torch.bench.probes import plain_check
     from rag_cobweb_tpu_torch.bench.torch_encoder import (
         TorchEncoder, encode_whiten_insert, make_random_encoder)
     from rag_cobweb_tpu_torch.core.config import TreeConfig
@@ -2218,9 +2255,10 @@ def encoder_phase(zero, read, smi: str, trace_dir: Path, device="cuda",
     with timer.phase("fit PCA+ICA"):
         wh = fit_whitener("pcaica", raw.cpu().numpy(), 0.96)
     out["whitened_dim"] = wh.dim_out
-    wenc = TorchEncoder(enc.model, None, max_length=max_length,
-                        batch_size=256, vocab_size=w["vocab_size"],
-                        whitening=wh, device=device)
+    wenc = TorchEncoder(enc.model, None, family=enc.family,
+                        max_length=max_length, batch_size=256,
+                        vocab_size=w["vocab_size"], whitening=wh,
+                        device=device)
     db = CobwebIndex(config=TreeConfig(dim=wh.dim_out), n_subtrees=n_lanes,
                      device=device)
     with timer.phase("encode_whiten_insert"):
@@ -2240,6 +2278,11 @@ def encoder_phase(zero, read, smi: str, trace_dir: Path, device="cuda",
     out["recall@10"] = float(np.mean([t in r for t, r in zip(gold, served)]))
     out["exact_recall@10"] = float(np.mean([t in r for t, r in
                                             zip(gold, exact)]))
+    # the served ids against the same pipeline in plain PyTorch (equal but
+    # at ties it shows)
+    out["plain"] = plain_check(db, qw.cpu().numpy(), served, 10,
+                               db.rerank_candidates, 0, 1024,
+                               store.cpu().numpy(), gold)
     # (c) one served batch traced
     with profiling.trace(str(trace_dir), device=device) as prof:
         with profiling.annotate("rag_serve_batch"):
@@ -2298,32 +2341,21 @@ def log_benchmark_phase(h: dict, e: dict, smi: str) -> None:
     log(f"[3k] harness launches: {h['window']}; fast row vs the plain "
         f"pipeline: {h['plain']}; card flat IP vs native: {h['flat']}; "
         f"results file {h['results_path']}")
-    log(f"[3k] encoder {e['widths']}: card vs host max_abs_err "
-        f"{e['hold_max_abs_err']:.3g}; encode {e['texts']} texts "
-        f"({e['tokens']} tokens) {e.get('encode_ms', 0.0):.1f} ms "
-        f"(CUDA events): {e['texts_per_s']:.1f} texts/s, "
-        f"{e['tokens_per_s']:.1f} tokens/s | {smi}")
-    log(f"[3k] encoder forest: whitened dim {e['whitened_dim']}, ingest "
-        f"{e['ingest_texts_per_s']:.1f} texts/s (encode, whiten, insert); "
-        f"recall@10 {e['recall@10']} (exact scan {e['exact_recall@10']}); "
-        f"launches {e['window']} | {smi}")
+    log_encoder("[3k] encoder", e, smi)
     log("[3k] PhaseTimer:\n" + e["timer_summary"])
     log(f"[3k] trace {e['trace']['file']} ({e['trace']['bytes']} bytes); "
         f"device us in key_averages: {e['trace']['device_us']}")
 
 
-def benchmark_kernels(bench: dict, encp: dict) -> dict:
+def served_kernels(served) -> dict:
     """Kernels 1 and 5 held against their plain versions and timed at
-    phase 3k's served shapes: the harness tree's index (a batch of 256,
-    the harness's) and the encoder forest's (the 1000 queries), each on
-    its served pools (the re-rank pool, ``rerank_candidates``)."""
+    served shapes: each (name, db, whitened queries on the card) of
+    ``served`` on its index with those queries and on their served pools
+    (the re-rank pool, ``rerank_candidates``)."""
     from rag_cobweb_tpu_torch.core.index import fused_query_topk
     from rag_cobweb_tpu_torch.ops import fused_topk, rerank
     out = {}
-    for name, db, q in (
-            ("harness", bench["db"], torch.as_tensor(
-                bench["queries_w"][:256], device="cuda")),
-            ("encoder", encp["db"], encp["qw"])):
+    for name, db, q in served:
         fidx, pool = db._fused_index(), db.rerank_candidates
         out[name] = {"fused": check_fused(
             fused_topk, fused_topk.query_terms(q, fidx.GT.dtype), fidx.GT,
@@ -2335,6 +2367,174 @@ def benchmark_kernels(bench: dict, encp: dict) -> dict:
             cs.contiguous(), reps=10, label=f" ({name}, served pools)",
             pv=float(db.cfg.prior_var))
     return out
+
+
+# -- phase 3l: the encoder families and the entry points' twins --------
+
+FAMILIES = ("roberta-base", "gpt2", "t5-base")
+
+
+def families_phase(zero, read, smi: str, trace_root: Path, device="cuda",
+                   widths=None, **kw) -> dict:
+    """Phase 3l (a): each of RoBERTa, GPT-2 and T5 at its published base
+    widths (``torch_encoder.PUBLISHED``; ``widths`` replaces them by name
+    for a host rehearsal) through ``encoder_phase`` (``kw`` its sizes):
+    card against host, texts/s, PCA+ICA fused on the device,
+    ``encode_whiten_insert`` into a 32-lane forest, served in a counter
+    window, ids held by ``probes.plain_check``.  Fails unless recall@10
+    is within 0.005 of the exact scan's and, on the card, kernels 1 and 5
+    launched and no f32 entry.  On the card, kernels 1 and 5 are then held and timed
+    on each forest's index and served pools."""
+    from rag_cobweb_tpu_torch.bench.torch_encoder import PUBLISHED
+    out = {}
+    for name in FAMILIES:
+        w = (widths or PUBLISHED)[name]
+        e = encoder_phase(zero, read, smi, trace_root / name, device=device,
+                          widths=w, **kw)
+        win = e["window"]
+        if device != "cpu" and not (win["fused_topk"] > 0
+                                    and win["rerank_l2"] > 0
+                                    and win["fused_topk_f32"] == 0):
+            raise AssertionError(f"the {name} forest did not serve through "
+                                 f"kernels 1 and 5: {win}")
+        if not e["recall@10"] >= e["exact_recall@10"] - 0.005:
+            raise AssertionError(
+                f"{name} forest: recall@10 {e['recall@10']} is more than "
+                f"0.005 below the exact scan's {e['exact_recall@10']}")
+        if device != "cpu":
+            e["kernels"] = served_kernels(((name, e["db"], e["qw"]),))[name]
+        del e["db"], e["qw"]
+        log_encoder(f"[3l] {name}", e, smi)
+        out[name] = e
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def log_encoder(tag: str, e: dict, smi: str) -> None:
+    log(f"{tag} {e['widths']}: card vs host max_abs_err "
+        f"{e['hold_max_abs_err']:.3g}; encode {e['texts']} texts "
+        f"({e['tokens']} tokens) {e.get('encode_ms', 0.0):.1f} ms "
+        f"(CUDA events): {e['texts_per_s']:.1f} texts/s, "
+        f"{e['tokens_per_s']:.1f} tokens/s | {smi}")
+    log(f"{tag} forest: whitened dim {e['whitened_dim']}, ingest "
+        f"{e['ingest_texts_per_s']:.1f} texts/s (encode, whiten, insert); "
+        f"recall@10 {e['recall@10']} (exact scan {e['exact_recall@10']}); "
+        f"launches {e['window']}; vs the plain pipeline {e['plain']} | "
+        f"{smi}")
+
+
+def twins_phase(out_dir: Path, device="cuda", case_corpus: int = 1000
+                ) -> dict:
+    """Phase 3l (b): the entry points' twins, each called as a user calls
+    it (``main`` with its arguments) at small sizes on ``device``, once.
+    The trainer each of the three training twins returns then takes 2
+    more steps on the twin's data in lockstep with a host copy
+    (``bench/train_steps.hold``, phase 3i's rule: every metric within 1e-5
+    relative, every parameter after each step within atol 1e-5 / rtol
+    1e-4), each step's metrics on both devices kept:
+    ``train_query_encoder`` (200 passages, 32 queries, 64-d whitened to 8,
+    2 epochs of 2 steps of 16), ``train_factorvae`` (512 synthetic 768-d
+    rows, z_dim 32, 2 epochs of 2 steps of 256), ``compare_whitening``
+    (600 rows, 64-d, 16 components, FactorVAE 1 epoch of 2 steps).  Then
+    ``case_study`` (``case_corpus`` passages, 100 queries, 64-d),
+    ``visualize_tree`` (its DOT files, a PNG only where ``dot`` exists)
+    and ``run_experiments --dry-run`` (its commands name the twins)."""
+    from rag_cobweb_tpu_torch.bench import train_steps
+    from rag_cobweb_tpu_torch.bench.datasets import synthetic_retrieval
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    from rag_cobweb_tpu_torch.scripts import (case_study, compare_whitening,
+                                              run_experiments,
+                                              train_factorvae,
+                                              train_query_encoder,
+                                              visualize_tree)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    out = {}
+    dev = ["--device", device]
+
+    def run(name, fn, args):
+        t0 = time.perf_counter()
+        got = fn(args + dev)
+        out[name] = {"s": time.perf_counter() - t0}
+        return got
+
+    def held(name, tr, steps, host_db=None):
+        rec = train_steps.hold(tr, train_steps.host_copy(tr, host_db),
+                               steps)
+        if not rec["ok"]:
+            raise AssertionError(f"3l {name} card against host: "
+                                 f"{rec['fails']}")
+        out[name]["hold"] = rec
+
+    got = run("train_query_encoder", train_query_encoder.main, [
+        "--corpus-size", "200", "--queries", "32", "--dim", "64",
+        "--pca-dim", "8", "--epochs", "2", "--lr", "1e-3",
+        "--save-dir", str(out_dir / "query")])
+    tr = got["trainer"]
+    tr.db.save(str(out_dir / "query_tree.npz"))
+    data = synthetic_retrieval(200, 32, 64)
+    held("train_query_encoder", tr,
+         train_steps.query_steps(data.query_embs, data.target_ids, n=2),
+         CobwebIndex.load(str(out_dir / "query_tree.npz"), device="cpu"))
+    out["train_query_encoder"].update(
+        losses=got["losses"], recall=(got["before"]["recall@10"],
+                                      got["after"]["recall@10"]))
+    got = run("train_factorvae", train_factorvae.main, [
+        "--max-embed-samples", "512", "--batch-size", "256", "--epochs",
+        "2", "--z-dim", "32", "--save-dir", str(out_dir / "factorvae")])
+    rows = synthetic_retrieval(512, 1, 768, seed=42).corpus_embs
+    held("train_factorvae", got["vae"],
+         train_steps.factorvae_steps(got["vae"], rows, n=2))
+    out["train_factorvae"]["recon_mse"] = [h["recon_mse"]
+                                           for h in got["history"]]
+    got = run("compare_whitening", compare_whitening.main, [
+        "--samples", "600", "--dim", "64", "--pca-dim", "16",
+        "--factorvae-epochs", "1"])
+    rows = synthetic_retrieval(600, 1, 64).corpus_embs
+    held("compare_whitening", got["vae"],
+         train_steps.factorvae_steps(got["vae"], rows, n=2))
+    out["compare_whitening"]["mean_abs_offdiag"] = {
+        k: v["mean_abs_offdiag"] for k, v in got["reports"].items()}
+    diff = case_study.main(["--corpus-size", str(case_corpus), "--queries",
+                            "100", "--dim", "64", "--pca-dim", "16",
+                            "--limit", "2"] + dev)
+    out["case_study"] = {k: len(v) for k, v in diff.items()}
+    paths = visualize_tree.main(["--output-dir", str(out_dir / "vis"),
+                                 "--num-leaves", "4"] + dev)
+    if not paths or not all(Path(p).exists() for p in paths):
+        raise AssertionError(f"visualize_tree wrote {paths}")
+    out["visualize_tree"] = sorted(Path(p).name for p in paths)
+    exps = out_dir / "exps.json"
+    exps.write_text(json.dumps({"experiments": [
+        {"name": n, "script": f"scripts/{n}.py"}
+        for n in ("synthetic_benchmark", "qqp_benchmark",
+                  "million_benchmark")]}))
+    cmds = run_experiments.main([str(exps), "--dry-run"] + dev)
+    if not (cmds[0][1:3] == ["-m", "rag_cobweb_tpu_torch.scripts."
+                                   "synthetic_benchmark"]
+            and cmds[1][2].endswith(".qqp_benchmark")
+            and cmds[2][1] == "scripts/million_benchmark.py"):
+        raise AssertionError(f"run_experiments commands {cmds}")
+    out["run_experiments"] = [" ".join(c[1:]) for c in cmds]
+    return out
+
+
+def log_twins(rec: dict, smi: str) -> None:
+    for name in ("train_query_encoder", "train_factorvae",
+                 "compare_whitening"):
+        r = dict(rec[name])
+        h = r.pop("hold")
+        log(f"[3l] {name}: {json.dumps(r)}; card vs host over "
+            f"{h['steps']} lockstep steps: worst metric rel "
+            f"{h['worst_metric_rel']:.3g}, worst gradient rel "
+            f"{h['worst_grad_rel']:.3g}, worst parameter excess "
+            f"{h['worst_param_excess']:.3g}, unsettled / parted entries "
+            f"{h['unsettled']} / {h['parted']} of {h['entries']} | {smi}")
+        log(f"[3l] {name} step metrics, card then host: "
+            f"{json.dumps([h['metrics_card'], h['metrics_host']])}")
+    for name in ("case_study", "visualize_tree", "run_experiments"):
+        log(f"[3l] {name}: {json.dumps(rec[name])}")
 
 
 def main() -> int:
@@ -2755,7 +2955,13 @@ def main() -> int:
         raise AssertionError(
             f"encoder forest: recall@10 {encp['recall@10']} is more than "
             f"0.005 below the exact scan's {encp['exact_recall@10']}")
-    k3 = benchmark_kernels(bench, encp)
+    # kernels 1 and 5 at (a)'s and (b)'s served shapes: the harness
+    # tree's index at a batch of 256 (the harness's), the encoder
+    # forest's at the 1000 queries
+    k3 = served_kernels((
+        ("harness", bench["db"], torch.as_tensor(bench["queries_w"][:256],
+                                                 device="cuda")),
+        ("encoder", encp["db"], encp["qw"])))
     launches["3k"] = {name: w for name, w in (("harness", bench["window"]),
                                                ("encoder", encp["window"]))}
     # (d) the roofline of the flagship's served batch (phase 3), and the
@@ -2774,6 +2980,14 @@ def main() -> int:
     del bench, encp
     torch.cuda.empty_cache()
     log(f"[3k] {time.perf_counter() - t3k:.1f}s")
+
+    # -- 3l. the encoder families and the entry points' twins ------------
+    t3l = time.perf_counter()
+    fams = families_phase(zero, read, smi, here / "build" / "trace")
+    launches["3l"] = {n: e["window"] for n, e in fams.items()}
+    twins = twins_phase(here / "build" / "twins")
+    log_twins(twins, smi)
+    log(f"[3l] {time.perf_counter() - t3l:.1f}s")
 
     # -- 3j. multi-device: the port on torch.distributed ------------------
     mc = multichip_phase(flag_exact, mc_dir, *mc_single)
@@ -2807,7 +3021,11 @@ def main() -> int:
              harness=dict(launches=launches["3k"]["harness"]["fused_topk"],
                           **k3["harness"]["fused"]),
              encoder=dict(launches=launches["3k"]["encoder"]["fused_topk"],
-                          **k3["encoder"]["fused"])),
+                          **k3["encoder"]["fused"]),
+             # 3l: each encoder family's forest, served in its window
+             families={n: dict(launches=launches["3l"][n]["fused_topk"],
+                               **e["kernels"]["fused"])
+                       for n, e in fams.items()}),
         dict(name="rerank_l2", route="cuda", source=src + "rerank_l2.cu",
              replaces="scripts/gather_probe.py:55",
              launches=launches["rerank_l2"], **flag["rerank"],
@@ -2835,7 +3053,10 @@ def main() -> int:
              harness=dict(launches=launches["3k"]["harness"]["rerank_l2"],
                           **k3["harness"]["rerank"]),
              encoder=dict(launches=launches["3k"]["encoder"]["rerank_l2"],
-                          **k3["encoder"]["rerank"])),
+                          **k3["encoder"]["rerank"]),
+             families={n: dict(launches=launches["3l"][n]["rerank_l2"],
+                               **e["kernels"]["rerank"])
+                       for n, e in fams.items()}),
         # one CUDA kernel and counter for both TPU kernels (_kernel_v2's
         # body is _kernel): the served index at B=1024, and under "B4096"
         # at the batch of _kernel_v2's measurement

@@ -79,8 +79,9 @@ def target_ids_from_cache(corpus: list, targets: list, ids_path: str
 class BenchmarkRunner:
     """One benchmark run over a (corpus, queries, targets) triple.  After
     ``run``, ``embeddings`` holds the arrays it used, ``dbs`` its Cobweb
-    indexes (by space, "raw" or "w"), ``builds`` their build times and
-    ``results_path`` the table it appended to."""
+    indexes (by space, "raw" or "w"), ``builds`` their build times,
+    ``results`` the rows it returned and ``results_path`` the table it
+    appended to."""
 
     def __init__(self, dataset_name: str, root: str = "."):
         self.dataset_name = dataset_name
@@ -88,6 +89,7 @@ class BenchmarkRunner:
         self.embeddings: dict = {}
         self.dbs: dict = {}
         self.builds: dict = {}
+        self.results: list = []
         self.results_path: Optional[str] = None
 
     # -------------------- data --------------------
@@ -255,7 +257,7 @@ class BenchmarkRunner:
         os.makedirs(os.path.dirname(out_path), exist_ok=True)
         table = metrics.print_metrics_table(results, out_path, top_k=top_k)
         print(table)
-        self.results_path = out_path
+        self.results, self.results_path = results, out_path
         return results
 
     def _run_method(self, m, corpus_embs, query_embs, corpus_w, query_w,

@@ -12,6 +12,7 @@ contract ``parallel/distributed.launch_config`` reads.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import shlex
@@ -45,23 +46,39 @@ def load_experiments(config_path: str) -> list[dict]:
     return out
 
 
-def experiment_command(exp: dict) -> list[str]:
+def twin_module(script: str):
+    """The module of the port's twin of ``script`` (a path under the
+    reference's ``scripts/``), or None where it has none."""
+    name = os.path.splitext(os.path.basename(script))[0]
+    mod = f"rag_cobweb_tpu_torch.scripts.{name}"
+    if name.startswith("_") or importlib.util.find_spec(mod) is None:
+        return None
+    return mod
+
+
+def experiment_command(exp: dict, device: str = "cuda") -> list[str]:
+    """The experiment's command line: a script that has a twin in
+    ``rag_cobweb_tpu_torch/scripts/`` runs as that twin (``python -m``)
+    on ``device``; a script without one runs as it is named."""
     script = exp.get("script", "scripts/synthetic_benchmark.py")
-    cmd = [sys.executable, script]
+    twin = twin_module(script)
+    cmd = ([sys.executable, "-m", twin] if twin
+           else [sys.executable, script])
     if exp.get("config"):
         cmd += ["--config", exp["config"]]
     for k, v in exp.get("args", {}).items():
         cmd += [f"--{k}", str(v)]
-    return cmd
+    return cmd + (["--device", device] if twin else [])
 
 
-def write_slurm_script(exp: dict, out_dir: str, index: int) -> str:
+def write_slurm_script(exp: dict, out_dir: str, index: int,
+                       device: str = "cuda") -> str:
     """Emit one sbatch script per experiment (reference :48-126)."""
     os.makedirs(out_dir, exist_ok=True)
     s = exp["slurm"]
     name = exp.get("name", f"exp{index}")
     path = os.path.join(out_dir, f"{name}.sh")
-    cmd = " ".join(shlex.quote(c) for c in experiment_command(exp))
+    cmd = " ".join(shlex.quote(c) for c in experiment_command(exp, device))
     with open(path, "w") as f:
         f.write(
             "#!/bin/bash\n"
@@ -81,7 +98,8 @@ def write_slurm_script(exp: dict, out_dir: str, index: int) -> str:
 
 
 def write_multihost_slurm_script(exp: dict, out_dir: str, index: int,
-                                 coordinator_port: int = 12321) -> str:
+                                 coordinator_port: int = 12321,
+                                 device: str = "cuda") -> str:
     """One sbatch script that runs an experiment as a multi-host job: N
     nodes x 1 task, the first node hosting the ``torch.distributed``
     rendezvous, every task taking its rank from ``SLURM_PROCID``.
@@ -98,7 +116,7 @@ def write_multihost_slurm_script(exp: dict, out_dir: str, index: int,
     name = exp.get("name", f"exp{index}")
     nodes = int(s.get("nodes", 1))
     path = os.path.join(out_dir, f"{name}_multihost.sh")
-    cmd = " ".join(shlex.quote(c) for c in experiment_command(exp))
+    cmd = " ".join(shlex.quote(c) for c in experiment_command(exp, device))
     with open(path, "w") as f:
         f.write(
             "#!/bin/bash\n"
@@ -128,17 +146,19 @@ def write_multihost_slurm_script(exp: dict, out_dir: str, index: int,
 def run_experiments(config_path: str, mode: str = "local",
                     script_dir: str = "generated_jobs",
                     max_parallel: int = 1,
-                    dry_run: bool = False) -> list:
+                    dry_run: bool = False,
+                    device: str = "cuda") -> list:
     """Fan out all experiments.  mode='local' runs them as subprocesses
     (sequential or bounded-parallel); mode='slurm' generates scripts and
-    sbatches them (reference :127-166)."""
+    sbatches them (reference :127-166).  ``device``: run each script
+    that has a twin as that twin on ``device`` (``experiment_command``)."""
     exps = load_experiments(config_path)
     launched = []
     if mode in ("slurm", "slurm-multihost"):
         writer = (write_multihost_slurm_script if mode == "slurm-multihost"
                   else write_slurm_script)
         for i, exp in enumerate(exps):
-            path = writer(exp, script_dir, i)
+            path = writer(exp, script_dir, i, device=device)
             launched.append(path)
             if not dry_run:
                 subprocess.run(["sbatch", path], check=True)
@@ -146,7 +166,7 @@ def run_experiments(config_path: str, mode: str = "local",
 
     running: list[subprocess.Popen] = []
     for exp in exps:
-        cmd = experiment_command(exp)
+        cmd = experiment_command(exp, device)
         launched.append(cmd)
         if dry_run:
             continue

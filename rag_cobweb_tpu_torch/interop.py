@@ -273,34 +273,59 @@ def factorvae_modules_from_flax(params: tuple, device="cuda") -> tuple:
                       disc_p).to(dev))
 
 
-def bert_encoder_from_flax(params: dict, config, device="cuda"):
-    """``BertEncoderModel`` from a ``FlaxBertModel``'s parameter tree (as
-    numpy; ``model.params``) and its config (an HF ``BertConfig`` or any
-    object or dict with its names).  The flax modules carry the names of
-    the port's, so each maps by its path: a ``Dense`` kernel (in, out) is
-    the transposed Linear weight, ``embedding`` the Embedding weight,
-    LayerNorm ``scale``/``bias`` its weight and bias; the pooler is
-    dropped."""
+def encoder_from_flax(params: dict, config, device="cuda"):
+    """The port's encoder model from a flax HF model's parameter tree (as
+    numpy; ``model.params``) and its config (an HF config, or any object
+    or dict with its names), by the config's ``model_type``: "bert" and
+    "roberta" (``FlaxBertModel``, ``FlaxRobertaModel``) to
+    ``BertEncoderModel``, "gpt2" (``FlaxGPT2Model``) to
+    ``GPT2EncoderModel``, "t5" (``FlaxT5EncoderModel``) to
+    ``T5EncoderModel``.  The flax modules carry the port's names, so each
+    maps by its path.  Layouts: a flax ``Dense`` kernel is (in, out), the
+    transposed ``nn.Linear`` weight; a ``FlaxConv1D`` kernel (GPT-2) is
+    (out, in), the Linear weight as it is; ``embedding`` is the Embedding
+    weight; LayerNorm ``scale``/``bias`` its weight and bias, T5's RMS
+    norm ``weight`` its weight.  BERT's pooler is dropped."""
     from torch import nn
 
-    from rag_cobweb_tpu_torch.bench.torch_encoder import (BertConfig,
-                                                          BertEncoderModel)
-    model = BertEncoderModel(BertConfig.of(config))
+    from rag_cobweb_tpu_torch.bench.torch_encoder import (CONFIGS,
+                                                          build_model)
+    get = config.get if isinstance(config, dict) else \
+        (lambda k, d: getattr(config, k, d))
+    arch = get("model_type", "bert")
+    if arch not in CONFIGS:
+        raise NotImplementedError(f"the {arch!r} architecture is not "
+                                  "ported")
+    model = build_model(CONFIGS[arch].of(config))
     p = _inner(params)
     with torch.no_grad():
         for name, mod in model.named_modules():
-            if not isinstance(mod, (nn.Linear, nn.Embedding, nn.LayerNorm)):
+            norm = name.endswith("layer_norm")    # T5's RMS norms
+            if not (norm or isinstance(mod, (nn.Linear, nn.Embedding,
+                                             nn.LayerNorm))):
                 continue
             node = p
             for part in name.split("."):
                 node = node[part]
+            b = None
             if isinstance(mod, nn.Linear):
-                w, b = np.asarray(node["kernel"]).T, node["bias"]
+                w = np.asarray(node["kernel"])
+                w = w if arch == "gpt2" else w.T
+                b = node["bias"] if mod.bias is not None else None
             elif isinstance(mod, nn.Embedding):
-                w, b = node["embedding"], None
+                w = node["embedding"]
+            elif norm:
+                w = node["weight"]
             else:
                 w, b = node["scale"], node["bias"]
             mod.weight.copy_(torch.as_tensor(np.array(w, np.float32)))
             if b is not None:
                 mod.bias.copy_(torch.as_tensor(np.array(b, np.float32)))
     return model.to(resolve_device(device))
+
+
+def bert_encoder_from_flax(params: dict, config, device="cuda"):
+    """``BertEncoderModel`` from a ``FlaxBertModel``'s (or
+    ``FlaxRobertaModel``'s) parameter tree and config
+    (``encoder_from_flax``)."""
+    return encoder_from_flax(params, config, device)

@@ -1444,3 +1444,49 @@ def test_dryrun_multichip_on_the_card(card):
     assert rec["backend"] == ("nccl" if torch.cuda.device_count() >= 2
                               else "gloo")
     assert rec["losses"][-1] < rec["losses"][0]
+
+
+@pytest.mark.parametrize("arch", ["bert", "roberta", "gpt2", "t5",
+                                  "t5-gated"])
+def test_encoder_family_forest_on_the_card(card, arch, tmp_path,
+                                           monkeypatch):
+    """Each encoder architecture (2 layers, 64 wide, random weights from
+    seed 0, the hash tokenizer) through ``chip_smoke.encoder_phase`` at
+    2000 texts: 32 of them on the card held against a host copy (rtol
+    1e-4, atol 1e-5, TF32 off); PCA+ICA fused on the card;
+    ``encode_whiten_insert`` into an 8-lane forest served by the fused
+    engine and the re-rank (``blocked_threshold`` and
+    ``rerank_threshold`` lowered to 0, as at phase 3l's 10000 rows)
+    through kernels 1 and 5, its ids held against the same pipeline
+    in plain PyTorch (``probes.plain_check``), recall@10 within 0.005 of
+    the exact scan's."""
+    import importlib.util
+    from pathlib import Path
+
+    from rag_cobweb_tpu_torch.bench import probes
+    from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent /
+        "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    setup = CobwebIndex._setup
+
+    def small_setup(self, *a, **k):
+        setup(self, *a, **k)
+        self.blocked_threshold = 0
+
+    monkeypatch.setattr(CobwebIndex, "_setup", small_setup)
+    monkeypatch.setattr(CobwebIndex, "rerank_threshold", 0)
+    widths = dict(arch=arch.split("-")[0], hidden_size=64, n_layers=2,
+                  n_heads=4, vocab_size=4096,
+                  feed_forward_proj="gated-gelu" if "gated" in arch
+                  else "relu")
+    e = cs.encoder_phase(probes.zero_counters, probes.read_counters, "card",
+                         tmp_path, widths=widths, n_corpus=2000,
+                         n_queries=200, max_length=32, n_hold=32, n_lanes=8)
+    w = e["window"]
+    assert w["fused_topk"] > 0 and w["rerank_l2"] > 0, w
+    assert w["fused_topk_f32"] == 0, w
+    assert e["recall@10"] >= e["exact_recall@10"] - 0.005
+    assert abs(e["recall@10"] - e["plain"]["plain_recall@10"]) <= 0.005

@@ -148,25 +148,22 @@ def test_random_encoder_is_seeded_and_refuses_the_host_by_default():
             tenc.make_random_encoder(**kw)
 
 
-def _hf_checkpoint(tmp_path, model_type="bert"):
-    """A random torch BERT (or RoBERTa) checkpoint and a word-piece
-    vocabulary saved to disk: a locally cached model, nothing fetched."""
+def _hf_checkpoint(tmp_path, name="bert"):
+    """A random torch BERT checkpoint and a word-piece vocabulary saved to
+    ``tmp_path / name``: a locally cached model, nothing fetched."""
     import transformers as tf
     words = sorted({w for t in texts() for w in t.lower().replace(
         ".", " ").replace(",", " ").split()})
     vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", ","] + words
-    d = tmp_path / model_type
-    d.mkdir()
+    d = tmp_path / name
+    d.mkdir(parents=True)
     (d / "vocab.txt").write_text("\n".join(vocab) + "\n")
     kw = dict(vocab_size=len(vocab), hidden_size=32, num_hidden_layers=2,
               num_attention_heads=4, intermediate_size=64,
               max_position_embeddings=64)
     torch.manual_seed(0)
-    if model_type == "bert":
-        model = tf.BertModel(tf.BertConfig(**kw))
-        tf.BertTokenizer(str(d / "vocab.txt")).save_pretrained(str(d))
-    else:
-        model = tf.RobertaModel(tf.RobertaConfig(**kw))
+    model = tf.BertModel(tf.BertConfig(**kw))
+    tf.BertTokenizer(str(d / "vocab.txt")).save_pretrained(str(d))
     model.save_pretrained(str(d))
     return str(d), model
 
@@ -184,7 +181,42 @@ def test_local_hf_checkpoint_equals_transformers(tmp_path):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+def test_sentence_transformer_checkpoint_is_mean_pooled_as_flax_pools_it(
+        tmp_path):
+    """A BERT checkpoint under a ``sentence-transformers/...`` path, a name
+    the model table does not hold, pools as ``make_flax_hf_encoder`` pools
+    it (``infer_model_type``: masked mean), not by the architecture's CLS:
+    the port's embeddings equal ``FlaxEncoder``'s on the same flax
+    weights and tokenizer."""
+    import transformers as tf
+    from rag_cobweb_tpu.bench.encoders import infer_model_type
+    path, hf = _hf_checkpoint(tmp_path,
+                              "sentence-transformers/all-MiniLM-L6-v2")
+    enc = tenc.make_local_hf_encoder(path, max_length=MAXLEN, batch_size=5,
+                                     device="cpu")
+    family = infer_model_type(path)
+    assert enc.family == family == "sentence_transformer"
+    T = texts()[:12]
+    got = enc(T)
+    flax = tf.FlaxBertModel.from_pretrained(path, from_pt=True)
+    want = jenc.FlaxEncoder(flax, enc.tokenizer, family=family,
+                            max_length=MAXLEN, batch_size=5)(T)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    tok = enc.tokenizer(T, padding=True, truncation=True, max_length=MAXLEN,
+                        return_tensors="pt")
+    with torch.no_grad():
+        cls = hf.eval()(**tok).last_hidden_state[:, 0].numpy()
+    assert not np.allclose(got, cls, rtol=RTOL, atol=ATOL)
+
+
 def test_other_architectures_are_refused_by_name(tmp_path):
-    path, _ = _hf_checkpoint(tmp_path, "roberta")
-    with pytest.raises(NotImplementedError, match="roberta"):
-        tenc.make_local_hf_encoder(path, device="cpu")
+    """BERT, RoBERTa, GPT-2 and T5 are ported; a checkpoint of any other
+    architecture (here MPNet) is refused by name before its weights are
+    read."""
+    import transformers as tf
+    d = tmp_path / "mpnet"
+    tf.MPNetConfig(vocab_size=64, hidden_size=32, num_hidden_layers=1,
+                   num_attention_heads=2,
+                   intermediate_size=64).save_pretrained(str(d))
+    with pytest.raises(NotImplementedError, match="mpnet"):
+        tenc.make_local_hf_encoder(str(d), device="cpu")
