@@ -33,8 +33,11 @@ class FlatIndex:
         self._sq_norms = torch.sum(torch.square(embs), dim=1)
 
     def search_device(self, queries, k: int) -> torch.Tensor:
-        """(B, D) -> (B, k) ids as a device tensor (no host sync)."""
-        q = torch.as_tensor(np.asarray(queries, np.float32),
+        """(B, D) host rows or a tensor -> (B, k) ids as a device tensor
+        (no host sync)."""
+        if not isinstance(queries, torch.Tensor):
+            queries = np.asarray(queries, np.float32)
+        q = torch.as_tensor(queries, dtype=torch.float32,
                             device=self.device)
         if q.dim() == 1:
             q = q.unsqueeze(0)

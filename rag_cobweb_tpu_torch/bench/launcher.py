@@ -46,10 +46,17 @@ def load_experiments(config_path: str) -> list[dict]:
     return out
 
 
+# Twins that live outside ``rag_cobweb_tpu_torch/scripts/``, by the
+# reference script's name.
+TWIN_ELSEWHERE = {"million_benchmark": "rag_cobweb_tpu_torch.bench.million"}
+
+
 def twin_module(script: str):
     """The module of the port's twin of ``script`` (a path under the
     reference's ``scripts/``), or None where it has none."""
     name = os.path.splitext(os.path.basename(script))[0]
+    if name in TWIN_ELSEWHERE:
+        return TWIN_ELSEWHERE[name]
     mod = f"rag_cobweb_tpu_torch.scripts.{name}"
     if name.startswith("_") or importlib.util.find_spec(mod) is None:
         return None
@@ -57,18 +64,22 @@ def twin_module(script: str):
 
 
 def experiment_command(exp: dict, device: str = "cuda") -> list[str]:
-    """The experiment's command line: a script that has a twin in
-    ``rag_cobweb_tpu_torch/scripts/`` runs as that twin (``python -m``)
-    on ``device``; a script without one runs as it is named."""
+    """The experiment's command line: the twin of the script it names
+    (``python -m``) on ``device``.  A script without a twin raises
+    ``ValueError``: the port never runs the JAX package's scripts."""
     script = exp.get("script", "scripts/synthetic_benchmark.py")
     twin = twin_module(script)
-    cmd = ([sys.executable, "-m", twin] if twin
-           else [sys.executable, script])
+    if twin is None:
+        raise ValueError(
+            f"{script} has no twin in the port (ROADMAP.md queue A item "
+            f"12's table, row {os.path.basename(script)}); the launcher "
+            "does not run the JAX package's scripts")
+    cmd = [sys.executable, "-m", twin]
     if exp.get("config"):
         cmd += ["--config", exp["config"]]
     for k, v in exp.get("args", {}).items():
         cmd += [f"--{k}", str(v)]
-    return cmd + (["--device", device] if twin else [])
+    return cmd + ["--device", device]
 
 
 def write_slurm_script(exp: dict, out_dir: str, index: int,
@@ -150,9 +161,12 @@ def run_experiments(config_path: str, mode: str = "local",
                     device: str = "cuda") -> list:
     """Fan out all experiments.  mode='local' runs them as subprocesses
     (sequential or bounded-parallel); mode='slurm' generates scripts and
-    sbatches them (reference :127-166).  ``device``: run each script
-    that has a twin as that twin on ``device`` (``experiment_command``)."""
+    sbatches them (reference :127-166).  ``device``: each script runs as
+    its twin on ``device`` (``experiment_command``: a script without a
+    twin raises ``ValueError`` before anything is launched)."""
     exps = load_experiments(config_path)
+    for exp in exps:        # every command first: an untwinned one raises
+        experiment_command(exp, device)
     launched = []
     if mode in ("slurm", "slurm-multihost"):
         writer = (write_multihost_slurm_script if mode == "slurm-multihost"

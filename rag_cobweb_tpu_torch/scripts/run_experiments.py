@@ -1,7 +1,7 @@
 """Experiment fan-out CLI (twin of ``scripts/run_experiments.py``;
 reference scripts/run_experiments.py:28-175): an experiment naming one of
-the reference's scripts that has a twin here runs that twin, with
-``--device``.
+the reference's scripts runs its twin, with ``--device``; a script
+without a twin raises ``ValueError`` before anything is launched.
 
     python -m rag_cobweb_tpu_torch.scripts.run_experiments exps.json \\
         --dry-run

@@ -335,8 +335,12 @@ def test_launcher_multihost_script_feeds_launch_config(tmp_path):
     path.write_text(json.dumps(cfg))
     assert launcher.load_experiments(str(path))[1]["slurm"]["time"] \
         == "00:10:00"
-    assert launcher.run_experiments(str(path), dry_run=True) == \
-        jlauncher.run_experiments(str(path), dry_run=True)
+    # the JAX launcher's commands, each with the script's twin in its
+    # place (``bench/million.py``) and the device after its arguments
+    assert launcher.run_experiments(str(path), dry_run=True) == [
+        [c[0], "-m", "rag_cobweb_tpu_torch.bench.million", *c[2:],
+         "--device", "cuda"]
+        for c in jlauncher.run_experiments(str(path), dry_run=True)]
     (script, _) = launcher.run_experiments(
         str(path), mode="slurm-multihost", script_dir=str(tmp_path / "j"),
         dry_run=True)

@@ -37,12 +37,17 @@ from rag_cobweb_tpu.training import factorvae as jfv
 from rag_cobweb_tpu.training import query_train as jqt
 from rag_cobweb_tpu.utils import cache as jcache
 from rag_cobweb_tpu_torch.bench import encoders, launcher, report
-from rag_cobweb_tpu_torch.scripts import (case_study, compare_whitening,
-                                          ms_marco_benchmark, qqp_benchmark,
-                                          run_experiments,
+from rag_cobweb_tpu_torch.scripts import (beam_diag, case_study,
+                                          compare_whitening, derive_caches,
+                                          exact_scan, incremental_benchmark,
+                                          ms_marco_benchmark,
+                                          pcadim_sweep_10k, pool_sweep_10k,
+                                          profile_insert, qqp_benchmark,
+                                          roofline_benchmark,
+                                          run_experiments, scale_benchmark,
                                           synthetic_benchmark,
                                           train_factorvae,
-                                          train_query_encoder,
+                                          train_query_encoder, tuning_sweep,
                                           visualize_tree)
 from rag_cobweb_tpu_torch.training import factorvae as tfv
 from rag_cobweb_tpu_torch.training import flax_layout
@@ -182,9 +187,11 @@ def test_use_dpr_encodes_with_both_checkpoints(tmp_path, monkeypatch,
 
 def test_run_experiments_names_the_twins(tmp_path, monkeypatch, run_jax,
                                          capsys):
-    """Dry runs: each experiment's command, the JAX script's or, where it
-    has a twin, the twin's with ``--device``; slurm scripts likewise; then
-    one local run of the synthetic twin on the host, as a subprocess."""
+    """Dry runs: each experiment's command is its script's twin's with
+    ``--device`` (``million_benchmark``'s is ``bench/million.py``); a
+    script without a twin raises ``ValueError`` and nothing runs; slurm
+    scripts likewise; then one local run of the synthetic twin on the
+    host, as a subprocess."""
     small = {"subset_size": 200, "target_size": 20, "method": "scale",
              "dim": 16}
     cfg = {"experiments": [
@@ -205,19 +212,33 @@ def test_run_experiments_names_the_twins(tmp_path, monkeypatch, run_jax,
                       "synthetic_benchmark", "--subset_size", "200",
                       "--target_size", "20", "--method", "scale",
                       "--dim", "16", "--device", "cuda"]
-    assert str(got[1]) == jax_out[1]        # no twin: the JAX script
+    assert got[1] == [py, "-m", "rag_cobweb_tpu_torch.bench.million",
+                      "--size", "1000", "--device", "cuda"]
+    assert jax_out[1] == str([py, "scripts/million_benchmark.py",
+                              "--size", "1000"])
     assert got[2][2:] == ["rag_cobweb_tpu_torch.scripts."
                           "train_query_encoder", "--epochs", "1",
                           "--device", "cuda"]
     twins = {p.stem for p in (
         ROOT / "rag_cobweb_tpu_torch" / "scripts").glob("[!_]*.py")}
-    assert len(twins) == 9
+    assert len(twins) == 19
     for name in twins:
         assert launcher.experiment_command(
             {"script": f"scripts/{name}.py"}, "cpu")[1:] == [
             "-m", f"rag_cobweb_tpu_torch.scripts.{name}", "--device", "cpu"]
     assert launcher.twin_module("scripts/_bench.py") is None
+    # a script without a twin is refused before anything is launched
+    untwinned = tmp_path / "untwinned.json"
+    untwinned.write_text(json.dumps({"experiments": [
+        cfg["experiments"][0],
+        {"name": "p", "script": "scripts/pipeline_probe.py"}]}))
     monkeypatch.chdir(tmp_path)
+    with monkeypatch.context() as m:
+        m.setattr(launcher.subprocess, "Popen", None)
+        for argv in ([], ["--dry-run"], ["--mode", "slurm"]):
+            with pytest.raises(ValueError, match="pipeline_probe.py"):
+                run_experiments.main([str(untwinned)] + argv)
+    assert not (tmp_path / "generated_jobs").exists()
     (script, *_) = run_experiments.main(
         [str(path), "--mode", "slurm", "--dry-run", "--device", "cpu"])
     assert "srun " + py + " -m rag_cobweb_tpu_torch.scripts." \
@@ -482,18 +503,28 @@ def test_compare_whitening_equals_the_jax_script(monkeypatch, run_jax,
                                    atol=1e-5, err_msg=name)
 
 
+# the arguments a twin requires, where it has any
+REQUIRED = {"exact_scan": ["--cache", "mb_cache.npz"],
+            "derive_caches": ["--raw-cache", "mb_cache_raw.npz"]}
+
+
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs no card")
 @pytest.mark.parametrize("twin", [synthetic_benchmark, qqp_benchmark,
                                   ms_marco_benchmark, case_study,
                                   visualize_tree, train_query_encoder,
-                                  train_factorvae, compare_whitening],
+                                  train_factorvae, compare_whitening,
+                                  incremental_benchmark, scale_benchmark,
+                                  exact_scan, derive_caches, tuning_sweep,
+                                  pool_sweep_10k, pcadim_sweep_10k,
+                                  roofline_benchmark, beam_diag,
+                                  profile_insert],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_twins_refuse_the_host_by_default(twin, tmp_path, monkeypatch):
     """Without ``--device`` a twin asks for the card, and without one it
-    raises before any work (no file written)."""
+    raises before any work (no file written, none read)."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        twin.main([])
+        twin.main(REQUIRED.get(twin.__name__.rsplit(".", 1)[-1], []))
     assert not any(tmp_path.iterdir())
 
 
