@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the exit code is non-zero:
+Phases, in order; any failure raises and the exit code is non-zero.
+Each phase prints its seconds on a line of its own (``[phase] <name>
+<s>s``):
 
 1. card: the card's name and power limit (nvidia-smi), then every kernel
    of ``rag_cobweb_tpu_torch/csrc/`` built from source (one nvcc each,
@@ -43,8 +45,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (1, 8, 32, 1024) and at 4096; kernels 1 (kappa 512) and 2 (per_group
    2) likewise on the served fused index at B = 1, 32 and 1024;
 3c. the single-tree slice: ``headline --vforest 1`` at the flagship
-   settings (c=10000, 1000 queries, 768-d, PCA 0.96, one tree built on the
-   card, a warm first 2048 rows then the rest; k=10, pool 1024, batch
+   settings but c=8448 (1000 queries, 768-d, PCA 0.96, one tree built on
+   the card, a warm first 2048 rows then the rest, kept above
+   ``blocked_threshold`` (8192) so kernel 1 serves it; k=10, pool 1024, batch
    1024), its build rate printed, served through kernels 1 and 5 (both
    counted in its window, no f32 launch), the stage split of one served
    batch as for the flagship.  Its served ids are held
@@ -160,9 +163,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 3i. training on the card (``training_slice``, after phase 3c, on its
    single tree and the flagship's 1000 raw queries, gold rows and 10 000
    raw corpus rows): (a) ``CobwebQueryTrainer`` (768 -> the tree's width,
-   hidden 512, batch 16, lr 1e-3, 3 epochs), (b) ``EndToEndQueryTrainer``
+   hidden 512, batch 16, lr 1e-3, 2 epochs), (b) ``EndToEndQueryTrainer``
    at the JAX defaults (vocab 8192, d_model 128, 2 layers, max_len 32,
-   hidden 512, lr 1e-3, 3 epochs) on texts whose words name each gold row
+   hidden 512, lr 1e-3, 2 epochs) on texts whose words name each gold row
    and its tree cluster among filler words, every 10th empty, (c)
    ``VICRegWhitener`` (768 -> 128, hidden 1024, lr 1e-3, batch 256, 2
    epochs), (d) ``FactorVAE`` (z_dim 392, hidden 1024, gamma 10, lr 1e-4,
@@ -250,36 +253,63 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``CobwebQueryTrainer`` at the global batch 16 a rank held in lockstep
    against single-process steps on a host copy, a step and its gradient
    all-reduce timed, then an epoch of ``fit_dp``; (e) ``CobwebForest`` on
-   the first 2048 rows: every row finds itself, each shard's leaves equal
+   the first 1024 rows: every row finds itself, each shard's leaves equal
    a single-process build of its rows; (f) 2 ``fit_dp`` steps of
    ``EndToEndQueryTrainer`` held likewise;
 3m. the experiment scripts' twins (``rag_cobweb_tpu_torch/scripts/``,
    each called as a user calls it, ``main([...])`` with ``--device
-   cuda``, in its own counter window; last, after 3j): (a)
+   cuda``, in its own counter window; after 3j): (a)
    ``caches_phase``: phase 3d's rows (131072 + 9216, 4096 queries, its
    whitener) written as a raw cache in ``bench/million``'s layout under
    ``build/experiments/`` (git ignores it); ``derive_caches`` (the
    whitened cache, within one float32 ulp of ``transform_torch`` of the
    same rows; a 65536-row raw slice, bit-equal); ``exact_scan`` at
    131072 rows (ids equal to a one-shot ``matmul`` + ``topk`` but at ties
-   it shows); ``incremental_benchmark --cache`` at its defaults (100k
-   rows, 1000 adds, 64 lanes: self-hit@10 1.0, stale served, the
+   it shows); ``incremental_benchmark --cache --size 50000`` (default
+   100k; 1000 adds, 64 lanes: self-hit@10 1.0, stale served, the
    overflow moved to the delta tier, kernels 1 and 5 launched, kernel 5
    also for the pending tier); (b) ``sweeps_phase``: ``pool_sweep_10k``,
    ``pcadim_sweep_10k`` (c=10000, 768-d, 32 lanes), ``tuning_sweep
    --corpus-size 10000 --pools 0,64,256,1024 --widths 2,8`` (kernels 1
    and 5 in each window; every recall@10 served at a pool of 1024 or
    more within 0.005 of the exact scan over the same whitened rows) and
-   ``beam_diag`` at its defaults (the beam engine, no kernel: its window
-   must show none); (c) ``scale_phase``: ``scale_benchmark --vforest 64
-   --max-size 40000 --checkpoints 10000,40000`` and one tree to 2048
-   rows (``--checkpoints 1024,2048``; it builds at ~87 inserts/s): every
+   ``beam_diag --corpus-size 2500`` (default 10000; the beam engine, no
+   kernel: its window must show none); (c) ``scale_phase``:
+   ``scale_benchmark --vforest 64 --max-size 10000 --checkpoints
+   5000,10000`` and one tree to 1024 rows (``--checkpoints 512,1024``;
+   it builds at ~80 inserts/s): every
    row at every checkpoint, the flat exact row's recall@10 equal to a
    host flat scan's; (d) ``roofline_benchmark.rows`` inside phase 3b's
    hook on its served 100k index at B = 32 and 1024 (the blocked kernel
    launched; no roofline share above 1.05); (e) ``profile_insert`` at its
    defaults (D = 128, cap 8192, K = 64 and 256; every row inserted after
    the cut descents are retried);
+3n. the twins of the reference's TPU probes (``probes_phase``; last,
+   after 3m; each called as a user calls it with ``--device cuda``, in
+   its own counter window; the cuts in ``PROBE_CUTS``): (a)
+   ``rerank_stage_probe.stages`` on phase 3's served flagship forest
+   (its four rows; ``query_ids``' ids equal its stages' and the plain
+   pipeline's, ``probes.plain_check``, but at ties); (b)
+   ``raw_rerank_probe.probe`` with phase 3's whitener (a raw-mode
+   32-lane forest, ``rerank=0`` pools of 256, 1024, 4096 through kernel
+   1's f32 entry, the raw re-rank through kernel 5); (c)
+   ``transfer_probe`` (every transfer exact), ``probe_fused_epilogue`` at
+   1M slots (kernel 1's served and folded pools equal the library's
+   served pool but at ties), ``beam_microbench`` at its defaults,
+   ``gather_probe`` on 262144 rows (default 1M; kernel 5 within 1e-4
+   relative of ``emb[idx]`` + sum); (d) ``pipeline_probe`` on the first
+   131072 rows of 3m (a)'s whitened cache (default 1M), 512 lanes, B =
+   1024, pool 1024: kernel 2 must launch in its grouped arm, its served
+   ids equal the plain pipeline's but at ties; (e) ``ingress_rehearsal
+   --subset-size 400 --target-size 60`` (default 2000 / 200): the
+   benchmark twin cold in a subprocess exits 0 and the rows parsed from
+   its results file equal those it printed; (f) ``run_8m`` on the same
+   cache at 131072 rows in two halves of 65536 (default 8M): kernel 1
+   (sweep and backstop) and kernel 5's bf16-row entry launch, the served
+   ids equal the plain pipeline's on the composed index in sentence
+   order but at ties, recall@10 within one query of the exact scan's
+   over the same bf16 whitened store (the scan over the f32 rows
+   printed beside it);
 4. one JSON line of per-kernel numbers, a row per CUDA kernel entry
    (kernel 1 at the flagship shape, with its single-tree record under
    ``single_tree``; kernel 5 on the flagship's served pools, likewise; the
@@ -299,7 +329,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    tree under ``harness`` and its encoder forest under ``encoder``, and
    on phase 3l's forests under ``families``, by name; the launches of
    kernels 1, 5 and the blocked kernel in phase 3m's windows under
-   ``twins``), the nvidia-smi
+   ``twins``, and of kernels 1 (both entries), 2 and 5 (both entries)
+   in phase 3n's windows under ``probes``, by twin), the nvidia-smi
    line, and the
    final
    ``{"ok": true, "device": {...}}`` line.
@@ -334,6 +365,14 @@ except ImportError:     # the script alone: main() reports it and exits 2
 
 def log(*a):
     print(*a, flush=True)
+
+
+def phase_done(name: str, t0: float) -> float:
+    """Print phase ``name``'s seconds since ``t0`` on a line of its own;
+    returns the time now, the next phase's start."""
+    t = time.perf_counter()
+    log(f"[phase] {name} {t - t0:.1f}s")
+    return t
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -913,7 +952,7 @@ def single_tree_api(db, data, qw, ids0, served, zero, read, out_dir: Path,
 
 
 def single_tree_slice(headline, zero, read, windows, launches,
-                      name: str, out_dir: Path, corpus_size=10000,
+                      name: str, out_dir: Path, corpus_size=8448,
                       queries=1000, dim=768, device="cuda") -> tuple:
     """Phase 3c: the single tree at the flagship settings, built on the
     card and served through kernels 1 and 5 in a counter window; then the
@@ -2548,7 +2587,7 @@ def twins_phase(out_dir: Path, device="cuda", case_corpus: int = 1000
         raise AssertionError(f"run_experiments commands {cmds}")
     # a script without a twin is refused, never run as the JAX script
     exps.write_text(json.dumps({"experiments": [
-        {"name": "p", "script": "scripts/pipeline_probe.py"}]}))
+        {"name": "p", "script": "scripts/torch_multichip_phase.py"}]}))
     try:
         run_experiments.main([str(exps), "--dry-run"] + dev)
     except ValueError:
@@ -2691,7 +2730,7 @@ SWEEP_ARGS = {
     "pcadim_sweep_10k": [],
     "tuning_sweep": ["--corpus-size", "10000", "--pools", "0,64,256,1024",
                      "--widths", "2,8"],
-    "beam_diag": [],
+    "beam_diag": ["--corpus-size", "2500"],
 }
 
 
@@ -2749,16 +2788,17 @@ def sweeps_phase(zero, read, device="cuda", args=None,
 
 
 SCALE_RUNS = {
-    "forest": {"vforest": 64, "max_size": 40000,
-               "checkpoints": (10000, 40000)},
-    "tree": {"max_size": 2048, "checkpoints": (1024, 2048)},
+    "forest": {"vforest": 64, "max_size": 10000,
+               "checkpoints": (5000, 10000)},
+    "tree": {"max_size": 1024, "checkpoints": (512, 1024)},
 }
 
 
 def scale_phase(device="cuda", runs=None, queries: int = 1000,
                 dim: int = 768, extra=()) -> dict:
     """Phase 3m (c): ``scale_benchmark`` for each run of ``runs``
-    (``SCALE_RUNS``: a 64-lane forest to 40000 rows, one tree to 2048;
+    (``SCALE_RUNS``: a 64-lane forest to 10000 rows, one tree to 1024
+    (no less: its 1000 queries are drawn from its rows);
     ``queries``, ``dim`` and ``extra`` arguments for a host rehearsal).
     Fails unless every checkpoint has every row (the HNSW row where the
     native library loads) and the flat exact row's recall@10 equals a
@@ -2867,6 +2907,166 @@ def log_experiments(c: dict, sw: dict, sc: dict, roof: dict, prof: list,
     log(f"[3m] profile_insert: {json.dumps(prof)} | {smi}")
 
 
+# -- phase 3n: the TPU probes' twins ------------------------------------------
+
+# phase 3n's cuts, each with the twin's default: the corpus of
+# gather_probe (1M rows), pipeline_probe's and run_8m's sizes (1M and 8M
+# rows of a whitened cache; here phase 3m (a)'s 131072), run_8m's halves
+# of 65536 rows, ingress_rehearsal's set (2000 rows, 200 targets)
+PROBE_CUTS = {"gather_probe": ["--corpus", "262144"],
+              "pipeline_probe": {"size": 131072},
+              "run_8m": ["--size", "131072", "--halves", "2"],
+              "ingress_rehearsal": ["--subset-size", "400", "--target-size",
+                                    "60"]}
+
+
+def probes_phase(flag_db, flag_data, cache: Path, out_dir: Path, zero, read,
+                 device="cuda", cuts=None, fast=()) -> dict:
+    """Phase 3n: the twins of the reference's TPU probes on the card, each
+    called as a user calls it, in its own counter window (``cuts``: the
+    sizes cut, ``PROBE_CUTS`` by default; ``fast``: the JAX defaults of
+    the cheap probes replaced, for a host rehearsal): (a)
+    ``rerank_stage_probe.stages`` on phase 3's served flagship forest
+    ``flag_db`` (its ``query_ids`` ids equal its stages', and the plain
+    pipeline's but at ties, ``probes.plain_check``); (b)
+    ``raw_rerank_probe.probe`` with the flagship's whitener, no refit;
+    (c) ``transfer_probe``, ``probe_fused_epilogue`` (kernel 1 against
+    the library's pool but at ties, raised inside), ``beam_microbench``,
+    ``gather_probe`` (kernel 5 within 1e-4 relative, raised inside), at
+    their defaults but ``cuts``; (d) ``pipeline_probe`` on the first rows
+    of phase 3m (a)'s whitened cache ``cache`` (kernel 2 must launch in
+    its window; its served ids held by ``plain_check``); (e)
+    ``ingress_rehearsal`` (its subprocess exits 0, the rows parsed from
+    its results file equal those it printed); (f) ``run_8m`` on the same
+    cache in two halves (its served ids held by ``plain_check`` on the
+    composed index in sentence order; its recall@10 within one query of
+    the exact scan's over its bf16 whitened store, the f32 rows' printed
+    beside it)."""
+    from rag_cobweb_tpu_torch.bench.baselines import FlatIndex
+    from rag_cobweb_tpu_torch.bench.probes import plain_check
+    from rag_cobweb_tpu_torch.scripts import (
+        beam_microbench, gather_probe, ingress_rehearsal, pipeline_probe,
+        probe_fused_epilogue, raw_rerank_probe, rerank_stage_probe, run_8m,
+        transfer_probe, _sweeps)
+    cuts = PROBE_CUTS if cuts is None else cuts
+    card = device != "cpu"
+    dev = ["--device", device]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = {}
+
+    def window(name, fn):
+        zero()
+        t0 = time.perf_counter()
+        r = fn()
+        _sweeps.sync(torch.device(device))
+        out[name] = {"s": time.perf_counter() - t0, "window": read(),
+                     "rec": r}
+        return r
+
+    def need(name, *kernels):
+        w = out[name]["window"]
+        if card and not all(w[k] > 0 for k in kernels):
+            raise AssertionError(f"3n {name}: kernels {kernels} did not all "
+                                 f"launch: {w}")
+
+    # (a) the flagship forest's stages
+    q = flag_data.query_embs
+    r = window("rerank_stage_probe", lambda: rerank_stage_probe.stages(
+        flag_db, q, 1024, out=lambda *a, **k: log(*a)))
+    if not r["stages_equal_query_ids"]:
+        raise AssertionError("3n rerank_stage_probe: query_ids' ids differ "
+                             "from its stages'")
+    r["plain"] = plain_check(flag_db, q, r.pop("served_ids"), 10, 1024, 0,
+                             1024, flag_data.corpus_embs,
+                             flag_data.target_ids)
+    need("rerank_stage_probe", "fused_topk", "rerank_l2")
+    # (b) raw-mode forest, the flagship's whitener
+    window("raw_rerank_probe", lambda: raw_rerank_probe.probe(
+        flag_data, flag_db.whitener, device, out=lambda *a, **k: log(*a)))
+    need("raw_rerank_probe", "fused_topk_f32", "rerank_l2")
+    # (c) the cheap probes
+    window("transfer_probe", lambda: transfer_probe.main(dev))
+    if not out["transfer_probe"]["rec"].pop("transfers_exact"):
+        raise AssertionError("3n transfer_probe: a transfer changed values")
+    out["transfer_probe"]["rec"].pop("product_0")
+    for name, mod in (("probe_fused_epilogue", probe_fused_epilogue),
+                      ("beam_microbench", beam_microbench),
+                      ("gather_probe", gather_probe)):
+        args = list(cuts.get(name, [])) + list(dict(fast).get(name, []))
+        window(name, lambda m=mod, a=args: m.main(a + dev))
+    need("probe_fused_epilogue", "fused_topk")
+    need("gather_probe", "rerank_l2")
+    for r in out["gather_probe"]["rec"].values():
+        r.pop("d2_first")
+        r.pop("kernel_d2_first")
+    out["probe_fused_epilogue"]["rec"].pop("served_ids")
+    # (d) the 1M-row probe on the whitened cache's first rows
+    size = cuts.get("pipeline_probe", {}).get("size", 1_000_000)
+    pp = dict(dict(fast).get("pipeline_probe", {}))
+    with np.load(cache) as z:
+        corpus, queries, targets = (z["corpus_w"][:size], z["queries_w"],
+                                    z["target_ids"])
+    db, build_s = pipeline_probe.build(corpus, pp.get("vforest", 512),
+                                       device, log=lambda *a, **k: log(*a))
+    B = pp.get("batch", 1024)
+    r = window("pipeline_probe", lambda: pipeline_probe.probe(
+        db, queries, batch=B, pool=pp.get("pool", 1024),
+        log=lambda *a, **k: log(*a)))
+    out["pipeline_probe"]["s"] += build_s
+    r["config"]["build_s"] = build_s
+    r["plain"] = plain_check(db, queries[:B], r.pop("served_ids"), 10,
+                             pp.get("pool", 1024), 0, B, corpus)
+    need("pipeline_probe", "fused_group_topk", "fused_topk", "rerank_l2")
+    del db
+    # (e) the ingress rehearsal: the benchmark twin cold in a subprocess
+    r = window("ingress_rehearsal", lambda: ingress_rehearsal.main(
+        ["--root", str(out_dir / "ingress")]
+        + list(cuts.get("ingress_rehearsal", [])) + dev))
+    if r["returncode"] != 0 or r["rows"] != r["printed_rows"]:
+        raise AssertionError(f"3n ingress_rehearsal: {r}")
+    # (f) the two-half build and its composed serving
+    args = run_8m.parse(["--cache", str(cache), "--gt-cache", "", "--out",
+                         str(out_dir / "run_8m.json")]
+                        + list(cuts.get("run_8m", []))
+                        + list(dict(fast).get("run_8m", [])) + dev)
+    holder = {}
+
+    def r8():
+        rec, comp = run_8m.run(args, log=lambda *a, **k: log(*a))
+        holder["comp"] = comp
+        return rec
+
+    r = window("run_8m", r8)
+    comp = holder.pop("comp")
+    need("run_8m", "fused_topk", "rerank_l2_bf16", "backstop")
+    n = min(args.size, len(corpus))
+    served = comp.serve(queries, 10).cpu().numpy()
+    store = torch.as_tensor(corpus[:n]).to(torch.bfloat16).float().numpy()
+    r["plain"] = plain_check(comp.as_db(), queries, served, 10, args.pool,
+                             args.backstop, 512, store)
+    # the exact scan over the store's values (the bf16 whitened rows the
+    # re-rank reads), the function served; and over the f32 rows
+    for key, rows in (("exact_recall@10", store),
+                      ("exact_f32_recall@10", corpus[:n])):
+        exact = FlatIndex(rows, metric="l2", device=device).search(queries,
+                                                                   10)
+        r[key] = float(np.mean([t in row for t, row in zip(targets,
+                                                           exact)]))
+    if abs(r["recall@10"] - r["exact_recall@10"]) > 1.0 / len(queries) + 1e-4:
+        raise AssertionError(f"3n run_8m: recall@10 {r['recall@10']} is "
+                             f"more than one query from the exact scan's "
+                             f"{r['exact_recall@10']} over the same bf16 "
+                             f"store")
+    del comp
+    return out
+
+
+def log_probes(rec: dict, smi: str) -> None:
+    for name, r in rec.items():
+        log(f"[3n] {name} ({r['s']:.1f}s; launches {r['window']}): "
+            f"{json.dumps(r['rec'], default=str)} | {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2888,7 +3088,7 @@ def main() -> int:
                                           fused_topk, rerank)
 
     full_f32_matmul()
-    t_start = time.perf_counter()
+    t_start = tp = time.perf_counter()
     # -- 1. card --------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2905,6 +3105,7 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {kname}: {line.strip()}")
+    tp = phase_done("1", tp)
 
     # -- 2. kernels against their plain versions ------------------------
     main_f = check_fused(fused_topk, *fused_inputs(1024, 496, 10240, 10240,
@@ -2972,6 +3173,7 @@ def main() -> int:
     main_g = check_group(fused_topk, *gin, per_group=2, reps=10)
     del gin
     torch.cuda.empty_cache()
+    tp = phase_done("2", tp)
 
     # -- 3. the flagship slice ------------------------------------------
     zero, read = probes.zero_counters, probes.read_counters
@@ -3017,6 +3219,7 @@ def main() -> int:
         flag["api"] = query_api(db, data, zero, read, "flagship forest",
                                 out_dir)
         write_multichip_flagship(db, data, mc_dir)
+        flag["db"], flag["data"] = db, data     # phase 3n probes it
 
     rec = headline.run(corpus_size=10000, queries=1000, dim=768,
                        pca_dim=0.96, k=10, batch=1024, dataset="hard",
@@ -3051,6 +3254,7 @@ def main() -> int:
     launches["rerank_l2"] = windows["fused"]["rerank_l2"]
     launches["fused_group_topk"] = windows["group"]["fused_group_topk"]
     torch.cuda.empty_cache()
+    tp = phase_done("3", tp)
 
     # -- 3b. the blocked slice: the 100k cell -----------------------------
     served, served_f, served_g = {}, {}, {}
@@ -3134,19 +3338,21 @@ def main() -> int:
                 {B: [r["ms"], r["bound_ms"], r["library_ms"]]
                  for B, r in sorted(recs_b.items())}))
 
+    tp = phase_done("3b", tp)
+
     # -- 3c. the single-tree slice --------------------------------------
     rec1, single = single_tree_slice(headline, zero, read, windows, launches,
                                      name, out_dir)
+    tp = phase_done("3c", tp)
 
     # 3j's inputs: the single tree, as phase 3i trains on it
     mc_single = write_multichip_single(single["db"], single["data"], mc_dir)
 
     # -- 3i. training on the card, on 3c's single tree -----------------
-    t3i = time.perf_counter()
     train = training_slice(single.pop("db"), single.pop("data"),
-                           here / "build" / "train", smi)
+                           here / "build" / "train", smi, epochs=2)
     log_training(train)
-    log(f"[3i] {time.perf_counter() - t3i:.1f}s")
+    tp = phase_done("3i", tp)
     del train
     torch.cuda.empty_cache()
 
@@ -3210,6 +3416,8 @@ def main() -> int:
         f"{tools['d']['leaves_equal_device_build']}, lanes differing: "
         f"{tools['d']['lanes_differing_from_device_build']})")
 
+    tp = phase_done("3d+3g", tp)
+
     # -- 3e. the small-forest slice: c=5000, both routings --------------
     small = small_forest_slice(headline, zero, read, out_dir)
     for routing, sf in small.items():
@@ -3233,8 +3441,9 @@ def main() -> int:
         f"; launches {edge['edge_window']}")
     launches["small_forest"] = small["round_robin"]["window"]["rerank_l2"]
 
+    tp = phase_done("3e", tp)
+
     # -- 3h. the last single-chip modules ---------------------------------
-    t3h = time.perf_counter()
     last["forests"] = whitener_forests(headline, zero, read, out_dir)
     last["classifier"] = classifier_slice()
     last["grouped"] = grouped_pool_probe()
@@ -3269,13 +3478,12 @@ def main() -> int:
     log(f"[3h] blocked_query_topk_rerank on the 100k blocked index: "
         f"{json.dumps(last['blocked_rerank'])}")
     log(f"[3h] grouped_pool_topk: {json.dumps(last['grouped'])}")
-    log(f"[3h] {time.perf_counter() - t3h:.1f}s")
     zca, pcazca = last["forests"]["zca"], last["forests"]["pcazca"]
     del last
     torch.cuda.empty_cache()
+    tp = phase_done("3h", tp)
 
     # -- 3k. the reference's benchmark harness and the encoder -----------
-    t3k = time.perf_counter()
     bench = harness_phase(zero, read, here / "build" / "harness")
     encp = encoder_phase(zero, read, smi, here / "build" / "trace")
     log_benchmark_phase(bench, encp, smi)
@@ -3313,31 +3521,31 @@ def main() -> int:
         + json.dumps(gather) + f" | {smi}")
     del bench, encp
     torch.cuda.empty_cache()
-    log(f"[3k] {time.perf_counter() - t3k:.1f}s")
+    tp = phase_done("3k", tp)
 
     # -- 3l. the encoder families and the entry points' twins ------------
-    t3l = time.perf_counter()
     fams = families_phase(zero, read, smi, here / "build" / "trace")
     launches["3l"] = {n: e["window"] for n, e in fams.items()}
     twins = twins_phase(here / "build" / "twins")
     log_twins(twins, smi)
-    log(f"[3l] {time.perf_counter() - t3l:.1f}s")
+    tp = phase_done("3l", tp)
 
     # -- 3j. multi-device: the port on torch.distributed ------------------
-    mc = multichip_phase(flag_exact, mc_dir, *mc_single)
+    mc = multichip_phase(flag_exact, mc_dir, *mc_single, forest_rows=1024)
     log_multichip(mc, smi)
+    tp = phase_done("3j", tp)
     launches["tp"] = {kern: [w[kern] for w in mc["a"]["windows"]]
                       for kern in ("fused_topk", "rerank_l2")}
 
     # -- 3m. the experiment scripts' twins ---------------------------------
-    t3m = time.perf_counter()
     caches = caches_phase(*exp3m.pop("scale_data"),
-                          here / "build" / "experiments", zero, read)
+                          here / "build" / "experiments", zero, read,
+                          inc=["--size", "50000"])
     sweeps = sweeps_phase(zero, read)
     scal = scale_phase()
     prof = insert_profile()
     log_experiments(caches, sweeps, scal, exp3m["roofline"], prof, smi)
-    log(f"[3m] {time.perf_counter() - t3m:.1f}s")
+    tp = phase_done("3m", tp)
     twin_windows = {"incremental_benchmark": caches["incremental"]["window"],
                     **{n: r["window"] for n, r in sweeps.items()
                        if n != "served"}}
@@ -3349,6 +3557,22 @@ def main() -> int:
         exp3m["roofline"]["window"]["blocked_topk"]
     del caches
     torch.cuda.empty_cache()
+
+    # -- 3n. the TPU probes' twins -----------------------------------------
+    exp_dir = here / "build" / "experiments"
+    probes_rec = probes_phase(flag.pop("db"), flag.pop("data"),
+                              exp_dir / "mb_cache_w.npz", exp_dir / "probes",
+                              zero, read)
+    log_probes(probes_rec, smi)
+    launches["3n"] = {kern: {n: r["window"][kern]
+                             for n, r in probes_rec.items()
+                             if r["window"][kern]}
+                      for kern in ("fused_topk", "fused_topk_f32",
+                                   "fused_group_topk", "rerank_l2",
+                                   "rerank_l2_bf16", "backstop")}
+    del probes_rec
+    torch.cuda.empty_cache()
+    tp = phase_done("3n", tp)
 
     # -- 4. result lines ----------------------------------------------------
     src = "rag_cobweb_tpu_torch/csrc/"
@@ -3384,7 +3608,12 @@ def main() -> int:
              # 3m: launches in the windows of the experiment twins that
              # serve pools (the kernel is timed in the rows above)
              twins=dict(launches=sum(launches["3m"]["fused_topk"].values()),
-                        by_twin=launches["3m"]["fused_topk"])),
+                        by_twin=launches["3m"]["fused_topk"]),
+             # 3n: launches in the probe twins' windows (the backstop's
+             # inside, counted apart under "backstop")
+             probes=dict(launches=sum(launches["3n"]["fused_topk"].values()),
+                         by_twin=launches["3n"]["fused_topk"],
+                         backstop=launches["3n"]["backstop"])),
         dict(name="rerank_l2", route="cuda", source=src + "rerank_l2.cu",
              replaces="scripts/gather_probe.py:55",
              launches=launches["rerank_l2"], **flag["rerank"],
@@ -3418,7 +3647,12 @@ def main() -> int:
                        for n, e in fams.items()},
              twins=dict(launches=sum(launches["3m"]["rerank_l2"].values()),
                         by_twin=launches["3m"]["rerank_l2"],
-                        pending=launches["3m"]["pending"])),
+                        pending=launches["3m"]["pending"]),
+             # 3n: the f32 entry's launches by twin, and the bf16-row
+             # entry's (run_8m's bf16 store) under "bf16"
+             probes=dict(launches=sum(launches["3n"]["rerank_l2"].values()),
+                         by_twin=launches["3n"]["rerank_l2"],
+                         bf16=launches["3n"]["rerank_l2_bf16"])),
         # one CUDA kernel and counter for both TPU kernels (_kernel_v2's
         # body is _kernel): the served index at B=1024, and under "B4096"
         # at the batch of _kernel_v2's measurement
@@ -3433,14 +3667,22 @@ def main() -> int:
         dict(name="fused_group_topk", route="cuda",
              source=src + "fused_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:270",
-             launches=launches["fused_group_topk"], **main_g),
+             launches=launches["fused_group_topk"], **main_g,
+             # 3n: pipeline_probe's grouped arm
+             probes=dict(
+                 launches=sum(launches["3n"]["fused_group_topk"].values()),
+                 by_twin=launches["3n"]["fused_group_topk"])),
         # the f32 entries (CUDA cores) on the single tree's f32 indexes
         dict(name="fused_topk_f32", route="cuda",
              source=src + "fused_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:243",
              launches=launches["fused_topk_f32"],
              **single["fused_f32 B=1024"],
-             B1=single["fused_f32 B=1"], B32=single["fused_f32 B=32"]),
+             B1=single["fused_f32 B=1"], B32=single["fused_f32 B=32"],
+             # 3n: raw_rerank_probe's rerank=0 pools
+             probes=dict(
+                 launches=sum(launches["3n"]["fused_topk_f32"].values()),
+                 by_twin=launches["3n"]["fused_topk_f32"])),
         dict(name="fused_group_topk_f32", route="cuda",
              source=src + "fused_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:270",

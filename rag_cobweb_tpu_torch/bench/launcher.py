@@ -71,9 +71,10 @@ def experiment_command(exp: dict, device: str = "cuda") -> list[str]:
     twin = twin_module(script)
     if twin is None:
         raise ValueError(
-            f"{script} has no twin in the port (ROADMAP.md queue A item "
-            f"12's table, row {os.path.basename(script)}); the launcher "
-            "does not run the JAX package's scripts")
+            f"{script} has no twin in the port (every reference script has "
+            "one; scripts/torch_*.py are the port's own checks, run "
+            "directly); the launcher does not run the JAX package's "
+            "scripts")
     cmd = [sys.executable, "-m", twin]
     if exp.get("config"):
         cmd += ["--config", exp["config"]]

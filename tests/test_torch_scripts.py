@@ -221,7 +221,7 @@ def test_run_experiments_names_the_twins(tmp_path, monkeypatch, run_jax,
                           "--device", "cuda"]
     twins = {p.stem for p in (
         ROOT / "rag_cobweb_tpu_torch" / "scripts").glob("[!_]*.py")}
-    assert len(twins) == 19
+    assert len(twins) == 28
     for name in twins:
         assert launcher.experiment_command(
             {"script": f"scripts/{name}.py"}, "cpu")[1:] == [
@@ -231,12 +231,12 @@ def test_run_experiments_names_the_twins(tmp_path, monkeypatch, run_jax,
     untwinned = tmp_path / "untwinned.json"
     untwinned.write_text(json.dumps({"experiments": [
         cfg["experiments"][0],
-        {"name": "p", "script": "scripts/pipeline_probe.py"}]}))
+        {"name": "p", "script": "scripts/torch_multichip_phase.py"}]}))
     monkeypatch.chdir(tmp_path)
     with monkeypatch.context() as m:
         m.setattr(launcher.subprocess, "Popen", None)
         for argv in ([], ["--dry-run"], ["--mode", "slurm"]):
-            with pytest.raises(ValueError, match="pipeline_probe.py"):
+            with pytest.raises(ValueError, match="torch_multichip_phase.py"):
                 run_experiments.main([str(untwinned)] + argv)
     assert not (tmp_path / "generated_jobs").exists()
     (script, *_) = run_experiments.main(
