@@ -2353,11 +2353,11 @@ def encoder_phase(zero, read, smi: str, trace_dir: Path, device="cuda",
                                store.cpu().numpy(), gold)
     # (c) one served batch traced
     with profiling.trace(str(trace_dir), device=device) as prof:
-        with profiling.annotate("rag_serve_batch"):
+        with profiling.span("bench.serve_batch"):
             to_host(db.query_ids(qw[:1000], 10))
     text = (trace_dir / profiling.TRACE_FILE).read_text()
-    if "rag_serve_batch" not in text:
-        raise AssertionError("the trace lacks its annotation")
+    if "bench.serve_batch" not in text or "serve.query" not in text:
+        raise AssertionError("the trace lacks its spans")
     dev_us = {}
     for ev in prof.key_averages():
         t = getattr(ev, "device_time_total", None)

@@ -2,12 +2,13 @@
 scripts: the kernels' launch counters, the plain serving pipeline the
 served ids are held against, and the stage split of one served batch.
 
-The counters are the kernels' wrappers' own (``launches``, and
-``launches_f32`` for the sweeps' f32 entries and ``launches_bf16`` for
-kernel 5's bf16-row entry, counted apart) and the core's
-``TIER_LAUNCHES``: kernel 1's launches made for the backstop pool and
-kernel 5's for the pending tier.  ``zero_counters`` sets them all to 0,
-``read_counters`` reads them.
+The counters are a view of ``utils/profiling``'s registry: each
+kernel's launches (``launch.<wrapper>``), those of its second entry (the
+sweeps' f32 entries, kernel 5's bf16-row entry) apart, and those made for
+the backstop pool and the pending tier.  ``zero_counters`` takes the
+registry's values as the base, ``read_counters`` the launches since.
+The stage split reads the device-timed spans of one real ``query_ids``
+call (``stage_split``, ``small_forest_split``).
 """
 
 from __future__ import annotations
@@ -20,40 +21,38 @@ import torch
 
 from rag_cobweb_tpu_torch.bench.metrics import retrieval_metrics
 from rag_cobweb_tpu_torch.core import index as index_mod
-from rag_cobweb_tpu_torch.ops import blocked_topk, fused_topk, rerank
+from rag_cobweb_tpu_torch.ops import fused_topk, rerank
+from rag_cobweb_tpu_torch.utils import profiling
 
-COUNTERS = {"fused_topk": fused_topk.slab_topk,
-            "fused_group_topk": fused_topk.slab_group_topk,
-            "blocked_topk": blocked_topk.blocked_topk,
-            "rerank_l2": rerank.rerank_lp}
-
-
-_ENTRIES = ("f32", "bf16")     # entries counted apart from a kernel's main
+# each kernel's counter and the entry counted apart from its main one
+COUNTERS = {"fused_topk": ("launch.slab_topk", "f32"),
+            "fused_group_topk": ("launch.slab_group_topk", "f32"),
+            "blocked_topk": ("launch.blocked_topk", "f32"),
+            "rerank_l2": ("launch.rerank_lp", "bf16")}
+TIER_COUNTERS = {"backstop": "launch.backstop", "pending": "launch.pending"}
+_base: dict = {}
 
 
 def zero_counters():
-    for fn in COUNTERS.values():
-        fn.launches = 0
-        for e in _ENTRIES:
-            if hasattr(fn, f"launches_{e}"):
-                setattr(fn, f"launches_{e}", 0)
-    for k in index_mod.TIER_LAUNCHES:
-        index_mod.TIER_LAUNCHES[k] = 0
+    _base.clear()
+    _base.update(profiling.counters())
 
 
 def read_counters() -> dict:
-    """Each kernel's launches of its main entry (the sweeps' bf16 one,
-    kernel 5's f32 one), ``<name>_f32`` / ``<name>_bf16`` those of the
-    other entry, and those made for the backstop pool and the pending
-    tier."""
+    """Since ``zero_counters``: each kernel's launches of its main entry
+    (the sweeps' bf16 one, kernel 5's f32 one), ``<name>_f32`` /
+    ``<name>_bf16`` those of the other entry, and those made for the
+    backstop pool and the pending tier."""
+    now = profiling.counters()
+
+    def since(name):
+        return now.get(name, 0) - _base.get(name, 0)
+
     out = {}
-    for k, fn in COUNTERS.items():
-        out[k] = fn.launches
-        for e in _ENTRIES:
-            if hasattr(fn, f"launches_{e}"):
-                out[f"{k}_{e}"] = getattr(fn, f"launches_{e}")
-                out[k] -= out[f"{k}_{e}"]
-    out.update(index_mod.TIER_LAUNCHES)
+    for k, (name, entry) in COUNTERS.items():
+        out[f"{k}_{entry}"] = since(f"{name}_{entry}")
+        out[k] = since(name) - out[f"{k}_{entry}"]
+    out.update({k: since(name) for k, name in TIER_COUNTERS.items()})
     return out
 
 
@@ -330,54 +329,33 @@ def hold_beam(db, queries, want: list, got: list) -> dict:
             "tied_places": tied, "shown": shown}
 
 
+# the stage names the callers print, each the device ms of these spans
+# in one call (``engine.merge`` of the sweep's pool alone; kernel 5 is
+# ``engine.rerank`` less the final top-k inside it)
+STAGES = (("upload", "serve.upload"), ("whitening", "serve.whiten"),
+          ("kernel 1", "engine.sweep"), ("pool merge", "engine.merge"),
+          ("backstop pool", "engine.backstop"), ("union", "engine.union"),
+          ("kernel 5", "engine.rerank"), ("final top-k", "engine.topk"),
+          ("tiers", "tiers.merge"), ("to host", "probe.to_host"))
+SMALL_FOREST_STAGES = (
+    ("upload", "serve.upload"), ("whitening", "serve.whiten"),
+    ("per-lane scoring", "engine.lane_scores"),
+    ("per-lane and merge top-k", "engine.lane_merge"),
+    ("kernel 5", "engine.rerank"), ("final top-k", "engine.topk"),
+    ("to host", "probe.to_host"))
+
+
 def stage_split(db, queries, k: int, pool: int) -> dict:
     """Stream ms of each stage of one served batch (``queries``, pool
-    ``pool``), by CUDA events around the calls ``query_ids`` makes:
-    upload, whitening, kernel 1 (with the query terms), pool merge
-    (``torch.topk``), the backstop pool (kernel 1 and its merge) and the
-    union when the backstop is on, kernel 5, final ``torch.topk`` and
-    gather, the pending and delta tiers and their merge when rows are
-    pending, ids to the host.  The last of three runs, beside the host's
-    wall time of that run (a stage whose launches the host issues slower
-    than the device runs them counts that gap too)."""
-    fidx, emb = db._fused_index(), db._emb_device()
-    nv = db._indexed_count()
-    pool = min(pool, nv)
-    bs = db._backstop_k(pool, nv)
-    pv = float(db.cfg.prior_var)
-
-    def run(mark):
-        qs = torch.as_tensor(queries, device=db.device)
-        mark("upload")
-        q = db.whitener.transform_torch(qs)
-        mark("whitening")
-        out = fused_topk.slab_topk(fused_topk.query_terms(q, fidx.GT.dtype),
-                                   fidx.GT, fidx.c, fidx.valid,
-                                   min(pool, fused_topk.SLAB))
-        mark("kernel 1")
-        cs, cand = fused_topk.merge(*out, pool)
-        mark("pool merge")
-        if bs:
-            bcs, bcand = index_mod.backstop_topk(
-                *db._wemb_device(), q, bs, nv,
-                gt_layout=db.whitener is not None)
-            mark("backstop pool")
-            cand, cs = index_mod.union_candidates(cand, cs, bcand, bcs)
-            mark("union")
-        lp = rerank.rerank_lp(emb, qs.float().contiguous(),
-                              cand.to(torch.int32).contiguous(),
-                              cs.contiguous(), pv)
-        mark("kernel 5")
-        top, pos = torch.topk(lp, min(k, nv), dim=1)
-        ids = cand.gather(1, pos)
-        mark("final top-k")
-        if db._unindexed_count():
-            ids = db._merge_pending(qs, top, ids, k)
-            mark("tiers")
-        ids.cpu()
-        mark("to host")
-
-    return _event_split(run, len(queries))
+    ``pool``), read from the device-timed spans of a real
+    ``db.query_ids`` call: upload, whitening, kernel 1 (with the query
+    terms), pool merge (``torch.topk``), the backstop pool (kernel 1 and
+    its merge) and the union when the backstop is on, kernel 5, final
+    ``torch.topk`` and gather, the pending and delta tiers and their merge
+    when rows are pending, ids to the host.  The last of three calls,
+    beside the host's wall time of that call; stages that do not run are
+    left out.  On the host the stages are the spans' host ms."""
+    return _span_split(db, queries, k, pool, STAGES)
 
 
 def small_forest_split(db, queries, k: int, pool: int) -> dict:
@@ -385,55 +363,47 @@ def small_forest_split(db, queries, k: int, pool: int) -> dict:
     engine, as ``stage_split``: upload, whitening, per-lane scoring (the
     lane-batched products and the per-hop path gather), per-lane and merge
     top-k, kernel 5, final top-k and gather, ids to the host."""
-    from rag_cobweb_tpu_torch.parallel.vforest import (_lane_merge,
-                                                       _lane_node_scores)
-    idx, emb = db.forest.build_index(), db._emb_device()
-    n = len(db)
-    pool = min(max(pool, k), n)
-    pv = float(db.cfg.prior_var)
-
-    def run(mark):
-        qs = torch.as_tensor(queries, device=db.device)
-        mark("upload")
-        q = db.whitener.transform_torch(qs)
-        mark("whitening")
-        nlp, scores = _lane_node_scores(idx, q)
-        mark("per-lane scoring")
-        cs, cand = _lane_merge(idx, nlp, scores, pool)
-        mark("per-lane and merge top-k")
-        lp = rerank.rerank_lp(emb, qs.float().contiguous(),
-                              cand.to(torch.int32).contiguous(),
-                              cs.contiguous(), pv)
-        mark("kernel 5")
-        ids = cand.gather(1, torch.topk(lp, min(k, n), dim=1).indices)
-        mark("final top-k")
-        ids.cpu()
-        mark("to host")
-
-    return _event_split(run, len(queries))
+    return _span_split(db, queries, k, pool, SMALL_FOREST_STAGES)
 
 
-def _event_split(run, B: int) -> dict:
-    """``run(mark)`` three times, ``mark(name)`` recording a CUDA event
-    after each stage; the stream ms between the last run's events, their
-    sum, the host's wall ms of that run and the batch size."""
-    for _ in range(3):
-        ev = []
+def _span_split(db, queries, k: int, pool: int, stages) -> dict:
+    """Three ``query_ids`` calls with tracing on, each ids to the host
+    inside one ``probe.split`` span; the last call's stages by ``stages``
+    (stream ms on the card, host ms on the host), their sum, the host's
+    wall ms of the call and the batch size."""
+    def sync():
+        if db.device.type == "cuda":
+            torch.cuda.synchronize(db.device)
 
-        def mark(name):
-            ev.append((name, torch.cuda.Event(enable_timing=True)))
-            ev[-1][1].record()
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mark("start")
-        run(mark)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    split = {b[0]: a[1].elapsed_time(b[1]) for a, b in zip(ev, ev[1:])}
+    was = profiling.tracing(True)
+    try:
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            with profiling.span("probe.split") as sp:
+                ids = db.query_ids(queries, k, rerank=pool)
+                with profiling.span("probe.to_host", device=ids.device):
+                    ids.cpu()
+            sync()
+            wall = 1e3 * (time.perf_counter() - t0)
+    finally:
+        profiling.tracing(was)
+    ms: dict = {}
+    for r in profiling.records():
+        if r["request"] != sp.request or (
+                r["name"] == "engine.merge"
+                and r["attrs"].get("pool") != "sweep"):
+            continue
+        t = r["device_ms"]
+        if t is None:
+            t = 1e-6 * (r["t1_ns"] - r["t0_ns"])
+        ms[r["name"]] = ms.get(r["name"], 0.0) + t
+    if "engine.rerank" in ms:
+        ms["engine.rerank"] -= ms.get("engine.topk", 0.0)
+    split = {stage: ms[name] for stage, name in stages if name in ms}
     split["sum"] = sum(split.values())
     split["wall"] = wall
-    split["B"] = B
+    split["B"] = len(queries)
     return split
 
 
@@ -565,6 +535,30 @@ def hold_ids_at_ties(want_ids, got_ids, want_keys, got_keys,
         rows += 1
         places += int(diff.sum())
     return {"queries_differing": rows, "tied_places": places}
+
+
+def _event_split(run, B: int) -> dict:
+    """``run(mark)`` three times, ``mark(name)`` recording a CUDA event
+    after each stage; the stream ms between the last run's events, their
+    sum, the host's wall ms of that run and the batch size."""
+    for _ in range(3):
+        ev = []
+
+        def mark(name):
+            ev.append((name, torch.cuda.Event(enable_timing=True)))
+            ev[-1][1].record()
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        run(mark)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    split = {b[0]: a[1].elapsed_time(b[1]) for a, b in zip(ev, ev[1:])}
+    split["sum"] = sum(split.values())
+    split["wall"] = wall
+    split["B"] = B
+    return split
 
 
 def tp_split(tpf, queries_w, queries, k: int, pool: int) -> dict:

@@ -45,7 +45,10 @@ same fresh-leaf key: ``pending_leaf_lp`` (tier 0, kernel 5) and
 ``delta_exact_topk`` (tier 1, one product).  ``grouped_pool_topk`` (a
 strided two-level pool of a score matrix) is the JAX package's
 alternative to an approximate pool; nothing calls it, since kernel 1's
-pools are exact.
+pools are exact.  The serving stages are spans (``utils/profiling``):
+``engine.sweep``, ``engine.merge`` (each pool's merge, attribute
+``pool``), ``engine.backstop``, ``engine.union``, ``engine.rerank`` and
+inside it ``engine.topk``, each timed on the stream.
 
 **Beam search** (``predict``): ``beam_search_topk`` is the oracle (every
 beam node's full child row a level); the packed beam
@@ -67,6 +70,7 @@ import torch
 
 from rag_cobweb_tpu_torch.ops import fused_topk, rerank
 from rag_cobweb_tpu_torch.ops.gaussian import batched_node_log_probs
+from rag_cobweb_tpu_torch.utils import profiling
 
 DEFAULT_LEVEL_WEIGHTS = (1.0, 1.0, 1.0, 1.0, 1.0, 1.0)
 _FUSED_ROW_BUCKET = fused_topk.SLAB   # 2048
@@ -597,9 +601,14 @@ def fused_query_topk(fidx: FusedIndex, queries: torch.Tensor, k: int):
     """Top-k path scores -> (scores (B, k) f32, sentence ids (B, k) int32).
     Per-slab top-kappa (kernel 1, kappa = min(k, 2048)) merged by
     ``torch.topk``: the exact top-k."""
-    qq = fused_topk.query_terms(queries, fidx.GT.dtype)
-    return fused_topk.merge(*fused_topk.slab_topk(
-        qq, fidx.GT, fidx.c, fidx.valid, min(k, _FUSED_ROW_BUCKET)), k)
+    dev = queries.device
+    with profiling.span("engine.sweep", device=dev, B=queries.shape[0],
+                        slots=fidx.GT.shape[1]):
+        qq = fused_topk.query_terms(queries, fidx.GT.dtype)
+        pools = fused_topk.slab_topk(qq, fidx.GT, fidx.c, fidx.valid,
+                                     min(k, _FUSED_ROW_BUCKET))
+    with profiling.span("engine.merge", device=dev, pool="sweep", k=k):
+        return fused_topk.merge(*pools, k)
 
 
 # The JAX package would switch its pool selection to the strided two-level
@@ -643,17 +652,14 @@ def exact_rerank(emb: torch.Tensor, queries: torch.Tensor,
     stored rows (kernel 5; an f32 or a bf16 store, distances in f32),
     ``-0.5 (||q - x||^2 / prior_var + D log prior_var)``, non-finite
     candidates dropped -> (scores, ids) (B, k)."""
-    lp = rerank.rerank_lp(emb, queries.float().contiguous(),
-                          cand.to(torch.int32).contiguous(),
-                          cand_scores.contiguous(), prior_var)
-    top, pos = torch.topk(lp, k, dim=1)
-    return top, cand.gather(1, pos)
-
-
-# the kernels' launches made for the backstop pool (kernel 1) and for the
-# pending tier (kernel 5), read from the kernels' own counters around
-# each call
-TIER_LAUNCHES = {"backstop": 0, "pending": 0}
+    dev = queries.device
+    with profiling.span("engine.rerank", device=dev, candidates=cand.shape[1]):
+        lp = rerank.rerank_lp(emb, queries.float().contiguous(),
+                              cand.to(torch.int32).contiguous(),
+                              cand_scores.contiguous(), prior_var)
+        with profiling.span("engine.topk", device=dev):
+            top, pos = torch.topk(lp, k, dim=1)
+            return top, cand.gather(1, pos)
 
 
 def backstop_topk(wemb: torch.Tensor, half_norm2: torch.Tensor,
@@ -677,12 +683,15 @@ def backstop_topk(wemb: torch.Tensor, half_norm2: torch.Tensor,
     if gt_layout:
         Sw = wemb.shape[1]
         valid = torch.arange(Sw, device=dev) < n_valid
-        n0 = fused_topk.slab_topk.launches
+        n0 = profiling.counter("launch.slab_topk")
         pools = fused_topk.slab_topk(
             queries.to(torch.bfloat16).contiguous(), wemb, -half_norm2,
             valid, min(c, _FUSED_ROW_BUCKET))
-        TIER_LAUNCHES["backstop"] += fused_topk.slab_topk.launches - n0
-        top, ids = fused_topk.merge(*pools, c)
+        profiling.count("launch.backstop",
+                        profiling.counter("launch.slab_topk") - n0)
+        with profiling.span("engine.merge", device=dev, pool="backstop",
+                            k=c):
+            top, ids = fused_topk.merge(*pools, c)
         return torch.where(top > fused_topk.NEG / 2, top,
                            torch.full_like(top, float("-inf"))), ids
     q = queries.to(wemb.dtype).float()
@@ -730,9 +739,12 @@ def fused_query_rerank(fidx: FusedIndex, emb: torch.Tensor,
     re-rank -> (scores, ids) (B, k)."""
     cs, cand = fused_query_topk(fidx, queries, c)
     if bs:
-        bcs, bcand = backstop_topk(wemb, half_norm2, queries, bs, n_valid,
-                                   gt_layout)
-        cand, cs = union_candidates(cand, cs, bcand, bcs)
+        dev = queries.device
+        with profiling.span("engine.backstop", device=dev, k=bs):
+            bcs, bcand = backstop_topk(wemb, half_norm2, queries, bs,
+                                       n_valid, gt_layout)
+        with profiling.span("engine.union", device=dev):
+            cand, cs = union_candidates(cand, cs, bcand, bcs)
     return exact_rerank(emb, queries_store, cand, cs, k, prior_var)
 
 
@@ -748,11 +760,12 @@ def pending_leaf_lp(queries: torch.Tensor, vecs: torch.Tensor,
     broadcast -> (B, Np) f32."""
     B = queries.shape[0]
     cand = rows.to(torch.int32).view(1, -1).expand(B, -1).contiguous()
-    n0 = rerank.rerank_lp.launches
+    n0 = profiling.counter("launch.rerank_lp")
     lp = rerank.rerank_lp(vecs, queries.float().contiguous(), cand,
                           torch.zeros(cand.shape, dtype=torch.float32,
                                       device=cand.device), prior_var)
-    TIER_LAUNCHES["pending"] += rerank.rerank_lp.launches - n0
+    profiling.count("launch.pending",
+                    profiling.counter("launch.rerank_lp") - n0)
     return lp
 
 

@@ -31,6 +31,13 @@ duplicate indices has no defined order on CUDA).
 of the forest and the wrapper).  Every read upcasts them to f32 and
 ``_apply`` rounds its f32 results into the stored dtype, so the descent
 math stays f32, as in the JAX package.
+
+Counters and spans (``utils/profiling``): a descent counts one
+``insert.rounds``, its steps on ``insert.steps`` and its per-step done
+checks on ``insert.syncs``, and spans ``_apply`` as ``insert.apply``;
+``grow_state`` and each ``StepGraph`` capture are the spans
+``insert.grow`` and ``insert.graph_capture``, counted on
+``insert.grows`` and ``insert.graph_captures``.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from rag_cobweb_tpu_torch.device import resolve_device
 from rag_cobweb_tpu_torch.ops import opscore
 from rag_cobweb_tpu_torch.ops.gaussian import (GaussStats, chan_merge,
                                                compute_var, welford_insert)
+from rag_cobweb_tpu_torch.utils import profiling
 
 NULL = -1
 EXACT_STEPS = 256  # cap of the exact path for over-deep descents
@@ -131,13 +139,15 @@ def grow_state(st: TreeState, new_capacity: int) -> TreeState:
     """Copy ``st`` into arrays of ``new_capacity`` nodes per lane (the
     stats keep their stored dtype)."""
     cap = st.capacity
-    out = init_state(st.lanes, new_capacity, st.dim, st.fanout, st.device,
-                     st.means.dtype)
-    for name in ("counts", "means", "m2s", "parent", "children",
-                 "n_children", "free_stack"):
-        getattr(out, name)[:, :cap] = getattr(st, name)[:, :cap]
-    for name in ("root", "n_alloc", "free_top"):
-        setattr(out, name, getattr(st, name).clone())
+    profiling.count("insert.grows")
+    with profiling.span("insert.grow", capacity=new_capacity):
+        out = init_state(st.lanes, new_capacity, st.dim, st.fanout,
+                         st.device, st.means.dtype)
+        for name in ("counts", "means", "m2s", "parent", "children",
+                     "n_children", "free_stack"):
+            getattr(out, name)[:, :cap] = getattr(st, name)[:, :cap]
+        for name in ("root", "n_alloc", "free_top"):
+            setattr(out, name, getattr(st, name).clone())
     return out
 
 
@@ -527,10 +537,15 @@ class StepGraph:
     dtype, so the descent math is f32 on a compressed state too."""
 
     def __init__(self, st: TreeState, cfg: TreeConfig):
-        K, F, D, dev = st.lanes, st.fanout, st.dim, st.device
-        if dev.type != "cuda":
+        if st.device.type != "cuda":
             raise ValueError(f"a StepGraph captures a state on the card, "
-                             f"not on {dev}")
+                             f"not on {st.device}")
+        profiling.count("insert.graph_captures")
+        with profiling.span("insert.graph_capture", lanes=st.lanes):
+            self._capture(st, cfg)
+
+    def _capture(self, st: TreeState, cfg: TreeConfig):
+        K, F, D, dev = st.lanes, st.fanout, st.dim, st.device
         self.key = _state_key(st)
         # every tensor the graph reads stays referenced here: a replay
         # reads by address, so a freed input would be reused memory
@@ -611,6 +626,7 @@ def descend(st: TreeState, xs: torch.Tensor, active: torch.Tensor,
         c = graph.begin(c, xs)
     record = []
     for t in range(max_steps):
+        profiling.count("insert.syncs")     # the done check waits
         if bool(c.done.all()):
             break
         if graph is not None:
@@ -620,8 +636,11 @@ def descend(st: TreeState, xs: torch.Tensor, active: torch.Tensor,
         noise_op = torch.rand((K, 4), generator=gen, device=dev)
         c, live, d = _advance(st, lanes, c, xs, noise_two, noise_op, t, cfg)
         record.append((live, d))
+    profiling.count("insert.rounds")
+    profiling.count("insert.steps", len(record))
     ok = active & (c.leaf >= 0)
-    _apply(st, lanes, record, ok, c.free_top, c.n_alloc)
+    with profiling.span("insert.apply", steps=len(record)):
+        _apply(st, lanes, record, ok, c.free_top, c.n_alloc)
     return torch.where(ok, c.leaf, torch.full_like(c.leaf, NULL))
 
 
@@ -727,6 +746,7 @@ class CobwebTree:
         fresh nodes each, plus slack), as the JAX package does."""
         st = self.state
         needed = int(st.n_alloc[0]) + 2 * n_new + 8
+        profiling.count("insert.syncs")
         if needed > st.capacity:
             self.state = grow_state(
                 st, align_capacity(max(needed, 2 * st.capacity)))
@@ -748,6 +768,8 @@ class CobwebTree:
                        max_steps, self._gen, self._step_graph())
 
     def _exact(self, x: torch.Tensor) -> int:
+        profiling.count("insert.exact")
+        profiling.count("insert.syncs")
         leaf = int(self._descend(x, EXACT_STEPS)[0])
         if leaf < 0:
             raise RuntimeError(f"insert descent exceeded {EXACT_STEPS} steps")
@@ -759,6 +781,7 @@ class CobwebTree:
         x = torch.as_tensor(x, dtype=torch.float32,
                             device=self.device).reshape(-1)
         self._ensure_capacity(1)
+        profiling.count("insert.syncs")
         leaf = int(self._descend(x, 48)[0])
         if leaf < 0:
             leaf = self._exact(x)
@@ -795,6 +818,7 @@ class CobwebTree:
             self._ensure_capacity(len(chunk))
             got = torch.cat([self._descend(x, 48) for x in chunk]) \
                 .cpu().numpy()
+            profiling.count("insert.syncs")
             for j in np.nonzero(got < 0)[0]:
                 got[j] = self._exact(chunk[j])
             leaves[s:s + len(chunk)] = got

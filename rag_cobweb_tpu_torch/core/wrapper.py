@@ -66,6 +66,12 @@ rebuilt once the unindexed rows pass max(``delta_rebuild_min``,
 ``delta_rebuild_frac`` of the indexed ones), or when an exact-index
 consumer runs (``rerank=0``, ``rank_scores``, and a forest below
 ``blocked_threshold``, whose small-forest engine serves no stale tier).
+
+Spans (``utils/profiling``): ``serve.query`` around ``query_ids`` and
+``predict_fast``, ``serve.add`` around ``add_sentences`` (with the
+insert counters' deltas), ``serve.upload``, ``serve.whiten``,
+``tiers.merge``, and ``index.rebuild`` around every serving-index build,
+which is also logged in ``profiling.events()``.
 """
 
 from __future__ import annotations
@@ -84,6 +90,7 @@ from rag_cobweb_tpu_torch.core.tree import CobwebTree, align_capacity
 from rag_cobweb_tpu_torch.device import full_f32_matmul, resolve_device
 from rag_cobweb_tpu_torch.ops import blocked_topk
 from rag_cobweb_tpu_torch.parallel.vforest import VForest, _vforest_query
+from rag_cobweb_tpu_torch.utils import profiling
 from rag_cobweb_tpu_torch.utils.viz import visualize_grandparent_subtrees
 
 
@@ -220,14 +227,20 @@ class CobwebIndex:
         the pending tier (past ``stale_pending_limit`` the delta
         segment); otherwise the indexes are dropped and the next query
         rebuilds them."""
+        with profiling.span("serve.add", counters=profiling.INSERT_COUNTERS,
+                            rows=len(new_sentences)):
+            return self._add(new_sentences, new_vectors, batch_size)
+
+    def _add(self, new_sentences, new_vectors, batch_size: int):
         if new_vectors is None:
             new_vectors = self.encode_func(new_sentences)
         store_vecs = np.asarray(new_vectors, np.float32)
         if store_vecs.ndim == 1:
             store_vecs = store_vecs[None, :]
-        raw = torch.as_tensor(store_vecs, device=self.device)
-        tree_vecs = (self.whitener.transform_torch(raw)
-                     if self.whitener is not None else raw)
+        with profiling.span("serve.upload", device=self.device):
+            raw = torch.as_tensor(store_vecs, device=self.device)
+            profiling.count("insert.syncs")     # a pageable upload waits
+        tree_vecs = self._whiten(raw)
         if tree_vecs.shape[1] != self.cfg.dim:
             raise ValueError(f"vector dim {tree_vecs.shape[1]} != tree dim "
                              f"{self.cfg.dim}")
@@ -281,10 +294,25 @@ class CobwebIndex:
                     raw.clone() if self._pending_vecs is None
                     else torch.cat([self._pending_vecs, raw]))
             if len(self._pending_sids) > self.stale_pending_limit:
+                # the pending ids' upload (dropped above) waits
+                profiling.count("insert.syncs")
                 self._consolidate_pending()
         else:
             self._invalidate_index()
         return out
+
+    def _whiten(self, raw: torch.Tensor) -> torch.Tensor:
+        """Raw rows -> tree space (the whitener's, or as they are)."""
+        if self.whitener is None:
+            return raw
+        with profiling.span("serve.whiten", device=raw.device,
+                            rows=raw.shape[0]):
+            return self.whitener.transform_torch(raw)
+
+    def _rebuild(self, engine: str):
+        """The span and event of a serving-index build."""
+        return profiling.span("index.rebuild", device=self.device, log=True,
+                              engine=engine, rows=len(self.sentences))
 
     def _invalidate_index(self):
         """Drop every serving index and the pending/delta bookkeeping (a
@@ -368,6 +396,12 @@ class CobwebIndex:
         the fresh-leaf closed form on the raw rows ``qs`` -> (B, k) ids.  A
         stable descending sort keeps the JAX order among equal keys:
         indexed, pending, delta."""
+        with profiling.span("tiers.merge", device=qs.device,
+                            pending=len(self._pending_sids),
+                            delta=self._delta_n):
+            return self._merge_tiers(qs, top_s, top_ids, k)
+
+    def _merge_tiers(self, qs, top_s, top_ids, k: int) -> torch.Tensor:
         pv = float(self.cfg.prior_var)
         all_s, all_ids = [top_s], [top_ids.long()]
         if self._pending_sids:
@@ -510,8 +544,9 @@ class CobwebIndex:
                 self._flush_pending()
                 fidx = self.forest.fused_index(dtype=dtype)
             else:
-                fidx = index_mod.build_fused_index(self._flat_pred_index(),
-                                                   dtype=dtype)
+                idx = self._flat_pred_index()
+                with self._rebuild(attr[1:]):
+                    fidx = index_mod.build_fused_index(idx, dtype=dtype)
             setattr(self, attr, fidx)
         return getattr(self, attr)
 
@@ -616,10 +651,11 @@ class CobwebIndex:
         if self.forest is not None:
             return self.forest.build_index()
         if self._index is None:
-            self._index = index_mod.build_index(
-                self.tree, np.asarray(self.leaf_of_sentence, np.int64),
-                level_weights=(self._level_weights
-                               or list(index_mod.DEFAULT_LEVEL_WEIGHTS)))
+            with self._rebuild("prediction"):
+                self._index = index_mod.build_index(
+                    self.tree, np.asarray(self.leaf_of_sentence, np.int64),
+                    level_weights=(self._level_weights
+                                   or list(index_mod.DEFAULT_LEVEL_WEIGHTS)))
             depths = (self._index.paths_h >= 0).sum(1)
             self.max_depth = int(depths.max()) if len(depths) else 0
         return self._index
@@ -649,13 +685,15 @@ class CobwebIndex:
         one, cached separately, for the rerank=0 path-score order."""
         if exact and self.blocked_dtype != "float32":
             if self._blocked_f32 is None:
-                self._blocked_f32 = index_mod.build_blocked_index(
-                    self._flat_pred_index())
+                idx = self._flat_pred_index()
+                with self._rebuild("blocked_f32"):
+                    self._blocked_f32 = index_mod.build_blocked_index(idx)
             return self._blocked_f32
         if self._blocked is None:
-            self._blocked = index_mod.build_blocked_index(
-                self._flat_pred_index(),
-                dtype=getattr(torch, self.blocked_dtype))
+            idx = self._flat_pred_index()
+            with self._rebuild("blocked"):
+                self._blocked = index_mod.build_blocked_index(
+                    idx, dtype=getattr(torch, self.blocked_dtype))
         return self._blocked
 
     def _chunk(self, B: int, row_bytes: int) -> int:
@@ -818,19 +856,18 @@ class CobwebIndex:
         ``encode_func``) as a (B, D) tree-space device batch, and whether
         it was one query; ``with_store``: the raw (store-space) batch
         beside it, from the same one upload."""
-        if is_embedding:
+        if not is_embedding:
+            single = isinstance(input, str)
+            input = np.asarray(self.encode_func(
+                [input] if single else list(input)), np.float32)
+        with profiling.span("serve.upload", device=self.device):
             qs = torch.as_tensor(input, dtype=torch.float32,
                                  device=self.device)
+        if is_embedding:
             single = qs.dim() == 1
-        else:
-            single = isinstance(input, str)
-            qs = torch.as_tensor(np.asarray(self.encode_func(
-                [input] if single else list(input)), np.float32),
-                device=self.device)
         if qs.dim() == 1:
             qs = qs.unsqueeze(0)
-        q = (self.whitener.transform_torch(qs)
-             if self.whitener is not None else qs)
+        q = self._whiten(qs)
         return (q, qs, single) if with_store else (q, single)
 
     def _as_results(self, ids: torch.Tensor, return_ids: bool,
@@ -886,8 +923,10 @@ class CobwebIndex:
         pending, the stale engine's re-ranked pool is merged with the
         pending and delta tiers (``rerank=0``, the path-score order,
         rebuilds first)."""
-        q, qs, _ = self._as_query_batch(queries, True, with_store=True)
-        return self._serve(q, qs, k, rerank)
+        with profiling.span("serve.query", k=k, rerank=rerank) as sp:
+            q, qs, _ = self._as_query_batch(queries, True, with_store=True)
+            sp.set(B=qs.shape[0])
+            return self._serve(q, qs, k, rerank)
 
     def predict_fast(self, input, k: int = 5, return_ids: bool = False,
                      is_embedding: bool = False, tie_noise: bool = False,
@@ -900,10 +939,13 @@ class CobwebIndex:
         path scores plus 1e-6 noise, no re-rank.  Returns a list a query
         of sentences (None for an embedding-only row) or, with
         ``return_ids``, of ids; one query: its list."""
-        q, qs, single = self._as_query_batch(input, is_embedding,
-                                             with_store=True)
-        return self._as_results(self._serve(q, qs, k, rerank, tie_noise),
-                                return_ids, single)
+        with profiling.span("serve.query", k=k, rerank=rerank) as sp:
+            q, qs, single = self._as_query_batch(input, is_embedding,
+                                                 with_store=True)
+            sp.set(B=qs.shape[0])
+            return self._as_results(
+                self._serve(q, qs, k, rerank, tie_noise), return_ids,
+                single)
 
     cobweb_predict_fast = predict_fast
     cobweb_predict_indexed = predict_fast
@@ -915,7 +957,8 @@ class CobwebIndex:
             return self.forest.beam_index()
         idx = self._flat_pred_index()
         if self._beam_cache is None or self._beam_src is not idx:
-            self._beam_cache = index_mod.build_beam_index(idx)
+            with self._rebuild("beam"):
+                self._beam_cache = index_mod.build_beam_index(idx)
             self._beam_src = idx
         return self._beam_cache
 

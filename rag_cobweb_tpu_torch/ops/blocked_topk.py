@@ -16,8 +16,10 @@ is the same function in plain PyTorch.  A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.
 
 ``blocked_topk`` keeps the JAX entries' contract and counts the kernel's
-launches; ``blocked_topk_tiled`` is the same call with the tiled entry's
-default of 16 candidates per block.  The (NB, B, kk) candidates merge with
+launches (``launch.blocked_topk`` in ``utils/profiling``'s registry, and
+``launch.blocked_topk_f32`` those of the f32 entry); ``blocked_topk_tiled``
+is the same call with the tiled entry's default of 16 candidates per
+block.  The (NB, B, kk) candidates merge with
 an exact ``torch.topk`` and slots map through ``sid_of_slot``; the TPU's
 tiled entry merged with ``approx_max_k``, which PyTorch lacks.  The JAX
 package sized its query chunks to VMEM (``pallas_vmem_estimate``,
@@ -44,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from rag_cobweb_tpu_torch.ops import _build
+from rag_cobweb_tpu_torch.utils import profiling
 
 NEG = -3e38
 
@@ -120,7 +123,7 @@ def _f32_rows(ts, D: int):
 
 def _block_candidates(q, q2, bidx, kk: int):
     """(NB, B, kk) candidates of every block, by the kernel on the card
-    (counted on ``blocked_topk.launches``) or the plain version on the
+    (counted on ``launch.blocked_topk``) or the plain version on the
     host."""
     _check(q, q2, bidx, kk)
     if q.device.type == "cpu":
@@ -155,8 +158,9 @@ def _block_candidates(q, q2, bidx, kk: int):
     _build.check(_build.launch(q, lambda stream: fn(
         *(t.data_ptr() for _, t in ts), out_s.data_ptr(), out_t.data_ptr(),
         B, NB, M, D, TS, kk, stream)), "blocked_topk launch")
-    blocked_topk.launches += 1
-    blocked_topk.launches_f32 += bidx.W.dtype == torch.float32
+    profiling.count("launch.blocked_topk")
+    if bidx.W.dtype == torch.float32:
+        profiling.count("launch.blocked_topk_f32")
     return out_s, out_t
 
 
@@ -191,12 +195,9 @@ def blocked_topk(bidx, queries, k: int, block_k: int = 0):
     return _merge(out_s, out_t, bidx, k)
 
 
-blocked_topk.launches = 0       # every launch of the kernel
-blocked_topk.launches_f32 = 0   # those of its f32 entry
-
 
 def blocked_topk_tiled(bidx, queries, k: int, block_k: int = 16):
     """The contract of ``pallas_blocked_topk_tiled``, whose kernel body is
     ``pallas_blocked_topk``'s: ``blocked_topk`` with 16 candidates per
-    block by default.  Its launches count on ``blocked_topk.launches``."""
+    block by default.  Its launches count on ``launch.blocked_topk``."""
     return blocked_topk(bidx, queries, k, block_k)

@@ -14,8 +14,9 @@ entry of ``pallas_fused_group_topk`` over a serving ``FusedIndex``.
 
 Both kernels live in ``csrc/fused_topk.cu``, each with a bf16 entry (on
 wgmma) and an f32 entry (CUDA cores, full f32; the two f32 entries share
-one sweep); a wrapper's ``launches`` counts every launch and
-``launches_f32`` those of the f32 entry.  Every entry loads its query
+one sweep); each launch counts on ``launch.<wrapper>`` in
+``utils/profiling``'s registry, and one of the f32 entry also on
+``launch.<wrapper>_f32``.  Every entry loads its query
 boxes by TMA, so ``_launch`` hands it qq in zero-padded 16-byte rows
 where 2D or its alignment needs it.  Each ``*_plain`` function is the
 same function in plain PyTorch.  A CPU tensor takes the plain version; a
@@ -27,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from rag_cobweb_tpu_torch.ops import _build
+from rag_cobweb_tpu_torch.utils import profiling
 
 SLAB = 2048  # slab width = core/index._FUSED_ROW_BUCKET
 GROUP = 128  # rows per group of the group pool
@@ -126,13 +128,14 @@ def slab_topk(qq, GT, c, valid, kappa: int):
     if qq.device.type == "cpu":
         return slab_topk_plain(qq, GT, c, valid, kappa)
     out = _launch("fused_topk", qq, GT, c, valid, kappa, kappa)
-    slab_topk.launches += 1
-    slab_topk.launches_f32 += GT.dtype == torch.float32
+    _count("launch.slab_topk", GT)
     return out
 
 
-slab_topk.launches = 0       # every launch of the kernel
-slab_topk.launches_f32 = 0   # those of its f32 entry
+def _count(name: str, GT):
+    profiling.count(name)
+    if GT.dtype == torch.float32:
+        profiling.count(name + "_f32")
 
 
 def slab_group_topk_plain(qq, GT, c, valid, per_group: int):
@@ -163,13 +166,8 @@ def slab_group_topk(qq, GT, c, valid, per_group: int):
         return slab_group_topk_plain(qq, GT, c, valid, per_group)
     out = _launch("fused_group_topk", qq, GT, c, valid, per_group,
                   per_group * NG)
-    slab_group_topk.launches += 1
-    slab_group_topk.launches_f32 += GT.dtype == torch.float32
+    _count("launch.slab_group_topk", GT)
     return out
-
-
-slab_group_topk.launches = 0       # every launch of the kernel
-slab_group_topk.launches_f32 = 0   # those of its f32 entry
 
 
 def fused_group_topk(fidx, queries, k: int, per_group: int = 2):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from rag_cobweb_tpu_torch.ops import _build
+from rag_cobweb_tpu_torch.utils import profiling
 
 _ENTRY = {torch.float32: "rerank_l2", torch.bfloat16: "rerank_l2_bf16"}
 
@@ -71,11 +72,7 @@ def rerank_lp(emb, queries, cand, cand_scores, prior_var):
         emb.data_ptr(), queries.data_ptr(), cand.data_ptr(),
         cand_scores.data_ptr(), out.data_ptr(), B, C, D, float(pv.item()),
         float(d_log_pv.item()), stream)), f"{entry} launch")
-    rerank_lp.launches += 1
+    profiling.count("launch.rerank_lp")
     if emb.dtype == torch.bfloat16:
-        rerank_lp.launches_bf16 += 1
+        profiling.count("launch.rerank_lp_bf16")
     return out
-
-
-rerank_lp.launches = 0
-rerank_lp.launches_bf16 = 0     # the bf16-row entry's (also in launches)

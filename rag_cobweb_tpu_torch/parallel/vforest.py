@@ -35,6 +35,14 @@ stores ``means``/``m2s`` in bf16 after the build (every read upcasts);
 exists (the next add or index build moves it back first); a forest built
 on the host (``build_device="cpu"``) moves to its serving device with
 ``to_device``.
+
+Spans and counters (``utils/profiling``): ``insert.route``,
+``insert.rounds`` (one a ``_rounds`` call), ``insert.retry``,
+``insert.exact``, ``index.rebuild`` around the fused, flat, beam and
+stacked index builds (also logged in ``profiling.events()``),
+``engine.lane_scores`` and ``engine.lane_merge`` in the small-forest
+query; each call where an insert waits on the device counts on
+``insert.syncs`` beside it.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from rag_cobweb_tpu_torch.parallel.stacked import (StackedIndex,
                                                    build_stacked_index,
                                                    extend_bookkeeping,
                                                    lane_slots)
+from rag_cobweb_tpu_torch.utils import profiling
 
 _MAX_STEPS = 16     # primary descent budget
 _DEEP_STEPS = 48    # retry-wave budget
@@ -130,8 +139,12 @@ def _vforest_query(idx: StackedIndex, q: torch.Tensor, k: int):
     (leaf log-probs (B, k'), global ids (B, k')), the query batch chunked
     by ``QUERY_BUDGET``."""
     bmax = _query_chunk(idx, q.shape[0])
-    outs = [_lane_merge(idx, *_lane_node_scores(idx, q[s:s + bmax]), k)
-            for s in range(0, q.shape[0], bmax)]
+    outs = []
+    for s in range(0, q.shape[0], bmax):
+        with profiling.span("engine.lane_scores", device=q.device):
+            nlp, scores = _lane_node_scores(idx, q[s:s + bmax])
+        with profiling.span("engine.lane_merge", device=q.device, k=k):
+            outs.append(_lane_merge(idx, nlp, scores, k))
     return (torch.cat([o[0] for o in outs]),
             torch.cat([o[1] for o in outs]))
 
@@ -355,6 +368,7 @@ class VForest:
         if needed <= cap:
             return
         self._alloc_hi = int(self.state.n_alloc.max())
+        profiling.count("insert.syncs")     # the read waits
         needed = self._alloc_hi + 2 * rounds + 8
         if needed <= cap:
             return
@@ -368,12 +382,17 @@ class VForest:
         (which then applied nothing) or the mask is off."""
         K, R = mask.shape
         leaves = np.full((K, R), -1, np.int64)
-        mask_t = torch.as_tensor(mask, device=self.device)
         graph = self._step_graph()
-        for r in range(n_rounds):
-            lf = tree_mod.descend(self.state, xs[:, r], mask_t[:, r],
-                                  self.cfg, max_steps, self._gen, graph)
-            leaves[:, r] = lf.cpu().numpy()
+        with profiling.span("insert.rounds", rounds=n_rounds, lanes=K,
+                            max_steps=max_steps,
+                            counters=profiling.INSERT_COUNTERS):
+            mask_t = torch.as_tensor(mask, device=self.device)
+            profiling.count("insert.syncs")     # a pageable upload waits
+            for r in range(n_rounds):
+                lf = tree_mod.descend(self.state, xs[:, r], mask_t[:, r],
+                                      self.cfg, max_steps, self._gen, graph)
+                leaves[:, r] = lf.cpu().numpy()
+                profiling.count("insert.syncs")     # the leaf read waits
         return leaves
 
     def _step_graph(self) -> "tree_mod.StepGraph | None":
@@ -390,7 +409,6 @@ class VForest:
         """Retry the descents the primary budget cut, in ``_RETRY_W``-wide
         waves at ``_DEEP_STEPS``, then one at a time at ``_EXACT_STEPS``;
         move the primary budget along its ladder."""
-        K = self.K
         need = (leaves < 0) & valid
         n_deep = int(need.sum())
         self._deep_frac = 0.7 * self._deep_frac + 0.3 * (
@@ -400,6 +418,13 @@ class VForest:
                                                         _DEEP_STEPS)
         if not n_deep:
             return
+        with profiling.span("insert.retry", rows=n_deep,
+                            counters=profiling.INSERT_COUNTERS):
+            self._retry_waves(leaves, xs_t, need)
+
+    def _retry_waves(self, leaves: np.ndarray, xs_t: torch.Tensor,
+                     need: np.ndarray):
+        K = self.K
         pend_idx = [np.nonzero(need[s])[0] for s in range(K)]
         R2 = int(need.sum(1).max())
         for w0 in range(0, R2, _RETRY_W):
@@ -412,8 +437,10 @@ class VForest:
             wave_max = int(mask2.sum(1).max())
             if not wave_max:
                 break
+            profiling.count("insert.retry_waves")
             lane_ix = torch.arange(K, device=self.device).unsqueeze(1)
             xs2 = xs_t[lane_ix, torch.as_tensor(sel, device=self.device)]
+            profiling.count("insert.syncs")     # a pageable upload waits
             leaf2 = self._rounds(xs2, mask2, wave_max, _DEEP_STEPS)
             rows, cols = np.nonzero(mask2 & (leaf2 >= 0))
             leaves[rows, sel[rows, cols]] = leaf2[rows, cols]
@@ -424,7 +451,15 @@ class VForest:
         """Insert each row ``xs_t[s, c]`` where ``need[s, c]`` alone on the
         exact path, lane by lane in row order; its leaf goes to ``leaves[s,
         slot_of[s, c]]`` (``slot_of`` defaults to ``c``)."""
+        if not need.any():
+            return
+        with profiling.span("insert.exact", rows=int(need.sum()),
+                            counters=profiling.INSERT_COUNTERS):
+            self._exact_each(xs_t, need, leaves, slot_of)
+
+    def _exact_each(self, xs_t, need, leaves, slot_of):
         for s, c in np.argwhere(need):
+            profiling.count("insert.exact")
             one = np.zeros((self.K, 1), bool)
             one[s, 0] = True
             lf = self._rounds(xs_t[:, c:c + 1], one, 1, _EXACT_STEPS)
@@ -461,6 +496,8 @@ class VForest:
             c += 1e-3 * rng.standard_normal(c.shape).astype(np.float32)
         self._centroids = c
         for _ in range(3):
+            # two pageable uploads and the scores' read wait
+            profiling.count("insert.syncs", 3)
             assign = np.argmax(self._lane_scores(x), axis=1)
             sums = np.zeros_like(c)
             cnt = np.zeros(K, np.int64)
@@ -492,6 +529,7 @@ class VForest:
         B = len(x)
         if self._centroids is None:
             self._init_centroids(x)
+        profiling.count("insert.syncs", 3)     # as in _init_centroids
         s = self._lane_scores(x)
         if K == 1:
             return np.zeros(B, np.int32)
@@ -583,9 +621,14 @@ class VForest:
         gids = np.arange(self.n_sentences, self.n_sentences + B)
         if B == 0:
             return gids
-        lane_of = (self._route_lanes(xs.cpu().numpy())
-                   if self.routing == "content" else gids % K)
-        slot = lane_slots(lane_of, K)
+        with profiling.span("insert.route", rows=B, routing=self.routing):
+            if self.routing == "content":
+                x_host = xs.cpu().numpy()
+                profiling.count("insert.syncs")     # the read waits
+                lane_of = self._route_lanes(x_host)
+            else:
+                lane_of = gids % K
+            slot = lane_slots(lane_of, K)
         leaves = self.insert_packed(xs, lane_of, slot, self._budget)
         extend_bookkeeping(self, lane_of, slot, leaves)
         return gids
@@ -606,7 +649,9 @@ class VForest:
         self._stacked_index = None
         self._ensure_capacity(R + 1)
         lane_t = torch.as_tensor(lane_of, device=self.device)
+        profiling.count("insert.syncs")     # a pageable upload waits
         slot_t = torch.as_tensor(slot, device=self.device)
+        profiling.count("insert.syncs")
         xs_t = torch.zeros((K, R, xs.shape[1]), dtype=torch.float32,
                            device=self.device)
         xs_t[lane_t, slot_t] = xs.to(self.device, torch.float32)
@@ -637,17 +682,24 @@ class VForest:
         chase = 32
         if self.cfg.absorb_depth:
             chase = max(chase, self.cfg.absorb_depth + 8)
-        return index_mod.build_fused_from_state(
-            self.cfg, self._resident(), self._leaf_global(), dtype=dtype,
-            chase_depth=chase)
+        with self._rebuild("fused"):
+            return index_mod.build_fused_from_state(
+                self.cfg, self._resident(), self._leaf_global(),
+                dtype=dtype, chase_depth=chase)
+
+    def _rebuild(self, engine: str):
+        """The span and event of an index build over the forest."""
+        return profiling.span("index.rebuild", device=self.device, log=True,
+                              engine=engine, rows=self.n_sentences)
 
     def flat_index(self) -> "index_mod.PredictionIndex":
         """The whole forest flattened to one PredictionIndex over global
         sentence ids (``core/index.build_flat_forest_index``), the input of
         the blocked engines; cached until the next ``add``."""
         if self._flat_index is None:
-            self._flat_index = index_mod.build_flat_forest_index(
-                self.cfg, self._resident(), self._leaf_global())
+            with self._rebuild("flat"):
+                self._flat_index = index_mod.build_flat_forest_index(
+                    self.cfg, self._resident(), self._leaf_global())
         return self._flat_index
 
     def beam_index(self) -> "index_mod.BeamIndex":
@@ -655,7 +707,8 @@ class VForest:
         the flat index is (after an add)."""
         idx = self.flat_index()
         if self._beam_idx is None or self._beam_src is not idx:
-            self._beam_idx = index_mod.build_beam_index(idx)
+            with self._rebuild("beam"):
+                self._beam_idx = index_mod.build_beam_index(idx)
             self._beam_src = idx
             self._beam_depth = int((idx.paths_h >= 0).sum(-1).max(initial=1))
         return self._beam_idx
@@ -724,9 +777,10 @@ class VForest:
         """The stacked per-lane index (``parallel/stacked``), cached until
         the next ``add``."""
         if self._stacked_index is None:
-            self._stacked_index = build_stacked_index(
-                self.cfg, self._resident(), self._leaf_of_local, self.shard_of,
-                self.local_sid, self.n_sentences)
+            with self._rebuild("stacked"):
+                self._stacked_index = build_stacked_index(
+                    self.cfg, self._resident(), self._leaf_of_local,
+                    self.shard_of, self.local_sid, self.n_sentences)
         return self._stacked_index
 
     def _queries(self, queries) -> torch.Tensor:

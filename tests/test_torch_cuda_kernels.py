@@ -16,6 +16,12 @@ import torch
 pytestmark = pytest.mark.cuda
 
 
+def _launches(name: str) -> int:
+    """The registry's count of launches ``launch.<name>``."""
+    from rag_cobweb_tpu_torch.utils import profiling
+    return profiling.counter("launch." + name)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -126,9 +132,9 @@ def test_fused_topk_f32_kernel_at_the_served_shape(card, B):
     through one launch of the f32 entry."""
     from rag_cobweb_tpu_torch.ops import fused_topk
     args = _dyadic_sweep(card, torch.float32, B, 496, 10240, 10000, B)
-    before = fused_topk.slab_topk.launches_f32
+    before = _launches("slab_topk_f32")
     _same_pool(fused_topk, *args, 10)
-    assert fused_topk.slab_topk.launches_f32 == before + 1
+    assert _launches("slab_topk_f32") == before + 1
 
 
 @pytest.mark.parametrize("kappa", [10, 1024])
@@ -369,9 +375,9 @@ def test_blocked_topk_f32_kernel_at_the_served_shape(card, B):
     g = torch.Generator(device=card).manual_seed(B)
     q = torch.randint(-8, 9, (B, 248), generator=g, device=card).float() / 8
     qd, q2 = bt._queries(bidx, q)
-    before = bt.blocked_topk.launches_f32
+    before = _launches("blocked_topk_f32")
     ks, ki = bt._block_candidates(qd, q2, bidx, 10)
-    assert bt.blocked_topk.launches_f32 == before + 1
+    assert _launches("blocked_topk_f32") == before + 1
     ps, pi = bt.block_candidates_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
                                        bidx.const_b, bidx.W, bidx.valid, 10)
     full, _ = bt.block_scores_plain(qd, q2, bidx.ivt_b, bidx.movt_b,
@@ -446,15 +452,15 @@ def test_blocked_topk_f32_kernel_unaligned_batch_and_ragged_width(card,
 def test_blocked_entries_agree_on_the_card(card):
     """Both entries on a ragged batch (45 queries, no multiple of the
     kernel's query tile) give the host's plain merged pool, and each call
-    is one launch on ``blocked_topk.launches``."""
+    is one launch on ``launch.blocked_topk``."""
     from rag_cobweb_tpu_torch.ops import blocked_topk as bt
     bidx = _blocked_index(card, torch.bfloat16, 6, 64, 24, 64, 30, 1)
     q = torch.randint(-8, 9, (45, 24), device=card).float() / 8
     host = type(bidx)(*(t.cpu() for t in bidx))
     for entry in (bt.blocked_topk, bt.blocked_topk_tiled):
-        before = bt.blocked_topk.launches
+        before = _launches("blocked_topk")
         s1, _ = entry(bidx, q, 40, block_k=8)
-        assert bt.blocked_topk.launches == before + 1
+        assert _launches("blocked_topk") == before + 1
         s2, _ = entry(host, q.cpu(), 40, block_k=8)
         torch.testing.assert_close(s1.cpu(), s2, rtol=1e-3, atol=1e-3)
 
@@ -561,9 +567,9 @@ def test_f32_entries_at_every_query_tile(card, B):
     qq, GT, c, valid = _dyadic_sweep(card, torch.float32, B, 523, Sp, 9000,
                                      B)
     valid[3 * ft.GROUP + 2:4 * ft.GROUP] = False
-    before = ft.slab_group_topk.launches_f32
+    before = _launches("slab_group_topk_f32")
     _group_holds(ft, qq, GT, c, valid, 5, exact=True)
-    assert ft.slab_group_topk.launches_f32 == before + 1
+    assert _launches("slab_group_topk_f32") == before + 1
     _same_pool(ft, qq, GT, c, valid, 10)
 
 
@@ -633,9 +639,8 @@ def test_fused_kernels_take_an_unaligned_query_batch(card, twoD, dtype):
 def test_kernels_count_their_launches(card):
     from rag_cobweb_tpu_torch.ops import blocked_topk as bt
     from rag_cobweb_tpu_torch.ops import fused_topk, rerank
-    entries = (fused_topk.slab_topk, fused_topk.slab_group_topk,
-               rerank.rerank_lp, bt.blocked_topk)
-    before = [f.launches for f in entries]
+    names = ("slab_topk", "slab_group_topk", "rerank_lp", "blocked_topk")
+    before = [_launches(n) for n in names]
     gt_args = (torch.ones((2, 4), device=card),
                torch.ones((4, 2048), device=card),
                torch.zeros(2048, device=card),
@@ -650,7 +655,7 @@ def test_kernels_count_their_launches(card):
     q = torch.ones((3, 8), device=card)
     bt.blocked_topk(bidx, q, 4)
     bt.blocked_topk_tiled(bidx, q, 4)        # the same kernel and counter
-    assert [f.launches for f in entries] == [n + 1 for n in before[:3]] + [
+    assert [_launches(n) for n in names] == [n + 1 for n in before[:3]] + [
         before[3] + 2]
 
 
@@ -765,14 +770,14 @@ def test_single_tree_serves_the_same_ids_on_the_card(card, threshold,
         db = CobwebIndex(corpus_embeddings=rows, device=dev)
         db.blocked_threshold = threshold
         db.fused_dtype = fused_dtype
-        k1, k5 = fused_topk.slab_topk.launches, rr.rerank_lp.launches
+        k1, k5 = _launches("slab_topk"), _launches("rerank_lp")
         out.append(db.query_ids(qs, 10, rerank=rerank).cpu().numpy())
         leaves.append(db.leaf_of_sentence)
     assert leaves[1] == leaves[0]
     if dev == card and threshold < len(rows):
-        assert fused_topk.slab_topk.launches > k1
+        assert _launches("slab_topk") > k1
     if rerank:
-        assert rr.rerank_lp.launches > k5
+        assert _launches("rerank_lp") > k5
     if fused_dtype == "float32" and rerank:
         np.testing.assert_array_equal(out[1], out[0])
     elif fused_dtype == "float32":     # raw path-score order: ties permute
@@ -866,9 +871,9 @@ def test_backstop_pool_through_kernel_1_matches_plain(card, B, c):
     GT[:, 5800:] = 0                       # the store's zero padding
     half = 0.5 * torch.sum(torch.square(GT.float()), dim=0)
     q = torch.randn((B, Dw), generator=g, device=card)
-    before = fused_topk.slab_topk.launches
+    before = _launches("slab_topk")
     ks, ki = backstop_topk(GT, half, q, c, n_valid, True)
-    assert fused_topk.slab_topk.launches == before + 1
+    assert _launches("slab_topk") == before + 1
     ps, pi = backstop_topk(GT.cpu(), half.cpu(), q.cpu(), c, n_valid,
                            True)
     ks, ki = ks.cpu(), ki.cpu().long()
@@ -919,12 +924,12 @@ def test_backstop_and_tiers_serve_the_hosts_recall_on_the_card(card):
                                  data.corpus_embs[n:n + size])
                 assert db._fused is fused
                 n += size
-            k1, k5 = fused_topk.slab_topk.launches, rerank.rerank_lp.launches
+            k1, k5 = _launches("slab_topk"), _launches("rerank_lp")
             ids = db.query_ids(data.query_embs, 10, rerank=24).cpu().numpy()
             if dev != "cpu":
                 tiers = 1 if db._pending_sids else 0
-                assert fused_topk.slab_topk.launches - k1 == 2
-                assert rerank.rerank_lp.launches - k5 == 1 + tiers
+                assert _launches("slab_topk") - k1 == 2
+                assert _launches("rerank_lp") - k5 == 1 + tiers
             got.append(np.mean([t in row for t, row in
                                 zip(data.target_ids, ids)]))
             if size:
@@ -943,9 +948,8 @@ def test_single_tree_serves_adds_on_the_card(card, source):
     one) served on the card and on the host through adds that fill the
     pending tier and move it into the delta segment (limit lowered), f32
     fused index: the same ids at every step, the serving index kept, and
-    on the card the pending tier through kernel 5 (counted in
-    ``TIER_LAUNCHES``) while rows wait in it."""
-    from rag_cobweb_tpu_torch.core import index as index_mod
+    on the card the pending tier through kernel 5 (counted on
+    ``launch.pending``) while rows wait in it."""
     from rag_cobweb_tpu_torch.core.wrapper import CobwebIndex
     rng = np.random.default_rng(11)
     centers = rng.normal(scale=3.0, size=(8, 16))
@@ -968,10 +972,10 @@ def test_single_tree_serves_adds_on_the_card(card, source):
             db.add_sentences([None] * size, xs[n:n + size])
             n += size
             assert db._index is index
-            p0 = index_mod.TIER_LAUNCHES["pending"]
+            p0 = _launches("pending")
             got.append(db.query_ids(xs[::13], 5, rerank=16).cpu().numpy())
             if dev != "cpu":
-                assert index_mod.TIER_LAUNCHES["pending"] - p0 == (
+                assert _launches("pending") - p0 == (
                     1 if db._pending_sids else 0)
         assert (db._unindexed_count(), db._delta_n) == (80, 60)
         out.append(got)
@@ -999,10 +1003,10 @@ def test_small_forest_serves_on_the_card(card, routing):
         db = CobwebIndex(corpus_embeddings=xs[:400],
                          config=TreeConfig(dim=16), n_subtrees=8,
                          routing=routing, device=dev)
-        n0 = rerank.rerank_lp.launches
+        n0 = _launches("rerank_lp")
         got = [db.query_ids(q, 10).cpu().numpy()]
         if dev != "cpu":
-            assert rerank.rerank_lp.launches - n0 == 1
+            assert _launches("rerank_lp") - n0 == 1
         got.append(np.sort(db.query_ids(q, 10, rerank=0).cpu().numpy(), 1))
         got.append(db.rank_scores(q, is_embedding=True).cpu().numpy())
         db.add_sentences([None] * 40, xs[400:])
@@ -1077,10 +1081,10 @@ def test_rerank_bf16_entry_matches_plain(card, B, D, S, C):
     cs[:, ::7] = -math.inf
     cs[B // 2] = -math.inf
     pv = 1.0 / (2.0 * math.e * math.pi)
-    n0, b0 = rerank.rerank_lp.launches, rerank.rerank_lp.launches_bf16
+    n0, b0 = _launches("rerank_lp"), _launches("rerank_lp_bf16")
     lk = rerank.rerank_lp(emb, q, cand, cs, pv)
-    assert (rerank.rerank_lp.launches - n0,
-            rerank.rerank_lp.launches_bf16 - b0) == (1, 1)
+    assert (_launches("rerank_lp") - n0,
+            _launches("rerank_lp_bf16") - b0) == (1, 1)
     lp = rerank.rerank_lp_plain(emb, q, cand, cs, pv)
     torch.cuda.synchronize()
     fin = torch.isfinite(lp)
@@ -1177,11 +1181,11 @@ def test_bf16_store_serves_through_its_entry(card):
         db, xs = _tool_forest(card, dev)
         db.emb_store_dtype = "bfloat16"
         q = xs[:600:7] + 0.05
-        b0 = rerank.rerank_lp.launches_bf16
+        b0 = _launches("rerank_lp_bf16")
         out.append(db.query_ids(q, 10, rerank=32).cpu().numpy())
         assert db._emb_device().dtype == torch.bfloat16
         if dev != "cpu":
-            assert rerank.rerank_lp.launches_bf16 - b0 == 1
+            assert _launches("rerank_lp_bf16") - b0 == 1
     np.testing.assert_array_equal(out[1], out[0])
 
 
@@ -1239,12 +1243,12 @@ def test_zca_forests_serve_the_hosts_ids_on_the_card(card, kind, tmp_path):
     for x in (host, db):
         x.blocked_threshold = 64
         x.fused_dtype = "float32"
-        l0, r0 = fused_topk.slab_topk.launches_f32, rerank.rerank_lp.launches
+        l0, r0 = _launches("slab_topk_f32"), _launches("rerank_lp")
         out.append(x.query_ids(data.query_embs, 10, rerank=128)
                    .cpu().numpy())
         if x.device.type == "cuda":
-            assert fused_topk.slab_topk.launches_f32 > l0
-            assert rerank.rerank_lp.launches > r0
+            assert _launches("slab_topk_f32") > l0
+            assert _launches("rerank_lp") > r0
     pv, D = float(db.cfg.prior_var), raw.shape[1]
     for qi in np.nonzero((out[0] != out[1]).any(axis=1))[0]:
         qs = torch.as_tensor(data.query_embs[qi:qi + 1], device=card)

@@ -38,6 +38,7 @@ from rag_cobweb_tpu_torch.core.config import TreeConfig
 from rag_cobweb_tpu_torch.ops import fused_topk
 from rag_cobweb_tpu_torch.scripts import (ingress_rehearsal, pipeline_probe,
                                           run_8m)
+from rag_cobweb_tpu_torch.utils import profiling
 from rag_cobweb_tpu_torch.whitening import PCAICAWhiteningModel
 
 torch.set_num_threads(1)
@@ -155,10 +156,10 @@ def test_pipeline_probe_grouped_arm_is_kernel_2(cache):
         corpus, queries = z["corpus_w"][:2048], z["queries_w"]
     db, _ = pipeline_probe.build(corpus, 8, "cpu", log=lambda *a, **k: None)
     db.blocked_threshold = 512
-    n0 = fused_topk.slab_group_topk.launches
+    n0 = profiling.counter("launch.slab_group_topk")
     rows = pipeline_probe.probe(db, queries, batch=64, pool=128, probes=1,
                                 log=lambda *a, **k: None)
-    assert fused_topk.slab_group_topk.launches == n0    # host: plain
+    assert profiling.counter("launch.slab_group_topk") == n0  # host: plain
     pg = rows["config"]["per_group"]
     fidx = db._fused_index()
     q = torch.as_tensor(queries[:64])

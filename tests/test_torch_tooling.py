@@ -184,11 +184,11 @@ def test_phase_timer_accumulates_and_syncs_only_on_the_card():
 def test_trace_writes_a_chrome_trace_with_the_annotations(tmp_path):
     x = torch.randn(64, 64)
     with profiling.trace(str(tmp_path / "trace"), device="cpu") as prof:
-        with profiling.annotate("rag_matmul"):
+        with profiling.span("bench.matmul"):
             torch.matmul(x, x)
     text = (tmp_path / "trace" / profiling.TRACE_FILE).read_text()
-    assert '"rag_matmul"' in text and '"traceEvents"' in text
-    assert "rag_matmul" in {e.key for e in prof.key_averages()}
+    assert '"bench.matmul"' in text and '"traceEvents"' in text
+    assert "bench.matmul" in {e.key for e in prof.key_averages()}
 
 
 def test_logger_is_idempotent_and_writes_its_file(tmp_path):
