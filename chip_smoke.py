@@ -15,7 +15,11 @@ Each phase prints its seconds on a line of its own (``[phase] <name>
    never calls (device time: the timed calls queue behind a sleeping
    kernel, so the host's launch time is not counted): the fused pool at
    the flagship shape, a ragged one, 1M rows (kappa 16) and 2D = 1536 (the
-   query boxes carried through the ring), the re-rank at the flagship
+   query boxes carried through the ring), its pruned pool at the batch
+   cell's shapes (1M rows, 2D = 256, pool 512, B = 32, 256 and 1024; the
+   backstop's 605 slabs at 2D = 128, B = 1024) against its plain version
+   and beside the per-slab pools it replaces there, and the serving path's
+   two pools in a launch window, the re-rank at the flagship
    shape and at 1M rows, the blocked sweep on a dyadic index of the 100k
    cell's recorded shape at B = 1, 8, 32, 1024 and 4096 (exact scores: no
    id may differ; untimed), one of TS=1024 (each block split over a
@@ -504,6 +508,136 @@ def check_fused(fused_topk, qq, GT, c, valid, kappa, reps, label="",
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             **rec_terms}
+
+
+def check_pruned(fused_topk, qq, GT, c, valid, k, reps, label=""):
+    """Kernel 1's pruned pool (``pool_sweep`` and ``pool_select``, the
+    pruned path forced) against its plain version (``pruned_sweep_plain``
+    then ``pruned_select``, 128 queries at a time): scores within 1e-3 +
+    1e-3 |score|, ids equal except among scores tied within that with the
+    k-th; and against the per-slab kernel's pools on the same card, which
+    share its sweep: the same top k, scores and ids, bit for bit (both
+    break ties to the lower id).  Timed beside the per-slab path
+    (``merge(*slab_topk(...))``), the function's bound (one sweep, a pool
+    of k out), the plain version and ``matmul`` + ``topk``; the survivors a
+    query (``probes.pool_survivors``).  Returns the record."""
+    from rag_cobweb_tpu_torch.bench import probes
+    SLAB = fused_topk.SLAB
+    B, twoD = qq.shape
+    Sp = GT.shape[1]
+    kappa = min(k, SLAB)
+    cap = fused_topk.prune_cap(k)
+    step = 128
+
+    def pruned():
+        # the path's device work: its passes and final selection (the
+        # overflow count's read to the host left out)
+        return fused_topk.pruned_select(fused_topk.pruned_sweep(
+            qq, GT, c, valid, k))
+
+    def per_slab():
+        return fused_topk.merge(*fused_topk.slab_topk(qq, GT, c, valid,
+                                                      kappa), k)
+
+    def plain(r0):
+        return fused_topk.pruned_select(fused_topk.pruned_sweep_plain(
+            qq[r0:r0 + step], GT, c, valid, k, cap))[0]
+
+    pend = fused_topk.pool_sweep(qq, GT, c, valid, k, pruned=True)
+    ts, ti = fused_topk.pool_select(pend)
+    surv = probes.pool_survivors(pend)
+    del pend
+    err, n_diff = 0.0, 0
+    for r0 in range(0, B, step):
+        ps, pi = plain(r0)
+        gs, gi = ts[r0:r0 + step], ti[r0:r0 + step]
+        fin = torch.isfinite(ps)
+        if not torch.equal(fin, torch.isfinite(gs)):
+            raise AssertionError(f"pruned pool{label} B={B}: -inf pattern "
+                                 "differs from the plain version's")
+        d = (gs - ps).abs()[fin]
+        if bool((d > 1e-3 + 1e-3 * ps.abs()[fin]).any()):
+            raise AssertionError(f"pruned pool{label} B={B}: scores differ "
+                                 "from the plain version's beyond the "
+                                 f"tolerance (max {float(d.max()):.3g})")
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+        n = len(ps)
+        mk = torch.zeros((n, Sp + 1), dtype=torch.bool, device=qq.device)
+        mp = torch.zeros_like(mk)
+        mk.scatter_(1, torch.where(gi < 0, Sp, gi).long(), True)
+        mp.scatter_(1, torch.where(pi < 0, Sp, pi).long(), True)
+        diff = (mk ^ mp)[:, :Sp]
+        if bool(diff.any()):
+            full = fused_topk.slab_scores_plain(
+                qq[r0:r0 + step], GT, c, valid, -math.inf).reshape(n, Sp)
+            kth = ps[:, -1:]
+            near = (full - kth).abs() <= 1e-3 + 1e-3 * kth.abs()
+            if bool((diff & ~near).any()):
+                raise AssertionError(f"pruned pool{label} B={B}: ids differ "
+                                     "from the plain version's beyond ties "
+                                     "with the k-th")
+            n_diff += int(diff.sum())
+            del full, kth, near
+        del mk, mp, diff, ps, pi
+    ks, ki = fused_topk.slab_topk(qq, GT, c, valid, kappa)
+    rs, ri = fused_topk.select_keys(ks.permute(1, 0, 2).reshape(B, -1),
+                                    ki.permute(1, 0, 2).reshape(B, -1), k)
+    del ks, ki
+    torch.cuda.synchronize()
+    if not (torch.equal(ts, rs) and torch.equal(ti, ri)):
+        raise AssertionError(f"pruned pool{label} B={B}: not the per-slab "
+                             "pools' top k")
+    del rs, ri, ts, ti
+    torch.cuda.empty_cache()
+    ms = cuda_ms(pruned, reps)
+    slab_ms = cuda_ms(per_slab, reps)
+    plain_ms = cuda_ms(lambda: [plain(r0) for r0 in range(0, B, step)], 1,
+                       warmup=0)
+
+    def library():
+        s = torch.matmul(qq, GT).float() + c
+        s.masked_fill_(~valid, -math.inf)
+        return torch.topk(s, k, dim=1)
+
+    lib_ms = cuda_ms(library, reps)
+    esz = GT.element_size()
+    nbytes = (qq.numel() * esz + GT.numel() * esz + Sp * 4 + Sp
+              + B * k * 8)
+    b_ms, b_by = bound(nbytes, 2.0 * B * twoD * Sp, peak_flops(GT))
+    rec = {"ms": ms, "per_slab_ms": slab_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "max_abs_err": err, "boundary_tie_ids": n_diff,
+           "survivors": surv}
+    log(f"[kernel] pruned pool{label} B={B} 2D={twoD} Sp={Sp} k={k} "
+        f"NS={Sp // SLAB} {GT.dtype}: " + json.dumps(rec))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def pruned_window(sweep_in, store_in, k, probes):
+    """The serving path's two pools of ``k`` (the batch cell's: 512, at B =
+    1024) in a launch window of their own:
+    ``index.fused_query_topk`` over a fused index of ``sweep_in``'s GT and
+    ``index.backstop_topk`` over ``store_in``'s as a whitened store in GT
+    layout.  Both take the pruned path by the shape rule (two counts on
+    ``launch.slab_topk_pruned``) and no query overflows.  Returns the
+    window's counters."""
+    from types import SimpleNamespace
+    from rag_cobweb_tpu_torch.core import index as index_mod
+    qq, GT, c, valid = sweep_in
+    sq, W, wc, wvalid = store_in
+    fidx = SimpleNamespace(GT=GT, c=c, valid=valid)
+    q = qq[:, :GT.shape[0] // 2].float()
+    probes.zero_counters()
+    index_mod.fused_query_topk(fidx, q, k)
+    index_mod.backstop_topk(W, -wc, sq.float(), k, int(wvalid.sum()), True)
+    torch.cuda.synchronize()
+    w = probes.read_counters()
+    if (w["fused_topk_pruned"], w["pool_overflow"]) != (2, 0):
+        raise AssertionError(f"pruned window: {w}")
+    log(f"[kernel] pruned pool window (the serving path's pools, B={len(q)}): "
+        f"{json.dumps(w)}")
+    return w
 
 
 def rerank_inputs(B, C, D, S, seed, dtype=torch.float32):
@@ -3116,6 +3250,21 @@ def main() -> int:
     check_fused(fused_topk, *fused_inputs(1024, 496, 1 << 20,
                                           (1 << 20) - 1000, seed=2), 16,
                 reps=3)
+    # the pruned pool at the batch cell's shapes beside the per-slab path
+    # it replaces there: the sweep's (1M rows, 2D = 256, pool 512) at B =
+    # 32, 256 and 1024, the backstop's (a whitened store of 605 slabs, 2D =
+    # 128) at B = 1024, and both through the serving path's entries in a
+    # launch window
+    fin = fused_inputs(1024, 256, 1 << 20, (1 << 20) - 1000, seed=3)
+    pruned = {f"B{B}": check_pruned(fused_topk, fin[0][:B], *fin[1:], 512,
+                                    reps=3)
+              for B in (32, 256, 1024)}
+    win = fused_inputs(1024, 128, 605 * 2048, 1 << 20, seed=4)
+    pruned["backstop"] = check_pruned(fused_topk, *win, 512, reps=3,
+                                      label=" backstop")
+    pruned["window"] = pruned_window(fin, win, 512, probes)
+    del fin, win
+    torch.cuda.empty_cache()
     # 2D = 1536 (an index at the encoder's width): query boxes carried
     check_fused(fused_topk, *fused_inputs(1024, 1536, 10240, 10000, seed=5),
                 1024, reps=5)
@@ -3580,6 +3729,13 @@ def main() -> int:
         dict(name="fused_topk", route="cuda", source=src + "fused_topk.cu",
              replaces="rag_cobweb_tpu/ops/pallas_query.py:243",
              launches=launches["fused_topk"], **main_f,
+             # phase 2: the pruned pool at the batch cell's shapes (B=1024
+             # at the top, the sweep's pool), its launches and overflows
+             # in the serving path's window
+             pruned=dict(launches=pruned["window"]["fused_topk_pruned"],
+                         overflow=pruned["window"]["pool_overflow"],
+                         **pruned["B1024"], B32=pruned["B32"],
+                         B256=pruned["B256"], backstop=pruned["backstop"]),
              single_tree=dict(launches=windows["single"]["fused_topk"],
                               **single["fused"]),
              backstop=dict(launches=launches["backstop"], **scale[1024],

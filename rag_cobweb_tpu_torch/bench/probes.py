@@ -4,8 +4,10 @@ served ids are held against, and the stage split of one served batch.
 
 The counters are a view of ``utils/profiling``'s registry: each
 kernel's launches (``launch.<wrapper>``), those of its second entry (the
-sweeps' f32 entries, kernel 5's bf16-row entry) apart, and those made for
-the backstop pool and the pending tier.  ``zero_counters`` takes the
+sweeps' f32 entries, kernel 5's bf16-row entry) apart, those made for
+the backstop pool and the pending tier, and kernel 1's pruned pools and
+their overflows; ``pool_survivors`` summarises a pruned pool's survivors a
+query.  ``zero_counters`` takes the
 registry's values as the base, ``read_counters`` the launches since.
 The stage split reads the device-timed spans of one real ``query_ids``
 call (``stage_split``, ``small_forest_split``).
@@ -53,7 +55,24 @@ def read_counters() -> dict:
         out[f"{k}_{entry}"] = since(f"{name}_{entry}")
         out[k] = since(name) - out[f"{k}_{entry}"]
     out.update({k: since(name) for k, name in TIER_COUNTERS.items()})
+    # kernel 1's pools taken by the pruned path (counted in fused_topk
+    # too), and the queries of those sent back to the per-slab pools
+    out["fused_topk_pruned"] = since("launch.slab_topk_pruned")
+    out["pool_overflow"] = since("pool.overflow")
     return out
+
+
+def pool_survivors(pend) -> dict:
+    """The survivors a query of a pruned pool (``fused_topk.pool_sweep``'s
+    result; its ``survivors``, a device tensor the serving path never
+    reads): min, median, 99th percentile and max, or {} for a pool taken
+    per slab."""
+    if pend.pruned is None:
+        return {}
+    s = pend.pruned.survivors.float().cpu()
+    return {"queries": int(s.numel()), "min": float(s.min()),
+            "median": float(s.median()),
+            "p99": float(torch.quantile(s, 0.99)), "max": float(s.max())}
 
 
 def _plain_keys(raw, qs, cand, live, pv):

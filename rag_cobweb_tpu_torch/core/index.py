@@ -34,10 +34,12 @@ Stacking ``GT = [A | -0.5 B]^T`` (2D, Sp) makes the corpus sweep one
 ``_FUSED_ROW_BUCKET``; padding rows are invalid and score -inf.
 
 Serving (``fused_query_rerank``) runs two hand-written kernels: the sweep
-with a per-slab top-kappa pool (``ops/fused_topk``), merged to the top-c
-by ``torch.topk``, then the exact stored-embedding re-rank
-(``ops/rerank``), whose top-k is ``torch.topk`` again.  With
-kappa = min(c, 2048) the merged pool is the EXACT top-c of the sweep.
+with its exact top-c pool (``ops/fused_topk.pool_sweep`` and
+``pool_select``: per-slab top-kappa pools, kappa = min(c, 2048), merged by
+``torch.topk``, or at
+scale the pruned path, whose second sweep keeps only the rows at or above
+a bound from a group-max pass), then the exact stored-embedding re-rank
+(``ops/rerank``), whose top-k is ``torch.topk``.
 With a backstop (``backstop_topk``: kernel 1 again, over the whitened
 store) the two pools are united (``union_candidates``) before the
 re-rank.  Rows added since the index was built are scored apart, by the
@@ -46,9 +48,10 @@ same fresh-leaf key: ``pending_leaf_lp`` (tier 0, kernel 5) and
 strided two-level pool of a score matrix) is the JAX package's
 alternative to an approximate pool; nothing calls it, since kernel 1's
 pools are exact.  The serving stages are spans (``utils/profiling``):
-``engine.sweep``, ``engine.merge`` (each pool's merge, attribute
-``pool``), ``engine.backstop``, ``engine.union``, ``engine.rerank`` and
-inside it ``engine.topk``, each timed on the stream.
+``engine.sweep``, ``engine.merge`` (each pool's merge or final
+selection, attribute ``pool``), ``engine.backstop``, ``engine.union``,
+``engine.rerank`` and inside it ``engine.topk``, each timed on the
+stream.
 
 **Beam search** (``predict``): ``beam_search_topk`` is the oracle (every
 beam node's full child row a level); the packed beam
@@ -598,17 +601,18 @@ def fused_scores(fidx: FusedIndex, queries: torch.Tensor) -> torch.Tensor:
 
 
 def fused_query_topk(fidx: FusedIndex, queries: torch.Tensor, k: int):
-    """Top-k path scores -> (scores (B, k) f32, sentence ids (B, k) int32).
-    Per-slab top-kappa (kernel 1, kappa = min(k, 2048)) merged by
-    ``torch.topk``: the exact top-k."""
+    """Top-k path scores -> (scores (B, k) f32, sentence ids (B, k) int32):
+    kernel 1's exact pool (``fused_topk.pool_sweep``: per-slab pools merged
+    by ``torch.topk``, or the pruned path's survivors sorted), its sweep
+    under ``engine.sweep`` and its merge or final selection under
+    ``engine.merge``."""
     dev = queries.device
     with profiling.span("engine.sweep", device=dev, B=queries.shape[0],
                         slots=fidx.GT.shape[1]):
         qq = fused_topk.query_terms(queries, fidx.GT.dtype)
-        pools = fused_topk.slab_topk(qq, fidx.GT, fidx.c, fidx.valid,
-                                     min(k, _FUSED_ROW_BUCKET))
+        pend = fused_topk.pool_sweep(qq, fidx.GT, fidx.c, fidx.valid, k)
     with profiling.span("engine.merge", device=dev, pool="sweep", k=k):
-        return fused_topk.merge(*pools, k)
+        return fused_topk.pool_select(pend)
 
 
 # The JAX package would switch its pool selection to the strided two-level
@@ -672,8 +676,9 @@ def backstop_topk(wemb: torch.Tensor, half_norm2: torch.Tensor,
     The store's layout decides the route, not its dtype.  ``gt_layout``:
     the whitened store in kernel 1's GT layout, bf16 (Dw, Sw) with Sw a
     multiple of 2048: kernel 1 runs with ``qq = q`` in bf16 and ``c =
-    -half_norm2``, and its per-slab pools merge to the exact top-c, so the
-    (B, Sw) scores never reach memory; invalid entries come out -inf.
+    -half_norm2``, and its pool (``fused_topk.pool_sweep``) is the exact
+    top-c, so the (B, Sw) scores never reach memory; invalid entries come
+    out -inf.
     Otherwise the raw re-rank store, row-major (Sw, D), f32 or bf16, which
     kernel 1 cannot take without a copy: the queries rounded to the
     store's dtype, a full-f32 product (bf16 rows widened a slab at a time)
@@ -684,14 +689,14 @@ def backstop_topk(wemb: torch.Tensor, half_norm2: torch.Tensor,
         Sw = wemb.shape[1]
         valid = torch.arange(Sw, device=dev) < n_valid
         n0 = profiling.counter("launch.slab_topk")
-        pools = fused_topk.slab_topk(
+        pend = fused_topk.pool_sweep(
             queries.to(torch.bfloat16).contiguous(), wemb, -half_norm2,
-            valid, min(c, _FUSED_ROW_BUCKET))
+            valid, c)
         profiling.count("launch.backstop",
                         profiling.counter("launch.slab_topk") - n0)
         with profiling.span("engine.merge", device=dev, pool="backstop",
                             k=c):
-            top, ids = fused_topk.merge(*pools, c)
+            top, ids = fused_topk.pool_select(pend)
         return torch.where(top > fused_topk.NEG / 2, top,
                            torch.full_like(top, float("-inf"))), ids
     q = queries.to(wemb.dtype).float()

@@ -88,7 +88,7 @@ from rag_cobweb_tpu_torch.core import tree as tree_mod
 from rag_cobweb_tpu_torch.core.config import TreeConfig
 from rag_cobweb_tpu_torch.core.tree import CobwebTree, align_capacity
 from rag_cobweb_tpu_torch.device import full_f32_matmul, resolve_device
-from rag_cobweb_tpu_torch.ops import blocked_topk
+from rag_cobweb_tpu_torch.ops import blocked_topk, fused_topk
 from rag_cobweb_tpu_torch.parallel.vforest import VForest, _vforest_query
 from rag_cobweb_tpu_torch.utils import profiling
 from rag_cobweb_tpu_torch.utils.viz import visualize_grandparent_subtrees
@@ -704,11 +704,13 @@ class CobwebIndex:
                          q_store=None):
         """Sweep + exact pool [+ backstop pool, united] + exact re-rank,
         the query batch chunked so one chunk's working set stays under
-        ``fused_score_budget``.  On the card: kernel 1's (NS, Bc, kappa)
-        pools, of the fused index and of the whitened store (the f32
-        store's backstop: its (Bc, Sw) scores); kernel 5 gathers row by
-        row.  On the host: the plain versions' (Bc, Sp) and (Bc, Sw)
-        scores, or the (Bc, pool + bs, D) re-rank gather if larger."""
+        ``fused_score_budget``.  On the card: what kernel 1's dispatched
+        path holds a query (``fused_topk.pool_bytes``: the per-slab pools,
+        or the pruned path's group keys and survivors), of the fused index
+        and of the whitened store (the f32 store's backstop: its (Bc, Sw)
+        scores); kernel 5 gathers row by row.  On the host: the plain
+        versions' (Bc, Sp) and (Bc, Sw) scores, or the (Bc, pool + bs, D)
+        re-rank gather if larger."""
         fidx = self._fused_index()
         emb = self._emb_device()
         qs = q if q_store is None else q_store
@@ -716,14 +718,18 @@ class CobwebIndex:
         wemb = half = None
         slab = index_mod._FUSED_ROW_BUCKET
         card = q.device.type != "cpu"
-        row = (fidx.num_slots // slab * min(pool, slab) * 8 if card
+        B = q.shape[0]
+        row = (fused_topk.pool_bytes(B, fidx.num_slots // slab, pool,
+                                     fidx.GT.shape[0],
+                                     fidx.GT.element_size()) if card
                else fidx.num_slots * 12)
         gt = self.whitener is not None     # the backstop store's layout
         if bs:
             wemb, half = self._wemb_device()
             Sw = wemb.shape[1] if gt else wemb.shape[0]
-            row += (Sw // slab * min(bs, slab) * 8 if card and gt
-                    else Sw * 12)
+            row += (fused_topk.pool_bytes(B, Sw // slab, bs, wemb.shape[0],
+                                          wemb.element_size())
+                    if card and gt else Sw * 12)
         if not card:
             row = max(row, (pool + bs) * emb.shape[1] * 4)
         bmax = self._chunk(q.shape[0], row)

@@ -1,5 +1,6 @@
-// Fused path-score sweep with a per-slab top-kappa pool (kernel 1) and with
-// a per-group max/argmax pool (kernel 2).
+// Fused path-score sweep with a per-slab top-kappa pool (kernel 1), its
+// pruned pool at scale (kernel 1's second design, below), and with a
+// per-group max/argmax pool (kernel 2).
 //
 // Kernel 1 replaces rag_cobweb_tpu/ops/pallas_query.py::_fused_kernel (the
 // Pallas kernel behind pallas_fused_topk).  For every 2048-row slab s and
@@ -24,8 +25,20 @@
 // 1's pool (kappa = 1024) is NS B kappa (score, id) pairs (42 MB at B =
 // 1024, 12.5 us at 3.35 TB/s): bytes bound it, 16 us at B = 1024 and 3 us
 // at B <= 32 (GT alone).  Kernel 2's pool is per_group * 16 pairs a slab
-// and query, so operations bound it at B = 1024 (11 us).  At 1M rows
-// (kappa = 16) operations bound kernel 1: 1.07 TFLOP, 1.1 ms.
+// and query, so operations bound it at B = 1024 (11 us).
+//
+// At 1M rows the served pool is kappa = c = 512 over NS = 512 slabs (the
+// MS MARCO batch cell: B = 1024, 2D = 256 for the path scores and 128 for
+// the backstop's whitened store).  One sweep is then 0.55 and 0.28 TFLOP
+// (0.56 and 0.28 ms at the bf16 peak) on 0.5 and 0.3 GB of GT, so
+// operations bound the function; but the per-slab pools keep a quarter of
+// the score matrix, NS B kappa = 268M (score, id) pairs (2.1 GB a pool),
+// and the cluster select that takes them costs 3 passes of two cluster
+// barriers and a histogram an item: 18.3 ms a pool, 1.9% of the bound,
+// and their merge 5 ms more.  The pruned path (below) writes none of it:
+// two sweeps and 1.06-1.36 c survivors a query over the path-score index
+// (1.00-1.04 c over the store; measured on the cell's rows, a buffer of 4
+// c), 3.1 and 2.4 ms a pool (random rows of the cell's shapes).
 //
 // What the bf16 design does (slab_topk_wgmma, group_topk_wgmma):
 //   * an item is 64 queries (one wgmma M) x 256 columns of one slab; a CTA
@@ -1389,6 +1402,602 @@ int launch_f32(bool group, const void* qq, const void* gt, const void* c,
                                  out_i, B, twoD, NS, sel, stream);
   }
 }
+// -- kernel 1 at scale: the pruned pool -------------------------------------
+//
+// Where a query's pool c is far smaller than the per-slab pools NS kappa,
+// the pool is taken in four launches, none of which writes a per-slab pool:
+//   * pass A (slab_topk_prune<false>): the sweep, and each 64-row group's
+//     maximum in registers (a lane pair's columns, one shuffle) as an
+//     order-preserving key, into gv (B, n), n = 32 NS;
+//   * the bound (slab_topk_bound): each query's c-th largest of its n group
+//     keys, by a radix select of four 8-bit passes over gv; the group
+//     values are scores of distinct rows, so it is at most the query's
+//     c-th score (key 0, no bound, where n < c).  It also zeroes the
+//     survivor counts and the overflow count;
+//   * pass B (slab_topk_prune<true>): the same sweep again, so that
+//     every row's score is pass A's bit for bit, and each row whose score
+//     is finite and at or above its query's bound goes out as one 64-bit
+//     key (score key above, the inverted row id below: larger is higher,
+//     then lower id) into the query's buffer of ``cap``, at a slot from a
+//     counter a query that counts past cap;
+//   * the final selection (slab_topk_final): a CTA a query sorts its
+//     min(count, cap) keys (bitonic, in shared memory, padded with 0) and
+//     writes the top k: the exact top k, ties to the lower id, whatever
+//     order the slots were taken in; slots past the survivors are -inf with
+//     id -1.  A query with more than cap survivors adds one to the overflow
+//     count, and the caller answers its chunk by the per-slab pools.
+// The sweep of both passes is kernel 1's and 2's (an item: 64 queries x
+// 256 columns, two warpgroups of m64n128k16 wgmma over 64-deep chunks in
+// order), so their scores are kernel 1's bit for bit.  Both passes hold a
+// block's GT resident (2D <= 320, nk <= 5 chunks; ops/fused_topk.py sends
+// no wider index here): a CTA walks the 256-column blocks and holds a
+// block's GT chunks in shared memory while it sweeps every query tile
+// against them, streaming only the query boxes; GT then comes from device
+// memory once and each query box once a block, where kernel 2's items
+// fetch both for every (block, tile) from L2 (160 KB an item at B = 1024,
+// 2D = 256, which held pass A at 5 TB/s of L2 and 1.5 ms).  The bias comes
+// folded: cm = c, or -inf for an invalid row.
+//
+// What bounds it at the batch cell's shapes (B = 1024, 1M rows, c = 512;
+// measured on an "NVIDIA H100 80GB HBM3, 700.00 W"): the products alone run
+// near the bf16 peak (a pass with no epilogue: 0.62 ms for 0.55 TFLOP),
+// and the epilogues, which the two warpgroups run while the tensor cores
+// wait, take the rest: pass A 1.26 ms, pass B 1.62 ms, the bound and the
+// final selection 0.11 ms each, over the path-score index (2D = 256);
+// 0.78 and 1.10 ms over the backstop's store (2D = 128).  So the epilogues
+// are kept short: the bias is one load and add a score; pass A's maximum
+// is a running maximum and a shuffle; pass B holds a lane's best score of a
+// row against the bound before it looks at each (about 2% of lanes hold a
+// survivor) and loads the bound before the products, whose latency it then
+// hides (1.2 ms of pass B when loaded after them); survivors leave by a
+// loop over set bits (an unrolled one doubled pass B: code size).
+
+// Pass B's survivors are staged in shared memory, a buffer a warpgroup:
+// a warp reserves its slots by one shared atomic, and the warpgroup
+// flushes the buffer to the queries' global buffers (one global atomic an
+// entry) once it holds FLUSH_AT keys, so that no returning global atomic
+// sits on an item's path.  An entry that finds the buffer full goes out
+// directly.
+constexpr int STAGE_N = 512;              // staged survivors a warpgroup
+constexpr int FLUSH_AT = 256;             // flush from this many on
+constexpr int STAGING = 2 * STAGE_N * 12 + 16;
+constexpr int RES_MAX_NK = 5;             // GT chunks a resident block holds
+constexpr int RES_MAX_QST = 8;            // query boxes in flight
+constexpr int PG_SLAB = SLAB / 64;        // pass A's groups of a slab
+
+struct Staging {
+  unsigned long long key[2][STAGE_N];
+  int q[2][STAGE_N];
+  int count[2];
+};
+
+// Shared memory of a pass: a 256-column block's GT chunks (nk x 32 KB), a
+// ring of ``s`` query boxes, the staging and the mbarriers (full and empty
+// a ring stage; full and empty a GT chunk).
+struct PruneLayout {
+  int ring, staging, bars, total;
+  __host__ __device__ PruneLayout(int nk, int s)
+      : ring(nk * GBOXES), staging(ring + s * QBOX),
+        bars(staging + (STAGING + 15) / 16 * 16),
+        total(1024 + bars + 16 * s + 16 * nk) {}
+};
+
+// A bound's key as the least score that reaches it: the key's own score
+// (a score reaches the key iff it is at or above that score, -0 and +0
+// alike); key 0 (no bound) or -inf's: the least finite score, so that no
+// -inf (an invalid row's) goes out.
+__device__ __forceinline__ float bound_score(uint32_t k) {
+  return k <= score_key(__int_as_float(0xff800000)) ? -3.4028235e38f
+                                                    : key_score(k);
+}
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 128;" :: "r"(id) : "memory");
+}
+
+// a barrier of the warpgroup (named barrier ``id``): whether any of its
+// threads passes ``p``
+__device__ __forceinline__ bool bar_any(int id, bool p) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred a, b;\nsetp.ne.u32 a, %1, 0;\n"
+      "bar.red.or.pred b, %2, 128, a;\nselp.u32 %0, 1, 0, b;\n}\n"
+      : "=r"(r) : "r"((uint32_t)p), "r"(id) : "memory");
+  return r != 0;
+}
+
+__device__ __forceinline__ void put_survivor(Staging* st, int wg, int pos,
+                                             unsigned long long key, int q,
+                                             int* cnt,
+                                             unsigned long long* surv,
+                                             int cap) {
+  if (pos < STAGE_N) {
+    st->key[wg][pos] = key;
+    st->q[wg][pos] = q;
+  } else {
+    const int slot = atomicAdd(&cnt[q], 1);
+    if (slot < cap) surv[(size_t)q * cap + slot] = key;
+  }
+}
+
+// The warpgroup's staged survivors to their queries' buffers.
+__device__ __forceinline__ void flush_staged(Staging* st, int wg, int n,
+                                             int* cnt,
+                                             unsigned long long* surv,
+                                             int cap) {
+  const int t = threadIdx.x & (WG - 1);
+  for (int e = t; e < min(n, STAGE_N); e += WG) {
+    const int q = st->q[wg][e];
+    const int slot = atomicAdd(&cnt[q], 1);
+    if (slot < cap) surv[(size_t)q * cap + slot] = st->key[wg][e];
+  }
+}
+
+// One item's epilogue of a consumer warpgroup: + cm on its 64 x 128 scores
+// (columns from gc0, rows qa and qb of this lane), then pass A's group
+// maxima into gv (this lane pair's group at ga), or pass B's survivors
+// into the staging.
+template <bool SURVIVE>
+__device__ __forceinline__ void prune_item(
+    float* acc, const float* __restrict__ cm, int gc0, int qa, int qb, int B,
+    int NS, size_t ga, uint32_t* __restrict__ gv,
+    uint32_t ka, uint32_t kb, int* __restrict__ cnt,
+    unsigned long long* __restrict__ surv, int cap, Staging* st, int wg) {
+  const int lane = threadIdx.x & 31, cq = lane & 3;
+  const unsigned full = 0xffffffffu;
+  // this lane's column 8j + 2cq + e is acc[4j + e] for row qa, acc[4j + 2
+  // + e] for row qb; + cm: the column's c, or -inf where it is invalid
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float cb = cm[gc0 + 8 * j + 2 * cq + e];
+      acc[4 * j + e] += cb;
+      acc[4 * j + 2 + e] += cb;
+    }
+  }
+  if constexpr (!SURVIVE) {
+    // the group's maximum alone: its value, no column; the even lane of
+    // the pair writes row qa's, the odd lane row qb's
+    const size_t n = (size_t)NS * PG_SLAB;
+    float va = acc[0], vb = acc[2];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        va = fmaxf(va, acc[4 * j + e]);
+        vb = fmaxf(vb, acc[4 * j + 2 + e]);
+      }
+    }
+    va = fmaxf(va, __shfl_xor_sync(full, va, 1));
+    vb = fmaxf(vb, __shfl_xor_sync(full, vb, 1));
+    if ((cq & 1) == 0 && qa < B) gv[(size_t)qa * n + ga] = score_key(va);
+    if ((cq & 1) == 1 && qb < B) gv[(size_t)qb * n + ga] = score_key(vb);
+  } else {
+    // Pass B: the rows' bounds ka, kb (loaded before the sweep) as the
+    // least score that reaches them (a row past the batch: NaN, which no
+    // score reaches); bit 2j + e of fa / fb: the row goes out.  The lane's
+    // best score of a row is held against its bound first: most lanes
+    // hold no survivor
+    const float la = qa < B ? bound_score(ka) : __int_as_float(0x7fc00000);
+    const float lb = qb < B ? bound_score(kb) : __int_as_float(0x7fc00000);
+    float ma = acc[0], mb = acc[2];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        ma = fmaxf(ma, acc[4 * j + e]);
+        mb = fmaxf(mb, acc[4 * j + 2 + e]);
+      }
+    }
+    uint32_t fa = 0u, fb = 0u;
+    if (ma >= la) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          fa |= acc[4 * j + e] >= la ? 1u << (2 * j + e) : 0u;
+        }
+      }
+    }
+    if (mb >= lb) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          fb |= acc[4 * j + 2 + e] >= lb ? 1u << (2 * j + e) : 0u;
+        }
+      }
+    }
+    const int nl = __popc(fa) + __popc(fb);
+    if (__any_sync(full, nl != 0)) {
+      // the warp's slots in the staging: an inclusive scan of its lanes'
+      // counts, one shared atomic
+      int incl = nl;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(full, incl, off);
+        if (lane >= off) incl += t;
+      }
+      int base = 0;
+      if (lane == 31) base = atomicAdd(&st->count[wg], incl);
+      int pos = __shfl_sync(full, base, 31) + incl - nl;
+      // the lane's scores by bit, for the loops over its set bits (an
+      // indexed read: local memory, on this rare path only; unrolled
+      // emission took twice as long, from its code's size)
+      float sa[32], sb[32];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sa[2 * j + e] = acc[4 * j + e];
+          sb[2 * j + e] = acc[4 * j + 2 + e];
+        }
+      }
+      for (uint32_t f = fa; f; f &= f - 1u) {
+        const int i = __ffs(f) - 1;
+        const uint32_t row = gc0 + 8 * (i >> 1) + 2 * cq + (i & 1);
+        put_survivor(st, wg, pos++,
+                     (unsigned long long)score_key(sa[i]) << 32 | ~row, qa,
+                     cnt, surv, cap);
+      }
+      for (uint32_t f = fb; f; f &= f - 1u) {
+        const int i = __ffs(f) - 1;
+        const uint32_t row = gc0 + 8 * (i >> 1) + 2 * cq + (i & 1);
+        put_survivor(st, wg, pos++,
+                     (unsigned long long)score_key(sb[i]) << 32 | ~row, qb,
+                     cnt, surv, cap);
+      }
+    }
+    // the warpgroup's staging: flushed once it holds FLUSH_AT keys (each
+    // warp reads the count after its own reservation, so the or of the
+    // warps' reads sees the last one)
+    if (bar_any(1 + wg, st->count[wg] >= FLUSH_AT)) {
+      flush_staged(st, wg, st->count[wg], cnt, surv, cap);
+      bar_sync(1 + wg);
+      if ((threadIdx.x & (WG - 1)) == 0) st->count[wg] = 0;
+      bar_sync(1 + wg);
+    }
+  }
+}
+
+// The resident sweep of a consumer warpgroup: query tile chunks g0 .. g0 +
+// nk - 1 of the ring (query boxes) against the block's resident GT chunks
+// (chunk k full at parity ``gpar``), each ring stage released once read,
+// and each GT chunk too where ``last`` (the block's last query tile).
+__device__ __forceinline__ void sweep_resident(float* acc, uint32_t gt0,
+                                               uint32_t ring0, uint32_t full0,
+                                               uint32_t empty0, int stages,
+                                               uint32_t gfull0,
+                                               uint32_t gempty0,
+                                               uint32_t gpar, bool last,
+                                               uint32_t g0, int nk, int wg) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int k = 0; k < nk; ++k) {
+    const uint32_t g = g0 + k, s = g % stages;
+    mbar_wait(full0 + 8 * s, g / stages & 1u);
+    mbar_wait(gfull0 + 8 * k, gpar);
+    const uint32_t a = ring0 + s * QBOX;
+    const uint32_t b = gt0 + k * GBOXES + wg * 2 * KC * ROWB;
+    fence_regs<64>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      wgmma_ss_tb_n128(acc, smem_desc(a + ks * 32, 16),
+                       smem_desc(b + ks * 16 * ROWB, KC * ROWB));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();                      // chunk k - 1 is read
+    if (k > 0) {
+      mbar_arrive(empty0 + 8 * ((g - 1) % stages));
+      if (last) mbar_arrive(gempty0 + 8 * (k - 1));
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs<64>(acc);
+  mbar_arrive(empty0 + 8 * ((g0 + nk - 1) % stages));
+  if (last) mbar_arrive(gempty0 + 8 * (nk - 1));
+}
+
+// Passes A and B (SURVIVE): a CTA walks the 256-column blocks, holds each
+// block's GT chunks while it sweeps every query tile against them, and
+// streams only the query boxes; the GT then comes from device memory once
+// and the query boxes (B x 2D) once a block.  The wgmma sequence of an
+// item is kernel 1's and 2's: the same scores bit for bit.
+template <bool SURVIVE>
+__global__ void __launch_bounds__(W_THREADS, 1)
+slab_topk_prune(const __grid_constant__ CUtensorMap tg,
+                const __grid_constant__ CUtensorMap tq,
+                const float* __restrict__ cm,
+                uint32_t* __restrict__ gv, const uint32_t* __restrict__ bound,
+                int* __restrict__ cnt, unsigned long long* __restrict__ surv,
+                int B, int twoD, int NS, int cap, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = aligned_base(smem_raw);
+  const int nk = (twoD + KC - 1) / KC;
+  const PruneLayout lay(nk, stages);
+  const uint32_t b0 = smem_u32(base);
+  const uint32_t ring0 = b0 + lay.ring, full0 = b0 + lay.bars;
+  const uint32_t empty0 = full0 + 8 * stages;
+  const uint32_t gfull0 = empty0 + 8 * stages, gempty0 = gfull0 + 8 * nk;
+  Staging* st = reinterpret_cast<Staging*>(base + lay.staging);
+  const int ntiles = (B + WTQ - 1) / WTQ;
+  const int blocks = NS * SPLIT;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, W_CONSUMERS);
+    }
+    for (int k = 0; k < nk; ++k) {
+      mbar_init(gfull0 + 8 * k, 1);
+      mbar_init(gempty0 + 8 * k, W_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    st->count[0] = st->count[1] = 0;
+  }
+  __syncthreads();
+
+  if (tid >= W_CONSUMERS) {
+    // -- producer (one thread)
+    if (tid != W_CONSUMERS) return;
+    uint32_t g = 0;
+    int lb = 0;
+    for (int blk = blockIdx.x; blk < blocks; blk += gridDim.x, ++lb) {
+      const int col0 = blk * NTC;
+      for (int t = 0; t < ntiles; ++t) {
+        for (int k = 0; k < nk; ++k, ++g) {
+          if (t == 0) {                     // the block's GT chunk k
+            const uint32_t gf = gfull0 + 8 * k;
+            if (lb > 0) mbar_wait(gempty0 + 8 * k, (lb - 1) & 1);
+            mbar_expect_tx(gf, GBOXES);
+            const uint32_t dst = b0 + k * GBOXES;
+            for (int b = 0; b < NTC / BOXC; ++b) {
+              tma_2d(dst + b * KC * ROWB, &tg, col0 + b * BOXC, k * KC, gf);
+            }
+          }
+          const uint32_t s = g % stages;
+          if (g >= (uint32_t)stages) {
+            mbar_wait(empty0 + 8 * s, (g / stages & 1u) ^ 1u);
+          }
+          mbar_expect_tx(full0 + 8 * s, QBOX);
+          tma_2d(ring0 + s * QBOX, &tq, k * BOXC, t * WTQ, full0 + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+
+  // -- consumers: each item's scores in registers, then its epilogue
+  const int wg = tid >> 7, lane = tid & 31;
+  const int r0 = ((tid >> 5) & 3) * 16 + (lane >> 2);  // rows r0, r0 + 8
+  const int cq = lane & 3;
+  float acc[64];
+  uint32_t g = 0;
+  int lb = 0;                                          // blocks so far
+  for (int blk = blockIdx.x; blk < blocks; blk += gridDim.x, ++lb) {
+    const int slab = blk / SPLIT, wb = blk % SPLIT * 2 + wg;
+    const int gc0 = slab * SLAB + wb * GROUP;           // the WG's columns
+    const size_t ga = (size_t)slab * PG_SLAB + wb * 2 + (cq >> 1);
+    for (int t = 0; t < ntiles; ++t, g += nk) {
+      const int qa = t * WTQ + r0, qb = qa + 8;
+      // pass B's bounds, loaded while the products run
+      const uint32_t ka = SURVIVE && qa < B ? bound[qa] : 0u;
+      const uint32_t kb = SURVIVE && qb < B ? bound[qb] : 0u;
+      sweep_resident(acc, b0, ring0, full0, empty0, stages, gfull0, gempty0,
+                     lb & 1, t == ntiles - 1, g, nk, wg);
+      prune_item<SURVIVE>(acc, cm, gc0, qa, qb, B, NS, ga, gv, ka, kb, cnt,
+                          surv, cap, st, wg);
+    }
+  }
+  if constexpr (SURVIVE) {
+    bar_sync(1 + wg);                      // the last items' staging
+    flush_staged(st, wg, st->count[wg], cnt, surv, cap);
+  }
+}
+
+constexpr int BOUND_THREADS = 512;
+
+// The bound: CTA q takes query q's k-th largest of its n keys (n a multiple
+// of 4, the row 16-byte aligned), a radix select of four 8-bit digits from
+// the top, each pass counting the keys that match the digits taken so far
+// (one shared atomic a distinct digit and warp: __match_any_sync); then
+// the survivor count of the query, and the overflow count, to zero.
+__global__ void __launch_bounds__(BOUND_THREADS)
+slab_topk_bound(const uint32_t* __restrict__ gv, int n, int k,
+                uint32_t* __restrict__ bound, int* __restrict__ cnt,
+                int* __restrict__ over) {
+  __shared__ uint32_t hist[BINS];
+  __shared__ uint32_t pick[2];              // the digits so far, rank left
+  const int q = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const unsigned full = 0xffffffffu;
+  if (tid == 0) {
+    cnt[q] = 0;
+    if (q == 0) *over = 0;
+  }
+  if (n < k) {                              // fewer keys than k: no bound
+    if (tid == 0) bound[q] = 0u;
+    return;
+  }
+  const uint4* row = reinterpret_cast<const uint4*>(gv + (size_t)q * n);
+  uint32_t prefix = 0u, mask = 0u, rem = (uint32_t)k;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = tid; i < BINS; i += BOUND_THREADS) hist[i] = 0u;
+    __syncthreads();
+    for (int b = 0; b < n / 4; b += BOUND_THREADS) {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      const bool in = b + tid < n / 4;
+      if (in) v = row[b + tid];
+      const uint32_t x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t d = in && (x[e] & mask) == prefix
+                               ? (x[e] >> shift) & (BINS - 1) : BINS;
+        const unsigned peers = __match_any_sync(full, d);
+        if (d < BINS && lane == __ffs(peers) - 1) {
+          atomicAdd(&hist[d], (uint32_t)__popc(peers));
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < 32) {
+      // lane l sums digits 255 - 8l down to 248 - 8l; the digit of the
+      // rem-th largest key, and the keys above it
+      uint32_t own[8], sum = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        own[j] = hist[BINS - 1 - 8 * lane - j];
+        sum += own[j];
+      }
+      uint32_t cum = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const uint32_t t = __shfl_up_sync(full, cum, off);
+        if (lane >= off) cum += t;
+      }
+      const int L = __ffs(__ballot_sync(full, cum >= rem)) - 1;
+      if (lane == L) {
+        uint32_t at = cum - sum;
+        int j = 0;
+        for (; j < 7; ++j) {
+          if (at + own[j] >= rem) break;
+          at += own[j];
+        }
+        pick[0] = (uint32_t)(BINS - 1 - 8 * lane - j);
+        pick[1] = rem - at;
+      }
+    }
+    __syncthreads();
+    prefix |= pick[0] << shift;
+    mask |= (uint32_t)(BINS - 1) << shift;
+    rem = pick[1];
+    __syncthreads();                        // pick is read before rewritten
+  }
+  if (tid == 0) bound[q] = prefix;
+}
+
+constexpr int FINAL_THREADS = 1024;
+
+// The final selection: CTA q sorts query q's min(count, cap) survivor keys
+// descending (bitonic over P, the next power of two of that count and k,
+// padded with 0, below every key) and writes the first k.
+__global__ void __launch_bounds__(FINAL_THREADS)
+slab_topk_final(const unsigned long long* __restrict__ surv,
+                const int* __restrict__ cnt, int cap, int k,
+                float* __restrict__ out_s, int* __restrict__ out_i,
+                int* __restrict__ over) {
+  extern __shared__ unsigned long long keys[];
+  const int q = blockIdx.x, tid = threadIdx.x;
+  int m = cnt[q];
+  if (m > cap) {
+    if (tid == 0) atomicAdd(over, 1);
+    m = cap;
+  }
+  int P = 2;
+  while (P < m || P < k) P <<= 1;
+  const unsigned long long* src = surv + (size_t)q * cap;
+  for (int i = tid; i < P; i += FINAL_THREADS) keys[i] = i < m ? src[i] : 0ull;
+  __syncthreads();
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < P; i += FINAL_THREADS) {
+        const int ij = i ^ j;
+        if (ij > i) {
+          const unsigned long long a = keys[i], b = keys[ij];
+          if ((i & size) == 0 ? a < b : a > b) {
+            keys[i] = b;
+            keys[ij] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int r = tid; r < k; r += FINAL_THREADS) {
+    const unsigned long long x = keys[r];
+    out_s[(size_t)q * k + r] =
+        x ? key_score((uint32_t)(x >> 32)) : __int_as_float(0xff800000);
+    out_i[(size_t)q * k + r] = x ? (int)~(uint32_t)x : -1;
+  }
+}
+
+int prune_launch(bool survive, const void* qq, const void* gt, const void* cm,
+                 void* gv, const void* bound, void* cnt, void* surv, int B,
+                 int twoD, int Sp, int cap, cudaStream_t stream) {
+  CUtensorMap tg, tq;
+  if (!wgmma_maps(&tg, &tq, qq, gt, B, twoD, Sp)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int nk = (twoD + KC - 1) / KC;
+  if (nk > RES_MAX_NK) return (int)cudaErrorInvalidValue;
+  int stages = 2;
+  while (stages < RES_MAX_QST &&
+         PruneLayout(nk, stages + 1).total <= SMEM_LIMIT) {
+    ++stages;
+  }
+  const int smem = PruneLayout(nk, stages).total;
+  using Kern = void (*)(CUtensorMap, CUtensorMap, const float*, uint32_t*,
+                        const uint32_t*, int*, unsigned long long*, int, int,
+                        int, int, int);
+  const Kern kern = survive ? slab_topk_prune<true> : slab_topk_prune<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  static int sms[64] = {};
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (sms[dev & 63] == 0) {
+    e = cudaDeviceGetAttribute(&sms[dev & 63], cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = Sp / SLAB * SPLIT;
+  const int grid = blocks < sms[dev & 63] ? blocks : sms[dev & 63];
+  kern<<<grid, W_THREADS, smem, stream>>>(
+      tg, tq, reinterpret_cast<const float*>(cm),
+      reinterpret_cast<uint32_t*>(gv),
+      reinterpret_cast<const uint32_t*>(bound), reinterpret_cast<int*>(cnt),
+      reinterpret_cast<unsigned long long*>(surv), B, twoD, Sp / SLAB, cap,
+      stages);
+  return (int)cudaGetLastError();
+}
+
+// Passes A and B and the bound between them, on one stream.
+int launch_prune(const void* qq, const void* gt, const void* cm, void* gv,
+                 void* bound, void* cnt, void* surv, void* over, int B,
+                 int twoD, int Sp, int k, int cap, cudaStream_t stream) {
+  if (cap < 1) return (int)cudaErrorInvalidValue;
+  int rc = prune_launch(false, qq, gt, cm, gv, bound, cnt, surv, B, twoD, Sp,
+                        cap, stream);
+  if (rc != 0) return rc;
+  slab_topk_bound<<<B, BOUND_THREADS, 0, stream>>>(
+      reinterpret_cast<const uint32_t*>(gv), Sp / SLAB * PG_SLAB, k,
+      reinterpret_cast<uint32_t*>(bound), reinterpret_cast<int*>(cnt),
+      reinterpret_cast<int*>(over));
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return prune_launch(true, qq, gt, cm, gv, bound, cnt, surv, B, twoD, Sp,
+                      cap, stream);
+}
+
+int launch_final(const void* surv, const void* cnt, void* out_s, void* out_i,
+                 void* over, int B, int cap, int k, cudaStream_t stream) {
+  int P = 2;
+  while (P < cap || P < k) P <<= 1;
+  const int smem = P * 8;
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      slab_topk_final, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  slab_topk_final<<<B, FINAL_THREADS, smem, stream>>>(
+      reinterpret_cast<const unsigned long long*>(surv),
+      reinterpret_cast<const int*>(cnt), cap, k,
+      reinterpret_cast<float*>(out_s), reinterpret_cast<int*>(out_i),
+      reinterpret_cast<int*>(over));
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
 // bf16: qq's rows are padded to a multiple of 8 elements (the query boxes
@@ -1440,4 +2049,25 @@ extern "C" int fused_group_topk_f32(const void* qq, const void* gt,
                                     void* stream) {
   return launch_f32(true, qq, gt, c, valid, out_s, out_i, B, twoD, Sp,
                     per_group, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The pruned pool (B, k) of kernel 1: passes A and B and the bound
+// (fused_prune_bf16), then the final selection (fused_prune_final).  2D <=
+// 320; cm is (Sp,) f32, c where valid and -inf elsewhere; gv is (B, 32 NS)
+// uint32, bound and cnt (B,), surv (B, cap) uint64, over one int; qq
+// padded as for fused_topk_bf16.
+extern "C" int fused_prune_bf16(const void* qq, const void* gt,
+                                const void* cm, void* gv, void* bound,
+                                void* cnt, void* surv, void* over, int B,
+                                int twoD, int Sp, int k, int cap,
+                                void* stream) {
+  return launch_prune(qq, gt, cm, gv, bound, cnt, surv, over, B, twoD, Sp, k,
+                      cap, reinterpret_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fused_prune_final(const void* surv, const void* cnt,
+                                 void* out_s, void* out_i, void* over, int B,
+                                 int cap, int k, void* stream) {
+  return launch_final(surv, cnt, out_s, out_i, over, B, cap, k,
+                      reinterpret_cast<cudaStream_t>(stream));
 }

@@ -33,6 +33,8 @@ _SIGNATURES = {
         "fused_topk_f32": [_P] * 6 + [_I] * 4 + [_P],
         "fused_group_topk_bf16": [_P] * 6 + [_I] * 4 + [_P],
         "fused_group_topk_f32": [_P] * 6 + [_I] * 4 + [_P],
+        "fused_prune_bf16": [_P] * 8 + [_I] * 5 + [_P],
+        "fused_prune_final": [_P] * 5 + [_I] * 3 + [_P],
     },
     "blocked_topk": {
         "blocked_topk_bf16": [_P] * 9 + [_I] * 6 + [_P],

@@ -42,7 +42,10 @@ Counters are plain integers, always on, never reset: a reader takes the
 difference of two ``counters()`` snapshots.  The kernels' launches
 (``launch.<kernel>``, every launch, and ``launch.<kernel>_<entry>`` those
 of a second entry; ``launch.backstop`` and ``launch.pending`` those made
-for the backstop pool and the pending tier) and the insert's work
+for the backstop pool and the pending tier; ``launch.slab_topk_pruned``
+kernel 1's pools taken by the pruned path, each also a ``launch.slab_topk``;
+``pool.overflow`` the queries of those pools answered by the per-slab
+pools instead, their survivors past the buffer) and the insert's work
 (``INSERT_COUNTERS``, whose deltas each ``serve.add`` span carries: why
 an add was slow).
 """

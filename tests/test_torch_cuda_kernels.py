@@ -636,6 +636,120 @@ def test_fused_kernels_take_an_unaligned_query_batch(card, twoD, dtype):
     _group_holds(fused_topk, qu, GT, c, valid, 3, exact=True)
 
 
+def _per_slab_top(fused_topk, qq, GT, c, valid, k):
+    """The per-slab kernel's pools (every row's score from the same sweep)
+    and their top k by (score desc, id asc)."""
+    s, i = fused_topk.slab_topk(qq, GT, c, valid, min(k, fused_topk.SLAB))
+    B = qq.shape[0]
+    return fused_topk.select_keys(s.permute(1, 0, 2).reshape(B, -1),
+                                  i.permute(1, 0, 2).reshape(B, -1), k)
+
+
+@pytest.mark.parametrize("B,twoD,Sp,S,k,cap,dup", [
+    (37, 99, 8192, 7000, 64, 128, 0),
+    (130, 128, 32768, 30000, 512, 1024, 0),
+    (200, 320, 20480, 20000, 1024, None, 0),
+    (64, 256, 65536, 65536, 512, None, 30),
+    (20, 64, 4096, 4096, 2048, 4096, 0),
+    (8, 64, 8192, 1000, 1500, 2048, 0),
+    (65, 250, 16384, 16000, 100, None, 0)])
+def test_pruned_pool_matches_the_per_slab_kernel(card, B, twoD, Sp, S, k,
+                                                 cap, dup):
+    """The pruned path's kernels on dyadic scores (many exact ties; runs of
+    ``dup`` equal rows inside a group) against the per-slab kernel's pools
+    on the same card: the same top k, scores and ids (ties to the lower
+    id), the plain version's scores, at least min(k, live rows) survivors
+    a query, the same answer over repeated calls, and one count on
+    ``launch.slab_topk_pruned`` a call; ragged 2D and B, to 2D = 320."""
+    from rag_cobweb_tpu_torch.ops import fused_topk
+    qq, GT, c, valid = _dyadic_sweep(card, torch.bfloat16, B, twoD, Sp, S,
+                                     B + k)
+    if dup:
+        rows = torch.arange(Sp, device=card) // dup * dup
+        GT, c = GT[:, rows].contiguous(), c[rows].contiguous()
+    n0 = _launches("slab_topk_pruned")
+    outs = []
+    for _ in range(3):
+        pend = fused_topk.pool_sweep(qq, GT, c, valid, k, pruned=True,
+                                     cap=cap)
+        outs.append(fused_topk.pool_select(pend))
+    assert _launches("slab_topk_pruned") == n0 + 3
+    rs, ri = _per_slab_top(fused_topk, qq, GT, c, valid, k)
+    torch.cuda.synchronize()
+    for ts, ti in outs:
+        assert torch.equal(ts, rs)
+        fin = torch.isfinite(rs)
+        assert torch.equal(ti[fin], ri[fin])
+        assert bool((ti[~fin] == -1).all())
+    assert bool((pend.pruned.survivors >= min(k, S)).all())
+    ps, _ = fused_topk.pruned_select(fused_topk.pruned_sweep(
+        qq.cpu(), GT.cpu(), c.cpu(), valid.cpu(), k, cap))[0]
+    assert torch.equal(ps, rs.cpu())
+
+
+@pytest.mark.parametrize("B,twoD,Sp", [(70, 200, 4096), (64, 320, 6144),
+                                       (130, 64, 2048)])
+def test_pruned_passes_score_every_row_bit_for_bit(card, B, twoD, Sp):
+    """Passes A and B share the sweep: with k above pass A's group count
+    the bound is 0 and every valid row survives pass B, so its survivors
+    are every row's score; each 64-row group's maximum of those equals
+    pass A's key, in pass A's layout, and each equals the per-slab
+    kernel's score of the row, bit for bit."""
+    from rag_cobweb_tpu_torch.ops import fused_topk
+    g = torch.Generator(device=card).manual_seed(5)
+    qq = torch.randn((B, twoD), generator=g, device=card).bfloat16()
+    GT = (0.1 * torch.randn((twoD, Sp), generator=g, device=card)).bfloat16()
+    c = torch.randn((Sp,), generator=g, device=card)
+    S = Sp - 96
+    valid = torch.arange(Sp, device=card) < S
+    cap = fused_topk.prune_cap(Sp)
+    k = fused_topk._groups(Sp // fused_topk.SLAB) + 1
+    p = fused_topk.pruned_sweep(qq, GT, c, valid, k, cap)
+    surv, cnt = p.buffer, p.survivors
+    torch.cuda.synchronize()
+    assert bool((cnt == S).all())
+    row = 0xFFFFFFFF - (surv & 0xFFFFFFFF)
+    keys = torch.zeros((B, Sp + 1), dtype=torch.int64, device=card)
+    live = torch.arange(cap, device=card).view(1, -1) < cnt.view(-1, 1)
+    keys.scatter_(1, torch.where(live, row, torch.full_like(row, Sp)),
+                  (surv >> 32) & 0xFFFFFFFF)
+    ninf = fused_topk.score_keys(torch.tensor(float("-inf"), device=card))
+    keys = torch.where(valid, keys[:, :Sp], ninf)
+    gs = keys.view(B, -1, 16, 2, 4).permute(0, 1, 3, 2, 4).reshape(
+        B, -1, fused_topk.PRUNE_GROUP)
+    assert torch.equal(gs.amax(dim=2), p.groups.long() & 0xFFFFFFFF)
+    ks, ki = fused_topk.slab_topk(qq, GT, c, valid, fused_topk.SLAB)
+    at = torch.zeros((B, Sp), dtype=torch.int64, device=card)
+    at.scatter_(1, ki.permute(1, 0, 2).reshape(B, -1).long(),
+                fused_topk.score_keys(ks.permute(1, 0, 2).reshape(B, -1)))
+    assert torch.equal(torch.where(valid, at, 0), torch.where(valid, keys, 0))
+
+
+def test_pruned_pool_overflow_stays_exact_and_is_counted(card, monkeypatch):
+    """A buffer of 256 for a pool of 100: the first half of the queries are
+    zero, so their scores are c alone and some 500 rows tie at the top,
+    past the buffer; the others keep about k survivors.  The zero queries
+    overflow, count on ``pool.overflow``, and ``pool_select`` answers them
+    from their per-slab pools, three queries a chunk, exactly, beside the
+    others' pruned pools."""
+    from rag_cobweb_tpu_torch.ops import fused_topk
+    from rag_cobweb_tpu_torch.utils import profiling
+    B, Sp, k, cap = 16, 65536, 100, 256
+    qq, GT, c, valid = _dyadic_sweep(card, torch.bfloat16, B, 64, Sp, Sp, 3)
+    qq[:B // 2] = 0
+    p0, n0 = _launches("slab_topk_pruned"), profiling.counter("pool.overflow")
+    monkeypatch.setattr(fused_topk, "FALLBACK_BYTES",
+                        3 * 48 * Sp // fused_topk.SLAB * k)
+    pend = fused_topk.pool_sweep(qq, GT, c, valid, k, pruned=True, cap=cap)
+    ts, ti = fused_topk.pool_select(pend)
+    assert _launches("slab_topk_pruned") == p0 + 1
+    over = pend.pruned.survivors > cap
+    assert bool(over[:B // 2].all()) and not bool(over[B // 2:].any())
+    assert profiling.counter("pool.overflow") - n0 == B // 2
+    rs, ri = _per_slab_top(fused_topk, qq, GT, c, valid, k)
+    assert torch.equal(ts, rs) and torch.equal(ti, ri)
+
+
 def test_kernels_count_their_launches(card):
     from rag_cobweb_tpu_torch.ops import blocked_topk as bt
     from rag_cobweb_tpu_torch.ops import fused_topk, rerank

@@ -228,3 +228,121 @@ def test_slab_topk_rejects_bad_inputs():
         fused_topk.slab_topk(qq.double(), GT.double(), c, valid, 4)
     with pytest.raises(ValueError):
         fused_topk.slab_topk(qq, GT, c, valid.float(), 4)
+
+
+def _pool_inputs(B, twoD, Sp, S, seed, dup=0, dead=(), flat=()):
+    """Sweep inputs of few values, exact in float32 in any order, so many
+    scores tie exactly; ``dup``: runs of ``dup`` equal rows (inside one
+    64-row group); ``dead``: slabs with no valid row; ``flat``: queries of
+    zeros, whose scores are c alone (a third of the rows tie at the top)."""
+    rng = np.random.default_rng(seed)
+    qq = rng.integers(-2, 3, size=(B, twoD)).astype(np.float32) / 2
+    qq[list(flat)] = 0
+    GT = rng.integers(-2, 3, size=(twoD, Sp)).astype(np.float32) / 4
+    c = rng.integers(-1, 2, size=Sp).astype(np.float32)
+    if dup:
+        rows = np.arange(Sp) // dup * dup
+        GT, c = GT[:, rows], c[rows]
+    valid = np.arange(Sp) < S
+    for sl in dead:
+        valid[sl * 2048:(sl + 1) * 2048] = False
+    return tuple(torch.as_tensor(a) for a in (qq, GT, c, valid))
+
+
+def _stable_top(qq, GT, c, valid, k):
+    """The top k of the plain scores by (score desc, id asc), in numpy."""
+    s = fused_topk.slab_scores_plain(qq, GT, c, valid, float("-inf"))
+    s = s.reshape(len(qq), -1).numpy()
+    ids = np.broadcast_to(np.arange(s.shape[1]), s.shape)
+    order = np.lexsort((ids, -s), axis=1)[:, :k]
+    return np.take_along_axis(s, order, 1), order
+
+
+# (B, 2D, Sp, live rows, k, survivors' buffer, equal-row runs, dead slabs,
+# flat queries)
+_PRUNED = {
+    "ties_at_the_kth": (5, 6, 8192, 8192, 100, 512, 0, (), ()),
+    "equal_rows_in_a_group": (4, 6, 8192, 8192, 64, 1024, 16, (), ()),
+    "dead_slab": (3, 6, 8192, 8192, 50, 256, 0, (1,), ()),
+    "fewer_live_rows_than_k": (3, 6, 8192, 40, 100, 512, 0, (), ()),
+    "k_above_the_groups": (2, 6, 4096, 4096, 300, 4096, 0, (), ()),
+    "k_2048": (2, 6, 8192, 8192, 2048, 8192, 0, (), ()),
+    "live_rows_end_inside_a_group": (4, 6, 8192, 8010, 100, 512, 0, (), ()),
+    "overflow": (4, 6, 8192, 8192, 100, 128, 8, (), ()),
+    "overflow_of_some_queries": (6, 6, 8192, 8192, 100, 512, 0, (),
+                                 (1, 4)),
+}
+
+
+@pytest.mark.parametrize("case", list(_PRUNED))
+def test_pruned_pool_plain_matches_the_per_slab_pools(case, monkeypatch):
+    """The pruned path's plain version against the per-slab pools
+    (``slab_topk_plain``) merged: the same score multiset, and the same ids
+    with ties to the lower id; every query keeps at least min(k, live rows)
+    survivors; dead slots are -inf with id -1.  Through ``pool_sweep`` and
+    ``pool_select``, the queries past the buffer (``overflow``: all of
+    them, ``overflow_of_some_queries``: two) are answered by their per-slab
+    pools, one query a chunk, exactly, and counted on ``pool.overflow``."""
+    from rag_cobweb_tpu_torch.utils import profiling
+    B, twoD, Sp, S, k, cap, dup, dead, flat = _PRUNED[case]
+    qq, GT, c, valid = _pool_inputs(B, twoD, Sp, S, len(case), dup, dead,
+                                    flat)
+    p = fused_topk.pruned_sweep(qq, GT, c, valid, k, cap)
+    (ts, ti), over = fused_topk.pruned_select(p)
+    live = int(valid.sum())
+    assert bool((p.survivors >= min(k, live)).all())
+    assert int(over) == int((p.survivors > cap).sum())
+    assert int(over) == {"overflow": B,
+                         "overflow_of_some_queries": len(flat)}.get(case, 0)
+    ms, _ = fused_topk.merge(*fused_topk.slab_topk_plain(
+        qq, GT, c, valid, min(k, 2048)), k)
+    assert torch.equal(ts, ms)                    # the same multiset, sorted
+    # the entry itself: these shapes take the per-slab pools
+    assert not fused_topk.use_pruned(B, Sp // 2048, k, twoD, 4)
+    assert torch.equal(fused_topk.pool_select(fused_topk.pool_sweep(
+        qq, GT, c, valid, k))[0], ms)
+    rs, ri = _stable_top(qq, GT, c, valid, k)
+    fin = np.isfinite(rs)
+    np.testing.assert_array_equal(ts.numpy(), rs)
+    np.testing.assert_array_equal(ti.numpy()[fin], ri[fin])
+    assert bool((ti[~torch.as_tensor(fin)] == -1).all())
+    monkeypatch.setattr(fused_topk, "FALLBACK_BYTES", 1)
+    n0 = profiling.counter("pool.overflow")
+    es, ei = fused_topk.pool_select(fused_topk.pool_sweep(
+        qq, GT, c, valid, k, pruned=True, cap=cap))
+    assert profiling.counter("pool.overflow") - n0 == int(over)
+    np.testing.assert_array_equal(es.numpy(), rs)
+    np.testing.assert_array_equal(ei.numpy()[fin], ri[fin])
+
+
+# (B, NS, k, 2D, element bytes) of the cells' pools and around them
+_SHAPES = {
+    "batch_sweep": ((1024, 512, 512, 256, 2), True),
+    "batch_backstop": ((1024, 605, 512, 128, 2), True),
+    "mixed_sweep_b32": ((32, 256, 1024, 1334, 2), False),
+    "mixed_backstop_b32": ((32, 256, 1024, 667, 2), False),
+    "mixed_backstop_b64": ((64, 256, 1024, 667, 2), False),
+    "batch_sweep_b1": ((1, 512, 512, 256, 2), False),
+    "f32_operands": ((1024, 512, 512, 256, 4), False),
+    "few_slabs": ((1024, 5, 512, 256, 2), False),
+    "widest_resident": ((1024, 512, 512, 320, 2), True),
+}
+
+
+@pytest.mark.parametrize("shape", list(_SHAPES))
+def test_pool_topk_dispatch_on_the_cells_shapes(shape):
+    """The dispatch rule on the shapes alone: the batch cell's two pools
+    take the pruned path, the mixed cell's (B=32, and 2D = 667 and 1334,
+    wider than the passes hold at any B) and B=1 and f32 operands and a few
+    slabs do not; the chunk's bytes (``pool_bytes``) are the dispatched
+    path's: the pruned path's group keys and survivors, or the per-slab
+    pools."""
+    (B, NS, k, two_d, elt), want = _SHAPES[shape]
+    assert fused_topk.use_pruned(B, NS, k, two_d, elt) is want
+    kk = min(k, NS * fused_topk.SLAB)
+    cap = fused_topk.prune_cap(kk)
+    per_slab = NS * min(k, fused_topk.SLAB) * 8
+    pruned = NS * 32 * 4 + cap * 8 + kk * 8
+    assert fused_topk.pool_bytes(B, NS, k, two_d, elt) == (
+        pruned if want else per_slab)
+    assert cap >= 4 * kk and cap & (cap - 1) == 0

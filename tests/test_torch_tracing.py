@@ -283,14 +283,18 @@ def test_probe_counters_are_views_of_the_registry():
     profiling.count("launch.rerank_lp", 2)
     profiling.count("launch.rerank_lp_bf16")
     profiling.count("launch.backstop", 2)
+    profiling.count("launch.slab_topk_pruned")
+    profiling.count("pool.overflow", 5)
     got = probes.read_counters()
     assert (got["fused_topk"], got["fused_topk_f32"]) == (2, 1)
     assert (got["rerank_l2"], got["rerank_l2_bf16"]) == (1, 1)
     assert (got["backstop"], got["pending"]) == (2, 0)
+    assert (got["fused_topk_pruned"], got["pool_overflow"]) == (1, 5)
     assert set(got) == {"fused_topk", "fused_topk_f32", "fused_group_topk",
                         "fused_group_topk_f32", "blocked_topk",
                         "blocked_topk_f32", "rerank_l2", "rerank_l2_bf16",
-                        "backstop", "pending"}
+                        "backstop", "pending", "fused_topk_pruned",
+                        "pool_overflow"}
     probes.zero_counters()
     assert not any(probes.read_counters().values())
 
